@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py            # everything (what the card's run uses)
+    python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
+
+In order:
+  1. print the card's name and power limit; exit nonzero without a card;
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (timed);
+  3. hold each kernel against its plain PyTorch version on the card, at the
+     test sweeps and at the main path's shapes, then time the kernel, the
+     plain version and a PyTorch library call (a yardstick only) with CUDA
+     events, median over launches with the L2 cache flushed before each,
+     beside the least time the card could take (bytes or flops);
+  4. run the port's ReactionEngine at mt-product width (4+4 layers, d_model
+     256, 8 heads, d_ff 2048) with weights drawn from a seed and 8 synthetic
+     queries, in all four modes, with the launch counts set to 0 just before
+     and read just after; speculative tokens must equal greedy tokens;
+  5. run a tiny model on the card and on the CPU with the same weights: the
+     card's tokens must match the CPU's plain path;
+  6. print the ``kernels`` JSON line, the card line, and
+     ``{"ok": true, "device": {...}}`` last.
+
+Any failed check raises, so the exit code is nonzero and no result prints.
+fp32 throughout with TF32 off. Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and fp32
+# (non-tensor-core) rate; the bound is the larger of bytes/rate, flops/rate.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+SEED = 0
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else (
+        f"nvidia-smi failed: {out.stderr.strip()}")
+
+
+def timed_ms(torch, fn, iters: int = 50, warm: int = 5) -> float:
+    """Median device time of ``fn`` per call (CUDA events), with the 50 MB
+    L2 flushed before each call: on the main path the next layer's cache
+    and weights pass through L2 between two calls. A ~1 ms device-side
+    sleep before each start event keeps the card busy while the host
+    enqueues ``fn``, so the events time the device work and not the
+    host's Python and launch overhead."""
+    flush = torch.empty(64 * 2**20 // 4, device="cuda")
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in ev:
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+# ---------------------------------------------------------------------------
+# kernel checks
+
+
+def on_card(torch, arrays, dtype=None):
+    """numpy inputs on the card (floats in ``dtype``, default fp32)."""
+    dtype = dtype or torch.float32
+    return [torch.from_numpy(a).to("cuda", dtype) if a.dtype == np.float32
+            else torch.from_numpy(a).cuda() for a in arrays]
+
+
+def decode_work(q, kc, k_pos, q_pos):
+    """Bytes and flops that cached attention needs for these inputs: each
+    input read once and the output written once, counting only the K/V of
+    slots that some query of the row can see (the output does not depend
+    on the rest), and 4·hd flops (QK^T and PV) per visible (query head,
+    key) pair."""
+    B, T, H, hd = q.shape
+    Kv = kc.shape[2]
+    qmax = q_pos.max(1, keepdims=True)
+    visible = ((k_pos >= 0) & (k_pos <= qmax)).sum()
+    pairs = ((k_pos[:, None, :] >= 0)
+             & (k_pos[:, None, :] <= q_pos[:, :, None])).sum()
+    nbytes = (2 * visible * Kv * hd * kc.itemsize + 2 * q.nbytes
+              + k_pos.nbytes + q_pos.nbytes)
+    return int(nbytes), int(4 * hd * H * pairs)
+
+
+def bound(nbytes: int, flops: int) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernels(torch, vocab: int, ecfg, n_queries: int) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_gqa_attention, draft_verify
+    from repro_torch.kernels.cases import (DECODE_SWEEP, VERIFY_SWEEP,
+                                           decode_inputs, ring_inputs,
+                                           verify_inputs)
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+    from repro_torch.kernels.draft_verify.ref import draft_verify_ref
+
+    results = {}
+    # -- decode_gqa ---------------------------------------------------------
+    err = 0.0
+    H, hd = 8, 32
+    S_spec = ecfg.max_new + ecfg.draft_len + 2
+    S_greedy = ecfg.max_new + 2
+    T_spec = ecfg.draft_len + 1
+    B_spec = n_queries * ecfg.n_drafts
+    main = {"speculative": dict(B=B_spec, T=T_spec, H=H, Kv=H, S=S_spec,
+                                hd=hd, window=0),
+            "greedy": dict(B=n_queries, T=1, H=H, Kv=H, S=S_greedy, hd=hd,
+                           window=0)}
+    cases = [(c, dt) for c in DECODE_SWEEP
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(c, torch.float32) for c in main.values()]
+    for c, dt in cases:
+        shape = [c[k] for k in ("B", "T", "H", "Kv", "S", "hd")]
+        x = on_card(torch, decode_inputs(*shape), dt)
+        out = decode_gqa_attention(*x, window=c["window"])
+        ref = decode_gqa_ref(*x, window=c["window"])
+        torch.cuda.synchronize()
+        tol = 2e-5 if dt == torch.float32 else 2e-2
+        e = (out.float() - ref.float()).abs()
+        if not torch.all(e <= tol + tol * ref.float().abs()):
+            raise AssertionError(f"decode_gqa disagrees at {c} {dt}: "
+                                 f"max err {e.max().item()}")
+        if dt == torch.float32:
+            err = max(err, e.max().item())
+    x = on_card(torch, ring_inputs())
+    e = (decode_gqa_attention(*x, window=32) - decode_gqa_ref(*x, window=32)
+         ).abs().max().item()
+    torch.cuda.synchronize()
+    if e > 2e-5:
+        raise AssertionError(f"decode_gqa ring buffer: max err {e}")
+    err = max(err, e)
+
+    shapes = {}
+    for name, c in main.items():
+        arrays = decode_inputs(*(c[k] for k in ("B", "T", "H", "Kv", "S",
+                                                "hd")))
+        x = on_card(torch, arrays)
+        q, k, v, kp, qp = x
+        visible = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None]))
+        mask = visible[:, None]                            # (B, 1, T, S)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes, flops = decode_work(arrays[0], arrays[1], arrays[3],
+                                    arrays[4])
+        bound_ms, bound_by = bound(nbytes, flops)
+        shapes[name] = dict(
+            shape={d: c[d] for d in ("B", "T", "H", "Kv", "S", "hd")},
+            ms=timed_ms(torch, lambda: decode_gqa_attention(*x)),
+            plain_ms=timed_ms(torch, lambda: decode_gqa_ref(*x)),
+            library_ms=timed_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)),
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    results["decode_gqa"] = dict(max_abs_err=err, shapes=shapes)
+
+    # -- draft_verify -------------------------------------------------------
+    err = 0
+    sweep = VERIFY_SWEEP + [(B_spec, T_spec, vocab), (n_queries, 1, vocab),
+                            (B_spec, T_spec, 320), (B_spec, T_spec, 1024)]
+    for N, T, V in sweep:
+        x = on_card(torch, verify_inputs(N, T, V))
+        tok, acc = draft_verify(*x)
+        rtok, racc = draft_verify_ref(*x)
+        torch.cuda.synchronize()
+        e = max((tok - rtok).abs().max().item(),
+                (acc - racc).abs().max().item())
+        if e != 0:
+            raise AssertionError(f"draft_verify disagrees at {(N, T, V)}")
+        err = max(err, e)
+    shapes = {}
+    for name, (N, T) in {"speculative": (B_spec, T_spec),
+                         "greedy": (n_queries, 1)}.items():
+        x = on_card(torch, verify_inputs(N, T, vocab))
+        logits = x[0]
+        nbytes = logits.numel() * 4 + x[1].numel() * 4 + x[2].numel() + (
+            N * T + N) * 4
+        flops = logits.numel()            # one compare per logit
+        bound_ms, bound_by = bound(nbytes, flops)
+        shapes[name] = dict(
+            shape=dict(N=N, T=T, V=vocab),
+            ms=timed_ms(torch, lambda: draft_verify(*x)),
+            plain_ms=timed_ms(torch, lambda: draft_verify_ref(*x)),
+            library_ms=timed_ms(torch, lambda: torch.argmax(logits, dim=-1)),
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    results["draft_verify"] = dict(max_abs_err=float(err), shapes=shapes)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# the main path
+
+
+def run_engine(torch, ds, cfg, params, ecfg_kw: dict, queries, modes,
+               device="cuda"):
+    """Each mode's predictions and launch counts (counts set to 0 just
+    before the mode runs, read just after)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import EngineConfig, ReactionEngine
+
+    out = {}
+    for mode in modes:
+        eng = ReactionEngine(params, cfg, ds.tokenizer,
+                             EngineConfig(mode=mode, **ecfg_kw),
+                             device=device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if mode in ("greedy", "speculative"):
+            preds = eng.predict(queries)
+        else:
+            preds = [eng.predict_topn(q) for q in queries]
+        wall = time.perf_counter() - t0
+        out[mode] = dict(preds=preds, wall_s=wall,
+                         launches=dict(launch_counts))
+    return out
+
+
+def profile_modes(torch, ds, cfg, params, ekw, queries, modes,
+                  out_dir: Path) -> None:
+    """One traced run per mode: the device's busy share (sum of kernel
+    times over the wall time; overlapping kernels would count twice, and
+    eager PyTorch on one stream runs none) and the top kernels by device
+    time. The full tables go to ``out_dir/profile_<mode>.txt``. The beam
+    modes trace one query: their traces hold ~10^6 events per 8 queries,
+    which take minutes to aggregate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for mode in modes:
+        qs = queries if mode in ("greedy", "speculative") else queries[:1]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_engine(torch, ds, cfg, params, ekw, qs, (mode,))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # kernel-level rows only (CPU ops also carry their kernels' time)
+        events = [(e.key, e.device_time_total, e.count)
+                  for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and e.device_time_total > 0]
+        busy_us = sum(t for _, t, _ in events)
+        events.sort(key=lambda e: -e[1])
+        top = ", ".join(f"{k[:40]} {t / 1e3:.1f} ms x{n}"
+                        for k, t, n in events[:6])
+        print(f"profile [{mode}] {len(qs)} queries: wall "
+              f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+              f"({100 * busy_us / wall_us:.1f}%), "
+              f"top: {top}", flush=True)
+        (out_dir / f"profile_{mode}.txt").write_text(
+            prof.key_averages().table(sort_by="device_time_total",
+                                      row_limit=40))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="build and check the kernels only")
+    ap.add_argument("--profile", metavar="DIR", type=Path,
+                    help="also trace each mode with torch.profiler (device "
+                         "time by kernel, the device's busy share) and "
+                         "write the tables to DIR")
+    args = ap.parse_args()
+    t_start = time.perf_counter()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.mt import product_config, tiny_config, with_vocab
+    from repro_torch.data.synthetic import SyntheticReactionDataset
+    from repro_torch.kernels import _build
+    from repro_torch.models import seq2seq as s2s
+    from repro_torch.serving import EngineConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    build_s = _build.build_all()
+    print(f"build: {build_s:.1f} s", flush=True)
+    for name, log in _build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  {name}: {line.strip()}")
+
+    ds = SyntheticReactionDataset(8, seed=SEED + 1)
+    queries = [ds.pair(i)[0] for i in range(8)]
+    ecfg = EngineConfig()
+    vocab = ds.tokenizer.vocab_size
+    t0 = time.perf_counter()
+    kern = check_kernels(torch, vocab, ecfg, len(queries))
+    print(f"kernel checks passed ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    for name, r in kern.items():
+        for shape, m in r["shapes"].items():
+            print(f"  {name} [{shape}] {m['shape']}: kernel {m['ms']:.4f} ms, "
+                  f"plain {m['plain_ms']:.4f} ms, library "
+                  f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+                  f"({m['bound_by']}: {m['bytes']} B, {m['flops']} flop)")
+    if args.quick:
+        print(json.dumps({"kernels_checked": sorted(kern)}))
+        return 0
+
+    # -- mt-product width, random weights from a seed --------------------------
+    cfg = with_vocab(product_config(), vocab)
+    params = s2s.init(torch.Generator().manual_seed(SEED), cfg, device="cuda")
+    modes = ("greedy", "speculative", "beam", "speculative_beam")
+    ekw = dict(draft_len=ecfg.draft_len, n_drafts=ecfg.n_drafts,
+               n_beams=ecfg.n_beams, max_new=ecfg.max_new,
+               max_src=ecfg.max_src)
+    run_engine(torch, ds, cfg, params, ekw, queries[:1], modes)   # warm-up
+    res = run_engine(torch, ds, cfg, params, ekw, queries, modes)
+    g, s = res["greedy"]["preds"], res["speculative"]["preds"]
+    if [p.smiles for p in g] != [p.smiles for p in s]:
+        raise AssertionError("speculative tokens differ from greedy")
+    for mode in modes:
+        launches = res[mode]["launches"]
+        if launches["decode_gqa"] == 0:
+            raise AssertionError(f"{mode}: decode_gqa was never launched")
+        if mode in ("greedy", "speculative") and launches["draft_verify"] == 0:
+            raise AssertionError(f"{mode}: draft_verify was never launched")
+        for p in res[mode]["preds"]:
+            if not (np.all(np.isfinite(p.logprobs)) and p.smiles
+                    and all(isinstance(x, str) for x in p.smiles)):
+                raise AssertionError(f"{mode}: malformed prediction {p}")
+        preds = res[mode]["preds"]
+        print(f"main path [{mode}] mt-product random weights, "
+              f"{len(queries)} queries: wall {res[mode]['wall_s']:.3f} s, "
+              f"{res[mode]['wall_s'] / len(queries) * 1e3:.2f} ms/query, "
+              f"n_calls {[p.n_calls for p in preds]}, acceptance "
+              f"{np.mean([p.acceptance_rate for p in preds]):.4f}, "
+              f"launches {launches}", flush=True)
+    main_launches = {k: sum(res[m]["launches"][k] for m in modes)
+                     for k in ("decode_gqa", "draft_verify")}
+    if args.profile:
+        profile_modes(torch, ds, cfg, params, ekw, queries, modes,
+                      args.profile)
+
+    # -- reference: the card against the CPU's plain path, tiny model ----------
+    tcfg = tiny_config(vocab, depth=2, d_model=64)
+    cpu_params = s2s.init(torch.Generator().manual_seed(SEED + 2), tcfg,
+                          device="cpu")
+    tkw = dict(draft_len=6, n_drafts=8, n_beams=3, max_new=24, max_src=64)
+    on_gpu = run_engine(torch, ds, tcfg, cpu_params, tkw, queries[:4], modes)
+    on_cpu = run_engine(torch, ds, tcfg, cpu_params, tkw, queries[:4], modes,
+                        device="cpu")
+    for mode in modes:
+        for pg, pc in zip(on_gpu[mode]["preds"], on_cpu[mode]["preds"]):
+            same = (pg.smiles == pc.smiles and pg.n_calls == pc.n_calls
+                    and np.allclose(pg.logprobs, pc.logprobs, atol=1e-4,
+                                    rtol=1e-4))
+            if not same:
+                raise AssertionError(f"{mode}: card {pg} != cpu {pc}")
+    print("reference check: tiny model, card == CPU plain path in all four "
+          "modes", flush=True)
+
+    sources = {"decode_gqa": ("src/repro_torch/csrc/decode_gqa.cu",
+                              "src/repro/kernels/decode_gqa/kernel.py:72"),
+               "draft_verify": ("src/repro_torch/csrc/draft_verify.cu",
+                                "src/repro/kernels/draft_verify/kernel.py:61")}
+    entries = []
+    for name, (src, replaces) in sources.items():
+        m = kern[name]["shapes"]["speculative"]
+        entries.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            check="passed", launches=main_launches[name],
+            max_abs_err=kern[name]["max_abs_err"], ms=m["ms"],
+            plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+            bound_by=m["bound_by"], library_ms=m["library_ms"],
+            shape=m["shape"], greedy_shape=kern[name]["shapes"]["greedy"]))
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": entries}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

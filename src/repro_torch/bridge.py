@@ -1,0 +1,45 @@
+"""Carry a JAX seq2seq param tree across into the port.
+
+The input is the JAX package's tree as nested dicts of numpy arrays (e.g.
+``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+
+- ``enc_blocks`` / ``dec_blocks`` are stacked on a leading layer axis by
+  ``jax.vmap`` in the JAX init; they become per-layer lists.
+- Dense ``w`` stays ``(d_in, d_out)``: the port applies it as ``x @ w``, so
+  nothing is transposed (``repro_torch.models.layers.dense``).
+- The embedding ``tok`` is shared by encoder and decoder in both packages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unstack(tree, n: int, device) -> list[dict]:
+    return [_map(tree, lambda a, i=i: _tensor(np.asarray(a)[i], device))
+            for i in range(n)]
+
+
+def seq2seq_params_from_jax(tree: dict, *, device=None) -> dict:
+    """JAX ``repro.models.seq2seq`` params (numpy leaves) -> port params."""
+    dev = resolve_device(device)
+    n_enc = len(np.asarray(tree["enc_blocks"]["norm1"]["scale"]))
+    n_dec = len(np.asarray(tree["dec_blocks"]["norm1"]["scale"]))
+    out = {k: _map(v, lambda a: _tensor(a, dev)) for k, v in tree.items()
+           if k not in ("enc_blocks", "dec_blocks")}
+    out["enc_blocks"] = _unstack(tree["enc_blocks"], n_enc, dev)
+    out["dec_blocks"] = _unstack(tree["dec_blocks"], n_dec, dev)
+    return out

@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``. The
+libraries go to ``build/repro_torch/`` at the repository root (listed in
+``.gitignore``), named by a hash of the source and the flags, so a changed
+source rebuilds and an unchanged one loads at once. ``build_all`` starts one
+``nvcc`` per source, all together. Nothing here runs at import: the CPU
+tests import every module and this machine may have no ``nvcc``.
+
+The launch counts live here too: each kernel wrapper adds one to its count
+where it launches its kernel and nowhere else, so a run can show that the
+main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+KERNELS = ("decode_gqa", "draft_verify")
+
+_libs: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, str] = {}   # nvcc's output (ptxas register/smem report)
+launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def build_all(names=KERNELS) -> float:
+    """Compile every kernel whose library is missing, in parallel; returns
+    the wall seconds spent. Raises with nvcc's output if one fails."""
+    t0 = time.perf_counter()
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for name in todo:
+            tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            build_log[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            else:
+                os.replace(tmp, _lib_path(name))  # atomic: no half-written lib
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+_ARGTYPES = {
+    "decode_gqa": ("decode_gqa_launch",
+                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 6
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p]),
+    "draft_verify": ("draft_verify_launch",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p]),
+}
+
+
+def load(name: str):
+    """The C launch function of kernel ``name``, built at first use."""
+    if name not in _libs:
+        build_all((name,))
+        _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+    fn_name, argtypes = _ARGTYPES[name]
+    fn = getattr(_libs[name], fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise on a nonzero cudaError_t from a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

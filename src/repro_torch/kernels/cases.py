@@ -1,0 +1,66 @@
+"""The kernels' check cases: the shape sweeps and the seeded input builders
+that the CPU parity tests (``tests/test_torch_kernels.py``) and the card's
+check (``chip_smoke.py``) both use, so the two cannot drift apart.
+
+Inputs are numpy arrays made from a seed (floats fp32, positions int32);
+the caller moves them to its device and dtype.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# (B, T, H, Kv, S, hd, window): the sweep of the JAX package's kernel tests
+DECODE_SWEEP = [
+    dict(B=2, T=5, H=8, Kv=2, S=64, hd=32, window=0),
+    dict(B=1, T=1, H=4, Kv=4, S=100, hd=16, window=0),   # plain greedy step
+    dict(B=2, T=11, H=8, Kv=4, S=96, hd=64, window=24),  # verify + window
+    dict(B=3, T=3, H=6, Kv=1, S=40, hd=8, window=0),     # MQA
+]
+# (N, T, V): rows, fed positions (DL + 1), vocab
+VERIFY_SWEEP = [(6, 5, 700), (12, 11, 1024), (3, 1, 64), (4, 6, 50),
+                (25, 11, 320)]
+
+
+def decode_inputs(B, T, H, Kv, S, hd, *, seed=1):
+    """q, k/v cache, k_pos, q_pos for one cached-attention call laid out as
+    the verify feed: a prefix of S // 2 positions, then the T fed tokens at
+    positions S // 2 .. S // 2 + T - 1, each token's own key already
+    written; the remaining slots are empty (position -1)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, hd), np.float32)
+    kc = rng.standard_normal((B, S, Kv, hd), np.float32)
+    vc = rng.standard_normal((B, S, Kv, hd), np.float32)
+    filled = S // 2 + T
+    slots = np.arange(S)
+    k_pos = np.where(slots < filled, slots, -1)[None].repeat(B, 0)
+    q_pos = (S // 2 + np.arange(T))[None].repeat(B, 0)
+    return q, kc, vc, k_pos.astype(np.int32), q_pos.astype(np.int32)
+
+
+def ring_inputs():
+    """A sliding-window ring buffer that has wrapped: slot s holds position
+    48 - ((48 - s) % 32); use with ``window=32``."""
+    rng = np.random.default_rng(2)
+    B, T, H, Kv, S, hd = 1, 3, 4, 2, 32, 16
+    q = rng.standard_normal((B, T, H, hd), np.float32)
+    kc = rng.standard_normal((B, S, Kv, hd), np.float32)
+    vc = rng.standard_normal((B, S, Kv, hd), np.float32)
+    k_pos = (48 - ((48 - np.arange(S)) % S))[None].astype(np.int32)
+    q_pos = np.asarray([[48, 49, 50]], np.int32)
+    return q, kc, vc, k_pos, q_pos
+
+
+def verify_inputs(N, T, V, *, seed=3):
+    """logits (N, T, V), drafts (N, T - 1) that mostly follow the argmax,
+    and a draft mask; row 0 position 0 holds an exact tie between tokens 1
+    and V - 1 (the first index must win)."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((N, T, V)).astype(np.float32)
+    logits[0, 0, [1, V - 1]] = 50.0
+    greedy = logits.argmax(-1)
+    drafts = np.where(rng.random((N, T - 1)) < 0.7, greedy[:, :T - 1],
+                      rng.integers(0, V, (N, T - 1))).astype(np.int32)
+    mask = rng.random(N) < 0.8
+    return logits, drafts, mask
+

@@ -1,0 +1,33 @@
+"""Plain PyTorch version of the dense GQA decode attention, a port of
+``repro.kernels.decode_gqa.ref.decode_gqa_ref``.
+
+Slot validity comes from the stored-position array (-1 = empty), causality
+from ``q_pos >= k_pos``, and the optional sliding window from
+``k_pos > q_pos - window``. A query row with no visible key outputs 0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def decode_gqa_ref(q, k_cache, v_cache, k_pos, q_pos, *, window: int = 0):
+    """q: (B, T, H, hd); k/v_cache: (B, S, Kv, hd); k_pos: (B, S);
+    q_pos: (B, T). Returns (B, T, H, hd) in q's dtype."""
+    B, T, H, hd = q.shape
+    Kv = k_cache.shape[2]
+    G = H // Kv
+    qr = q.reshape(B, T, Kv, G, hd).float()
+    s = torch.einsum("btkgh,bskh->bkgts", qr, k_cache.float()) / math.sqrt(hd)
+    kp = k_pos[:, None, None, None, :]
+    qp = q_pos[:, None, None, :, None]
+    mask = (kp >= 0) & (kp <= qp)
+    if window > 0:
+        mask &= kp > qp - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1)
+    w = torch.where(mask.any(-1, keepdim=True), w, torch.zeros_like(w))
+    out = torch.einsum("bkgts,bskh->btkgh", w, v_cache.float())
+    return out.reshape(B, T, H, hd).to(q.dtype)

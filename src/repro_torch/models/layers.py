@@ -1,0 +1,122 @@
+"""Parameter init and primitive layers of the Molecular Transformer.
+
+Params are nested dicts of tensors, with the JAX package's names and
+layouts: a dense ``w`` is ``(d_in, d_out)`` and is applied as ``x @ w``, so
+``repro_torch.bridge`` carries JAX params across without transposes.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# init helpers (explicit generator: same distributions as the JAX init,
+# different numbers from the same seed)
+
+
+def _normal(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+            ).to(device)
+
+
+def dense_init(gen, d_in: int, d_out: int, *, use_bias: bool, device,
+               scale: float | None = None) -> dict:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": _normal(gen, (d_in, d_out), scale, device)}
+    if use_bias:
+        p["b"] = torch.zeros((d_out,), device=device)
+    return p
+
+
+def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def norm_init(d: int, kind: str, device) -> dict:
+    p = {"scale": torch.ones((d,), device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), device=device)
+    return p
+
+
+def apply_norm(p: dict, x: torch.Tensor, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm / LayerNorm computed in fp32 (the JAX package's numerics)."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    elif kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).pow(2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    else:
+        raise ValueError(kind)
+    y = y * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# positions
+
+
+def sinusoidal_positions(max_len: int, d_model: int, *, device=None,
+                         dtype=torch.float32) -> torch.Tensor:
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=device)
+                    * (-math.log(10_000.0) / d_model))
+    pe = torch.zeros((max_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# FFN
+
+
+def ffn_init(gen, d_model: int, d_ff: int, *, use_bias: bool, gated: bool,
+             device) -> dict:
+    p = {
+        "w_in": dense_init(gen, d_model, d_ff, use_bias=use_bias, device=device),
+        "w_out": dense_init(gen, d_ff, d_model, use_bias=use_bias,
+                            device=device),
+    }
+    if gated:
+        p["w_gate"] = dense_init(gen, d_model, d_ff, use_bias=use_bias,
+                                 device=device)
+    return p
+
+
+def ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = dense(p["w_in"], x)
+    if "w_gate" in p:
+        h = F.silu(dense(p["w_gate"], x)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    return dense(p["w_out"], h)
+
+
+# ---------------------------------------------------------------------------
+# embedding
+
+
+def embed_init(gen, vocab: int, d_model: int, device) -> dict:
+    return {"embed": _normal(gen, (vocab, d_model), 0.02, device)}
+
+
+def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["embed"][tokens.long()]
+
+
+def logits_init(gen, d_model: int, vocab: int, device) -> dict:
+    return {"w_vocab": _normal(gen, (d_model, vocab), 1.0 / math.sqrt(d_model),
+                               device)}

@@ -1,0 +1,212 @@
+"""The port's kernels against the JAX package's.
+
+On the CPU the port's wrappers run their plain versions; these are held to
+the JAX Pallas kernels (``interpret=True``, as ``tests/test_kernels.py``
+runs them) and to their JAX oracles, on inputs made from a seed with numpy
+and fed to both packages (the sweeps and builders of
+``repro_torch.kernels.cases``, which ``chip_smoke.py`` uses too). Tolerances: 2e-5 in fp32 and 2e-2 in bf16 (the
+reduction order differs between the packages), exact for ``draft_verify``.
+
+The kernel-vs-plain cases need the card: they carry the ``gpu`` marker and
+skip here. The card's machine has no JAX, so this module imports JAX and
+the JAX package only inside the tests that compare with them; run the card
+cases there with
+``PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_kernels.py``
+(``chip_smoke.py`` makes the same comparisons).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.session import _accept_lengths  # noqa: E402
+from repro_torch.kernels import decode_gqa_attention, draft_verify  # noqa: E402
+from repro_torch.kernels.cases import (  # noqa: E402
+    DECODE_SWEEP, VERIFY_SWEEP, decode_inputs, ring_inputs, verify_inputs)
+from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref  # noqa: E402
+from repro_torch.kernels.draft_verify.ref import draft_verify_ref  # noqa: E402
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def jx():
+    """The JAX package's kernels and oracles (imported only where used)."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels.decode_gqa.ops import decode_gqa_attention
+    from repro.kernels.decode_gqa.ref import decode_gqa_ref
+    from repro.kernels.draft_verify.ops import draft_verify
+    from repro.kernels.draft_verify.ref import draft_verify_ref
+    return dict(jnp=jax.numpy, decode=decode_gqa_attention,
+                decode_ref=decode_gqa_ref, verify=draft_verify,
+                verify_ref=draft_verify_ref)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run chip_smoke.py on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype("float32"))
+
+
+def _decode_inputs(cfg):
+    return decode_inputs(*(cfg[k] for k in ("B", "T", "H", "Kv", "S", "hd")))
+
+
+def _torch(arrays, dtype):
+    """numpy inputs as torch tensors (floats in ``dtype``)."""
+    return [torch.from_numpy(a).to(TDT[dtype]) if a.dtype == np.float32
+            else torch.from_numpy(a) for a in arrays]
+
+
+def _both(jx, arrays, dtype):
+    """The same numpy inputs as JAX and torch arrays (floats in ``dtype``)."""
+    jnp = jx["jnp"]
+    return ([jnp.asarray(a, getattr(jnp, dtype)) if a.dtype == np.float32
+             else jnp.asarray(a) for a in arrays], _torch(arrays, dtype))
+
+
+@pytest.mark.parametrize("cfg", DECODE_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_gqa_plain_matches_jax(jx, cfg, dtype):
+    (jq, jk, jv, jkp, jqp), (tq, tk, tv, tkp, tqp) = _both(
+        jx, _decode_inputs(cfg), dtype)
+    w = cfg["window"]
+    out = decode_gqa_attention(tq, tk, tv, tkp, tqp, window=w)
+    assert out.dtype == TDT[dtype] and out.shape == tq.shape
+    for ref in (jx["decode"](jq, jk, jv, jkp, jqp, window=w, bk=32),
+                jx["decode_ref"](jq, jk, jv, jkp, jqp, window=w)):
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
+def test_decode_gqa_ring_buffer_plain_matches_jax(jx):
+    (jq, jk, jv, jkp, jqp), (tq, tk, tv, tkp, tqp) = _both(
+        jx, ring_inputs(), "float32")
+    out = decode_gqa_attention(tq, tk, tv, tkp, tqp, window=32)
+    ref = jx["decode"](jq, jk, jv, jkp, jqp, window=32, bk=32)
+    np.testing.assert_allclose(_f32(out), _f32(ref), atol=2e-5, rtol=2e-5)
+
+
+def test_decode_gqa_fully_masked_row_is_zero(jx):
+    """A query with no visible key outputs 0, as the JAX oracle does."""
+    q, kc, vc, k_pos, q_pos = _decode_inputs(DECODE_SWEEP[0])
+    q_pos[0, 0] = -1
+    (jq, jk, jv, jkp, jqp), (tq, tk, tv, tkp, tqp) = _both(
+        jx, (q, kc, vc, k_pos, q_pos), "float32")
+    out = decode_gqa_attention(tq, tk, tv, tkp, tqp)
+    assert not out[0, 0].any()
+    np.testing.assert_allclose(_f32(out), _f32(jx["decode_ref"](
+        jq, jk, jv, jkp, jqp)), atol=2e-5, rtol=2e-5)
+
+
+def _assert_verify_matches_jax(jx, logits, drafts, mask):
+    t_tok, t_acc = draft_verify(torch.from_numpy(logits),
+                                torch.from_numpy(drafts),
+                                torch.from_numpy(mask))
+    assert t_tok.dtype == torch.int32 and t_acc.dtype == torch.int32
+    jl, jd, jm = (jx["jnp"].asarray(a) for a in (logits, drafts, mask))
+    for j_tok, j_acc in (jx["verify"](jl, jd, jm, bv=128),
+                         jx["verify_ref"](jl, jd, jm)):
+        np.testing.assert_array_equal(t_tok.numpy(), np.asarray(j_tok))
+        np.testing.assert_array_equal(t_acc.numpy(), np.asarray(j_acc))
+
+
+@pytest.mark.parametrize("N,T,V", VERIFY_SWEEP)
+def test_draft_verify_plain_matches_jax(jx, N, T, V):
+    _assert_verify_matches_jax(jx, *verify_inputs(N, T, V))
+
+
+def test_draft_verify_ties_first_index_wins(jx):
+    """Exact ties across the vocab (in one and in different 128-wide JAX
+    tiles) go to the lowest index, in both packages."""
+    N, T, V = 4, 3, 300
+    logits, drafts, mask = verify_inputs(N, T, V, seed=9)
+    logits[0, 0, [5, 7, 250]] = 100.0       # tie inside / across tiles
+    logits[1, :, :] = 0.0                   # a whole row tied
+    logits[2, 1, [129, 130]] = 7.5
+    logits[3, 2, [0, 299]] = 9.0
+    drafts[:, 0] = [5, 0, 1, 2]             # accept through the tie
+    mask[:] = True
+    _assert_verify_matches_jax(jx, logits, drafts, mask)
+    tok, _ = draft_verify_ref(torch.from_numpy(logits),
+                              torch.from_numpy(drafts), torch.from_numpy(mask))
+    assert tok[0, 0] == 5 and tok[1].tolist() == [0, 0, 0]
+    assert tok[2, 1] == 129 and tok[3, 2] == 0
+
+
+def test_draft_verify_matches_core_acceptance():
+    """The port's fused op implements exactly the session's accept rule."""
+    rng = np.random.default_rng(5)
+    B, N_d, DL, V = 2, 6, 4, 90
+    logits = torch.from_numpy(
+        rng.standard_normal((B * N_d, DL + 1, V)).astype(np.float32))
+    drafts = torch.from_numpy(rng.integers(0, V, (B, N_d, DL)).astype(np.int32))
+    mask = torch.ones((B, N_d), dtype=torch.bool)
+    toks, acc = draft_verify(logits, drafts.reshape(B * N_d, DL),
+                             mask.reshape(-1))
+    expected = _accept_lengths(toks.reshape(B, N_d, DL + 1), drafts, mask)
+    np.testing.assert_array_equal(acc.reshape(B, N_d).numpy(),
+                                  expected.numpy())
+
+
+def test_wrappers_refuse_other_devices_and_bad_shapes():
+    """A tensor neither on the CPU nor on the card never silently takes the
+    plain version; mismatched shapes raise before any launch."""
+    q, kc, vc, k_pos, q_pos = (torch.from_numpy(a) for a in
+                               _decode_inputs(DECODE_SWEEP[0]))
+    meta = [t.to("meta") for t in (q, kc, vc, k_pos, q_pos)]
+    with pytest.raises(ValueError):
+        decode_gqa_attention(*meta)
+    with pytest.raises(ValueError):
+        decode_gqa_attention(q, kc, vc, k_pos[:, :-1], q_pos)
+    logits, drafts, mask = (torch.from_numpy(a) for a in
+                            verify_inputs(3, 4, 20))
+    with pytest.raises(ValueError):
+        draft_verify(logits.to("meta"), drafts.to("meta"), mask.to("meta"))
+    with pytest.raises(ValueError):
+        draft_verify(logits, drafts[:, :-1], mask)
+
+
+# ---------------------------------------------------------------------------
+# on the card: kernel against its plain version
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", DECODE_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_gqa_kernel_matches_plain(cuda, cfg, dtype):
+    tx = [t.to(cuda) for t in _torch(_decode_inputs(cfg), dtype)]
+    out = decode_gqa_attention(*tx, window=cfg["window"])
+    ref = decode_gqa_ref(*tx, window=cfg["window"])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_decode_gqa_kernel_ring_buffer(cuda):
+    tx = [t.to(cuda) for t in _torch(ring_inputs(), "float32")]
+    out = decode_gqa_attention(*tx, window=32)
+    ref = decode_gqa_ref(*tx, window=32)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,T,V", VERIFY_SWEEP)
+def test_draft_verify_kernel_matches_plain(cuda, N, T, V):
+    tx = [torch.from_numpy(a).to(cuda) for a in verify_inputs(N, T, V)]
+    tok, acc = draft_verify(*tx)
+    rtok, racc = draft_verify_ref(*tx)
+    assert torch.equal(tok, rtok) and torch.equal(acc, racc)
