@@ -6,19 +6,28 @@
 
 In order:
   1. print the card's name and power limit; exit nonzero without a card;
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (timed);
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+     source, all started together; timed);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     test sweeps and at the main path's shapes, then time the kernel, the
+     test sweeps and at the main paths' shapes, then time the kernel, the
      plain version and a PyTorch library call (a yardstick only) with CUDA
      events, median over launches with the L2 cache flushed before each,
      beside the least time the card could take (bytes or flops);
   4. run the port's ReactionEngine at mt-product width (4+4 layers, d_model
-     256, 8 heads, d_ff 2048) with weights drawn from a seed and 8 synthetic
-     queries, in all four modes, with the launch counts set to 0 just before
-     and read just after; speculative tokens must equal greedy tokens;
-  5. run a tiny model on the card and on the CPU with the same weights: the
-     card's tokens must match the CPU's plain path;
-  6. print the ``kernels`` JSON line, the card line, and
+     256, 8 heads, d_ff 2048) with weights drawn from a seed, in all four
+     modes (16 synthetic queries batched for greedy and speculative, 2 one
+     at a time for beam and SBS), with the launch counts set to 0 just
+     before and read just after; speculative tokens must equal greedy's;
+  5. run the port's StreamingEngine on the paged cache at the same width:
+     greedy and speculative with 8 slots and 16 queries submitted at once
+     (slots recycle), beam and SBS with 2 slots and 2 queries; counts set to
+     0 before each mode and read after (paged_decode_gqa must run,
+     decode_gqa must not); tokens must equal the ReactionEngine's; then one
+     dense speculative pass, for the cache-copy comparison;
+  6. run a tiny model on the card and on the CPU with the same weights: the
+     card's tokens must match the CPU's plain path, one-shot and paged
+     streaming;
+  7. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the exit code is nonzero and no result prints.
@@ -108,6 +117,105 @@ def bound(nbytes: int, flops: int) -> tuple[float, str]:
         "bytes" if t_bytes >= t_ops else "operations")
 
 
+def paged_work(q, k_pool, pos_pool, bt, q_pos):
+    """Bytes and flops that one paged read needs for these inputs, from the
+    visible keys only: a key counts when its block is mapped, its stored
+    position is >= 0 and <= the row's newest query. Bytes: those keys' K
+    and V, the stored positions of the mapped blocks, the block table, q,
+    the output and q_pos; flops: 4·hd per visible (query head, key)
+    pair."""
+    B, T, H, hd = q.shape
+    ps, Kv = k_pool.shape[1], k_pool.shape[2]
+    mapped = bt >= 0
+    kpos = np.where(mapped[..., None], pos_pool[np.where(mapped, bt, 0)], -1
+                    ).reshape(B, -1)
+    qmax = q_pos.max(1, keepdims=True)
+    visible = ((kpos >= 0) & (kpos <= qmax)).sum()
+    pairs = ((kpos[:, None, :] >= 0)
+             & (kpos[:, None, :] <= q_pos[:, :, None])).sum()
+    nbytes = (2 * visible * Kv * hd * k_pool.itemsize + 2 * q.nbytes
+              + int(mapped.sum()) * ps * pos_pool.itemsize + bt.nbytes
+              + q_pos.nbytes)
+    return int(nbytes), int(4 * hd * H * pairs)
+
+
+def check_paged(torch, ecfg, n_queries: int) -> dict:
+    """paged_decode_gqa against its plain version on the card: the shared
+    paged sweep in fp32 and bf16, then the streaming engine's shapes (a
+    speculative group of ``n_queries`` slots x N_d rows, and a greedy
+    group), timed beside its visible-key bound and the library yardstick
+    (the ``paged_view`` gather, then ``scaled_dot_product_attention``: two
+    calls, since no one PyTorch call computes paged attention)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_decode_gqa_attention
+    from repro_torch.kernels.cases import PAGED_SWEEP, paged_inputs
+    from repro_torch.kernels.decode_gqa.ref import paged_decode_gqa_ref
+    from repro_torch.models.attention import PagedKVCache, paged_view
+
+    keys = ("B", "T", "H", "Kv", "P", "ps", "nb", "hd")
+    H, hd, ps = 8, 32, ecfg.page_size
+    nb_spec = -(-(ecfg.max_new + ecfg.draft_len + 2) // ps)
+    nb_greedy = -(-(ecfg.max_new + 2) // ps)
+    B_spec = n_queries * ecfg.n_drafts
+    main = {"speculative": dict(B=B_spec, T=ecfg.draft_len + 1, H=H, Kv=H,
+                                P=1 + 4 * B_spec, ps=ps, nb=nb_spec, hd=hd,
+                                window=0, n_mapped=4),
+            "greedy": dict(B=n_queries, T=1, H=H, Kv=H, P=1 + 3 * n_queries,
+                           ps=ps, nb=nb_greedy, hd=hd, window=0, n_mapped=3)}
+    err = 0.0
+    cases = [(c, dt) for c in PAGED_SWEEP
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(c, torch.float32) for c in main.values()]
+    for c, dt in cases:
+        x = on_card(torch, paged_inputs(*(c[k] for k in keys),
+                                        n_mapped=c.get("n_mapped")), dt)
+        out = paged_decode_gqa_attention(*x, window=c["window"])
+        ref = paged_decode_gqa_ref(*x, window=c["window"])
+        torch.cuda.synchronize()
+        tol = 2e-5 if dt == torch.float32 else 2e-2
+        e = (out.float() - ref.float()).abs()
+        if not torch.all(e <= tol + tol * ref.float().abs()):
+            raise AssertionError(f"paged_decode_gqa disagrees at {c} {dt}: "
+                                 f"max err {e.max().item()}")
+        if dt == torch.float32:
+            err = max(err, e.max().item())
+    # an inactive row (every query at -1, table all -1) returns 0, no NaN
+    c = main["speculative"]
+    arrays = list(paged_inputs(*(c[k] for k in keys), n_mapped=4))
+    arrays[4][0] = -1
+    arrays[5][0] = -1
+    out = paged_decode_gqa_attention(*on_card(torch, arrays))
+    if not (torch.isfinite(out).all() and not out[0].any()):
+        raise AssertionError("paged_decode_gqa: inactive row is not 0")
+
+    shapes = {}
+    for name, c in main.items():
+        arrays = paged_inputs(*(c[k] for k in keys), n_mapped=c["n_mapped"])
+        x = on_card(torch, arrays)
+        q, kp_, vp_, pp_, bt_, qp_ = x
+        cache = PagedKVCache(k_pool=kp_, v_pool=vp_, pos=pp_, block_tables=bt_)
+        qt = q.transpose(1, 2)
+
+        def library():
+            k, v, kpos = paged_view(cache)
+            mask = ((kpos[:, None, :] >= 0)
+                    & (kpos[:, None, :] <= qp_[:, :, None]))[:, None]
+            return F.scaled_dot_product_attention(
+                qt, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)
+
+        nbytes, flops = paged_work(arrays[0], arrays[1], arrays[3],
+                                   arrays[4], arrays[5])
+        bound_ms, bound_by = bound(nbytes, flops)
+        shapes[name] = dict(
+            shape={d: c[d] for d in keys},
+            ms=timed_ms(torch, lambda: paged_decode_gqa_attention(*x)),
+            plain_ms=timed_ms(torch, lambda: paged_decode_gqa_ref(*x)),
+            library_ms=timed_ms(torch, library),
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, shapes=shapes)
+
+
 def check_kernels(torch, vocab: int, ecfg, n_queries: int) -> dict:
     import torch.nn.functional as F
 
@@ -175,6 +283,9 @@ def check_kernels(torch, vocab: int, ecfg, n_queries: int) -> dict:
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
     results["decode_gqa"] = dict(max_abs_err=err, shapes=shapes)
 
+    # -- paged_decode_gqa ---------------------------------------------------
+    results["paged_decode_gqa"] = check_paged(torch, ecfg, n_queries)
+
     # -- draft_verify -------------------------------------------------------
     err = 0
     sweep = VERIFY_SWEEP + [(B_spec, T_spec, vocab), (n_queries, 1, vocab),
@@ -236,14 +347,33 @@ def run_engine(torch, ds, cfg, params, ecfg_kw: dict, queries, modes,
     return out
 
 
+def report_profile(prof, wall_us: float, label: str, path: Path) -> None:
+    """Print the device's busy share (sum of kernel times over the wall
+    time; overlapping kernels would count twice, and eager PyTorch on one
+    stream runs none) and the top kernels by device time; write the full
+    table to ``path``."""
+    # kernel-level rows only (CPU ops also carry their kernels' time)
+    events = [(e.key, e.device_time_total, e.count)
+              for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.device_time_total > 0]
+    busy_us = sum(t for _, t, _ in events)
+    events.sort(key=lambda e: -e[1])
+    top = ", ".join(f"{k[:40]} {t / 1e3:.1f} ms x{n}"
+                    for k, t, n in events[:8])
+    print(f"profile [{label}]: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
+          f"top: {top}", flush=True)
+    path.write_text(prof.key_averages().table(sort_by="device_time_total",
+                                              row_limit=40))
+
+
 def profile_modes(torch, ds, cfg, params, ekw, queries, modes,
                   out_dir: Path) -> None:
-    """One traced run per mode: the device's busy share (sum of kernel
-    times over the wall time; overlapping kernels would count twice, and
-    eager PyTorch on one stream runs none) and the top kernels by device
-    time. The full tables go to ``out_dir/profile_<mode>.txt``. The beam
-    modes trace one query: their traces hold ~10^6 events per 8 queries,
-    which take minutes to aggregate."""
+    """One traced one-shot run per mode (``report_profile``), tables in
+    ``out_dir/profile_<mode>.txt``. The beam modes trace one query: their
+    traces hold ~10^6 events per 8 queries, which take minutes to
+    aggregate."""
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -255,22 +385,87 @@ def profile_modes(torch, ds, cfg, params, ekw, queries, modes,
             run_engine(torch, ds, cfg, params, ekw, qs, (mode,))
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        # kernel-level rows only (CPU ops also carry their kernels' time)
-        events = [(e.key, e.device_time_total, e.count)
-                  for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")
-                  and e.device_time_total > 0]
-        busy_us = sum(t for _, t, _ in events)
-        events.sort(key=lambda e: -e[1])
-        top = ", ".join(f"{k[:40]} {t / 1e3:.1f} ms x{n}"
-                        for k, t, n in events[:6])
-        print(f"profile [{mode}] {len(qs)} queries: wall "
-              f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
-              f"({100 * busy_us / wall_us:.1f}%), "
-              f"top: {top}", flush=True)
-        (out_dir / f"profile_{mode}.txt").write_text(
-            prof.key_averages().table(sort_by="device_time_total",
-                                      row_limit=40))
+        report_profile(prof, wall_us, f"{mode}, {len(qs)} queries",
+                       out_dir / f"profile_{mode}.txt")
+
+
+# slots and queries of each streaming mode: greedy-family groups of 8 slots
+# take 16 queries at once (slots recycle), beam groups 2 slots, 2 queries
+STREAM_PLAN = {"greedy": (8, 16), "speculative": (8, 16), "beam": (2, 2),
+               "speculative_beam": (2, 2)}
+
+
+def run_streaming(torch, ds, cfg, params, ekw: dict, queries, plan: dict, *,
+                  paged: bool, device="cuda"):
+    """Each mode through a StreamingEngine (``plan``: mode -> (slots,
+    queries)), every query submitted at once and served; launch counts set
+    to 0 just before each mode and read just after. Returns per mode the
+    SMILES and log-probs per query (best first), wall, steps, pages and
+    counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import EngineConfig, StreamingEngine
+
+    out = {}
+    for mode, (n_slots, n_q) in plan.items():
+        eng = StreamingEngine(params, cfg, ds.tokenizer, EngineConfig(
+            mode=mode, n_slots=n_slots, paged=paged, **ekw), device=device)
+        qs = queries[:n_q]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        handles = [eng.submit(q) for q in qs]
+        res = eng.serve()
+        wall = time.perf_counter() - t0
+        launches = dict(launch_counts)
+        results = [res[int(h)] for h in handles]
+        out[mode] = dict(
+            smiles=[[ds.tokenizer.decode(t) for t in r.tokens]
+                    for r in results],
+            logprobs=[np.asarray(r.logprobs, np.float64) for r in results],
+            n_calls=[r.n_calls for r in results],
+            accepted=sum(r.accepted for r in results)
+            / max(1, sum(int(r.lengths[0]) for r in results)),
+            wall_s=wall, steps=eng.loop_stats()["n_iterations"],
+            footprint=eng.cache_footprint(), launches=launches,
+            preemptions=eng.scheduler.n_preemptions)
+        if paged:
+            eng.allocator.check()
+    return out
+
+
+def profile_streaming(torch, ds, cfg, params, ekw: dict, queries,
+                      out_dir: Path, n_warm: int = 10,
+                      n_traced: int = 12) -> None:
+    """Trace a few steady-state iterations of the speculative StreamingEngine
+    (8 slots, 16 queries), paged and dense: ``n_warm`` untraced iterations,
+    then ``n_traced`` traced (``report_profile``), then the rest untraced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import EngineConfig, StreamingEngine
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for paged in (True, False):
+        eng = StreamingEngine(params, cfg, ds.tokenizer, EngineConfig(
+            mode="speculative", n_slots=8, paged=paged, **ekw))
+        for q in queries[:16]:
+            eng.submit(q)
+        pump = eng.serve_steps()
+        for _ in range(n_warm):
+            next(pump)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_traced):
+                next(pump)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        eng.serve()
+        kind = "paged" if paged else "dense"
+        report_profile(prof, wall_us,
+                       f"streaming speculative {kind}, {n_traced} iterations",
+                       out_dir / f"profile_streaming_{kind}.txt")
 
 
 def main() -> int:
@@ -309,12 +504,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
 
-    ds = SyntheticReactionDataset(8, seed=SEED + 1)
-    queries = [ds.pair(i)[0] for i in range(8)]
+    ds = SyntheticReactionDataset(16, seed=SEED + 1)
+    queries = [ds.pair(i)[0] for i in range(16)]
     ecfg = EngineConfig()
     vocab = ds.tokenizer.vocab_size
     t0 = time.perf_counter()
-    kern = check_kernels(torch, vocab, ecfg, len(queries))
+    # the timed shapes are those of 8 slots (speculative: 8 x N_d rows)
+    kern = check_kernels(torch, vocab, ecfg, STREAM_PLAN["speculative"][0])
     print(f"kernel checks passed ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     for name, r in kern.items():
@@ -326,16 +522,21 @@ def main() -> int:
     if args.quick:
         print(json.dumps({"kernels_checked": sorted(kern)}))
         return 0
+    names = ("decode_gqa", "draft_verify", "paged_decode_gqa")
+    main_launches = dict.fromkeys(names, 0)
 
-    # -- mt-product width, random weights from a seed --------------------------
+    # -- one-shot: ReactionEngine at mt-product width, seeded weights ----------
     cfg = with_vocab(product_config(), vocab)
     params = s2s.init(torch.Generator().manual_seed(SEED), cfg, device="cuda")
     modes = ("greedy", "speculative", "beam", "speculative_beam")
+    n_topn = STREAM_PLAN["beam"][1]
     ekw = dict(draft_len=ecfg.draft_len, n_drafts=ecfg.n_drafts,
                n_beams=ecfg.n_beams, max_new=ecfg.max_new,
                max_src=ecfg.max_src)
     run_engine(torch, ds, cfg, params, ekw, queries[:1], modes)   # warm-up
-    res = run_engine(torch, ds, cfg, params, ekw, queries, modes)
+    res = run_engine(torch, ds, cfg, params, ekw, queries, modes[:2])
+    res.update(run_engine(torch, ds, cfg, params, ekw, queries[:n_topn],
+                          modes[2:]))
     g, s = res["greedy"]["preds"], res["speculative"]["preds"]
     if [p.smiles for p in g] != [p.smiles for p in s]:
         raise AssertionError("speculative tokens differ from greedy")
@@ -345,22 +546,71 @@ def main() -> int:
             raise AssertionError(f"{mode}: decode_gqa was never launched")
         if mode in ("greedy", "speculative") and launches["draft_verify"] == 0:
             raise AssertionError(f"{mode}: draft_verify was never launched")
-        for p in res[mode]["preds"]:
+        preds = res[mode]["preds"]
+        for p in preds:
             if not (np.all(np.isfinite(p.logprobs)) and p.smiles
                     and all(isinstance(x, str) for x in p.smiles)):
                 raise AssertionError(f"{mode}: malformed prediction {p}")
-        preds = res[mode]["preds"]
-        print(f"main path [{mode}] mt-product random weights, "
-              f"{len(queries)} queries: wall {res[mode]['wall_s']:.3f} s, "
-              f"{res[mode]['wall_s'] / len(queries) * 1e3:.2f} ms/query, "
+        for k in names:
+            main_launches[k] += launches[k]
+        print(f"main path [one-shot {mode}] mt-product random weights, "
+              f"{len(preds)} queries: wall {res[mode]['wall_s']:.3f} s, "
+              f"{res[mode]['wall_s'] / len(preds) * 1e3:.2f} ms/query, "
               f"n_calls {[p.n_calls for p in preds]}, acceptance "
               f"{np.mean([p.acceptance_rate for p in preds]):.4f}, "
               f"launches {launches}", flush=True)
-    main_launches = {k: sum(res[m]["launches"][k] for m in modes)
-                     for k in ("decode_gqa", "draft_verify")}
+
+    # -- streaming: StreamingEngine on the paged cache, then one dense pass ----
+    skw = dict(ekw, page_size=16)
+    run_streaming(torch, ds, cfg, params, skw, queries,            # warm-up
+                  {m: (n, 1) for m, (n, _) in STREAM_PLAN.items()},
+                  paged=True)
+    stream = run_streaming(torch, ds, cfg, params, skw, queries, STREAM_PLAN,
+                           paged=True)
+    stream_dense = run_streaming(
+        torch, ds, cfg, params, skw, queries,
+        {"speculative": STREAM_PLAN["speculative"]}, paged=False)
+    for label, runs, paged in (("paged", stream, True),
+                               ("dense", stream_dense, False)):
+        for mode, r in runs.items():
+            launches = r["launches"]
+            read = "paged_decode_gqa" if paged else "decode_gqa"
+            other = "decode_gqa" if paged else "paged_decode_gqa"
+            if launches[read] == 0 or launches[other] != 0:
+                raise AssertionError(f"streaming {label} {mode}: launches "
+                                     f"{launches}")
+            if mode in ("greedy", "speculative") and \
+                    launches["draft_verify"] == 0:
+                raise AssertionError(f"streaming {mode}: draft_verify was "
+                                     f"never launched")
+            ref = res[mode]["preds"]
+            for i, (smi, lp) in enumerate(zip(r["smiles"], r["logprobs"])):
+                if smi != ref[i].smiles or not np.all(np.isfinite(lp)):
+                    raise AssertionError(
+                        f"streaming {label} {mode} query {i}: {smi} != "
+                        f"one-shot {ref[i].smiles}")
+                if mode in ("beam", "speculative_beam") and not np.allclose(
+                        lp, ref[i].logprobs, atol=1e-4, rtol=1e-4):
+                    raise AssertionError(f"streaming {mode} query {i}: "
+                                         f"log-probs {lp} != {ref[i].logprobs}")
+            for k in names:
+                main_launches[k] += launches[k]
+            fp = r["footprint"]
+            pages = (f"peak pages {fp['peak_pages']} of {fp['n_pages'] - 1}"
+                     if paged else "dense rows")
+            n_q = len(r["smiles"])
+            print(f"main path [streaming {label} {mode}] "
+                  f"{STREAM_PLAN[mode][0]} slots, {n_q} queries: wall "
+                  f"{r['wall_s']:.3f} s, {r['wall_s'] / n_q * 1e3:.2f} "
+                  f"ms/request, steps {r['steps']}, {pages}, preemptions "
+                  f"{r['preemptions']}, n_calls {r['n_calls']}, acceptance "
+                  f"{r['accepted']:.4f}, launches {launches}", flush=True)
+    print("streaming check: paged and dense StreamingEngine tokens == "
+          "ReactionEngine tokens", flush=True)
     if args.profile:
-        profile_modes(torch, ds, cfg, params, ekw, queries, modes,
+        profile_modes(torch, ds, cfg, params, ekw, queries[:8], modes,
                       args.profile)
+        profile_streaming(torch, ds, cfg, params, skw, queries, args.profile)
 
     # -- reference: the card against the CPU's plain path, tiny model ----------
     tcfg = tiny_config(vocab, depth=2, d_model=64)
@@ -377,13 +627,30 @@ def main() -> int:
                                     rtol=1e-4))
             if not same:
                 raise AssertionError(f"{mode}: card {pg} != cpu {pc}")
+    tplan = {"greedy": (2, 4), "speculative": (2, 4), "beam": (2, 2),
+             "speculative_beam": (2, 2)}
+    tskw = dict(tkw, page_size=8)
+    st_gpu = run_streaming(torch, ds, tcfg, cpu_params, tskw, queries, tplan,
+                           paged=True)
+    st_cpu = run_streaming(torch, ds, tcfg, cpu_params, tskw, queries, tplan,
+                           paged=True, device="cpu")
+    for mode in modes:
+        a, b = st_gpu[mode], st_cpu[mode]
+        if a["smiles"] != b["smiles"] or a["n_calls"] != b["n_calls"] or \
+                not all(np.allclose(x, y, atol=1e-4, rtol=1e-4)
+                        for x, y in zip(a["logprobs"], b["logprobs"])):
+            raise AssertionError(f"streaming {mode}: card {a['smiles']} != "
+                                 f"cpu {b['smiles']}")
     print("reference check: tiny model, card == CPU plain path in all four "
-          "modes", flush=True)
+          "modes, one-shot and paged streaming", flush=True)
 
     sources = {"decode_gqa": ("src/repro_torch/csrc/decode_gqa.cu",
                               "src/repro/kernels/decode_gqa/kernel.py:72"),
                "draft_verify": ("src/repro_torch/csrc/draft_verify.cu",
-                                "src/repro/kernels/draft_verify/kernel.py:61")}
+                                "src/repro/kernels/draft_verify/kernel.py:61"),
+               "paged_decode_gqa": (
+                   "src/repro_torch/csrc/paged_decode_gqa.cu",
+                   "src/repro/kernels/decode_gqa/kernel.py:160")}
     entries = []
     for name, (src, replaces) in sources.items():
         m = kern[name]["shapes"]["speculative"]

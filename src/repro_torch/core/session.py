@@ -1,11 +1,21 @@
-"""DecodeSession — the fixed-slot decoding core every mode shares, the
-one-shot half of ``repro.core.session``.
+"""DecodeSession — the fixed-slot decoding core every mode shares, the port
+of ``repro.core.session``.
 
 Every decoding mode (greedy, speculative greedy, beam, speculative beam) is
 one step function over the same fixed-slot state: ``session_step`` runs ONE
 verify/commit iteration for every slot. ``run_session`` drains the slots
 with a host loop (one device-to-host read per iteration for its exit test)
-where the JAX package runs a ``lax.while_loop``.
+where the JAX package runs a ``lax.while_loop``. The streaming engine
+instead admits requests into freed slots between steps (``reset_slot`` /
+``release_slot``), runs per-mode slot groups over one shared cache
+(``GroupedState`` / ``grouped_step``) and, on a paged cache, plans page
+maintenance on the device (``device_page_plan`` / ``apply_page_plan``) with
+a host-side allocator for admission accounting (``PageAllocator``).
+
+Unlike the JAX package, ``reset_slot``, ``release_slot``, the unmap helpers
+and ``apply_page_plan`` update the state's tensors and the cache IN PLACE
+(the engine threads one state linearly, so no copy is needed); the step
+functions still return new state tensors.
 
 Slot layout: ``n_slots`` (S) requests, each owning ``n_beams`` (K) beam rows
 × ``n_drafts`` (N_d) draft rows of the model cache — cache row
@@ -18,7 +28,8 @@ step's argmax is over log-probs with the pad column masked, which is not
 that kernel's function, so it stays plain torch.
 
 JAX's ``.at[].set(mode="drop")`` drops out-of-range writes in silence; torch
-raises, so the token writes scatter into one extra trash column instead.
+raises, so the token writes scatter into one extra trash column, and the
+page plan's scatters into one extra trash element, instead.
 ``jax.lax.top_k`` breaks ties toward the lower index and the candidate array
 holds many exact -1e30 ties, so top-k here is a stable descending sort.
 """
@@ -27,20 +38,26 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.handles import DecoderHandle
-from repro_torch.core.tree_batch import gather_rows, sync_winner
+from repro_torch.core.tree_batch import (gather_rows, merge_rows, slice_rows,
+                                         sync_winner)
 from repro_torch.kernels.draft_verify.ops import draft_verify
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import TRASH_PAGE, KVCache, PagedKVCache
 
 _NEG = -1e30
 _I32 = torch.int32
 
 
 class SessionSpec(NamedTuple):
-    """Static shape/mode bundle."""
+    """Static shape/mode bundle. The spec fixes the CEILINGS of its slots:
+    every request admitted may use up to ``max_new`` tokens, ``n_beams``
+    beams, ``n_drafts`` drafts of ``draft_len`` tokens and ``n_stop`` extra
+    stop ids; per-request values below them ride in ``SessionState``
+    tensors (``max_out``/``eff_dl``/``eff_beams``/``stop_ids``)."""
 
     n_slots: int                 # S — concurrent requests
     n_beams: int                 # K — rows per request (1 = greedy family)
@@ -50,6 +67,20 @@ class SessionSpec(NamedTuple):
     eos_id: int
     pad_id: int = 0
     kind: str = "greedy"         # "greedy" (argmax accept) | "beam" (top-k)
+    n_stop: int = 0              # per-slot extra stop ids (0 = eos only)
+
+    @property
+    def rows_per_slot(self) -> int:
+        return self.n_beams * self.n_drafts
+
+    @property
+    def n_rows(self) -> int:
+        return self.n_slots * self.rows_per_slot
+
+    @property
+    def cache_len(self) -> int:
+        """Minimum cache length: every step writes at pos .. pos+DL."""
+        return self.max_new + self.draft_len + 2
 
 
 class SessionState(NamedTuple):
@@ -64,7 +95,14 @@ class SessionState(NamedTuple):
     active: torch.Tensor      # (S,) bool — slot holds a live request
     drafts: torch.Tensor      # (S, N_d, DL) per-request source-copy drafts
     draft_mask: torch.Tensor  # (S, N_d) bool
+    n_calls: torch.Tensor     # (S,) decoder forward passes while resident
     accepted: torch.Tensor    # (S,) committed draft tokens (beam-0 path)
+    # per-request generation params (<= the spec's ceilings); values equal
+    # to the ceilings make every consumer an algebraic no-op
+    max_out: torch.Tensor     # (S,) per-slot token budget (<= spec.max_new)
+    stop_ids: torch.Tensor    # (S, n_stop) extra stop ids, -1 = unused
+    eff_dl: torch.Tensor      # (S,) effective draft length (<= DL)
+    eff_beams: torch.Tensor   # (S,) effective beam width (<= K)
     cache: Any                # model cache, batch rows = S*K*N_d
 
 
@@ -73,14 +111,17 @@ def _cache_device(cache) -> torch.device:
         return _cache_device(next(iter(cache.values())))
     if isinstance(cache, KVCache):
         return cache.k.device
+    if isinstance(cache, PagedKVCache):
+        return cache.k_pool.device
     return cache.device
 
 
-def init_state(spec: SessionSpec, cache: Any) -> SessionState:
-    """All slots free. ``cache`` must have S*K*N_d batch rows and length
-    >= max_new + DL + 2 (every step writes at pos .. pos+DL)."""
+def init_state(spec: SessionSpec, cache: Any, *, device=None) -> SessionState:
+    """All slots free. ``cache`` must have ``spec.n_rows`` batch rows and
+    length >= ``spec.cache_len``; with ``cache=None`` (a group of a grouped
+    session) pass ``device``."""
     S, K = spec.n_slots, spec.n_beams
-    kw = dict(device=_cache_device(cache))
+    kw = dict(device=device if cache is None else _cache_device(cache))
     return SessionState(
         tokens=torch.full((S, K, spec.max_new), spec.pad_id, dtype=_I32, **kw),
         logp=torch.full((S, K), _NEG, dtype=torch.float32, **kw),
@@ -92,15 +133,540 @@ def init_state(spec: SessionSpec, cache: Any) -> SessionState:
         drafts=torch.zeros((S, spec.n_drafts, spec.draft_len), dtype=_I32,
                            **kw),
         draft_mask=torch.zeros((S, spec.n_drafts), dtype=torch.bool, **kw),
+        n_calls=torch.zeros((S,), dtype=_I32, **kw),
         accepted=torch.zeros((S,), dtype=_I32, **kw),
+        max_out=torch.full((S,), spec.max_new, dtype=_I32, **kw),
+        stop_ids=torch.full((S, spec.n_stop), -1, dtype=_I32, **kw),
+        eff_dl=torch.full((S,), spec.draft_len, dtype=_I32, **kw),
+        eff_beams=torch.full((S,), spec.n_beams, dtype=_I32, **kw),
         cache=cache,
     )
 
 
-def _is_stop_token(spec: SessionSpec, tok: torch.Tensor) -> torch.Tensor:
-    """True where ``tok`` ends its sequence: the EOS. (The JAX package's
-    per-request stop ids belong to the streaming engine, a later slice.)"""
-    return tok == spec.eos_id
+def reset_slot(spec: SessionSpec, state: SessionState, slot: int,
+               last_token, start_pos, drafts, draft_mask, *,
+               max_out=None, stop_ids=None, eff_dl=None,
+               eff_beams=None) -> SessionState:
+    """Prefill a slot's algorithm state in place (the caller populates the
+    model-cache rows). ``drafts`` is (N_d, DL), ``draft_mask`` (N_d,); the
+    generation params default to the spec's ceilings."""
+    K = spec.n_beams
+    dev = state.active.device
+    beam0 = torch.full((K,), _NEG, dtype=torch.float32, device=dev)
+    beam0[0] = 0.0
+    state.tokens[slot] = spec.pad_id
+    state.logp[slot] = beam0
+    state.last[slot] = int(last_token)
+    state.pos[slot] = int(start_pos)
+    state.n_out[slot] = 0
+    state.finished[slot] = False
+    state.active[slot] = True
+    state.drafts[slot] = torch.as_tensor(drafts, dtype=_I32).to(dev)
+    state.draft_mask[slot] = torch.as_tensor(draft_mask,
+                                             dtype=torch.bool).to(dev)
+    state.n_calls[slot] = 0
+    state.accepted[slot] = 0
+    state.max_out[slot] = spec.max_new if max_out is None else int(max_out)
+    state.stop_ids[slot] = (-1 if stop_ids is None else
+                            torch.as_tensor(stop_ids, dtype=_I32).to(dev))
+    state.eff_dl[slot] = spec.draft_len if eff_dl is None else int(eff_dl)
+    state.eff_beams[slot] = (spec.n_beams if eff_beams is None
+                             else int(eff_beams))
+    return state
+
+
+def release_slot(state: SessionState, slot: int) -> SessionState:
+    """Evict a finished request (in place); the slot's cache rows become
+    garbage that the next admission overwrites."""
+    state.active[slot] = False
+    return state
+
+
+def paged_cache_entries(cache) -> list[PagedKVCache]:
+    """The ``PagedKVCache`` nodes of a model cache (the seq2seq cache has
+    one, under "self"), walked through its dicts."""
+    if isinstance(cache, PagedKVCache):
+        return [cache]
+    if isinstance(cache, dict):
+        return [n for v in cache.values() for n in paged_cache_entries(v)]
+    return []
+
+
+def unmap_cache_rows(cache, rows):
+    """Unmap block-table ``rows`` of every paged node, in place. Stale writes
+    by the now-inactive rows fall through the -1 entries into the trash
+    page."""
+    for node in paged_cache_entries(cache):
+        idx = torch.as_tensor(rows, dtype=torch.long).to(
+            node.block_tables.device)
+        node.block_tables[:, idx] = -1
+    return cache
+
+
+def unmap_slot_pages(spec: SessionSpec, state: SessionState,
+                     slot: int) -> SessionState:
+    """Unmap a slot's block-table rows (paged caches). Once unmapped, the
+    page planners see its pages as free: an eviction or preemption frees
+    the slot's whole footprint at once."""
+    rows = slot * spec.rows_per_slot + np.arange(spec.rows_per_slot)
+    unmap_cache_rows(state.cache, rows)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# grouped sessions: per-mode slot groups sharing one cache and one step
+
+
+class GroupedState(NamedTuple):
+    """Session state partitioned into per-mode slot groups. ``groups[g]`` is
+    a ``SessionState`` for group ``g``'s slots with ``cache=None``; the
+    model cache is held ONCE here, covering every group's rows (one paged
+    pool or one dense row block). Group ``g`` owns the contiguous cache rows
+    ``[offset_g, offset_g + specs[g].n_rows)`` in declaration order."""
+
+    groups: tuple            # per-group SessionState (cache=None)
+    cache: Any               # shared model cache over all groups' rows
+
+
+def group_row_offsets(specs) -> list[int]:
+    """Starting cache row of each group (+ total) in declaration order."""
+    offs = [0]
+    for spec in specs:
+        offs.append(offs[-1] + spec.n_rows)
+    return offs
+
+
+def grouped_init_state(specs, cache) -> GroupedState:
+    """All slots of all groups free. ``cache`` must have
+    ``group_row_offsets(specs)[-1]`` batch rows and length >= the largest
+    group's ``cache_len``."""
+    dev = _cache_device(cache)
+    return GroupedState(
+        groups=tuple(init_state(spec, None, device=dev) for spec in specs),
+        cache=cache)
+
+
+def grouped_step(specs, handle: DecoderHandle,
+                 gstate: GroupedState) -> GroupedState:
+    """ONE decode iteration for every slot of every group: each group's
+    ``session_step`` on its row slice of the shared cache, merged back in
+    place. Group steps write only pages their own rows own (the planner's
+    private-window invariant), so the merge order does not matter."""
+    cache = gstate.cache
+    out, lo = [], 0
+    for spec, gs in zip(specs, gstate.groups):
+        hi = lo + spec.n_rows
+        st = gs._replace(cache=slice_rows(cache, lo, hi))
+        st = session_step(spec, handle, st)
+        cache = merge_rows(cache, st.cache, lo, hi)
+        out.append(st._replace(cache=None))
+        lo = hi
+    return GroupedState(groups=tuple(out), cache=cache)
+
+
+# ---------------------------------------------------------------------------
+# paged-cache page allocation (host side)
+
+
+class PoolExhausted(RuntimeError):
+    """The page pool cannot satisfy a mapping request. The scheduler reacts
+    by deferring admission or preempting the youngest resident request:
+    exhaustion is a scheduling event, never a crash. ``group`` names the
+    slot group whose row could not be mapped (None outside grouped
+    sessions); ``shard`` is always None here (no sharded sessions yet)."""
+
+    def __init__(self, msg: str, group=None, shard=None):
+        super().__init__(msg)
+        self.group = group
+        self.shard = shard
+
+
+class PageAllocator:
+    """Host-side free-list allocator + block-table maintenance for a session
+    whose model cache holds a ``PagedKVCache``, the port of
+    ``repro.core.session.PageAllocator`` (without the chunked-prefill
+    pinning, which only the decoder-only backend uses).
+
+    ``reclaim(state)`` recomputes page reference counts from the block
+    tables and returns every unreferenced page to the free list.
+    ``prepare_step(state)`` walks every live row's write window ``[pos, pos
+    + DL]`` and maps it to pages owned by exactly one row: lazy growth for
+    unmapped blocks, copy-on-write of a shared draft-boundary page. The
+    streaming engine runs the same walk on the device (``device_page_plan``)
+    and uses this class for admission accounting and ``check()``.
+
+    Page 0 is the reserved trash page and is never allocated. The pool must
+    cover one slot's worst case so the oldest resident can always run to
+    completion: that makes deferral + preemption deadlock-free.
+    """
+
+    def __init__(self, spec, *, n_pages: int, page_size: int,
+                 row_lens: dict | None = None):
+        # ``spec``: one SessionSpec, or an ordered {group_key: SessionSpec}
+        # (declaration order == row order, matching GroupedState.groups)
+        self.groups: dict = ({None: spec} if isinstance(spec, SessionSpec)
+                             else dict(spec))
+        self.spec = next(iter(self.groups.values()))
+        self.n_pages = int(n_pages)
+        self.page_size = int(page_size)
+        row_lens = row_lens or {}
+        self._blocks = {k: -(-int(row_lens.get(k, s.cache_len))
+                             // self.page_size)
+                        for k, s in self.groups.items()}
+        self.n_blocks = max(self._blocks.values())
+        self._slot_worst = {k: s.rows_per_slot * self._blocks[k]
+                            for k, s in self.groups.items()}
+        need_one_slot = max(self._slot_worst.values())
+        if self.n_pages - 1 < need_one_slot:
+            raise ValueError(
+                f"n_pages={n_pages} cannot hold one slot's worst case "
+                f"({need_one_slot} pages of {page_size} tokens + trash page); "
+                f"no admission policy can make progress")
+        self._free: list[int] = list(range(self.n_pages - 1, TRASH_PAGE, -1))
+        self._used: set[int] = set()
+        self.peak_pages = 0
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return len(self._used)
+
+    def window_blocks(self, pos: int, group=None) -> range:
+        """Logical blocks the next step writes for a ``group`` row at
+        position ``pos`` (tokens land at pos .. pos + DL)."""
+        if group is None:
+            group = next(iter(self.groups))
+        ps = self.page_size
+        hi = min((pos + self.groups[group].draft_len) // ps,
+                 self._blocks[group] - 1)
+        return range(pos // ps, hi + 1)
+
+    def admit_pages_for(self, group=None) -> int:
+        """Pages a fresh ``group`` admission maps on its first step (window
+        at pos 0) plus one window of headroom, clamped to one slot's worst
+        case so an empty pool can always admit."""
+        if group is None:
+            group = next(iter(self.groups))
+        per_row = len(self.window_blocks(0, group))
+        want = self.groups[group].rows_per_slot * min(2 * per_row,
+                                                      self._blocks[group])
+        return min(want, self._slot_worst[group])
+
+    def _alloc(self) -> int:
+        if not self._free:
+            raise PoolExhausted(f"page pool exhausted "
+                                f"({self.used_pages}/{self.n_pages - 1} used)")
+        p = self._free.pop()
+        self._used.add(p)
+        self.peak_pages = max(self.peak_pages, len(self._used))
+        return p
+
+    def _nodes(self, state):
+        nodes = paged_cache_entries(state.cache)
+        if not nodes:
+            raise TypeError("PageAllocator requires a PagedKVCache node in "
+                            "the model cache (init_cache(..., "
+                            "paged=(n_pages, ps)))")
+        return nodes
+
+    def _group_views(self, state):
+        """(group key, spec, row offset, pos (S,K), active (S,)) per group,
+        for a plain ``SessionState`` or a ``GroupedState``."""
+        if isinstance(state, GroupedState):
+            if len(state.groups) != len(self.groups):
+                raise ValueError(
+                    f"allocator has {len(self.groups)} group spec(s) but "
+                    f"the state has {len(state.groups)}")
+            lo = 0
+            for (key, spec), gs in zip(self.groups.items(), state.groups):
+                yield (key, spec, lo, gs.pos.cpu().numpy(),
+                       gs.active.cpu().numpy())
+                lo += spec.n_rows
+        else:
+            key = next(iter(self.groups))
+            yield (key, self.groups[key], 0, state.pos.cpu().numpy(),
+                   state.active.cpu().numpy())
+
+    def _scan(self, state):
+        """ONE device readback feeding reclaim, admission accounting and the
+        prepare walk: (tables, group views, refcounts). Returns every
+        unreferenced page to the free list (rows of released slots must
+        already be unmapped)."""
+        bt = self._nodes(state)[0].block_tables[0].cpu().numpy().copy()
+        views = list(self._group_views(state))
+        rows = [np.zeros((0,), np.int64)]
+        for _, spec, lo, _, active in views:
+            rps = spec.rows_per_slot
+            rows.append((lo + np.flatnonzero(active)[:, None] * rps
+                         + np.arange(rps)[None, :]).reshape(-1))
+        live = bt[np.concatenate(rows)]
+        refs = np.bincount(live[live >= 0].ravel(), minlength=self.n_pages)
+        for p in [p for p in self._used if refs[p] == 0]:
+            self._used.remove(p)
+            self._free.append(p)
+        return bt, views, refs
+
+    def reclaim(self, state) -> None:
+        """Return every page unreferenced by a live row to the free list."""
+        self._scan(state)
+
+    def _unmapped_window_blocks(self, bt, views) -> int:
+        """Live window blocks no page is mapped to yet."""
+        n = 0
+        for key, spec, lo, pos, active in views:
+            K, N_d = spec.n_beams, spec.n_drafts
+            for s in np.flatnonzero(active):
+                for k in range(K):
+                    window = self.window_blocks(int(pos[s, k]), key)
+                    for d in range(N_d):
+                        r = lo + (s * K + k) * N_d + d
+                        n += sum(1 for j in window if bt[r, j] < 0)
+        return n
+
+    def can_admit(self, state, group=None) -> bool:
+        """Gate a ``group`` admission on free pages, net of the pages the
+        resident rows still need mapped."""
+        bt, views, _ = self._scan(state)
+        pending = self._unmapped_window_blocks(bt, views)
+        return self.free_pages - pending >= self.admit_pages_for(group)
+
+    def prepare_step(self, state):
+        """Reclaim orphans, then map/privatize every live row's write window
+        (lazy growth + copy-on-write at the draft boundary), in place on
+        every paged node. Raises ``PoolExhausted`` (the allocator heals on
+        the next ``reclaim``) when the pool cannot cover the windows."""
+        bt, views, refs = self._scan(state)
+        ps = self.page_size
+        set_r: list[int] = []
+        set_j: list[int] = []
+        set_p: list[int] = []
+        fresh: list[int] = []                             # pos := -1
+        copy_src: list[int] = []
+        copy_dst: list[int] = []
+        for key, spec, lo, pos, active in views:
+            K, N_d = spec.n_beams, spec.n_drafts
+            for s in np.flatnonzero(active):
+                for k in range(K):
+                    p_row = int(pos[s, k])
+                    window = self.window_blocks(p_row, key)
+                    for d in range(N_d):
+                        r = lo + (s * K + k) * N_d + d
+                        for j in window:
+                            cur = int(bt[r, j])
+                            if cur >= 0 and refs[cur] == 1:
+                                continue                  # already private
+                            try:
+                                new = self._alloc()
+                            except PoolExhausted as e:
+                                e.group = key
+                                raise
+                            if cur >= 0:
+                                refs[cur] -= 1
+                            refs[new] = 1
+                            if cur >= 0 and j == window[0] and p_row % ps:
+                                # boundary block holds committed tokens:
+                                # copy the page (entries >= pos are stale
+                                # draft slots the next write overwrites)
+                                copy_src.append(cur)
+                                copy_dst.append(new)
+                            else:
+                                fresh.append(new)
+                            bt[r, j] = new
+                            set_r.append(r)
+                            set_j.append(j)
+                            set_p.append(new)
+        for node in self._nodes(state):
+            dev = node.block_tables.device
+            if set_r:
+                node.block_tables[:, torch.as_tensor(set_r, device=dev),
+                                  torch.as_tensor(set_j, device=dev)] = \
+                    torch.as_tensor(set_p, dtype=_I32, device=dev)
+            if fresh:
+                node.pos[:, torch.as_tensor(fresh, device=dev)] = -1
+            if copy_dst:
+                src = torch.as_tensor(copy_src, device=dev)
+                dst = torch.as_tensor(copy_dst, device=dev)
+                node.k_pool[:, dst] = node.k_pool[:, src]
+                node.v_pool[:, dst] = node.v_pool[:, src]
+                node.pos[:, dst] = node.pos[:, src]
+        return state
+
+    def check(self) -> None:
+        """Allocator invariants."""
+        free = self._free
+        assert len(set(free)) == len(free), "duplicate pages in free list"
+        assert not (set(free) & self._used), "page both free and allocated"
+        assert TRASH_PAGE not in self._used and TRASH_PAGE not in free
+        assert set(free) | self._used == set(range(1, self.n_pages)), \
+            "page leaked"
+
+
+# ---------------------------------------------------------------------------
+# paged-cache page allocation (device side)
+
+
+class DevicePagePlan(NamedTuple):
+    """One iteration's page maintenance, computed on the device: the lazy-
+    growth + copy-on-write walk of ``PageAllocator.prepare_step`` as
+    fixed-shape lane tensors over the block table. Allocation is
+    all-or-nothing: the engine reads ``exhausted`` and, when it is set,
+    applies nothing, so the host can preempt and replay the iteration. All
+    lane tensors share one length L (the decode windows of every group)."""
+
+    exhausted: torch.Tensor      # () bool
+    n_free: torch.Tensor         # () int32 free pages before allocation
+    need_by_group: torch.Tensor  # (G,) int32 pages each group's lanes need
+    rows: torch.Tensor           # (L,) int32 lane cache row
+    blocks: torch.Tensor         # (L,) int32 lane logical block
+    need: torch.Tensor           # (L,) bool lane allocates a page
+    copy: torch.Tensor           # (L,) bool draft-boundary copy-on-write
+    cur: torch.Tensor            # (L,) int32 current page (-1 = unmapped)
+    new: torch.Tensor            # (L,) int32 allocated page (if ``need``)
+
+
+def _page_refs(bt: torch.Tensor, n_pages: int) -> torch.Tensor:
+    """(n_pages,) reference counts over one block table (unmapped entries
+    count into a dropped extra bin). Released rows are always unmapped, so
+    every mapped entry belongs to a live row."""
+    flat = torch.where(bt >= 0, bt, n_pages).reshape(-1).long()
+    return torch.bincount(flat, minlength=n_pages + 1)[:n_pages].to(_I32)
+
+
+def _block_table(cache) -> torch.Tensor:
+    return paged_cache_entries(cache)[0].block_tables[0]
+
+
+def device_free_pages(cache, n_pages: int) -> torch.Tensor:
+    """() int32: pages no live row references (the mirrored-counter feed
+    for the host's admission accounting)."""
+    refs = _page_refs(_block_table(cache), n_pages)
+    free = (refs == 0) & (torch.arange(n_pages, device=refs.device)
+                          != TRASH_PAGE)
+    return free.sum(dtype=_I32)
+
+
+def device_page_plan(specs, blocks, page_size: int, n_pages: int,
+                     gstate: GroupedState) -> DevicePagePlan:
+    """Plan this iteration's page maintenance on the device.
+
+    ``specs``/``blocks`` are the groups' specs and logical block counts.
+    A lane keeps its current page iff no out-of-window row references it
+    (``refs == win_refs``) AND it is the highest-row in-window referencer
+    (the host walk visits rows in ascending order, so its LAST visitor sees
+    refs == 1 and keeps the page). Fresh pages come off an ascending free
+    stack; page identity never affects tokens (attention masks on stored
+    positions), only the count matters for accounting."""
+    ps, P = int(page_size), int(n_pages)
+    bt = _block_table(gstate.cache)
+    dev = bt.device
+    n_blocks = bt.shape[1]
+    refs = _page_refs(bt, P)
+    ar = torch.arange(P, dtype=_I32, device=dev)
+    free = (refs == 0) & (ar != TRASH_PAGE)
+    n_free = free.sum(dtype=_I32)
+    rank = torch.cumsum(free.to(_I32), 0) - 1
+    stack = torch.full((P + 1,), P, dtype=_I32, device=dev)
+    stack[torch.where(free, rank, P).long()] = ar
+    stack = stack[:P]
+
+    offs = group_row_offsets(specs)
+    lane_r, lane_j, lane_valid, lane_pos, lane_w0, lane_gi = \
+        [], [], [], [], [], []
+    for gi, (spec, gs) in enumerate(zip(specs, gstate.groups)):
+        K, N_d, DL = spec.n_beams, spec.n_drafts, spec.draft_len
+        nR, W = spec.n_rows, DL // ps + 2
+        rg = torch.arange(nR, dtype=_I32, device=dev)
+        s, k = rg // (K * N_d), (rg // N_d) % K
+        pos_r = gs.pos[s.long(), k.long()]
+        act = gs.active[s.long()]
+        w = torch.arange(W, dtype=_I32, device=dev)
+        j = torch.div(pos_r, ps, rounding_mode="floor")[:, None] + w[None, :]
+        hi = torch.clamp(torch.div(pos_r + DL, ps, rounding_mode="floor"),
+                         max=blocks[gi] - 1)
+        lane_r.append((offs[gi] + rg)[:, None].expand(nR, W).reshape(-1))
+        lane_j.append(j.reshape(-1))
+        lane_valid.append((act[:, None] & (j <= hi[:, None])).reshape(-1))
+        lane_pos.append(pos_r[:, None].expand(nR, W).reshape(-1))
+        lane_w0.append((w[None, :] == 0).expand(nR, W).reshape(-1))
+        lane_gi.append(torch.full((nR * W,), gi, dtype=torch.long,
+                                  device=dev))
+    r, jb, valid = torch.cat(lane_r), torch.cat(lane_j), torch.cat(lane_valid)
+    posl, w0, gsel = torch.cat(lane_pos), torch.cat(lane_w0), torch.cat(lane_gi)
+
+    cur = torch.where(valid, bt[r.long(), jb.clamp(0, n_blocks - 1).long()],
+                      -1)
+    vc = valid & (cur >= 0)
+    safe_cur = torch.where(vc, cur, P).long()
+    win_refs = torch.bincount(safe_cur, minlength=P + 1)[:P].to(_I32)
+    keeper = torch.full((P + 1,), -1, dtype=_I32, device=dev)
+    keeper.scatter_reduce_(0, safe_cur, torch.where(vc, r, -1), "amax")
+    keeper = keeper[:P]
+    cc = cur.clamp(0, P - 1).long()
+    keep = vc & (refs[cc] == win_refs[cc]) & (r == keeper[cc])
+    need = valid & ~keep
+    copy = need & vc & w0 & (posl % ps != 0)
+
+    need_i = need.to(_I32)
+    need_by_group = torch.zeros((len(specs),), dtype=_I32, device=dev)
+    need_by_group.index_add_(0, gsel, need_i)
+    ni = torch.cumsum(need_i, 0) - 1
+    new = stack[torch.where(need, ni, 0).clamp(0, P - 1).long()]
+    return DevicePagePlan(exhausted=need_i.sum() > n_free, n_free=n_free,
+                          need_by_group=need_by_group, rows=r, blocks=jb,
+                          need=need, copy=copy, cur=cur, new=new)
+
+
+def apply_page_plan(cache, plan: DevicePagePlan, n_copy: int | None = None):
+    """Apply a non-exhausted plan to every paged node, in place: write the
+    new table entries, copy the draft-boundary pages (the committed prefix
+    rides along; stale draft slots past ``pos`` are overwritten before they
+    are read) and mark fresh pages empty (stored position -1). The caller
+    checks ``plan.exhausted`` first: an exhausted plan must not be applied.
+
+    ``n_copy`` is the plan's count of copy lanes as the host already read it
+    (the engine reads it with ``exhausted``); the copy lanes are compacted to
+    that many so the pools copy only those pages. Without it the count is
+    read here. Lanes that write nothing are pointed at harmless targets
+    instead of JAX's dropped writes: an extra element past the table for
+    table entries, the trash page (whose positions are always -1) for the
+    fresh-page marks."""
+    if n_copy is None:
+        n_copy = int(plan.copy.sum())
+    nodes = paged_cache_entries(cache)
+    bt = nodes[0].block_tables[0]
+    n_rows, nb = bt.shape
+    cell = torch.where(plan.need, plan.rows.long() * nb + plan.blocks.long(),
+                       n_rows * nb)
+    flat = torch.cat([bt.reshape(-1), bt.new_zeros(1)])
+    flat[cell] = plan.new
+    bt_new = flat[:-1].view(n_rows, nb)
+    fresh = torch.where(plan.need & ~plan.copy, plan.new, TRASH_PAGE).long()
+    lanes = torch.argsort((~plan.copy).to(torch.int8), stable=True)[:n_copy]
+    copy_dst, copy_src = plan.new[lanes].long(), plan.cur[lanes].long()
+    for node in nodes:
+        if n_copy:
+            node.k_pool[:, copy_dst] = node.k_pool[:, copy_src]
+            node.v_pool[:, copy_dst] = node.v_pool[:, copy_src]
+            node.pos[:, copy_dst] = node.pos[:, copy_src]
+        node.pos[:, fresh] = -1
+        node.block_tables.copy_(bt_new.expand_as(node.block_tables))
+    return cache
+
+
+def _is_stop_token(spec: SessionSpec, tok: torch.Tensor,
+                   stop_ids: torch.Tensor) -> torch.Tensor:
+    """True where ``tok`` ends its slot's sequence: the session-wide EOS, or
+    one of the slot's ``stop_ids``. ``tok`` is (S, ...); ``stop_ids`` is
+    (S, n_stop) with -1 = unused (token ids are non-negative)."""
+    hit = tok == spec.eos_id
+    if spec.n_stop:
+        extra = tok[..., None] == stop_ids.reshape(
+            stop_ids.shape[0], *([1] * (tok.dim() - 1)), spec.n_stop)
+        hit = hit | extra.any(-1)
+    return hit
 
 
 def _accept_lengths(greedy_tok: torch.Tensor, drafts: torch.Tensor,
@@ -161,6 +727,7 @@ def _greedy_family_step(spec: SessionSpec, handle: DecoderHandle,
     finished = state.finished[:, 0] | ~state.active
     last, pos = state.last[:, 0], state.pos[:, 0]
     n_out, out = state.n_out[:, 0], state.tokens[:, 0]
+    max_out = state.max_out                                      # (S,)
 
     # argmax over the vocab + accepted-prefix match, fused in one kernel
     greedy_tok, n_acc = draft_verify(logits.contiguous(),
@@ -169,8 +736,12 @@ def _greedy_family_step(spec: SessionSpec, handle: DecoderHandle,
     greedy_tok = greedy_tok.reshape(S, N_d, DL + 1)
 
     # --- accept / select best draft --------------------------------------
-    n_acc = n_acc.reshape(S, N_d)
+    # per-request draft windows: clamping the accept length to the slot's
+    # eff_dl BEFORE best-draft selection makes a padded (N_d, DL) draft
+    # matrix behave exactly like a DL'=eff_dl session
+    n_acc = torch.minimum(n_acc.reshape(S, N_d), state.eff_dl[:, None])
     best = torch.argmax(n_acc, dim=-1).to(_I32)                  # (S,)
+    # inactive slots must not move rows either
     best = torch.where(state.active, best, 0)
     n_acc_b = n_acc.gather(1, best[:, None].long())[:, 0]
     new_toks = greedy_tok.gather(
@@ -178,11 +749,11 @@ def _greedy_family_step(spec: SessionSpec, handle: DecoderHandle,
 
     # --- EOS/stop + budget truncation -------------------------------------
     within = rel[None, :] <= n_acc_b[:, None]
-    is_eos = _is_stop_token(spec, new_toks) & within
+    is_eos = _is_stop_token(spec, new_toks, state.stop_ids) & within
     any_eos = is_eos.any(1)
     first_eos = torch.argmax(is_eos.to(_I32), dim=1).to(_I32)
     n_prop = torch.where(any_eos, first_eos + 1, n_acc_b + 1)
-    budget = max_new - n_out
+    budget = max_out - n_out
     n_app = torch.minimum(n_prop, budget)
     n_app = torch.where(finished, 0, n_app)
     hit_eos = any_eos & (first_eos + 1 <= budget) & ~finished
@@ -201,11 +772,12 @@ def _greedy_family_step(spec: SessionSpec, handle: DecoderHandle,
     last = torch.where(n_app > 0, new_last, last)
     pos = pos + n_app
     n_out = n_out + n_app
-    new_finished = finished | hit_eos | (n_out >= max_new)
+    new_finished = finished | hit_eos | (n_out >= max_out)
     acc_used = torch.minimum(n_acc_b, n_app)
     return state._replace(
         tokens=out[:, None], last=last[:, None], pos=pos[:, None],
         n_out=n_out[:, None], finished=new_finished[:, None], cache=cache,
+        n_calls=state.n_calls + state.active.to(_I32),
         accepted=state.accepted + acc_used)
 
 
@@ -223,6 +795,7 @@ def _beam_family_step(spec: SessionSpec, handle: DecoderHandle,
     dev = rel.device
 
     fin = state.finished | ~state.active[:, None]                # (S, K)
+    max_out = state.max_out                                      # (S,)
 
     lp_all = torch.log_softmax(logits.float(), dim=-1)
     lp_all[:, :, pad_id] = _NEG          # pad is never a real emission
@@ -233,6 +806,8 @@ def _beam_family_step(spec: SessionSpec, handle: DecoderHandle,
     d4 = drafts_rows.reshape(S, K, N_d, DL)
     dm = state.draft_mask[:, None].expand(S, K, N_d)
     n_acc = _accept_lengths(greedy_tok, d4, dm)                  # (S, K, N_d)
+    # per-request draft window (see the greedy-family step)
+    n_acc = torch.minimum(n_acc, state.eff_dl[:, None, None])
     best = torch.argmax(n_acc, dim=-1).to(_I32)                  # (S, K)
     best = torch.where(state.active[:, None], best, 0)
 
@@ -252,15 +827,22 @@ def _beam_family_step(spec: SessionSpec, handle: DecoderHandle,
     topv, topi = _stable_topk(lp_best, K)                        # (S, K, A, K)
     cand_lp = state.logp[:, :, None, None] + cum[..., None] + topv
     valid_a = rel[None, None, :] <= n_acc_b[..., None]           # (S, K, A)
-    valid_a &= (state.n_out[..., None] + rel[None, None, :] + 1) <= max_new
+    valid_a &= ((state.n_out[..., None] + rel[None, None, :] + 1)
+                <= max_out[:, None, None])
     # prefixes may not extend past a draft EOS/stop token
     draft_eos = torch.cumsum(
-        _is_stop_token(spec, draft_best).to(_I32), dim=-1)
+        _is_stop_token(spec, draft_best, state.stop_ids).to(_I32), dim=-1)
     no_eos_in_prefix = torch.cat(
         [torch.ones((S, K, 1), dtype=torch.bool, device=dev), draft_eos == 0],
         dim=-1)
     valid_a &= no_eos_in_prefix
     cand_lp = torch.where(valid_a[..., None], cand_lp, _NEG)
+    # per-request beam width: an eff_beams < K request only extends with its
+    # top-eff_beams tokens per (parent, prefix)
+    k_rank = torch.arange(K, dtype=_I32, device=dev)
+    cand_lp = torch.where(
+        k_rank[None, None, None, :] < state.eff_beams[:, None, None, None],
+        cand_lp, _NEG)
 
     # same-path dedup: (a, w=draft[a]) with a < n_acc is a strict prefix of
     # a longer candidate in this set
@@ -280,7 +862,6 @@ def _beam_family_step(spec: SessionSpec, handle: DecoderHandle,
     flat = cand_lp.reshape(S, K * A * K)
     new_logp, flat_idx = _stable_topk(flat, K)                   # (S, K)
     parent = (flat_idx // (A * K)).to(_I32)
-    k_rank = torch.arange(K, dtype=_I32, device=dev)
     parent = torch.where(state.active[:, None], parent, k_rank[None, :])
     a_len = ((flat_idx // K) % A).to(_I32)
     w_tok = topi.reshape(S, K * A * K).gather(1, flat_idx).to(_I32)
@@ -305,8 +886,12 @@ def _beam_family_step(spec: SessionSpec, handle: DecoderHandle,
                       nout_p[..., None] + rel[None, None, :], max_new)
     out_new = _scatter_tokens(out_p, idx, seg, max_new)
 
-    new_finished = (was_fin | _is_stop_token(spec, w_tok)
-                    | (nout_p + n_new >= max_new))
+    new_finished = (was_fin | _is_stop_token(spec, w_tok, state.stop_ids)
+                    | (nout_p + n_new >= max_out[:, None]))
+    # beams past the slot's eff_beams are parked: _NEG log-prob + finished
+    parked = k_rank[None, :] >= state.eff_beams[:, None]
+    new_logp = torch.where(parked, _NEG, new_logp)
+    new_finished = new_finished | parked
     new_last = torch.where(was_fin, state.last.gather(1, par), w_tok)
     new_pos = state.pos.gather(1, par) + n_new
     new_nout = nout_p + n_new
@@ -324,6 +909,7 @@ def _beam_family_step(spec: SessionSpec, handle: DecoderHandle,
     return state._replace(
         tokens=out_new, logp=new_logp, last=new_last, pos=new_pos,
         n_out=new_nout, finished=new_finished, cache=cache,
+        n_calls=state.n_calls + state.active.to(_I32),
         accepted=state.accepted + acc)
 
 

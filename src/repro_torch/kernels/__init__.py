@@ -4,8 +4,9 @@ sources in ``repro_torch/csrc``). ``ops`` is the public wrapper: the plain
 ``ref`` version for CPU tensors, the kernel for CUDA tensors."""
 
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
-from repro_torch.kernels.decode_gqa.ops import decode_gqa_attention
+from repro_torch.kernels.decode_gqa.ops import (decode_gqa_attention,
+                                               paged_decode_gqa_attention)
 from repro_torch.kernels.draft_verify.ops import draft_verify
 
 __all__ = ["decode_gqa_attention", "draft_verify", "launch_counts",
-           "reset_launch_counts"]
+           "paged_decode_gqa_attention", "reset_launch_counts"]

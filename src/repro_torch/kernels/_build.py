@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-KERNELS = ("decode_gqa", "draft_verify")
+KERNELS = ("decode_gqa", "draft_verify", "paged_decode_gqa")
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}   # nvcc's output (ptxas register/smem report)
@@ -87,6 +87,11 @@ _ARGTYPES = {
                    + [ctypes.c_longlong] * 6
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p]),
+    "paged_decode_gqa": ("paged_decode_gqa_launch",
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                         + [ctypes.c_longlong] * 6
+                         + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                            ctypes.c_void_p]),
     "draft_verify": ("draft_verify_launch",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                      + [ctypes.c_void_p]),

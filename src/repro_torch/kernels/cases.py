@@ -17,6 +17,14 @@ DECODE_SWEEP = [
     dict(B=2, T=11, H=8, Kv=4, S=96, hd=64, window=24),  # verify + window
     dict(B=3, T=3, H=6, Kv=1, S=40, hd=8, window=0),     # MQA
 ]
+# (B, T, H, Kv, P, ps, nb, hd, window): the paged sweep of the JAX package's
+# kernel tests (pool of P pages of ps tokens, nb logical blocks per row)
+PAGED_SWEEP = [
+    dict(B=2, T=5, H=8, Kv=2, P=23, ps=16, nb=5, hd=32, window=0),
+    dict(B=1, T=1, H=4, Kv=4, P=9, ps=8, nb=4, hd=16, window=0),    # greedy
+    dict(B=2, T=11, H=8, Kv=4, P=31, ps=16, nb=6, hd=64, window=24),
+    dict(B=3, T=3, H=6, Kv=1, P=16, ps=8, nb=4, hd=8, window=0),    # MQA
+]
 # (N, T, V): rows, fed positions (DL + 1), vocab
 VERIFY_SWEEP = [(6, 5, 700), (12, 11, 1024), (3, 1, 64), (4, 6, 50),
                 (25, 11, 320)]
@@ -64,3 +72,28 @@ def verify_inputs(N, T, V, *, seed=3):
     mask = rng.random(N) < 0.8
     return logits, drafts, mask
 
+
+
+def paged_inputs(B, T, H, Kv, P, ps, nb, hd, *, n_mapped=None, seed=7):
+    """q, k/v pool, pos pool, block tables, q_pos for one paged read, as the
+    JAX package's kernel tests build them: a shuffled pool whose page 0 is
+    the trash page (never mapped), the first ``n_mapped`` blocks of each row
+    mapped to distinct pages and the rest unmapped (-1), each mapped page
+    filled to a random length (ragged fills, empty slots at position -1),
+    and the T queries at positions n_mapped * ps - 2 onwards."""
+    if n_mapped is None:
+        n_mapped = min(nb - 1, (P - 1) // B)
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, hd), np.float32)
+    k_pool = rng.standard_normal((P, ps, Kv, hd), np.float32)
+    v_pool = rng.standard_normal((P, ps, Kv, hd), np.float32)
+    bt = np.full((B, nb), -1, np.int32)
+    pages = rng.permutation(np.arange(1, P))[:B * n_mapped]
+    bt[:, :n_mapped] = pages.reshape(B, n_mapped)
+    pos_pool = np.full((P, ps), -1, np.int32)
+    for b in range(B):
+        for j in range(n_mapped):
+            fill = int(rng.integers(1, ps + 1))
+            pos_pool[bt[b, j], :fill] = j * ps + np.arange(fill)
+    q_pos = np.tile(n_mapped * ps - 2 + np.arange(T), (B, 1)).astype(np.int32)
+    return q, k_pool, v_pool, pos_pool, bt, q_pos

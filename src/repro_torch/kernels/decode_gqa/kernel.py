@@ -1,6 +1,7 @@
-"""Launch of the hand-written CUDA kernel ``csrc/decode_gqa.cu`` (the port of
-``repro.kernels.decode_gqa.kernel.decode_gqa_kernel``). Takes tensors the
-wrapper in ``ops.py`` has already checked."""
+"""Launches of the hand-written CUDA kernels ``csrc/decode_gqa.cu`` (the
+port of ``repro.kernels.decode_gqa.kernel.decode_gqa_kernel``) and
+``csrc/paged_decode_gqa.cu`` (of ``paged_decode_gqa_kernel``). They take
+tensors the wrappers in ``ops.py`` have already checked."""
 
 from __future__ import annotations
 
@@ -29,4 +30,27 @@ def decode_gqa_kernel(q, k_cache, v_cache, k_pos, q_pos, *,
              window, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_gqa", err)
+    return out
+
+
+def paged_decode_gqa_kernel(q, k_pool, v_pool, pos_pool, block_tables, q_pos,
+                            *, window: int = 0) -> torch.Tensor:
+    """q: (B, T, H, hd) contiguous; k/v_pool: (P, ps, Kv, hd) with a
+    contiguous last axis, read through their strides; pos_pool: (P, ps),
+    block_tables: (B, n_blocks) and q_pos: (B, T) contiguous int32. The
+    launch of ``csrc/paged_decode_gqa.cu`` (the port of
+    ``repro.kernels.decode_gqa.kernel.paged_decode_gqa_kernel``). Returns
+    (B, T, H, hd) in q's dtype."""
+    B, T, H, hd = q.shape
+    ps, Kv = k_pool.shape[1], k_pool.shape[2]
+    nb = block_tables.shape[1]
+    out = torch.empty_like(q)
+    fn = _build.load("paged_decode_gqa")
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             pos_pool.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
+             out.data_ptr(), B, T, H, Kv, ps, nb, hd,
+             *k_pool.stride()[:3], *v_pool.stride()[:3],
+             window, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("paged_decode_gqa", err)
     return out

@@ -1,13 +1,16 @@
-"""The port's dense-cache GQA decode attention: the plain version for CPU
-tensors, the CUDA kernel for CUDA tensors (no fall-back between them)."""
+"""The port's GQA decode attention over a dense and over a paged cache: the
+plain version for CPU tensors, the CUDA kernel for CUDA tensors (no
+fall-back between them)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_gqa.kernel import _DTYPES, decode_gqa_kernel
-from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+from repro_torch.kernels.decode_gqa.kernel import (_DTYPES, decode_gqa_kernel,
+                                                   paged_decode_gqa_kernel)
+from repro_torch.kernels.decode_gqa.ref import (decode_gqa_ref,
+                                                paged_decode_gqa_ref)
 
 
 def _check(q, k_cache, v_cache, k_pos, q_pos) -> None:
@@ -56,4 +59,64 @@ def decode_gqa_attention(q, k_cache, v_cache, k_pos, q_pos, *,
         return torch.empty_like(q)
     out = decode_gqa_kernel(q, k_cache, v_cache, k_pos, q_pos, window=window)
     _build.launch_counts["decode_gqa"] += 1
+    return out
+
+
+def _check_paged(q, k_pool, v_pool, pos_pool, block_tables, q_pos) -> None:
+    if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(f"paged_decode_gqa: q {tuple(q.shape)}, k_pool "
+                         f"{tuple(k_pool.shape)}, v_pool {tuple(v_pool.shape)}")
+    B, T, H, hd = q.shape
+    P, ps, Kv, hdk = k_pool.shape
+    if hdk != hd or Kv == 0 or H % Kv:
+        raise ValueError(f"paged_decode_gqa: q {tuple(q.shape)} does not "
+                         f"match pool {tuple(k_pool.shape)}")
+    if (tuple(pos_pool.shape) != (P, ps) or block_tables.dim() != 2
+            or block_tables.shape[0] != B or tuple(q_pos.shape) != (B, T)):
+        raise ValueError(f"paged_decode_gqa: pos_pool {tuple(pos_pool.shape)},"
+                         f" block_tables {tuple(block_tables.shape)}, q_pos "
+                         f"{tuple(q_pos.shape)} for B={B} T={T} P={P} ps={ps}")
+    devs = {t.device for t in (q, k_pool, v_pool, pos_pool, block_tables,
+                               q_pos)}
+    if len(devs) != 1:
+        raise ValueError(f"paged_decode_gqa: tensors on several devices {devs}")
+
+
+def paged_decode_gqa_attention(q, k_pool, v_pool, pos_pool, block_tables,
+                               q_pos, *, window: int = 0) -> torch.Tensor:
+    """Paged decode attention: walk the block table instead of a contiguous
+    row. q: (B, T, H, hd); k/v_pool: (P, ps, Kv, hd) (the ``PagedKVCache``
+    pool layout of one layer); pos_pool: (P, ps) stored positions (-1
+    empty); block_tables: (B, n_blocks) page ids (-1 unmapped); q_pos:
+    (B, T). Returns (B, T, H, hd).
+
+    The counterpart of
+    ``repro.kernels.decode_gqa.ops.paged_decode_gqa_attention``; the pool is
+    read in its own layout, with no transposed copy.
+    """
+    _check_paged(q, k_pool, v_pool, pos_pool, block_tables, q_pos)
+    if q.device.type == "cpu":
+        return paged_decode_gqa_ref(q, k_pool, v_pool, pos_pool, block_tables,
+                                    q_pos, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_gqa: unsupported device {q.device}")
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise TypeError(f"paged_decode_gqa: dtypes {q.dtype}/{k_pool.dtype}/"
+                        f"{v_pool.dtype}; the kernel takes float32 or "
+                        f"bfloat16, all alike")
+    if any(t.dtype != torch.int32 for t in (pos_pool, block_tables, q_pos)):
+        raise TypeError("paged_decode_gqa: positions and block tables must "
+                        "be int32")
+    if not all(t.is_contiguous() for t in (q, pos_pool, block_tables, q_pos)):
+        raise ValueError("paged_decode_gqa: q, pos_pool, block_tables and "
+                         "q_pos must be contiguous")
+    if k_pool.stride(3) != 1 or v_pool.stride(3) != 1:
+        raise ValueError("paged_decode_gqa: the pool's head_dim axis must be "
+                         "contiguous")
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    out = paged_decode_gqa_kernel(q, k_pool, v_pool, pos_pool, block_tables,
+                                  q_pos, window=window)
+    _build.launch_counts["paged_decode_gqa"] += 1
     return out

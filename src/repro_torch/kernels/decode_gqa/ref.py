@@ -31,3 +31,24 @@ def decode_gqa_ref(q, k_cache, v_cache, k_pos, q_pos, *, window: int = 0):
     w = torch.where(mask.any(-1, keepdim=True), w, torch.zeros_like(w))
     out = torch.einsum("bkgts,bskh->btkgh", w, v_cache.float())
     return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def paged_decode_gqa_ref(q, k_pool, v_pool, pos_pool, block_tables, q_pos, *,
+                         window: int = 0):
+    """Plain paged version, a port of
+    ``repro.kernels.decode_gqa.ref.paged_decode_gqa_ref``: gather each row's
+    mapped pages into the dense view (unmapped blocks read the trash page 0
+    and are masked to position -1), then run ``decode_gqa_ref``.
+
+    q: (B, T, H, hd); k/v_pool: (P, ps, Kv, hd); pos_pool: (P, ps);
+    block_tables: (B, n_blocks) page ids, -1 unmapped. Returns (B, T, H, hd).
+    """
+    B, nb = block_tables.shape
+    ps = k_pool.shape[1]
+    mapped = block_tables >= 0
+    pages = torch.where(mapped, block_tables, 0).long()
+    k = k_pool[pages].reshape(B, nb * ps, *k_pool.shape[2:])
+    v = v_pool[pages].reshape(B, nb * ps, *v_pool.shape[2:])
+    kpos = torch.where(mapped[..., None], pos_pool[pages], -1)
+    return decode_gqa_ref(q, k, v, kpos.reshape(B, nb * ps), q_pos,
+                          window=window)

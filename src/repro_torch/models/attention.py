@@ -1,12 +1,20 @@
-"""Attention of the Molecular Transformer with a dense, position-tagged KV
-cache: the dense half of ``repro.models.attention``.
+"""Attention of the Molecular Transformer with a position-tagged KV cache,
+dense or paged: the port of ``repro.models.attention``.
 
-Cache design (as in the JAX package): ``(B, S, n_kv, head_dim)`` K/V buffers
+Dense cache (as in the JAX package): ``(B, S, n_kv, head_dim)`` K/V buffers
 plus a ``(B, S)`` int32 ``pos`` array holding the absolute position stored in
 each slot (-1 = empty). Writes go to ``slot = position % S``; masking is on
 stored positions, so a ring buffer and a linear cache are one code path.
-Unlike the JAX package, the port writes the cache IN PLACE (no copy of the
-buffers per step); ``cached_attention`` returns the same cache object.
+
+Paged cache (``PagedKVCache``): a page pool shared by all batch rows plus
+per-row block tables, so batch-row ops (winner sync, beam reorder, slot
+recycling) touch only the tables.
+
+Unlike the JAX package, the port writes either cache IN PLACE (no copy of
+the buffers per step); ``cached_attention`` returns the same cache object.
+Each cache type has one read path: the ``decode_gqa`` kernel for the dense
+cache, the ``paged_decode_gqa`` kernel for the paged one (their plain
+versions on the CPU).
 
 Masks use -1e30, not -inf, as in the JAX package.
 """
@@ -19,7 +27,8 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_gqa.ops import decode_gqa_attention
+from repro_torch.kernels.decode_gqa.ops import (decode_gqa_attention,
+                                               paged_decode_gqa_attention)
 from repro_torch.models.layers import dense, dense_init
 
 _NEG_INF = -1e30
@@ -74,6 +83,99 @@ def _write_cache(cache: KVCache, k_new, v_new, positions) -> KVCache:
     cache.v[b_idx, slots] = v_new.to(cache.v.dtype)
     cache.pos[b_idx, slots] = positions.to(torch.int32)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# paged cache
+
+TRASH_PAGE = 0  # reserved: writes with no mapped target land here, pos = -1
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Block-table KV cache: a global page pool shared by all batch rows.
+
+    ``block_tables[b, j]`` maps logical block ``j`` of row ``b`` to a page in
+    the pool (-1 = unmapped). Logical position ``p`` of row ``b`` lives at
+    ``(page=block_tables[b, (p // ps) % n_blocks], slot=p % ps)``. The pool
+    (and stored positions) carry no batch axis, so batch-row ops touch ONLY
+    the block tables; page contents are shared by aliasing. The host or
+    device page planner keeps the invariant that pages overlapping a row's
+    write window ``[pos, pos+DL]`` are privately owned (copy-on-write at the
+    draft boundary; ``repro_torch.core.session``). Attention masks on STORED
+    positions, so which page backs a block never changes the output.
+    """
+
+    k_pool: torch.Tensor        # (..., P, ps, n_kv, head_dim)
+    v_pool: torch.Tensor        # (..., P, ps, n_kv, head_dim)
+    pos: torch.Tensor           # (..., P, ps) int32, position stored, -1 empty
+    block_tables: torch.Tensor  # (..., B, n_blocks) int32 page id, -1 unmapped
+
+    @property
+    def page_size(self) -> int:
+        return self.k_pool.shape[-3]
+
+    @property
+    def n_blocks(self) -> int:
+        return self.block_tables.shape[-1]
+
+
+def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                        n_pages: int, page_size: int, device,
+                        dtype=torch.float32) -> PagedKVCache:
+    """Empty pool + unmapped tables. ``n_blocks`` covers the same logical
+    length the dense cache would reserve per row; page 0 is the reserved
+    trash page."""
+    if n_pages < 2:
+        raise ValueError("n_pages must be >= 2 (page 0 is the trash page)")
+    n_blocks = -(-max_len // page_size)
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return PagedKVCache(
+        k_pool=torch.zeros(shape, dtype=dtype, device=device),
+        v_pool=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((n_pages, page_size), -1, dtype=torch.int32,
+                       device=device),
+        block_tables=torch.full((batch, n_blocks), -1, dtype=torch.int32,
+                                device=device),
+    )
+
+
+def _lookup_pages(cache: PagedKVCache, positions):
+    """positions (B, T) -> (page (B, T), slot (B, T), mapped (B, T))."""
+    ps, nb = cache.page_size, cache.n_blocks
+    blocks = torch.div(positions, ps, rounding_mode="floor") % nb
+    page = cache.block_tables.gather(1, blocks.long())
+    mapped = (page >= 0) & (positions >= 0)
+    return (torch.where(mapped, page, TRASH_PAGE), positions % ps, mapped)
+
+
+def _write_cache_paged(cache: PagedKVCache, k_new, v_new, positions
+                       ) -> PagedKVCache:
+    """Scatter new K/V through the block table in place; positions (B, T).
+    Invalid targets (position -1 or an unmapped block) go to the trash page
+    with stored position -1: unreadable, like the dense pad convention."""
+    page, slot, mapped = _lookup_pages(cache, positions)
+    page, slot = page.long(), slot.long()
+    cache.k_pool[page, slot] = k_new.to(cache.k_pool.dtype)
+    cache.v_pool[page, slot] = v_new.to(cache.v_pool.dtype)
+    cache.pos[page, slot] = torch.where(mapped, positions, -1).to(torch.int32)
+    return cache
+
+
+def paged_view(cache: PagedKVCache):
+    """Materialize the dense per-row view (k, v, kpos): (B, n_blocks*ps,
+    n_kv, hd) x2 + (B, n_blocks*ps) positions; unmapped blocks read the
+    trash page, masked to position -1. The port reads through the
+    ``paged_decode_gqa`` kernel instead; this gather is its plain version's
+    first half and the library yardstick's."""
+    B, nb = cache.block_tables.shape
+    ps = cache.page_size
+    mapped = cache.block_tables >= 0
+    pages = torch.where(mapped, cache.block_tables, TRASH_PAGE).long()
+    k = cache.k_pool[pages].reshape(B, nb * ps, *cache.k_pool.shape[2:])
+    v = cache.v_pool[pages].reshape(B, nb * ps, *cache.v_pool.shape[2:])
+    kpos = torch.where(mapped[..., None], cache.pos[pages], -1)
+    return k, v, kpos.reshape(B, nb * ps)
 
 
 # ---------------------------------------------------------------------------
@@ -161,26 +263,39 @@ def cached_cross_attention(p: dict, cfg: ModelConfig, x, cache: dict, *,
     return dense(p["wo"], out.reshape(B, T, -1))
 
 
-def cached_attention(p: dict, cfg: ModelConfig, x, cache: KVCache, positions
-                     ) -> tuple[torch.Tensor, KVCache]:
-    """Cached causal decode over a dense cache.
+def cached_attention(p: dict, cfg: ModelConfig, x, cache, positions
+                     ) -> tuple[torch.Tensor, object]:
+    """Cached causal decode over a dense ``KVCache`` or a ``PagedKVCache``.
 
     x: (B, T, d) new tokens; positions: (B, T) absolute positions of those
     tokens (rows may differ — the speculative decoder relies on this).
-    ``positions == -1`` marks invalid tokens: their K/V land in slot S-1 with
-    stored position -1, which every query masks. Returns (B, T, d) and the
-    cache, updated in place.
+    ``positions == -1`` marks invalid tokens: their K/V land in a throwaway
+    slot (dense: slot S-1; paged: the trash page) with stored position -1,
+    which every query masks. Returns (B, T, d) and the cache, updated in
+    place.
+
+    Fully masked query rows: the read goes through the ``decode_gqa`` /
+    ``paged_decode_gqa`` kernel (its plain version on the CPU), which
+    returns 0 for a query with no visible key, as the JAX package's own
+    kernel oracles do. The JAX model's einsum read returns the uniform mean
+    of V there instead. The two differ only on such rows, and such a row
+    never reaches committed state: the one-shot path never feeds one
+    (every slot is active, positions are >= 0 and a token's own key is
+    written before it is read), and the streaming engine feeds them only
+    for inactive slots (position -1), whose logits the session step
+    discards (no token is written, no row is moved).
     """
     B, T = x.shape[:2]
     q, k_new, v_new = _project_qkv(p, cfg, x, x, cross=False)
     positions = positions.to(torch.int32).contiguous()
-    cache = _write_cache(cache, k_new, v_new, positions)
-    # The read goes through the decode_gqa kernel (its plain version on the
-    # CPU). It returns 0 for a query row with no visible key, where the JAX
-    # package's einsum returns a uniform mean; the one-shot serving path
-    # never feeds such a row (every slot is active, positions are >= 0 and a
-    # token's own key is written before it is read), so on that path the two
-    # are the same function.
-    out = decode_gqa_attention(q.contiguous(), cache.k, cache.v, cache.pos,
-                               positions)
+    if isinstance(cache, PagedKVCache):
+        cache = _write_cache_paged(cache, k_new, v_new, positions)
+        out = paged_decode_gqa_attention(q.contiguous(), cache.k_pool,
+                                         cache.v_pool, cache.pos,
+                                         cache.block_tables.contiguous(),
+                                         positions)
+    else:
+        cache = _write_cache(cache, k_new, v_new, positions)
+        out = decode_gqa_attention(q.contiguous(), cache.k, cache.v,
+                                   cache.pos, positions)
     return dense(p["wo"], out.reshape(B, T, -1)), cache

@@ -1,14 +1,15 @@
 """Encoder-decoder transformer — the Molecular Transformer (Schwaller 2019),
-the port of ``repro.models.seq2seq`` (dense cache only).
+the port of ``repro.models.seq2seq`` (dense and paged decoder caches).
 
 Pre-LN residual blocks with GELU, as in the JAX package. Params are the JAX
 package's tree with the stacked layer axis split into Python lists
 (``enc_blocks`` / ``dec_blocks``), so ``lax.scan`` over layers becomes a
 loop. ``repro_torch.bridge`` carries a JAX param tree across.
 
-The decoder cache is ``{"self": KVCache, "cross": {"mk", "mv"}}`` with every
-leaf stacked on a leading layer axis, batch on axis 1 (the JAX layout that
-``repro_torch.core.tree_batch`` maps over).
+The decoder cache is ``{"self": KVCache | PagedKVCache, "cross": {"mk",
+"mv"}}`` (plus ``"mmask"`` when the memory mask rides in the cache) with
+every leaf stacked on a leading layer axis, batch on axis 1 (the JAX layout
+that ``repro_torch.core.tree_batch`` maps over).
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.attention import (KVCache, attention, cached_attention,
-                                          cross_attention)
+from repro_torch.models.attention import (KVCache, PagedKVCache, attention,
+                                          cached_attention, cross_attention)
 from repro_torch.models.layers import (apply_norm, embed, embed_init, ffn,
                                        ffn_init, logits_init, norm_init,
                                        sinusoidal_positions)
@@ -131,16 +132,38 @@ def apply(params, cfg: ModelConfig, src, tgt_in, *, src_mask=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, memory=None,
                params=None, dtype=torch.float32, memory_len=None,
-               device=None) -> dict:
-    """Dense self-attn KV caches + precomputed cross K/V (if memory given),
-    every leaf stacked on a leading layer axis."""
+               memory_mask=None, paged=None, device=None) -> dict:
+    """Self-attn KV caches + precomputed cross K/V (if memory given), every
+    leaf stacked on a leading layer axis.
+
+    ``memory_len``: cross K/V width when ``memory`` is absent (the
+    streaming engine allocates empty rows up front and scatters each
+    request's memory K/V in at admission). ``memory_mask``: (batch, M)
+    True=valid; when given it is stored INSIDE the cache (leaf (1, batch,
+    M), batch on axis 1 like every other leaf), so batch-row ops carry each
+    row's mask along and ``decode_step`` needs no closed-over mask.
+    ``paged``: ``(n_pages, page_size)`` allocates the self-attn cache as a
+    ``PagedKVCache`` (one pool per decoder layer, every layer's block table
+    identical) whose pages the caller maps; the cross K/V stays dense."""
     R = cfg.n_layers
     dev = memory.device if memory is not None else resolve_device(device)
-    one = attn_mod.init_kv_cache(cfg, batch, max_len, device=dev, dtype=dtype)
-    self_cache = KVCache(
-        k=one.k.expand(R, *one.k.shape).contiguous(),
-        v=one.v.expand(R, *one.v.shape).contiguous(),
-        pos=one.pos.expand(R, *one.pos.shape).contiguous())
+
+    def stack(a):
+        return a.expand(R, *a.shape).contiguous()
+
+    if paged is not None:
+        n_pages, page_size = paged
+        one = attn_mod.init_paged_kv_cache(
+            cfg, batch, max_len, n_pages=n_pages, page_size=page_size,
+            device=dev, dtype=dtype)
+        self_cache = PagedKVCache(
+            k_pool=stack(one.k_pool), v_pool=stack(one.v_pool),
+            pos=stack(one.pos), block_tables=stack(one.block_tables))
+    else:
+        one = attn_mod.init_kv_cache(cfg, batch, max_len, device=dev,
+                                     dtype=dtype)
+        self_cache = KVCache(k=stack(one.k), v=stack(one.v),
+                             pos=stack(one.pos))
     if memory is not None and params is not None:
         mkv = [attn_mod.memory_kv(p["cross_attn"], cfg, memory)
                for p in params["dec_blocks"]]
@@ -152,7 +175,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, memory=None,
         shape = (R, batch, M, cfg.n_heads, cfg.head_dim)
         cross = {"mk": torch.zeros(shape, dtype=dtype, device=dev),
                  "mv": torch.zeros(shape, dtype=dtype, device=dev)}
-    return {"self": self_cache, "cross": cross}
+    cache = {"self": self_cache, "cross": cross}
+    if memory_mask is not None:
+        cache["mmask"] = torch.as_tensor(memory_mask, dtype=torch.bool,
+                                         device=dev)[None]
+    return cache
+
+
+def _layer(c_self, i: int):
+    """Layer ``i`` of the stacked self-attention cache (views, written in
+    place by ``cached_attention``)."""
+    if isinstance(c_self, PagedKVCache):
+        return PagedKVCache(c_self.k_pool[i], c_self.v_pool[i],
+                            c_self.pos[i], c_self.block_tables[i])
+    return KVCache(c_self.k[i], c_self.v[i], c_self.pos[i])
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, positions, *,
@@ -160,14 +196,17 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions, *,
     """Feed T new tokens (T = DL+1 for verification). Returns (logits, cache);
     the self-attention cache is updated in place.
 
-    ``positions``: (B, T) absolute target positions (rows may differ)."""
+    ``positions``: (B, T) absolute target positions (rows may differ). When
+    no explicit ``memory_mask`` is passed the per-row mask stored in the
+    cache (if any) applies."""
+    if memory_mask is None and "mmask" in cache:
+        memory_mask = cache["mmask"][0]
     x = _embed_pos(params, cfg, tokens, positions)
     c_self = cache["self"]
     for i, p in enumerate(params["dec_blocks"]):
-        layer = KVCache(c_self.k[i], c_self.v[i], c_self.pos[i])
         a, _ = cached_attention(p["self_attn"], cfg,
-                                apply_norm(p["norm1"], x, cfg.norm), layer,
-                                positions)
+                                apply_norm(p["norm1"], x, cfg.norm),
+                                _layer(c_self, i), positions)
         x = x + a
         cross = {"mk": cache["cross"]["mk"][i], "mv": cache["cross"]["mv"][i]}
         x = x + attn_mod.cached_cross_attention(

@@ -1,0 +1,228 @@
+"""ModelBackend — the architecture layer under ``StreamingEngine`` (the port
+of ``repro.serving.backend``, seq2seq backend).
+
+The scheduler and the session step are model-agnostic (they drive a
+``DecoderHandle``); what is not is admission: how a request's context
+enters its slot's cache rows. A backend owns that surface: cache
+construction (``init_cache``), the step handle (``step_handle``), host-side
+request preparation (``make_request``: tokenization and drafting) and the
+device-side admission (``admit_cache``).
+
+The Molecular Transformer's admission is monolithic: encode the query once
+and scatter its cross-attention K/V and memory mask into the slot's rows;
+the self-attention cache starts empty (dense rows marked empty, paged rows
+unmapped). The decoder-only backend, with its chunked ragged prefill, is
+not ported yet (ROADMAP Queue 1 item 6); ``_clean_rows`` and
+``_adopt_row0`` are its cache-row helpers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.drafting import batch_drafts
+from repro_torch.core.handles import DecoderHandle, seq2seq_handle
+from repro_torch.core.session import SessionSpec, unmap_cache_rows
+from repro_torch.core.tree_batch import set_rows
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import seq2seq as s2s
+from repro_torch.models.attention import KVCache, PagedKVCache
+from repro_torch.serving.api import GenerationParams
+
+
+@dataclasses.dataclass
+class Request:
+    """One admission, backend-prepared on the host at ``submit()`` time.
+
+    ``args``: host tensors for the admit call (source tokens, drafts, draft
+    mask). ``chunks``: prefill chunks (always empty for the monolithic
+    seq2seq backend). ``gen``: the request's slot params for ``reset_slot``
+    (``ResolvedParams.device_args``). ``params``: the host-side
+    ``ResolvedParams`` (read-out trimming). ``prompt``: the host token array
+    the request was built from.
+    """
+
+    args: tuple
+    chunks: list
+    gen: tuple = ()
+    params: object = None
+    prompt: np.ndarray | None = None
+
+
+def _pad_drafts(drafts: np.ndarray, dmask: np.ndarray, spec: SessionSpec):
+    """Pad a per-request (n_d', dl') draft matrix to the group's (N_d, DL)
+    ceiling. Pad rows are masked out and pad columns sit beyond the slot's
+    ``eff_dl`` clamp, so the step treats the padded matrix exactly like the
+    smaller one."""
+    if drafts.shape == (spec.n_drafts, spec.draft_len):
+        return drafts, dmask
+    out = np.zeros((spec.n_drafts, spec.draft_len), np.int32)
+    mask = np.zeros((spec.n_drafts,), bool)
+    out[:drafts.shape[0], :drafts.shape[1]] = drafts
+    mask[:dmask.shape[0]] = dmask
+    return out, mask
+
+
+def _map_nodes(fn, cache):
+    if isinstance(cache, dict):
+        return {k: _map_nodes(fn, v) for k, v in cache.items()}
+    return fn(cache)
+
+
+def _clean_rows(cache, rows):
+    """Recycle cache ``rows`` for a fresh request, in place: dense KV rows
+    become unreadable (stored position -1), paged rows are unmapped, other
+    leaves reset to zero."""
+    idx = torch.as_tensor(rows, dtype=torch.long)
+
+    def one(x):
+        if isinstance(x, PagedKVCache):
+            x.block_tables[:, idx.to(x.block_tables.device)] = -1
+        elif isinstance(x, KVCache):
+            x.pos[:, idx.to(x.pos.device)] = -1
+        else:
+            x[:, idx.to(x.device)] = 0
+        return x
+
+    return _map_nodes(one, cache)
+
+
+def _adopt_row0(cache, rows):
+    """Give every row of a slot the first row's context, in place: dense
+    leaves copy row 0, paged leaves alias its block table."""
+    idx = torch.as_tensor(rows, dtype=torch.long)
+
+    def copy_row0(t):
+        i = idx.to(t.device)
+        t[:, i] = t[:, i[:1]].expand_as(t[:, i])
+
+    def one(x):
+        if isinstance(x, PagedKVCache):
+            copy_row0(x.block_tables)
+        elif isinstance(x, KVCache):
+            for t in (x.k, x.v, x.pos):
+                copy_row0(t)
+        else:
+            copy_row0(x)
+        return x
+
+    return _map_nodes(one, cache)
+
+
+class Seq2SeqBackend:
+    """Encoder–decoder (Molecular Transformer) backend: monolithic admission
+    — encode the query, scatter cross-attention K/V + memory mask into the
+    slot's cache rows."""
+
+    chunked = False
+
+    def __init__(self, cfg: ModelConfig, ecfg, tokenizer):
+        if tokenizer is None:
+            raise ValueError("Seq2SeqBackend requires a tokenizer")
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.tok = tokenizer
+
+    # ---- cache / step ----------------------------------------------------
+    def step_handle(self, params) -> DecoderHandle:
+        return seq2seq_handle(params, self.cfg)   # mask rides in the cache
+
+    def row_len(self, spec: SessionSpec) -> int:
+        return spec.cache_len
+
+    def init_cache(self, n_rows: int, row_len: int, paged=None, *, device):
+        return s2s.init_cache(
+            self.cfg, n_rows, row_len, memory_len=self.ecfg.max_src,
+            memory_mask=np.zeros((n_rows, self.ecfg.max_src), bool),
+            paged=paged, device=device)
+
+    def pageable(self) -> bool:
+        return True
+
+    def per_token_bytes(self) -> int:
+        cfg = self.cfg
+        return cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 4
+
+    # ---- host-side request prep ------------------------------------------
+    def make_request(self, query, spec: SessionSpec, params=None) -> Request:
+        """``params`` is a resolved ``GenerationParams`` (defaults = the
+        group's ceilings). Drafts are extracted at the REQUEST's draft
+        window, then padded to the group's (N_d, DL) shape."""
+        ecfg = self.ecfg
+        if params is None:
+            params = GenerationParams().resolve(spec)
+        if isinstance(query, str):
+            src = np.asarray(self.tok.encode_padded(query, ecfg.max_src,
+                                                    add_eos=True), np.int32)
+        else:
+            src = np.zeros((ecfg.max_src,), np.int32)
+            q = np.asarray(query, np.int32).reshape(-1)
+            src[:len(q)] = q[:ecfg.max_src]
+        dl, nd = params.draft_len, params.n_drafts
+        if dl > 0:
+            drafts_b, dmask_b = batch_drafts(src[None], dl, nd,
+                                             dilations=ecfg.dilations)
+            drafts, dmask = drafts_b[0], dmask_b[0]
+        else:
+            drafts = np.zeros((nd, 0), np.int32)
+            dmask = np.ones((nd,), bool)
+        drafts, dmask = _pad_drafts(drafts, dmask, spec)
+        return Request(args=(torch.from_numpy(src),
+                             torch.from_numpy(np.ascontiguousarray(drafts)),
+                             torch.from_numpy(np.ascontiguousarray(dmask))),
+                       chunks=[], gen=params.device_args(spec),
+                       params=params, prompt=src)
+
+    # ---- device-side admission -------------------------------------------
+    def encode_kv(self, params, src):
+        """The encoder leg of admission for ONE query: the stacked memory
+        K/V ({"mk", "mv"}: (R, 1, M, H, hd)) and the source mask (M,)."""
+        cfg = self.cfg
+        memory, mask = s2s.encode(params, cfg, src[None])
+        mkv = [attn_mod.memory_kv(p["cross_attn"], cfg, memory)
+               for p in params["dec_blocks"]]
+        return ({"mk": torch.stack([m["mk"] for m in mkv]),
+                 "mv": torch.stack([m["mv"] for m in mkv])}, mask[0])
+
+    def admit_cache_precomputed(self, params, cache, rows, mkv, mask):
+        """Scatter an encoded source into the slot's cache rows, in place.
+        Recycled rows: the evicted request's stale K/V must be unreadable
+        (dense: pos = -1 marks every slot empty; paged: the rows' block
+        tables are unmapped and the page planner maps fresh pages)."""
+        set_rows(cache["cross"], rows, mkv)
+        cache["mmask"][:, rows.to(cache["mmask"].device).long()] = mask.to(
+            cache["mmask"].device)
+        sc = cache["self"]
+        if isinstance(sc, PagedKVCache):
+            unmap_cache_rows(cache, rows)
+        else:
+            sc.pos[:, rows.to(sc.pos.device).long()] = -1
+        return cache
+
+    def admit_cache(self, params, cache, rows, src, drafts, dmask):
+        mkv, mask = self.encode_kv(params, src)
+        return self.admit_cache_precomputed(params, cache, rows, mkv, mask)
+
+    def reset_args(self, src, drafts, dmask):
+        """(last_token, start_pos, drafts, dmask) for ``reset_slot``:
+        decoding starts from BOS at position 0."""
+        return self.tok.bos_id, 0, drafts, dmask
+
+
+def make_backend(cfg: ModelConfig, ecfg, tokenizer=None):
+    """Default backend for a config: ``EngineConfig.backend`` may name one
+    ("seq2seq"); "auto" keys off the model family. Only the seq2seq backend
+    is ported: any other family is refused."""
+    kind = getattr(ecfg, "backend", "auto")
+    if kind == "auto":
+        kind = "seq2seq" if cfg.family == "seq2seq" else "decoder_only"
+    if kind == "seq2seq":
+        return Seq2SeqBackend(cfg, ecfg, tokenizer)
+    raise ValueError(
+        f"backend {kind!r} (model family {cfg.family!r}) is not ported: the "
+        f"decoder-only backend and its families are ROADMAP.md Queue 1 "
+        f"item 6")

@@ -1,5 +1,5 @@
-"""The one-shot serving engine (the port of ``repro.serving.engine``'s
-``ReactionEngine``): the industrial-application layer the paper targets.
+"""Serving engines (the port of ``repro.serving.engine``): the
+industrial-application layer the paper targets.
 
 Pipeline per request batch:
   tokenize -> encode once -> extract source-copy drafts (host, numpy)
@@ -11,14 +11,42 @@ Decoding modes mirror the paper's experiments:
   beam                 Table 3/4 baseline
   speculative_beam     Table 3/4, the paper's SBS
 
+Two engines share these modes:
+
+``ReactionEngine`` — the per-request reference: runs each request batch to
+completion (every request waits for the slowest member of its batch).
+
+``StreamingEngine`` — the production path: S fixed decode slots in per-mode
+slot groups (``EngineConfig.mode_groups``) over one model cache, driven by
+``repro_torch.serving.scheduler.ContinuousScheduler``. Finished sequences
+leave at once and queued requests take their slots; beams are batched
+across slots. With ``EngineConfig(paged=True)`` the self-attention cache is
+a ``PagedKVCache``: admission is gated on free pages, each iteration plans
+its page maintenance on the card (``device_page_plan``), and an iteration
+the pool cannot cover changes nothing, so the host preempts the youngest
+resident and replays it. The request front door is
+``repro_torch.serving.api``: ``submit()`` returns a ``RequestHandle`` with
+``.result()`` / ``.stream()`` / ``.cancel()``. Outputs are token-identical
+to ``ReactionEngine`` and to the JAX package's ``StreamingEngine``.
+
+JAX's one donated jitted megastep becomes an eager PyTorch function over
+tensors the engine updates in place. A steady-state iteration of a paged
+session reads the card twice: the plan's exhaustion flag (and copy count)
+before the plan is applied, and the iteration's small output bundle after
+the step; a dense session reads once. The prefix cache, the overload
+policy, mesh sharding and the decoder-only backend are not ported yet and
+are refused at construction.
+
 On the card the decoder's cached self-attention runs the ``decode_gqa``
-kernel and the greedy-family accept op the ``draft_verify`` kernel.
+kernel (dense cache) or the ``paged_decode_gqa`` kernel (paged cache), and
+the greedy-family accept op the ``draft_verify`` kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -29,16 +57,32 @@ from repro_torch.core import (batch_drafts, beam_search, extract_drafts,
                               greedy_decode, seq2seq_handle,
                               speculative_beam_search,
                               speculative_greedy_decode)
+from repro_torch.core.session import (PageAllocator, PoolExhausted,
+                                      SessionSpec, apply_page_plan,
+                                      device_free_pages, device_page_plan,
+                                      grouped_init_state, grouped_step,
+                                      release_slot, reset_slot,
+                                      unmap_cache_rows)
 from repro_torch.data.tokenizer import SmilesTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models import seq2seq as s2s
+from repro_torch.serving.api import (MAX_STOP_IDS, GenerationParams,
+                                     RequestCancelled, RequestHandle,
+                                     RequestRejected, RequestSpec,
+                                     RequestStatus)
+from repro_torch.serving.backend import make_backend
+from repro_torch.serving.scheduler import ContinuousScheduler, SlotResult
 
 MODES = ("greedy", "speculative", "beam", "speculative_beam")
 
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The one-shot fields of ``repro.serving.engine.EngineConfig``."""
+    """The fields of ``repro.serving.engine.EngineConfig`` the port serves:
+    the one-shot decode knobs and the ``StreamingEngine``'s slots, mode
+    groups and paged cache. ``prefix_cache``, ``overload`` and ``mesh``
+    exist so that a configuration asking for them is refused at engine
+    construction (not ported yet: ROADMAP Queue 1 items 5 and 9)."""
 
     mode: str = "speculative"        # greedy|speculative|beam|speculative_beam
     draft_len: int = 10              # the paper's best DL
@@ -47,15 +91,40 @@ class EngineConfig:
     max_new: int = 96
     max_src: int = 128
     dilations: tuple[int, ...] = (1,)
+    n_slots: int = 2                 # StreamingEngine decode slots
+    # in-flight mode mixing (StreamingEngine): per-mode slot groups sharing
+    # one cache/pool/step, e.g. {"greedy": 4, "speculative": 4, "beam": 2};
+    # None = one group of ``mode`` x ``n_slots``
+    mode_groups: dict[str, int] | tuple | None = None
+    # paged KV cache (StreamingEngine): admission is gated on free pages
+    paged: bool = False
+    page_size: int = 16              # tokens per page
+    n_pages: int | None = None       # pool size; None = worst case
+    backend: str = "auto"            # "auto" | "seq2seq"
+    prefix_cache: bool = False       # refused by StreamingEngine
+    overload: object | None = None   # refused by StreamingEngine
+    mesh: object | None = None       # refused by StreamingEngine
 
     def __post_init__(self):
         for name, lo in (("max_new", 1), ("max_src", 1), ("draft_len", 0),
-                         ("n_drafts", 1), ("n_beams", 1)):
+                         ("n_drafts", 1), ("n_beams", 1), ("n_slots", 1),
+                         ("page_size", 1)):
             if getattr(self, name) < lo:
                 raise ValueError(f"EngineConfig.{name}={getattr(self, name)} "
                                  f"must be >= {lo}")
+        if self.n_pages is not None and self.n_pages < 2:
+            raise ValueError(
+                f"EngineConfig.n_pages={self.n_pages}: a paged pool needs at "
+                f"least the reserved trash page plus one usable page")
         if self.mode not in MODES:
             raise ValueError(f"unknown decode mode {self.mode!r}")
+        for mode, n in (dict(self.mode_groups) if self.mode_groups
+                        else {}).items():
+            if mode not in MODES:
+                raise ValueError(f"unknown decode mode {mode!r}")
+            if int(n) < 1:
+                raise ValueError(f"mode group {mode!r} needs >= 1 slot, "
+                                 f"got {n}")
 
 
 @dataclasses.dataclass
@@ -194,3 +263,736 @@ class ReactionEngine:
                           logprobs=logprobs, n_calls=int(res.n_calls),
                           acceptance_rate=accepted / max(generated, 1),
                           wall_s=wall)
+
+
+_I32 = torch.int32
+
+
+class StreamingEngine:
+    """Continuous-batching engine: S decode slots in per-mode slot groups
+    over one model cache (dense rows or a paged pool), one step per
+    scheduler iteration.
+
+    ``device``: where the model runs; ``None`` means the card, and a missing
+    card is an error. Pass ``device="cpu"`` to run the plain versions."""
+
+    # terminal records kept for RequestHandle.result()/.status after their
+    # serve() epoch: bounded, oldest insertions evict first
+    _DONE_CAP = 4096
+
+    def __init__(self, params, cfg: ModelConfig,
+                 tokenizer: SmilesTokenizer | None = None,
+                 engine_cfg: EngineConfig | None = None, *,
+                 backend=None, device=None):
+        self.ecfg = ecfg = engine_cfg or EngineConfig()
+        for name, item in (("prefix_cache", 5), ("overload", 5),
+                           ("mesh", 9)):
+            if getattr(ecfg, name) not in (None, False):
+                raise NotImplementedError(
+                    f"EngineConfig.{name} is not ported yet (ROADMAP.md "
+                    f"Queue 1 item {item})")
+        self.device = resolve_device(device)
+        self.params = _to(params, self.device)
+        self.cfg = cfg
+        self.tok = tokenizer
+        self.backend = backend or make_backend(cfg, ecfg, tokenizer)
+        if self.backend.chunked:
+            raise NotImplementedError(
+                "chunked-prefill backends (decoder-only) are not ported yet "
+                "(ROADMAP.md Queue 1 item 6)")
+        if tokenizer is None:
+            raise ValueError("StreamingEngine needs a tokenizer (its EOS and "
+                             "pad ids end and pad every sequence)")
+        group_slots = (dict(ecfg.mode_groups) if ecfg.mode_groups
+                       else {ecfg.mode: ecfg.n_slots})
+        self._groups: dict[str, SessionSpec] = {}
+        for mode, n_slots in group_slots.items():
+            kind, K, N_d, DL = _mode_shape(ecfg, mode)
+            self._groups[mode] = SessionSpec(
+                n_slots=int(n_slots), n_beams=K, n_drafts=N_d, draft_len=DL,
+                max_new=ecfg.max_new, eos_id=tokenizer.eos_id,
+                pad_id=tokenizer.pad_id, kind=kind, n_stop=MAX_STOP_IDS)
+        self.mode_names = list(self._groups)
+        self.default_mode = (ecfg.mode if ecfg.mode in self._groups
+                             else self.mode_names[0])
+        self.spec = self._groups[self.default_mode]   # primary group
+        # group g owns cache rows [row_lo[g], row_lo[g] + n_rows_g) and
+        # global scheduler slots [slot_base[g], slot_base[g] + n_slots_g)
+        self._row_lo, self._slot_base, self._slot_map = {}, {}, []
+        rows = slots = 0
+        for mode, spec in self._groups.items():
+            self._row_lo[mode], self._slot_base[mode] = rows, slots
+            self._slot_map += [(mode, i) for i in range(spec.n_slots)]
+            rows += spec.n_rows
+            slots += spec.n_slots
+        self.n_rows, self.n_slots = rows, slots
+        self.cache_len = max(self.backend.row_len(s)
+                             for s in self._groups.values())
+        # loop instrumentation: steps issued, per-iteration counts, and host
+        # step gaps (seconds between consecutive bundle reads), bounded
+        self.n_dispatches = 0
+        self._disp_mark = 0
+        self._dispatch_samples: list[int] = []
+        self._step_gaps: list[float] = []
+        self.allocator: PageAllocator | None = None
+        # request-level front door state: terminal records by rid, the
+        # current serve() epoch's records, live stream cursors, and the
+        # single step pump every blocking call drives
+        self._done: dict[int, SlotResult] = {}
+        self._epoch: dict[int, SlotResult] = {}
+        self._streams: dict[int, dict] = {}
+        self._pump = None
+        self._pump_realtime = False
+        self.scheduler = self._new_scheduler()
+
+    # -- the step ----------------------------------------------------------
+    def _megastep(self, gstate):
+        """One scheduler iteration on the card: (paged) plan the page
+        maintenance on the device, read its exhaustion flag, and — unless
+        the pool is exhausted, in which case nothing is applied so the host
+        can preempt and replay the iteration exactly — apply the plan and
+        run the grouped decode step. Returns ``(gstate, bundle)``: the
+        bundle holds everything the host reads afterwards."""
+        specs = tuple(self._groups.values())
+        n_out0 = self._slot_counts(gstate)
+        plan = None
+        if self.ecfg.paged:
+            n_pages, ps = self._paged_geometry()
+            blocks = tuple(self.allocator._blocks[m] for m in self.mode_names)
+            plan = device_page_plan(specs, blocks, ps, n_pages, gstate)
+            exhausted, n_copy = torch.stack(
+                [plan.exhausted.to(_I32), plan.copy.sum(dtype=_I32)]).tolist()
+            if exhausted:
+                return gstate, dict(exhausted=plan.exhausted,
+                                    n_free_alloc=plan.n_free,
+                                    need=plan.need_by_group)
+            apply_page_plan(gstate.cache, plan, n_copy)
+        handle = self.backend.step_handle(self.params)
+        gstate = grouped_step(specs, handle, gstate)
+        return gstate, self._make_bundle(gstate, n_out0, plan)
+
+    def _slot_counts(self, gstate) -> torch.Tensor:
+        """(n_slots,) committed-token counts on each slot's row 0, global
+        slot order (groups are slot-contiguous in declaration order)."""
+        return torch.cat([gs.n_out[:, 0] for gs in gstate.groups])
+
+    def _make_bundle(self, gstate, n_out0, plan) -> dict:
+        """The step's host bundle: small fixed-shape tensors (the readback
+        is O(n_slots), never the session state)."""
+        specs = list(self._groups.values())
+        maxW = max([s.draft_len + 1 for s in specs if s.kind == "greedy"],
+                   default=1)
+        finished = torch.cat([gs.finished.all(dim=1) for gs in gstate.groups])
+        n_out1 = self._slot_counts(gstate)
+        n_new = n_out1 - n_out0
+        w = torch.arange(maxW, dtype=_I32, device=n_new.device)
+        deltas, lo = [], 0
+        for spec, gs in zip(specs, gstate.groups):
+            S = spec.n_slots
+            if spec.kind == "greedy":
+                idx = (n_out0[lo:lo + S, None] + w[None, :]).clamp(
+                    0, spec.max_new - 1)
+                tok = gs.tokens[:, 0].gather(1, idx.long())
+                d = torch.where(w[None, :] < n_new[lo:lo + S, None], tok, 0)
+            else:
+                # beams reorder mid-flight: only terminal reads are truthful
+                d = torch.zeros((S, maxW), dtype=_I32, device=w.device)
+            deltas.append(d)
+            lo += S
+        bundle = dict(finished=finished, n_out=n_out1, n_new=n_new,
+                      delta=torch.cat(deltas, dim=0),
+                      exhausted=torch.zeros((), dtype=_I32, device=w.device))
+        if plan is not None:
+            n_pages, _ = self._paged_geometry()
+            bundle.update(
+                # free pages right after allocation (the peak-usage feed)
+                n_free_alloc=plan.n_free - plan.need_by_group.sum(),
+                # recounted after the step: winner sync / beam reorder
+                # orphan pages inside it, and the mirror must see them free
+                n_free_final=device_free_pages(gstate.cache, n_pages),
+                need=plan.need_by_group)
+        return bundle
+
+    @staticmethod
+    def _read_bundle(bundle: dict) -> dict:
+        """The bundle on the host in ONE device read: every tensor is
+        packed into one int32 vector and split again here."""
+        keys = list(bundle)
+        flat = torch.cat([bundle[k].reshape(-1).to(_I32) for k in keys])
+        host = flat.cpu().numpy()
+        out, at = {}, 0
+        for k in keys:
+            t = bundle[k]
+            n = t.numel()
+            a = host[at:at + n].reshape(tuple(t.shape))
+            out[k] = a.astype(bool) if t.dtype == torch.bool else a
+            at += n
+        return out
+
+    # -- admission / eviction ----------------------------------------------
+    def _slot_rows(self, mode: str, local: int) -> torch.Tensor:
+        spec = self._groups[mode]
+        lo = self._row_lo[mode] + local * spec.rows_per_slot
+        return torch.arange(lo, lo + spec.rows_per_slot, device=self.device)
+
+    def _admit(self, gstate, mode: str, local: int, req):
+        """Admit ``req`` into local slot ``local`` of ``mode``'s group, in
+        place: encode the query, scatter its cross-attn K/V + memory mask
+        into the slot's rows (recycling their self-attn rows), and reset the
+        slot's decode state."""
+        spec = self._groups[mode]
+        gi = self.mode_names.index(mode)
+        be = self.backend
+        args = tuple(a.to(self.device) for a in req.args)
+        be.admit_cache(self.params, gstate.cache,
+                       self._slot_rows(mode, local), *args)
+        last, pos0, drafts, dmask = be.reset_args(*args)
+        max_out, stop_ids, eff_dl, eff_beams = req.gen
+        reset_slot(spec, gstate.groups[gi], local, last, pos0, drafts, dmask,
+                   max_out=max_out, stop_ids=stop_ids, eff_dl=eff_dl,
+                   eff_beams=eff_beams)
+        return gstate
+
+    def _release(self, gstate, mode: str, local: int):
+        """Evict a local slot of ``mode``'s group, in place, and (paged)
+        unmap its rows so the page planners see its pages free."""
+        release_slot(gstate.groups[self.mode_names.index(mode)], local)
+        if self.ecfg.paged:
+            unmap_cache_rows(gstate.cache, self._slot_rows(mode, local))
+        return gstate
+
+    def _slot_of(self, slot: int) -> tuple[str, int]:
+        """Global scheduler slot -> (mode, local slot in its group)."""
+        return self._slot_map[slot]
+
+    def _paged_geometry(self) -> tuple[int, int]:
+        """(n_pages, page_size); the default pool is the worst case for all
+        rows of all groups (the paged layout with no oversubscription). Set
+        ``n_pages`` lower to oversubscribe (admission then defers on pool
+        pressure)."""
+        ecfg = self.ecfg
+        ps = ecfg.page_size
+        if ecfg.n_pages is not None:
+            return ecfg.n_pages, ps
+        worst = sum(s.n_rows * (-(-self.backend.row_len(s) // ps))
+                    for s in self._groups.values())
+        return worst + 1, ps
+
+    def _finished_mask(self, gstate) -> np.ndarray:
+        """(n_slots,) bool by global slot id."""
+        return torch.cat([gs.finished.all(dim=1)
+                          for gs in gstate.groups]).cpu().numpy()
+
+    # -- dispatch-ahead drive hooks ------------------------------------------
+    def _dispatch_step(self, state):
+        """Scheduler ``dispatch`` hook: run ONE megastep and snapshot who it
+        ran for (resident rids). The step's kernels stay queued on the
+        card's stream while the host goes on to the next iteration's expiry
+        and admissions."""
+        self._dispatch_rids = {s: r.rid
+                               for s, r in self.scheduler._resident.items()}
+        state, bundle = self._megastep(state)
+        self._n_dispatched += 1
+        self.n_dispatches += 1
+        self._bundle = bundle
+        return state
+
+    def _sync_step(self) -> dict:
+        """Scheduler ``sync`` hook: read the megastep's bundle (the
+        iteration's second and last device read), then refresh the mirrored
+        page counters, stash the stream deltas, and build the eviction mask
+        (guarded by the dispatch-time rid snapshot, so a slot recycled since
+        the dispatch is never evicted by a stale mask)."""
+        out = self._read_bundle(self._bundle)
+        t = time.perf_counter()
+        if self._last_sync_t is not None:
+            self._step_gaps.append(t - self._last_sync_t)
+            if len(self._step_gaps) > 4096:
+                del self._step_gaps[:2048]
+        self._last_sync_t = t
+        if bool(out["exhausted"]):
+            # the step applied NOTHING: hint the scheduler at the first
+            # group whose cumulative need overflows the pool
+            n_free, run, prefer = int(out["n_free_alloc"]), 0, None
+            for gi, m in enumerate(self.mode_names):
+                run += int(out["need"][gi])
+                if run > n_free:
+                    prefer = m
+                    break
+            return {"exhausted": True, "group": prefer, "shard": None}
+        self._dispatch_samples.append(self.n_dispatches - self._disp_mark)
+        if len(self._dispatch_samples) > 4096:
+            del self._dispatch_samples[:2048]
+        self._disp_mark = self.n_dispatches
+        if self.allocator is not None:
+            self.allocator.peak_pages = max(
+                self.allocator.peak_pages,
+                (self.allocator.n_pages - 1) - int(out["n_free_alloc"]))
+            self._mirror_free = int(out["n_free_final"])
+            # bookings made before this bundle's dispatch are now visible
+            # in the device counter; keep only the ones it cannot see yet
+            self._booked = [b for b in self._booked
+                            if b[0] >= self._n_dispatched]
+        self._stream_bundle = dict(n_out=out["n_out"], n_new=out["n_new"],
+                                   delta=out["delta"],
+                                   rids=dict(self._dispatch_rids))
+        mask = np.asarray(out["finished"], bool).copy()
+        for slot in range(self.n_slots):
+            sreq = self.scheduler._resident.get(slot)
+            rid = self._dispatch_rids.get(slot)
+            if rid is None or sreq is None or sreq.rid != rid:
+                mask[slot] = False
+        return {"exhausted": False, "finished": mask}
+
+    def _mirror_recount(self) -> None:
+        """Refresh the mirrored free counter straight from the device's
+        block tables (a blocking read)."""
+        n_pages, _ = self._paged_geometry()
+        self._mirror_free = int(device_free_pages(
+            self.scheduler.state.cache, n_pages))
+        self._booked = [b for b in self._booked
+                        if b[0] >= self._n_dispatched]
+
+    def _mirror_admit_ok(self, state, mode) -> bool:
+        """Paged admission gate on the MIRRORED free counter (last bundle)
+        net of bookings the device has not seen yet: no device read in the
+        steady state. Over-admission surfaces as the step's exhaustion flag
+        and preempt-and-replay; a refusal first recounts from the device,
+        since evictions between bundles free pages the mirror cannot see."""
+        need = self.allocator.admit_pages_for(mode)
+        if self._mirror_free - sum(b[-1] for b in self._booked) >= need:
+            return True
+        self._mirror_recount()
+        return self._mirror_free - sum(b[-1] for b in self._booked) >= need
+
+    def _new_scheduler(self) -> ContinuousScheduler:
+        ecfg = self.ecfg
+        paged = self._paged_geometry() if ecfg.paged else None
+        cache = self.backend.init_cache(self.n_rows, self.cache_len,
+                                        paged=paged, device=self.device)
+        self._bundle = None
+        self._stream_bundle = None
+        self._dispatch_rids: dict[int, int] = {}
+        self._booked: list[tuple] = []   # (dispatch stamp, pages)
+        self._n_dispatched = 0
+        self._last_sync_t = None
+
+        def admit(state, slot, payload):
+            mode, req = payload
+            if self.allocator is not None:
+                # book the admission's worst-case first-step pages against
+                # the mirror until a later bundle's free count reflects it
+                self._booked.append((self._n_dispatched,
+                                     self.allocator.admit_pages_for(mode)))
+            self.n_dispatches += 1
+            return self._admit(state, mode, slot - self._slot_base[mode], req)
+
+        def release(state, slot):
+            mode, local = self._slot_of(slot)
+            self.n_dispatches += 1
+            return self._release(state, mode, local)
+
+        def step(state):
+            # only a hand-driven legacy loop calls this; the scheduler's
+            # pipelined drive uses the dispatch/sync hooks
+            state = self._dispatch_step(state)
+            out = self._sync_step()
+            if out.get("exhausted"):
+                raise PoolExhausted("page pool exhausted",
+                                    group=out.get("group"))
+            return state
+
+        groups = {mode: list(range(base, base + self._groups[mode].n_slots))
+                  for mode, base in self._slot_base.items()}
+        hooks: dict = {"release": release, "groups": groups,
+                       "finished": self._finished_mask,
+                       "dispatch": self._dispatch_step,
+                       "sync": self._sync_step}
+        if ecfg.paged:
+            self.allocator = PageAllocator(
+                self._groups, n_pages=paged[0], page_size=paged[1],
+                row_lens={m: self.backend.row_len(s)
+                          for m, s in self._groups.items()})
+            self._mirror_free = self.allocator.n_pages - 1
+            hooks.update(admit_ok=self._mirror_admit_ok)
+        state = grouped_init_state(tuple(self._groups.values()), cache)
+        return ContinuousScheduler(self.spec, state, admit=admit, step=step,
+                                   **hooks)
+
+    # -- instrumentation -------------------------------------------------------
+    def loop_stats(self) -> dict:
+        """Host-loop instrumentation: total steps and admission/eviction
+        calls issued (``n_dispatches``), calls per scheduler iteration
+        (steady state == 1.0: the megastep alone), and the host step gap
+        (seconds between consecutive bundle reads) p50/p95."""
+        gaps = sorted(self._step_gaps)
+
+        def pct(q):
+            if not gaps:
+                return 0.0
+            return gaps[min(len(gaps) - 1, int(q * len(gaps)))]
+
+        samples = self._dispatch_samples
+        return {
+            "n_dispatches": self.n_dispatches,
+            "n_iterations": len(samples),
+            "dispatches_per_iteration": (sum(samples) / len(samples)
+                                         if samples else 0.0),
+            "steady_iterations_one_dispatch": sum(1 for s in samples
+                                                  if s == 1),
+            "step_gap_p50_s": pct(0.50),
+            "step_gap_p95_s": pct(0.95),
+        }
+
+    def cache_footprint(self) -> dict:
+        """Self-attention cache accounting: ``capacity_bytes`` reserved up
+        front, ``peak_bytes`` actually touched (paged: the page high-water
+        mark), and ``contiguous_equiv_slots``: how many primary-group slots
+        contiguous rows could fit in the same capacity."""
+        spec = self.spec
+        per_token = self.backend.per_token_bytes()
+        row_bytes = self.backend.row_len(spec) * per_token
+        if self.ecfg.paged:
+            n_pages, ps = self._paged_geometry()
+            page_bytes = ps * per_token
+            alloc = self.allocator
+            return {
+                "kind": "paged", "page_size": ps, "n_pages": n_pages,
+                "capacity_bytes": (n_pages - 1) * page_bytes,
+                "peak_bytes": (alloc.peak_pages if alloc else 0) * page_bytes,
+                "peak_pages": alloc.peak_pages if alloc else 0,
+                "contiguous_equiv_slots":
+                    ((n_pages - 1) * page_bytes)
+                    // (spec.rows_per_slot * row_bytes),
+            }
+        cap = self.n_rows * self.cache_len * per_token
+        return {"kind": "dense", "capacity_bytes": cap, "peak_bytes": cap,
+                "contiguous_equiv_slots": self.n_slots}
+
+    # -- request plumbing ----------------------------------------------------
+    def _payload(self, query, mode: str,
+                 params: GenerationParams | None = None):
+        spec = self._groups[mode]
+        rp = (params or GenerationParams()).resolve(spec)
+        return (mode, self.backend.make_request(query, spec, rp))
+
+    def _read_slot(self, state, slot: int) -> dict:
+        mode, local = self._slot_of(slot)
+        spec = self._groups[mode]
+        gs = state.groups[self.mode_names.index(mode)]
+        logp = gs.logp[local].cpu().numpy()
+        order = (np.argsort(-logp, kind="stable") if spec.kind == "beam"
+                 else np.arange(spec.n_beams))
+        # per-request params trim the read-out to the request's own shape
+        eff_k, eff_new = spec.n_beams, spec.max_new
+        sreq = self.scheduler._resident.get(slot)
+        if sreq is not None and sreq.payload[1].params is not None:
+            rp = sreq.payload[1].params
+            eff_k, eff_new = rp.n_beams, rp.max_new
+        return dict(
+            tokens=gs.tokens[local].cpu().numpy()[order][:eff_k, :eff_new],
+            lengths=gs.n_out[local].cpu().numpy()[order][:eff_k],
+            logprobs=logp[order][:eff_k],
+            n_calls=int(gs.n_calls[local]),
+            accepted=int(gs.accepted[local]),
+        )
+
+    def _prediction(self, r: SlotResult, wall_s: float) -> Prediction:
+        smiles = [self.tok.decode(r.tokens[k])
+                  for k in range(r.tokens.shape[0])]
+        kind = self._groups[r.mode].kind if r.mode in self._groups else "greedy"
+        logprobs = ([float(x) for x in r.logprobs]
+                    if kind == "beam" else [0.0] * len(smiles))
+        return Prediction(smiles=smiles, logprobs=logprobs,
+                          n_calls=r.n_calls,
+                          acceptance_rate=r.accepted / max(int(r.lengths[0]), 1),
+                          wall_s=wall_s)
+
+    # -- public API ----------------------------------------------------------
+    def reset(self) -> None:
+        """Drop all queued/resident requests and start a fresh session."""
+        self.scheduler = self._new_scheduler()
+        self._done, self._epoch, self._streams = {}, {}, {}
+        self._pump = None
+        self._pump_realtime = False
+        self._dispatch_samples, self._step_gaps = [], []
+        self._disp_mark = self.n_dispatches
+
+    def submit_spec(self, rspec: RequestSpec) -> RequestHandle:
+        """THE canonical entry point: enqueue one fully-specified
+        ``RequestSpec`` and return its ``RequestHandle`` (an ``int`` — the
+        request id — exposing ``.result()``/``.stream()``/``.cancel()``/
+        ``.status``)."""
+        mode = self.default_mode if rspec.mode is None else rspec.mode
+        if mode not in self._groups:
+            raise KeyError(f"engine serves {self.mode_names}, got {mode!r}")
+        payload = self._payload(rspec.query, mode, rspec.params)
+        rid = self.scheduler.submit(payload, arrival=rspec.arrival,
+                                    mode=mode, priority=rspec.priority,
+                                    deadline=rspec.deadline)
+        for r in self.scheduler.drain_shed():
+            self._finish_result(r)
+        return RequestHandle(rid, self, mode=mode, params=payload[1].params)
+
+    def submit(self, query, *, arrival: float = 0.0,
+               mode: str | None = None,
+               params: GenerationParams | None = None,
+               priority: int = 0,
+               deadline: float | None = None) -> RequestHandle:
+        """Sugar over ``submit_spec``. ``query`` is a SMILES string or a 1-D
+        array of token ids; ``arrival`` delays admission (steps in
+        closed-loop serve(), seconds in realtime serve()); ``mode`` routes
+        the request to that slot group; ``params`` sets per-request
+        generation knobs under the group's ceilings; higher ``priority``
+        admits first among arrived requests; past its ``deadline`` (serving
+        clock) the request expires instead of running."""
+        return self.submit_spec(RequestSpec(
+            query=query, params=params or GenerationParams(), mode=mode,
+            priority=priority, deadline=deadline, arrival=arrival))
+
+    # -- step pump: one drive shared by serve()/result()/stream() -----------
+    def serve_steps(self, *, realtime: bool = False):
+        """Step-driven serving: a generator yielding the list of terminal
+        ``SlotResult``s after every scheduler iteration (often empty) until
+        the queue drains — THE session's shared pump, the same drive that
+        ``serve()`` and ``RequestHandle.result()``/``.stream()`` advance."""
+        return self._ensure_pump(realtime=realtime)
+
+    def _serve_steps_impl(self, realtime: bool):
+        for events in self.scheduler.steps(self._read_slot,
+                                           realtime=realtime):
+            self._collect_streams()
+            for r in events:
+                self._finish_result(r)
+            yield events
+
+    def _ensure_pump(self, realtime: bool = False):
+        if self._pump is None:
+            self._pump = self._serve_steps_impl(realtime)
+            self._pump_realtime = realtime
+        return self._pump
+
+    def _pump_once(self) -> bool:
+        """Advance the shared pump one scheduler iteration; False once the
+        queue is drained. A drained pump is disposed at once, so later work
+        starts a fresh drive that picks its own clock mode."""
+        pump = self._ensure_pump()
+        try:
+            next(pump)
+        except StopIteration:
+            self._pump = None
+            return False
+        if not self.scheduler.pending:
+            self._pump = None
+        return True
+
+    def _finish_result(self, r: SlotResult) -> None:
+        self._done[r.rid] = r
+        self._epoch[r.rid] = r
+        while len(self._done) > self._DONE_CAP:
+            self._done.pop(next(iter(self._done)))
+        while len(self._epoch) > self._DONE_CAP:
+            self._epoch.pop(next(iter(self._epoch)))
+        st = self._streams.get(r.rid)
+        if st is not None and not st["done"]:
+            self._flush_stream_tail(st, r)
+
+    def _flush_stream_tail(self, st: dict, r: SlotResult) -> None:
+        """Final stream chunk: greedy-family tails from the cursor; beam
+        modes deliver the winning beam whole."""
+        if r.status == RequestStatus.FINISHED and r.tokens.shape[0]:
+            kind = self._groups[r.mode].kind if r.mode in self._groups \
+                else "greedy"
+            lo = st["n"] if kind == "greedy" else 0
+            tail = np.asarray(r.tokens[0][lo:int(r.lengths[0])])
+            if tail.size:
+                st["buf"].append(tail)
+        st["done"] = True
+
+    def _collect_streams(self) -> None:
+        """Deliver committed-token deltas to live ``stream()`` consumers from
+        the LAST BUNDLE READ: greedy-family slots stream mid-flight with no
+        extra device read; beam slots deliver at completion. A consumer
+        that subscribed mid-flight catches up once from the session
+        state."""
+        live = {rid: st for rid, st in self._streams.items()
+                if not st["done"]}
+        sb = self._stream_bundle
+        if not live or sb is None:
+            return
+        for slot, rid in sb["rids"].items():
+            st = live.get(rid)
+            if st is None:
+                continue
+            mode, local = self._slot_of(slot)
+            if self._groups[mode].kind != "greedy":
+                continue
+            n_after = int(sb["n_out"][slot])
+            n_new = int(sb["n_new"][slot])
+            if n_after <= st["n"]:
+                continue
+            lo = st["n"] - (n_after - n_new)
+            if lo >= 0:
+                st["buf"].append(np.asarray(sb["delta"][slot, lo:n_new]))
+                st["n"] = n_after
+            elif not st.get("caught_up"):
+                gs = self.scheduler.state.groups[
+                    self.mode_names.index(mode)]
+                n = int(gs.n_out[local, 0])
+                if n > st["n"]:
+                    st["buf"].append(
+                        gs.tokens[local, 0, st["n"]:n].cpu().numpy())
+                    st["n"] = n
+                st["caught_up"] = True
+
+    # -- request-level control (the RequestHandle surface) -------------------
+    def request_status(self, rid: int) -> RequestStatus:
+        r = self._done.get(rid)
+        if r is not None:
+            return r.status
+        if any(sr.rid == rid for sr in self.scheduler._resident.values()):
+            return RequestStatus.RUNNING
+        if rid in self.scheduler._queued_by_rid:
+            return RequestStatus.QUEUED
+        return RequestStatus.UNKNOWN
+
+    def wait(self, rid: int) -> SlotResult:
+        """Drive the pump until ``rid`` reaches a terminal record."""
+        while rid not in self._done:
+            if not self._pump_once() and rid not in self._done:
+                raise KeyError(f"request {rid} is not part of this session "
+                               f"(reset() drops pending requests)")
+        return self._done[rid]
+
+    def subscribe(self, rid: int) -> dict:
+        """Attach a non-blocking stream sink to ``rid`` and return it: its
+        ``buf`` fills with committed-token delta arrays as bundles are read,
+        ``done`` flips when the terminal tail is flushed."""
+        st = self._streams.get(rid)
+        if st is None:
+            st = self._streams[rid] = {"buf": [], "n": 0, "done": False}
+            r = self._done.get(rid)
+            if r is not None:      # finished before anyone listened
+                self._flush_stream_tail(st, r)
+        return st
+
+    def _stream(self, rid: int):
+        """Generator behind ``RequestHandle.stream()``."""
+        st = self.subscribe(rid)
+        try:
+            while True:
+                while st["buf"]:
+                    yield st["buf"].pop(0)
+                if st["done"]:
+                    break
+                if rid in self._done:   # terminal but tail not flushed
+                    self._flush_stream_tail(st, self._done[rid])
+                    continue
+                if not self._pump_once() and rid not in self._done:
+                    raise KeyError(f"request {rid} is not part of this "
+                                   f"session")
+        finally:
+            self._streams.pop(rid, None)
+        r = self._done[rid]
+        if r.status != RequestStatus.FINISHED:
+            if r.status in (RequestStatus.SHED, RequestStatus.EXPIRED):
+                raise RequestRejected(rid, r.status,
+                                      retry_after=r.retry_after)
+            raise RequestCancelled(rid, r.status)
+
+    def stream(self, rid: int):
+        """Deprecated engine-level entry (as in the JAX package): use
+        ``RequestHandle.stream()``."""
+        warnings.warn(
+            "StreamingEngine.stream(rid) is deprecated; call "
+            ".stream() on the RequestHandle returned by submit()",
+            DeprecationWarning, stacklevel=2)
+        return self._stream(rid)
+
+    def _cancel(self, rid: int) -> bool:
+        """Cancel a queued (dequeue) or resident (evict + reclaim pages)
+        request. Returns False once the request is already terminal."""
+        r = self.scheduler.cancel(rid)
+        if r is None:
+            return False
+        self._finish_result(r)
+        return True
+
+    def cancel(self, rid: int) -> bool:
+        """Deprecated engine-level entry (as in the JAX package): use
+        ``RequestHandle.cancel()``."""
+        warnings.warn(
+            "StreamingEngine.cancel(rid) is deprecated; call "
+            ".cancel() on the RequestHandle returned by submit()",
+            DeprecationWarning, stacklevel=2)
+        return self._cancel(rid)
+
+    # -- graceful drain (shutdown path) --------------------------------------
+    @property
+    def draining(self) -> bool:
+        return self.scheduler.draining
+
+    def begin_drain(self) -> int:
+        """Enter drain mode without blocking: every queued request is shed
+        with a retry hint, residents decode to completion, later
+        submissions shed at once. Returns the number shed."""
+        self.scheduler.draining = True
+        shed = self.scheduler.shed_queued()
+        for r in shed:
+            self._finish_result(r)
+        return len(shed)
+
+    def drain(self) -> dict[int, SlotResult]:
+        """Blocking graceful shutdown: ``begin_drain()`` + pump until the
+        residents finish. Returns the epoch's terminal records."""
+        self.begin_drain()
+        while self._pump_once():
+            pass
+        out, self._epoch = self._epoch, {}
+        return out
+
+    def serve(self, *, realtime: bool = False) -> dict[int, SlotResult]:
+        """Drain the queue with continuous batching; {rid: SlotResult} of
+        every request that reached a terminal state since the last
+        serve()."""
+        if self._pump is not None and realtime != self._pump_realtime:
+            raise RuntimeError(
+                f"a {'realtime' if self._pump_realtime else 'closed-loop'} "
+                f"drive is already in flight; serve(realtime={realtime}) "
+                f"cannot switch clocks mid-drive — drain it first")
+        self._ensure_pump(realtime=realtime)
+        while self._pump_once():
+            pass
+        out, self._epoch = self._epoch, {}
+        return out
+
+    def _require_idle(self, caller: str) -> None:
+        if self.scheduler.pending:
+            raise RuntimeError(
+                f"{caller} would drain {self.scheduler.pending} pending "
+                f"submit()ed request(s); call serve() first")
+
+    def predict(self, queries: Sequence[str]) -> list[Prediction]:
+        """Drop-in for ``ReactionEngine.predict`` (greedy/speculative): a
+        batch loop over the request front door."""
+        if self.ecfg.mode not in ("greedy", "speculative"):
+            raise ValueError(f"predict() supports greedy/speculative, "
+                             f"got {self.ecfg.mode}")
+        self._require_idle("predict()")
+        t0 = time.perf_counter()
+        handles = [self.submit(q) for q in queries]
+        done = self.serve()
+        wall = (time.perf_counter() - t0) / max(len(queries), 1)
+        return [self._prediction(done[int(h)], wall) for h in handles]
+
+    def predict_topn(self, query: str) -> Prediction:
+        """Drop-in for ``ReactionEngine.predict_topn`` (beam modes): one
+        query, n_beams candidates sorted by log-probability."""
+        if self.spec.kind != "beam":
+            raise ValueError(f"predict_topn() needs a beam mode, "
+                             f"got {self.ecfg.mode}")
+        self._require_idle("predict_topn()")
+        t0 = time.perf_counter()
+        handle = self.submit(query)
+        done = self.serve()
+        return self._prediction(done[int(handle)], time.perf_counter() - t0)

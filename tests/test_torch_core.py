@@ -23,6 +23,17 @@ from repro_torch.models import seq2seq as ts2s  # noqa: E402
 MAX_NEW, DL, N_D, VOCAB = 20, 4, 6, 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models' ops are far too small to share out between threads,
+    and under pytest-xdist every worker's own thread pool would contend for
+    the same cores; one thread, restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("dilations", [(1,), (1, 2)])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_drafting_matches_jax(dilations, seed):

@@ -27,6 +27,17 @@ TOPN = [dict(mode="beam", n_beams=4),
         dict(mode="speculative_beam", n_beams=4, draft_len=8, n_drafts=12)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models' ops are far too small to share out between threads,
+    and under pytest-xdist every worker's own thread pool would contend for
+    the same cores; one thread, restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def engines(trained_mt):
     ds, cfg, params = trained_mt

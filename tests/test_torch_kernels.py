@@ -1,4 +1,5 @@
-"""The port's kernels against the JAX package's.
+"""The port's kernels against the JAX package's (``decode_gqa``, its paged
+variant ``paged_decode_gqa``, ``draft_verify``).
 
 On the CPU the port's wrappers run their plain versions; these are held to
 the JAX Pallas kernels (``interpret=True``, as ``tests/test_kernels.py``
@@ -21,10 +22,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.session import _accept_lengths  # noqa: E402
-from repro_torch.kernels import decode_gqa_attention, draft_verify  # noqa: E402
+from repro_torch.kernels import (decode_gqa_attention, draft_verify,  # noqa: E402
+                                 paged_decode_gqa_attention)
 from repro_torch.kernels.cases import (  # noqa: E402
-    DECODE_SWEEP, VERIFY_SWEEP, decode_inputs, ring_inputs, verify_inputs)
-from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref  # noqa: E402
+    DECODE_SWEEP, PAGED_SWEEP, VERIFY_SWEEP, decode_inputs, paged_inputs,
+    ring_inputs, verify_inputs)
+from repro_torch.kernels.decode_gqa.ref import (  # noqa: E402
+    decode_gqa_ref, paged_decode_gqa_ref)
 from repro_torch.kernels.draft_verify.ref import draft_verify_ref  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -35,12 +39,15 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def jx():
     """The JAX package's kernels and oracles (imported only where used)."""
     jax = pytest.importorskip("jax")
-    from repro.kernels.decode_gqa.ops import decode_gqa_attention
-    from repro.kernels.decode_gqa.ref import decode_gqa_ref
+    from repro.kernels.decode_gqa.ops import (decode_gqa_attention,
+                                              paged_decode_gqa_attention)
+    from repro.kernels.decode_gqa.ref import (decode_gqa_ref,
+                                              paged_decode_gqa_ref)
     from repro.kernels.draft_verify.ops import draft_verify
     from repro.kernels.draft_verify.ref import draft_verify_ref
     return dict(jnp=jax.numpy, decode=decode_gqa_attention,
-                decode_ref=decode_gqa_ref, verify=draft_verify,
+                decode_ref=decode_gqa_ref, paged=paged_decode_gqa_attention,
+                paged_ref=paged_decode_gqa_ref, verify=draft_verify,
                 verify_ref=draft_verify_ref)
 
 
@@ -108,6 +115,80 @@ def test_decode_gqa_fully_masked_row_is_zero(jx):
     assert not out[0, 0].any()
     np.testing.assert_allclose(_f32(out), _f32(jx["decode_ref"](
         jq, jk, jv, jkp, jqp)), atol=2e-5, rtol=2e-5)
+
+
+PAGED_KEYS = ("B", "T", "H", "Kv", "P", "ps", "nb", "hd")
+
+
+def _paged_inputs(cfg):
+    return paged_inputs(*(cfg[k] for k in PAGED_KEYS))
+
+
+@pytest.mark.parametrize("cfg", PAGED_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_gqa_plain_matches_jax(jx, cfg, dtype):
+    """Unmapped blocks, ragged page fills, a window and MQA: the port's
+    plain paged read against the JAX Pallas kernel (interpret mode) and the
+    JAX oracle."""
+    jargs, targs = _both(jx, _paged_inputs(cfg), dtype)
+    w = cfg["window"]
+    out = paged_decode_gqa_attention(*targs, window=w)
+    assert out.dtype == TDT[dtype] and out.shape == targs[0].shape
+    for ref in (jx["paged"](*jargs, window=w, interpret=True),
+                jx["paged_ref"](*jargs, window=w)):
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
+def test_paged_decode_gqa_matches_dense():
+    """A paged cache holding the same tokens as a dense row attends
+    identically (the case of the JAX package's paged == dense kernel test):
+    dense rows scattered into a shuffled pool whose page 0 is the trash."""
+    B, T, H, Kv, hd, ps, nb = 2, 4, 8, 2, 32, 8, 4
+    S, L = ps * nb, 19
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((B, T, H, hd), np.float32)
+    kc = rng.standard_normal((B, S, Kv, hd), np.float32)
+    vc = rng.standard_normal((B, S, Kv, hd), np.float32)
+    k_pos = np.where(np.arange(S)[None] < L, np.arange(S)[None], -1).repeat(
+        B, 0).astype(np.int32)
+    q_pos = (L - 1 + np.arange(T))[None].repeat(B, 0).astype(np.int32)
+    bt = rng.permutation(np.arange(1, B * nb + 1)).reshape(B, nb).astype(
+        np.int32)
+    P = B * nb + 1
+    k_pool = np.zeros((P, ps, Kv, hd), np.float32)
+    v_pool = np.zeros((P, ps, Kv, hd), np.float32)
+    pos_pool = np.full((P, ps), -1, np.int32)
+    k_pool[bt.reshape(-1)] = kc.reshape(B * nb, ps, Kv, hd)
+    v_pool[bt.reshape(-1)] = vc.reshape(B * nb, ps, Kv, hd)
+    pos_pool[bt.reshape(-1)] = k_pos.reshape(B * nb, ps)
+    t = [torch.from_numpy(a) for a in (q, kc, vc, k_pos, q_pos, k_pool,
+                                       v_pool, pos_pool, bt)]
+    dense = decode_gqa_attention(*t[:5])
+    paged = paged_decode_gqa_attention(t[0], t[5], t[6], t[7], t[8], t[4])
+    np.testing.assert_allclose(paged.numpy(), dense.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_paged_decode_gqa_inactive_row_is_zero():
+    """An inactive streaming row (every query at -1, its table all -1)
+    returns 0 with no NaN, beside rows that still attend."""
+    arrays = list(_paged_inputs(PAGED_SWEEP[0]))
+    arrays[4][0] = -1
+    arrays[5][0] = -1
+    out = paged_decode_gqa_attention(*(torch.from_numpy(a) for a in arrays))
+    assert torch.isfinite(out).all()
+    assert not out[0].any() and out[1].abs().sum() > 0
+
+
+def test_paged_wrapper_refuses_other_devices_and_bad_shapes():
+    x = [torch.from_numpy(a) for a in _paged_inputs(PAGED_SWEEP[0])]
+    with pytest.raises(ValueError):
+        paged_decode_gqa_attention(*(t.to("meta") for t in x))
+    with pytest.raises(ValueError):
+        paged_decode_gqa_attention(*x[:4], x[4][:1], x[5])
+    with pytest.raises(ValueError):
+        paged_decode_gqa_attention(*x[:3], x[3][:, :-1], *x[4:])
 
 
 def _assert_verify_matches_jax(jx, logits, drafts, mask):
@@ -201,6 +282,18 @@ def test_decode_gqa_kernel_ring_buffer(cuda):
     ref = decode_gqa_ref(*tx, window=32)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", PAGED_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_gqa_kernel_matches_plain(cuda, cfg, dtype):
+    tx = [t.to(cuda) for t in _torch(_paged_inputs(cfg), dtype)]
+    out = paged_decode_gqa_attention(*tx, window=cfg["window"])
+    ref = paged_decode_gqa_ref(*tx, window=cfg["window"])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()),
+                               atol=TOL[dtype], rtol=TOL[dtype])
 
 
 @pytest.mark.gpu
