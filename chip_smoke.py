@@ -9,10 +9,12 @@ In order:
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
      source, all started together; timed);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     test sweeps and at the main paths' shapes, then time the kernel, the
-     plain version and a PyTorch library call (a yardstick only) with CUDA
-     events, median over launches with the L2 cache flushed before each,
-     beside the least time the card could take (bytes or flops);
+     test sweeps and at the main paths' shapes (flash_attention forward and
+     backward: the serving encoder's B 16 x S 128 and the training batch's
+     B 24 x S 96, H 8, hd 32), then time the kernel, the plain version and
+     a PyTorch library call (a yardstick only) with CUDA events, median
+     over launches with the L2 cache flushed before each, beside the least
+     time the card could take (bytes or flops);
   4. run the port's ReactionEngine at mt-product width (4+4 layers, d_model
      256, 8 heads, d_ff 2048) with weights drawn from a seed, in all four
      modes (16 synthetic queries batched for greedy and speculative, 2 one
@@ -24,11 +26,25 @@ In order:
      0 before each mode and read after (paged_decode_gqa must run,
      decode_gqa must not); tokens must equal the ReactionEngine's; then one
      dense speculative pass, for the cache-copy comparison;
-  6. run a tiny model on the card and on the CPU with the same weights: the
+  6. train mt-product on synthetic reactions (``benchmarks/common.py``'s
+     set-up: 512 forward reactions, batch 24, max_src = max_tgt = 96,
+     constant lr 1e-3, label smoothing 0, clip 1.0, 20 epochs = 420 steps)
+     through the port's Trainer: the encoder and decoder self-attention run
+     the flash_attention kernels forward and backward (both counts must be
+     > 0); the last logged loss must be < 0.7x the first;
+  7. serve the trained weights on 64 held-out reactions at B 1 (the paper's
+     Table 2 set-up): greedy, then speculative at DL 4 and 10 (24 drafts,
+     max_new 72, max_src 96), whose tokens must equal greedy's; wall per
+     query, decoder calls, acceptance, top-1 exact match; then one
+     speculative paged StreamingEngine pass over the same queries;
+  8. run a tiny model on the card and on the CPU with the same weights: the
      card's tokens must match the CPU's plain path, one-shot and paged
-     streaming;
-  7. print the ``kernels`` JSON line, the card line, and
+     streaming, and one train step's loss and gradients must match within
+     1e-4;
+  9. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
+
+Every serving phase must launch flash_attention (the encoder).
 
 Any failed check raises, so the exit code is nonzero and no result prints.
 fp32 throughout with TF32 off. Imports nothing of JAX or of the JAX package.
@@ -216,7 +232,137 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
     return dict(max_abs_err=err, shapes=shapes)
 
 
-def check_kernels(torch, vocab: int, ecfg, n_queries: int) -> dict:
+def flash_work(B, S, H, hd, *, causal: bool, lengths=None, itemsize=4,
+               backward: bool = False, with_lse: bool = True):
+    """Bytes and flops that full-sequence attention needs for these inputs:
+    each input read once and each output written once, counting the K/V
+    reads of valid keys only; the forward's lse write only ``with_lse``
+    (training keeps it for the backward, inference needs none); flops per
+    visible (query, key) pair of each head: 4·hd forward (QK^T, PV), 10·hd
+    backward (QK^T and dO·V^T recomputed, then dV, dQ, dK)."""
+    lengths = np.full(B, S) if lengths is None else np.asarray(lengths)
+    qi, ki = np.arange(S)[:, None], np.arange(S)[None, :]
+    vis = (ki <= qi) if causal else np.ones((S, S), bool)
+    pairs = H * sum(int((vis & (ki < n)).sum()) for n in lengths)
+    rows = B * S * H * hd              # q (and out, dO, dQ) elements
+    keys = int(lengths.sum()) * H * hd  # K or V elements of valid keys
+    mask = 0 if lengths.min() == S else B * S
+    if not backward:
+        lse = B * H * S * 4 if with_lse else 0
+        nbytes = (2 * rows + 2 * keys) * itemsize + lse + mask
+        return int(nbytes), int(4 * hd * pairs)
+    nbytes = (4 * rows + 2 * keys + 2 * rows) * 4 + (
+        B * H * S * 4 + mask)          # q,o,dO,dq + k,v + dk,dv; lse, mask
+    return int(nbytes), int(10 * hd * pairs)
+
+
+def check_flash(torch, main: dict) -> dict:
+    """flash_attention forward and backward against their plain versions on
+    the card: the shared sweep (JAX test shapes x causal / bidirectional /
+    window 24, fp32 and bf16 forward, fp32 backward, with and without a
+    ragged key mask), then the main shapes (``main``: name -> B, S, H, hd,
+    causal, lengths), timed beside their bound and the library yardstick
+    (``scaled_dot_product_attention`` with the key mask as a bool mask, or
+    ``is_causal``; its autograd backward for the backward)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bshd
+    from repro_torch.kernels.cases import (FLASH_MASKS, FLASH_SWEEP,
+                                           flash_inputs, ragged_lengths)
+    from repro_torch.kernels.flash_attention.ops import _backward, _forward
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+
+    def inputs(B, S, H, hd, lengths, dtype=torch.float32):
+        q, k, v, do, km = flash_inputs(B, S, H, hd, lengths=lengths)
+        x = on_card(torch, (q, k, v, do), dtype)
+        return x, None if km is None else torch.from_numpy(km).cuda()
+
+    def agree(name, out, ref, tol):
+        e = (out.float() - ref.float()).abs()
+        if not torch.all(e <= tol + tol * ref.float().abs()):
+            raise AssertionError(f"{name}: max err {e.max().item()}")
+        return e.max().item()
+
+    err_f = err_b = 0.0
+    cases = [(c, cw, ragged) for c in FLASH_SWEEP for cw in FLASH_MASKS
+             for ragged in (False, True)]
+    cases += [(dict(B=m["B"], S=m["S"], H=m["H"], hd=m["hd"]),
+               (m["causal"], 0), m["lengths"]) for m in main.values()]
+    for c, (causal, window), ragged in cases:
+        lengths = (ragged if not isinstance(ragged, bool) else
+                   ragged_lengths(c["B"], c["S"]) if ragged else None)
+        for dt in (torch.float32, torch.bfloat16):
+            (q, k, v, do), km = inputs(c["B"], c["S"], c["H"], c["hd"],
+                                       lengths, dt)
+            kw = dict(causal=causal, window=window, key_mask=km)
+            out = flash_attention_bshd(q, k, v, **kw)
+            ref, _ = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = 2e-5 if dt == torch.float32 else 2e-2
+            e = agree(f"flash_attention {c} {causal} {window} {dt}", out, ref,
+                      tol)
+            if dt != torch.float32:
+                continue
+            err_f = max(err_f, e)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            grads = torch.autograd.grad(flash_attention_bshd(*leaves, **kw),
+                                        leaves, do)
+            o, lse = flash_attention_ref(q, k, v, **kw)
+            refs = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            for g, r, n in zip(grads, refs, ("dq", "dk", "dv")):
+                err_b = max(err_b, agree(f"flash_attention_bwd {n} {c} "
+                                         f"{causal} {window}", g, r, 1e-4))
+
+    fwd, bwd = {}, {}
+    for name, m in main.items():
+        B, S, H, hd, causal = (m[k] for k in ("B", "S", "H", "hd", "causal"))
+        (q, k, v, do), km = inputs(B, S, H, hd, m["lengths"])
+        kw = dict(causal=causal, window=0, key_mask=km)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_kw = (dict(is_causal=True) if km is None and causal else
+                  dict(attn_mask=None if km is None else km[:, None, None]))
+        if km is not None and causal:
+            raise ValueError("no main shape is causal with a key mask")
+        shape = dict(B=B, S=S, H=H, hd=hd, causal=causal,
+                     ragged=m["lengths"] is not None)
+        nbytes, flops = flash_work(B, S, H, hd, causal=causal,
+                                   lengths=m["lengths"],
+                                   with_lse=m["backward"])
+        bound_ms, bound_by = bound(nbytes, flops)
+        fwd[name] = dict(
+            shape=shape,
+            ms=timed_ms(torch, lambda: _forward(q, k, v, km, causal, 0)),
+            plain_ms=timed_ms(torch, lambda: flash_attention_ref(q, k, v,
+                                                                 **kw)),
+            library_ms=timed_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, **lib_kw)),
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+        if not m["backward"]:
+            continue
+        o, lse = _forward(q, k, v, km, causal, 0)
+        lq, lk, lv = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, **lib_kw)
+        dot = do.transpose(1, 2)
+        nbytes, flops = flash_work(B, S, H, hd, causal=causal,
+                                   lengths=m["lengths"], backward=True)
+        bound_ms, bound_by = bound(nbytes, flops)
+        bwd[name] = dict(
+            shape=shape,
+            ms=timed_ms(torch, lambda: _backward(q, k, v, o, lse, do, km,
+                                                 causal, 0)),
+            plain_ms=timed_ms(torch, lambda: flash_attention_bwd_ref(
+                q, k, v, o, lse, do, **kw)),
+            library_ms=timed_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (lq, lk, lv), dot, retain_graph=True)),
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    return {"flash_attention": dict(max_abs_err=err_f, shapes=fwd),
+            "flash_attention_bwd": dict(max_abs_err=err_b, shapes=bwd)}
+
+
+def check_kernels(torch, vocab: int, ecfg, n_queries: int,
+                  flash_main: dict) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_gqa_attention, draft_verify
@@ -316,6 +462,7 @@ def check_kernels(torch, vocab: int, ecfg, n_queries: int) -> dict:
             library_ms=timed_ms(torch, lambda: torch.argmax(logits, dim=-1)),
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
     results["draft_verify"] = dict(max_abs_err=float(err), shapes=shapes)
+    results.update(check_flash(torch, flash_main))
     return results
 
 
@@ -468,6 +615,216 @@ def profile_streaming(torch, ds, cfg, params, ekw: dict, queries,
                        out_dir / f"profile_streaming_{kind}.txt")
 
 
+# the train phase: benchmarks/common.py's set-up at mt-product width
+TRAIN = dict(n_train=512, n_test=64, batch=24, max_len=96, lr=1e-3,
+             epochs=20, log_every=21)
+# the trained-serving phase: the paper's Table 2 (B 1), as
+# benchmarks/table2_speculative_greedy.py runs it
+TABLE2 = dict(max_new=72, max_src=96, n_drafts=24, draft_lens=(4, 10))
+
+
+def check_encoder_launches(launches: dict, label: str) -> None:
+    """A serving phase runs the encoder through the flash_attention forward
+    kernel, and never its backward."""
+    if launches["flash_attention"] == 0 or launches["flash_attention_bwd"]:
+        raise AssertionError(f"{label}: flash_attention launches {launches}")
+
+
+def train_step(cfg):
+    from repro_torch.training import make_seq2seq_train_step
+
+    return make_seq2seq_train_step(cfg, lr=TRAIN["lr"], label_smoothing=0.0,
+                                   max_grad_norm=1.0)
+
+
+def run_training(torch, train_ds):
+    """Train mt-product (seeded init) on ``train_ds`` with the port's
+    Trainer; launch counts set to 0 just before and read just after.
+    Returns (trainer, summary)."""
+    from repro_torch.configs.mt import product_config, with_vocab
+    from repro_torch.data import batched_dataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import seq2seq as s2s
+    from repro_torch.training import Trainer
+
+    cfg = with_vocab(product_config(), train_ds.tokenizer.vocab_size)
+    params = s2s.init(torch.Generator().manual_seed(SEED), cfg, device="cuda")
+    trainer = Trainer(cfg, params, train_step(cfg))
+    n = TRAIN["max_len"]
+
+    def batches():
+        for _ in range(TRAIN["epochs"]):
+            yield from batched_dataset(train_ds.tokenizer, train_ds.pairs(),
+                                       TRAIN["batch"], n, n)
+
+    n_steps = TRAIN["epochs"] * (len(train_ds) // TRAIN["batch"])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = trainer.fit(batches(), log_every=TRAIN["log_every"], verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: loss not finite {losses}")
+    if launches["flash_attention"] == 0 or launches["flash_attention_bwd"] == 0:
+        raise AssertionError(f"train: flash_attention launches {launches}")
+    if not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"train: last loss {losses[-1]} is not < 0.7 x "
+                             f"the first {losses[0]}")
+    print(f"train [mt-product, {len(train_ds)} reactions, batch "
+          f"{TRAIN['batch']}, {TRAIN['epochs']} epochs]: {n_steps} steps in "
+          f"{wall:.2f} s, {n_steps / wall:.2f} steps/s, launches {launches}",
+          flush=True)
+    print("train loss curve (step, loss, token accuracy, grad norm): "
+          + ", ".join(f"({h['step']}, {h['loss']:.4f}, "
+                      f"{h['token_accuracy']:.4f}, {h['grad_norm']:.3f})"
+                      for h in hist), flush=True)
+    return trainer, dict(steps=n_steps, wall_s=wall, losses=losses,
+                         launches=launches)
+
+
+def profile_training(torch, trainer, train_ds, out_dir: Path,
+                     n_steps: int = 6) -> None:
+    """Trace ``n_steps`` train steps of a copy of ``trainer``'s model (so
+    the weights served next stay those of the timed run), after one
+    untraced warm-up step (``report_profile``); the table goes to
+    ``out_dir/profile_train.txt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import batched_dataset
+    from repro_torch.training import Trainer
+
+    n = TRAIN["max_len"]
+    batches = list(batched_dataset(train_ds.tokenizer, train_ds.pairs(),
+                                   TRAIN["batch"], n, n))[:n_steps + 1]
+    copy = Trainer(trainer.cfg, trainer.params, train_step(trainer.cfg))
+    copy.fit(batches[:1], verbose=False)
+    batches = batches[1:]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        copy.fit(batches, log_every=n_steps, verbose=False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, f"train, {n_steps} steps",
+                   out_dir / "profile_train.txt")
+
+
+def serve_trained(torch, tok, cfg, params, test_ds) -> dict:
+    """The trained weights on the held-out queries at B 1 (one
+    ``predict([q])`` per query, as Table 2): greedy, speculative at each
+    draft length (tokens must equal greedy's), then one speculative paged
+    StreamingEngine pass with every query submitted at once. Launch counts
+    set to 0 before each run, read after."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (EngineConfig, ReactionEngine,
+                                     StreamingEngine)
+
+    queries = [test_ds.pair(i)[0] for i in range(len(test_ds))]
+    targets = [test_ds.pair(i)[1] for i in range(len(test_ds))]
+    base = dict(max_new=TABLE2["max_new"], max_src=TABLE2["max_src"],
+                n_drafts=TABLE2["n_drafts"])
+    runs = {"greedy": dict(mode="greedy")}
+    runs.update({f"speculative_dl{dl}": dict(mode="speculative",
+                                             draft_len=dl)
+                 for dl in TABLE2["draft_lens"]})
+    out = {}
+    for name, kw in runs.items():
+        eng = ReactionEngine(params, cfg, tok, EngineConfig(**base, **kw))
+        eng.predict(queries[:1])                             # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        preds = [eng.predict([q])[0] for q in queries]
+        wall = time.perf_counter() - t0
+        out[name] = dict(
+            smiles=[p.smiles[0] for p in preds], wall_s=wall,
+            n_calls=sum(p.n_calls for p in preds),
+            acceptance=float(np.mean([p.acceptance_rate for p in preds])),
+            launches=dict(launch_counts))
+    eng = StreamingEngine(params, cfg, tok, EngineConfig(
+        mode="speculative", n_slots=8, paged=True, page_size=16,
+        draft_len=max(TABLE2["draft_lens"]), **base))
+    eng.submit(queries[0])
+    eng.serve()                                              # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [eng.submit(q) for q in queries]
+    res = eng.serve()
+    wall = time.perf_counter() - t0
+    results = [res[int(h)] for h in handles]
+    out["streaming_speculative"] = dict(
+        smiles=[tok.decode(r.tokens[0]) for r in results], wall_s=wall,
+        n_calls=eng.loop_stats()["n_iterations"],
+        acceptance=sum(r.accepted for r in results)
+        / max(1, sum(int(r.lengths[0]) for r in results)),
+        launches=dict(launch_counts))
+    greedy = out["greedy"]
+    for name, r in out.items():
+        if r["smiles"] != greedy["smiles"]:
+            bad = [i for i, (a, b) in enumerate(zip(r["smiles"],
+                                                    greedy["smiles"]))
+                   if a != b]
+            raise AssertionError(f"trained {name}: tokens differ from greedy "
+                                 f"on queries {bad}")
+        check_encoder_launches(r["launches"], f"trained {name}")
+        top1 = float(np.mean([a == b for a, b in zip(r["smiles"], targets)]))
+        n_q = len(queries)
+        per = ("request (8 slots, all submitted at once)"
+               if name.startswith("streaming") else
+               f"query (B 1), speedup vs greedy "
+               f"{greedy['wall_s'] / r['wall_s']:.3f}x")
+        print(f"trained serving [{name}] {n_q} held-out queries: wall "
+              f"{r['wall_s']:.3f} s, {r['wall_s'] / n_q * 1e3:.2f} ms per "
+              f"{per}, decoder calls {r['n_calls']}, acceptance "
+              f"{r['acceptance']:.4f}, top-1 {top1:.4f}, launches "
+              f"{r['launches']}", flush=True)
+    return out
+
+
+def check_train_step(torch, ds, tcfg, cpu_params) -> None:
+    """One train step of the tiny model on the card against the CPU's plain
+    path, same weights and batch: loss, metrics and every gradient leaf
+    within 1e-4, then the whole step's metrics (clip + Adam)."""
+    from repro_torch.data import padded_batch
+    from repro_torch.training import (make_seq2seq_train_step,
+                                      seq2seq_loss_and_grads)
+    from repro_torch.training.optimizer import (adam_init, tree_leaves,
+                                                tree_unflatten)
+
+    batch = padded_batch(ds.tokenizer, [ds.pair(i)
+                                              for i in range(8)], 48, 48)
+    step = make_seq2seq_train_step(tcfg, lr=TRAIN["lr"], label_smoothing=0.1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_unflatten(cpu_params, [t.detach().to(dev, copy=True)
+                                        for t in tree_leaves(cpu_params)])
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, metrics, grads = seq2seq_loss_and_grads(p, tcfg, b,
+                                                      label_smoothing=0.1)
+        _, _, m1 = step(p, adam_init(p), b)
+        out[dev] = (loss, metrics, grads, m1)
+    (lg, mg, gg, sg), (lc, mc, gc, sc) = out["cuda"], out["cpu"]
+    pairs = [(lg, lc)] + [(mg[k], mc[k]) for k in mc] + [
+        (sg[k], sc[k]) for k in sc] + list(zip(tree_leaves(gg),
+                                                tree_leaves(gc)))
+    err = max((a.detach().cpu() - b.detach()).abs().max().item()
+              for a, b in pairs)
+    for a, b in pairs:
+        if not np.allclose(a.detach().cpu().numpy(), b.detach().numpy(),
+                           atol=1e-4, rtol=1e-4):
+            raise AssertionError(f"train step: card {a} != cpu {b}")
+    print(f"reference check: tiny model, one train step on the card == the "
+          f"CPU plain path (loss {float(lc):.6f}, grad norm "
+          f"{float(sc['grad_norm']):.6f}, {len(tree_leaves(gc))} gradient "
+          f"leaves, max abs err {err:.3g})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -485,7 +842,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs.mt import product_config, tiny_config, with_vocab
-    from repro_torch.data.synthetic import SyntheticReactionDataset
+    from repro_torch.data import SyntheticReactionDataset, padded_batch
     from repro_torch.kernels import _build
     from repro_torch.models import seq2seq as s2s
     from repro_torch.serving import EngineConfig
@@ -508,9 +865,29 @@ def main() -> int:
     queries = [ds.pair(i)[0] for i in range(16)]
     ecfg = EngineConfig()
     vocab = ds.tokenizer.vocab_size
+    # benchmarks/common.py's corpus: train on 512 forward reactions, serve
+    # 64 held out, all through the training set's tokenizer
+    train_ds = SyntheticReactionDataset(TRAIN["n_train"], seed=SEED)
+    test_ds = SyntheticReactionDataset(TRAIN["n_test"], seed=10_000)
+    src = np.stack([ds.tokenizer.encode_padded(q, ecfg.max_src, add_eos=True)
+                    for q in queries])
+    batch0 = padded_batch(train_ds.tokenizer, [train_ds.pair(i) for i in
+                                               range(TRAIN["batch"])],
+                          TRAIN["max_len"], TRAIN["max_len"])
+    B_t, S_t = TRAIN["batch"], TRAIN["max_len"]
+    flash_main = {   # H 8, hd 32: mt-product's heads
+        "serving_encoder": dict(B=16, S=ecfg.max_src, H=8, hd=32,
+                                causal=False, backward=False,
+                                lengths=(src != 0).sum(1)),
+        "train_encoder": dict(B=B_t, S=S_t, H=8, hd=32, causal=False,
+                              backward=True,
+                              lengths=(batch0["src"] != 0).sum(1)),
+        "train_decoder": dict(B=B_t, S=S_t, H=8, hd=32, causal=True,
+                              backward=True, lengths=None)}
     t0 = time.perf_counter()
     # the timed shapes are those of 8 slots (speculative: 8 x N_d rows)
-    kern = check_kernels(torch, vocab, ecfg, STREAM_PLAN["speculative"][0])
+    kern = check_kernels(torch, vocab, ecfg, STREAM_PLAN["speculative"][0],
+                         flash_main)
     print(f"kernel checks passed ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     for name, r in kern.items():
@@ -522,7 +899,7 @@ def main() -> int:
     if args.quick:
         print(json.dumps({"kernels_checked": sorted(kern)}))
         return 0
-    names = ("decode_gqa", "draft_verify", "paged_decode_gqa")
+    names = tuple(_build.launch_counts)
     main_launches = dict.fromkeys(names, 0)
 
     # -- one-shot: ReactionEngine at mt-product width, seeded weights ----------
@@ -546,6 +923,7 @@ def main() -> int:
             raise AssertionError(f"{mode}: decode_gqa was never launched")
         if mode in ("greedy", "speculative") and launches["draft_verify"] == 0:
             raise AssertionError(f"{mode}: draft_verify was never launched")
+        check_encoder_launches(launches, f"one-shot {mode}")
         preds = res[mode]["preds"]
         for p in preds:
             if not (np.all(np.isfinite(p.logprobs)) and p.smiles
@@ -583,6 +961,7 @@ def main() -> int:
                     launches["draft_verify"] == 0:
                 raise AssertionError(f"streaming {mode}: draft_verify was "
                                      f"never launched")
+            check_encoder_launches(launches, f"streaming {label} {mode}")
             ref = res[mode]["preds"]
             for i, (smi, lp) in enumerate(zip(r["smiles"], r["logprobs"])):
                 if smi != ref[i].smiles or not np.all(np.isfinite(lp)):
@@ -611,6 +990,19 @@ def main() -> int:
         profile_modes(torch, ds, cfg, params, ekw, queries[:8], modes,
                       args.profile)
         profile_streaming(torch, ds, cfg, params, skw, queries, args.profile)
+
+    # -- train: mt-product on synthetic reactions, then serve it --------------
+    del params
+    trainer, train = run_training(torch, train_ds)
+    for k in names:
+        main_launches[k] += train["launches"][k]
+    if args.profile:
+        profile_training(torch, trainer, train_ds, args.profile)
+    trained = serve_trained(torch, train_ds.tokenizer, trainer.cfg,
+                            trainer.params, test_ds)
+    for r in trained.values():
+        for k in names:
+            main_launches[k] += r["launches"][k]
 
     # -- reference: the card against the CPU's plain path, tiny model ----------
     tcfg = tiny_config(vocab, depth=2, d_model=64)
@@ -643,6 +1035,7 @@ def main() -> int:
                                  f"cpu {b['smiles']}")
     print("reference check: tiny model, card == CPU plain path in all four "
           "modes, one-shot and paged streaming", flush=True)
+    check_train_step(torch, ds, tcfg, cpu_params)
 
     sources = {"decode_gqa": ("src/repro_torch/csrc/decode_gqa.cu",
                               "src/repro/kernels/decode_gqa/kernel.py:72"),
@@ -650,17 +1043,31 @@ def main() -> int:
                                 "src/repro/kernels/draft_verify/kernel.py:61"),
                "paged_decode_gqa": (
                    "src/repro_torch/csrc/paged_decode_gqa.cu",
-                   "src/repro/kernels/decode_gqa/kernel.py:160")}
+                   "src/repro/kernels/decode_gqa/kernel.py:160"),
+               # the backward extends the same TPU kernel (JAX has none)
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention/"
+                                   "kernel.py:69"),
+               "flash_attention_bwd": (
+                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:69")}
     entries = []
     for name, (src, replaces) in sources.items():
-        m = kern[name]["shapes"]["speculative"]
+        shapes = kern[name]["shapes"]
+        main_shape = ("train_encoder" if name.startswith("flash")
+                      else "speculative")
+        m = shapes[main_shape]
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             check="passed", launches=main_launches[name],
             max_abs_err=kern[name]["max_abs_err"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=m["library_ms"],
-            shape=m["shape"], greedy_shape=kern[name]["shapes"]["greedy"]))
+            shape=m["shape"],
+            other_shapes={k: {f: v[f] for f in ("shape", "ms", "plain_ms",
+                                                "library_ms", "bound_ms",
+                                                "bound_by")}
+                          for k, v in shapes.items() if k != main_shape}))
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card_line())

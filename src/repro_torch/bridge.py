@@ -1,7 +1,10 @@
-"""Carry a JAX seq2seq param tree across into the port.
+"""Carry a seq2seq param tree between the JAX package and the port.
 
-The input is the JAX package's tree as nested dicts of numpy arrays (e.g.
-``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+``seq2seq_params_from_jax`` takes the JAX package's tree as nested dicts of
+numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``);
+``seq2seq_params_to_jax`` gives port params (a trained model, or a
+gradient tree) back in that layout, as numpy arrays. So this module needs
+no JAX.
 
 - ``enc_blocks`` / ``dec_blocks`` are stacked on a leading layer axis by
   ``jax.vmap`` in the JAX init; they become per-layer lists.
@@ -42,4 +45,22 @@ def seq2seq_params_from_jax(tree: dict, *, device=None) -> dict:
            if k not in ("enc_blocks", "dec_blocks")}
     out["enc_blocks"] = _unstack(tree["enc_blocks"], n_enc, dev)
     out["dec_blocks"] = _unstack(tree["dec_blocks"], n_dec, dev)
+    return out
+
+
+def _stack(blocks: list[dict]):
+    first = blocks[0]
+    if isinstance(first, dict):
+        return {k: _stack([b[k] for b in blocks]) for k in first}
+    return np.stack([b.detach().cpu().numpy() for b in blocks])
+
+
+def seq2seq_params_to_jax(params: dict) -> dict:
+    """Port params (tensors on any device) -> the JAX package's tree with
+    numpy leaves: ``enc_blocks`` / ``dec_blocks`` restacked on a leading
+    layer axis (``jax.tree.map(jnp.asarray, ...)`` makes it a JAX tree)."""
+    out = {k: _map(v, lambda t: t.detach().cpu().numpy())
+           for k, v in params.items() if k not in ("enc_blocks", "dec_blocks")}
+    out["enc_blocks"] = _stack(params["enc_blocks"])
+    out["dec_blocks"] = _stack(params["dec_blocks"])
     return out

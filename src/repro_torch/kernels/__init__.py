@@ -7,6 +7,9 @@ from repro_torch.kernels._build import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_gqa.ops import (decode_gqa_attention,
                                                paged_decode_gqa_attention)
 from repro_torch.kernels.draft_verify.ops import draft_verify
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_bshd)
 
-__all__ = ["decode_gqa_attention", "draft_verify", "launch_counts",
+__all__ = ["decode_gqa_attention", "draft_verify", "flash_attention",
+           "flash_attention_bshd", "launch_counts",
            "paged_decode_gqa_attention", "reset_launch_counts"]

@@ -27,16 +27,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-KERNELS = ("decode_gqa", "draft_verify", "paged_decode_gqa")
+KERNELS = ("decode_gqa", "draft_verify", "flash_attention",
+           "paged_decode_gqa")   # the sources, csrc/<name>.cu
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}   # nvcc's output (ptxas register/smem report)
-launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -81,30 +76,48 @@ def build_all(names=KERNELS) -> float:
     return time.perf_counter() - t0
 
 
+# launch function -> (source, C symbol, argtypes); one launch count each
 _ARGTYPES = {
-    "decode_gqa": ("decode_gqa_launch",
+    "decode_gqa": ("decode_gqa", "decode_gqa_launch",
                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 6
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p]),
-    "paged_decode_gqa": ("paged_decode_gqa_launch",
+    "paged_decode_gqa": ("paged_decode_gqa", "paged_decode_gqa_launch",
                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                          + [ctypes.c_longlong] * 6
                          + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                             ctypes.c_void_p]),
-    "draft_verify": ("draft_verify_launch",
+    "draft_verify": ("draft_verify", "draft_verify_launch",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                      + [ctypes.c_void_p]),
+    "flash_attention": ("flash_attention", "flash_attention_fwd_launch",
+                        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                        + [ctypes.c_longlong] * 9
+                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                           ctypes.c_int, ctypes.c_void_p]),
+    "flash_attention_bwd": ("flash_attention", "flash_attention_bwd_launch",
+                            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                            + [ctypes.c_longlong] * 15
+                            + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                               ctypes.c_void_p]),
 }
+launch_counts: dict[str, int] = {name: 0 for name in _ARGTYPES}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def load(name: str):
-    """The C launch function of kernel ``name``, built at first use."""
-    if name not in _libs:
-        build_all((name,))
-        _libs[name] = ctypes.CDLL(str(_lib_path(name)))
-    fn_name, argtypes = _ARGTYPES[name]
-    fn = getattr(_libs[name], fn_name)
+    """The C launch function ``name`` (a key of ``launch_counts``), its
+    source built at first use."""
+    source, fn_name, argtypes = _ARGTYPES[name]
+    if source not in _libs:
+        build_all((source,))
+        _libs[source] = ctypes.CDLL(str(_lib_path(source)))
+    fn = getattr(_libs[source], fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -28,6 +28,11 @@ PAGED_SWEEP = [
 # (N, T, V): rows, fed positions (DL + 1), vocab
 VERIFY_SWEEP = [(6, 5, 700), (12, 11, 1024), (3, 1, 64), (4, 6, 50),
                 (25, 11, 320)]
+# (B, H, S, hd) x (causal, window): the flash sweep of the JAX package's
+# kernel tests (shapes in its (B, H, S, hd) order)
+FLASH_SWEEP = [dict(B=2, H=3, S=64, hd=32), dict(B=1, H=2, S=96, hd=16),
+               dict(B=2, H=2, S=128, hd=64), dict(B=1, H=1, S=33, hd=8)]
+FLASH_MASKS = [(True, 0), (False, 0), (True, 24)]
 
 
 def decode_inputs(B, T, H, Kv, S, hd, *, seed=1):
@@ -97,3 +102,24 @@ def paged_inputs(B, T, H, Kv, P, ps, nb, hd, *, n_mapped=None, seed=7):
             pos_pool[bt[b, j], :fill] = j * ps + np.arange(fill)
     q_pos = np.tile(n_mapped * ps - 2 + np.arange(T), (B, 1)).astype(np.int32)
     return q, k_pool, v_pool, pos_pool, bt, q_pos
+
+
+def flash_inputs(B, S, H, hd, *, lengths=None, seed=4):
+    """q, k, v and an upstream gradient dO, each (B, S, H, hd) (the model's
+    layout), and a key mask (B, S) bool: None when ``lengths`` is None,
+    else True on the first ``lengths[b]`` keys of row ``b`` (trailing
+    padding, as ``src != pad`` and the decoder's ``lengths`` give it)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((B, S, H, hd), np.float32)
+                   for _ in range(4))
+    key_mask = (None if lengths is None
+                else np.arange(S)[None] < np.asarray(lengths)[:, None])
+    return q, k, v, do, key_mask
+
+
+def ragged_lengths(B, S, *, seed=5):
+    """Per-row valid lengths in [1, S], row 0 full: the ragged key masks
+    of the checks."""
+    lengths = np.random.default_rng(seed).integers(1, S + 1, B)
+    lengths[0] = S
+    return lengths

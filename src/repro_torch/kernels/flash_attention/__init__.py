@@ -1,0 +1,4 @@
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_bshd)
+
+__all__ = ["flash_attention", "flash_attention_bshd"]

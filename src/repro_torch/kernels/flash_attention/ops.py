@@ -1,0 +1,143 @@
+"""The port's full-sequence attention: the plain versions for CPU tensors,
+the CUDA kernels for CUDA tensors (no fall-back between them), forward and
+backward behind one ``torch.autograd.Function``.
+
+Two entries:
+
+- ``flash_attention(q, k, v, *, causal, window, bq, bk)`` keeps the Pallas
+  wrapper's signature and ``(B, H, S, hd)`` layout
+  (``repro.kernels.flash_attention.ops.flash_attention``); ``bq``/``bk``
+  are accepted and the result does not depend on them (the port needs no
+  padding to whole blocks);
+- ``flash_attention_bshd(q, k, v, *, causal, window, key_mask)`` takes the
+  model's ``(B, S, H, hd)`` layout and a per-row key mask (``(B, S)`` bool,
+  True = valid key), which the Pallas signature (one scalar ``seq_len``)
+  lacks. With ``key_mask=None`` it computes exactly the Pallas contract.
+
+``window`` applies only when ``causal``. A query row with no visible key
+outputs 0 and gets zero gradient (see ``ref.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.kernel import (
+    _DTYPES, MAX_HD, flash_attention_bwd_kernel, flash_attention_fwd_kernel)
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+
+
+def _check(q, k, v, key_mask, window) -> None:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
+                         f"three (B, S, H, hd) tensors of one shape")
+    if key_mask is not None and tuple(key_mask.shape) != tuple(q.shape[:2]):
+        raise ValueError(f"flash_attention: key_mask "
+                         f"{tuple(key_mask.shape)} for (B, S) = "
+                         f"{tuple(q.shape[:2])}")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    tensors = (q, k, v) if key_mask is None else (q, k, v, key_mask)
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"flash_attention: tensors on several devices {devs}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def _check_cuda(q, k, v, key_mask) -> None:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; the kernel takes float32 or bfloat16, "
+                        f"all alike")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_attention: the head_dim axis of q, k and v "
+                         "must be contiguous")
+    if q.shape[3] > MAX_HD:
+        raise ValueError(f"flash_attention: head_dim {q.shape[3]} > {MAX_HD}")
+    if key_mask is not None and (key_mask.dtype != torch.bool
+                                 or not key_mask.is_contiguous()):
+        raise TypeError("flash_attention: key_mask must be a contiguous "
+                        "bool tensor")
+
+
+def _forward(q, k, v, key_mask, causal, window):
+    """(out (B, S, H, hd), lse (B, H, S) fp32) on the tensors' device."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   key_mask=key_mask)
+    _check_cuda(q, k, v, key_mask)
+    if q.numel() == 0:
+        return (torch.empty_like(q), torch.empty(
+            (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+            device=q.device))
+    out = flash_attention_fwd_kernel(q, k, v, key_mask, causal=causal,
+                                     window=window)
+    _build.launch_counts["flash_attention"] += 1
+    return out
+
+
+def _backward(q, k, v, o, lse, do, key_mask, causal, window):
+    """(dq, dk, dv) of the forward's output."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window, key_mask=key_mask)
+    if any(t.dtype != torch.float32 for t in (q, k, v, o, do)):
+        raise TypeError("flash_attention backward: the kernel takes float32 "
+                        "only (the model trains in fp32)")
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    if q.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    grads = flash_attention_bwd_kernel(q, k, v, o, lse, do, key_mask,
+                                       causal=causal, window=window)
+    _build.launch_counts["flash_attention_bwd"] += 1
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through ``_forward``; the backward recomputes P from the
+    saved fp32 ``lse`` (never from another reduction)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, window):
+        out, lse = _forward(q, k, v, key_mask, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse, key_mask)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, key_mask = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, lse, do, key_mask, ctx.causal,
+                               ctx.window)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bshd(q, k, v, *, causal: bool, window: int = 0,
+                         key_mask=None) -> torch.Tensor:
+    """q, k, v: (B, S, H, hd), the model's layout (read through their
+    strides on the card); key_mask: (B, S) bool, True = valid key, or None.
+    Returns (B, S, H, hd) in q's dtype. Differentiable; ``lse`` is kept for
+    the backward only when a gradient is needed, so serving stores
+    nothing."""
+    _check(q, k, v, key_mask, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, key_mask, causal, window)
+    return _forward(q, k, v, key_mask, causal, window)[0]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    bq: int = 128, bk: int = 128) -> torch.Tensor:
+    """q, k, v: (B, H, S, hd) -> (B, H, S, hd): the counterpart of
+    ``repro.kernels.flash_attention.ops.flash_attention`` (``bq``/``bk``
+    have no effect). The kernel reads the transposed views through their
+    strides, so nothing is copied."""
+    out = flash_attention_bshd(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window)
+    return out.transpose(1, 2)

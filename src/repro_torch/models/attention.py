@@ -14,7 +14,10 @@ Unlike the JAX package, the port writes either cache IN PLACE (no copy of
 the buffers per step); ``cached_attention`` returns the same cache object.
 Each cache type has one read path: the ``decode_gqa`` kernel for the dense
 cache, the ``paged_decode_gqa`` kernel for the paged one (their plain
-versions on the CPU).
+versions on the CPU). Full-sequence self-attention (the encoder, and the
+teacher-forced decoder of training) has one path too: the
+``flash_attention`` kernels, forward and backward. Cross-attention stays an
+einsum, as in the JAX package.
 
 Masks use -1e30, not -inf, as in the JAX package.
 """
@@ -29,6 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_gqa.ops import (decode_gqa_attention,
                                                paged_decode_gqa_attention)
+from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.models.layers import dense, dense_init
 
 _NEG_INF = -1e30
@@ -208,22 +212,24 @@ def _project_qkv(p: dict, cfg: ModelConfig, x, kv_input, *, cross: bool):
 # modes
 
 
-def attention(p: dict, cfg: ModelConfig, x, *, positions=None,
-              causal: bool = True, padding_mask=None) -> torch.Tensor:
-    """Full-sequence self-attention (no cache).
+def attention(p: dict, cfg: ModelConfig, x, *, causal: bool = True,
+              padding_mask=None) -> torch.Tensor:
+    """Full-sequence self-attention (no cache): the encoder, and the
+    teacher-forced decoder of training. Runs ``flash_attention_bshd`` (the
+    kernels on the card, their plain versions on the CPU), differentiable.
 
-    x: (B, T, d); positions: (B, T) absolute; padding_mask: (B, T) True=valid.
+    x: (B, T, d); padding_mask: (B, T) True = valid key. The kernel masks by
+    index, so positions are always ``arange(T)`` (all the MT needs). GQA
+    (``q_per_kv > 1``) is refused; it and position-aware full attention
+    come with the decoder-only families (ROADMAP Queue 1 item 6).
     """
     B, T = x.shape[:2]
-    if positions is None:
-        positions = torch.arange(T, dtype=torch.int32,
-                                 device=x.device).expand(B, T)
+    if cfg.q_per_kv != 1:
+        raise ValueError(f"attention: q_per_kv={cfg.q_per_kv}; full-sequence "
+                         f"GQA comes with the decoder-only families (ROADMAP "
+                         f"Queue 1 item 6)")
     q, k, v = _project_qkv(p, cfg, x, x, cross=False)
-    mask = (torch.ones((B, 1, T), dtype=torch.bool, device=x.device)
-            if padding_mask is None else padding_mask[:, None, :])
-    if causal:
-        mask = mask & (positions[:, None, :] <= positions[:, :, None])
-    out = _gqa_attend(q, k, v, mask[:, None, None], q_per_kv=cfg.q_per_kv)
+    out = flash_attention_bshd(q, k, v, causal=causal, key_mask=padding_mask)
     return dense(p["wo"], out.reshape(B, T, -1))
 
 

@@ -87,8 +87,7 @@ def encode(params, cfg: ModelConfig, src, *, src_mask=None):
     x = _embed_pos(params, cfg, src, positions)
     for p in params["enc_blocks"]:
         x = x + attention(p["attn"], cfg, apply_norm(p["norm1"], x, cfg.norm),
-                          positions=positions, causal=False,
-                          padding_mask=src_mask)
+                          causal=False, padding_mask=src_mask)
         x = x + ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm))
     return apply_norm(params["enc_norm"], x, cfg.norm), src_mask
 
@@ -109,8 +108,7 @@ def decode(params, cfg: ModelConfig, tgt_in, memory, src_mask, *,
     for p in params["dec_blocks"]:
         x = x + attention(p["self_attn"], cfg,
                           apply_norm(p["norm1"], x, cfg.norm),
-                          positions=positions, causal=True,
-                          padding_mask=pad_mask)
+                          causal=True, padding_mask=pad_mask)
         x = x + cross_attention(p["cross_attn"], cfg,
                                 apply_norm(p["norm_x"], x, cfg.norm), memory,
                                 memory_mask=src_mask)

@@ -160,7 +160,9 @@ class ReactionEngine:
     """Per-request engine: each call runs its batch to completion.
 
     ``device``: where the model runs; ``None`` means the card, and a missing
-    card is an error. Pass ``device="cpu"`` to run the plain versions."""
+    card is an error. Pass ``device="cpu"`` to run the plain versions.
+    ``predict`` / ``predict_topn`` run under ``torch.no_grad()``, so params
+    that require grad (a trainer's) build no graph."""
 
     def __init__(self, params, cfg: ModelConfig, tokenizer: SmilesTokenizer,
                  engine_cfg: EngineConfig | None = None, *, device=None):
@@ -186,6 +188,7 @@ class ReactionEngine:
                 for q in queries]
         return np.stack(rows)
 
+    @torch.no_grad()
     def predict(self, queries: Sequence[str]) -> list[Prediction]:
         """Batched greedy / speculative-greedy prediction (one best output)."""
         ecfg = self.ecfg
@@ -223,6 +226,7 @@ class ReactionEngine:
                            acceptance_rate=float(rate[b]), wall_s=wall / B)
                 for b in range(B)]
 
+    @torch.no_grad()
     def predict_topn(self, query: str) -> Prediction:
         """Beam / speculative-beam search for one query (the paper's B=1
         retrosynthesis serving regime)."""
@@ -274,7 +278,11 @@ class StreamingEngine:
     scheduler iteration.
 
     ``device``: where the model runs; ``None`` means the card, and a missing
-    card is an error. Pass ``device="cpu"`` to run the plain versions."""
+    card is an error. Pass ``device="cpu"`` to run the plain versions.
+    Every scheduler iteration (the one pump behind ``serve``, ``wait``,
+    ``stream``, ``drain`` and ``predict``) runs under ``torch.no_grad()``,
+    so params that require grad build no graph through the in-place cache
+    writes."""
 
     # terminal records kept for RequestHandle.result()/.status after their
     # serve() epoch: bounded, oldest insertions evict first
@@ -758,6 +766,7 @@ class StreamingEngine:
         ``serve()`` and ``RequestHandle.result()``/``.stream()`` advance."""
         return self._ensure_pump(realtime=realtime)
 
+    @torch.no_grad()   # every step of serve/wait/stream/drain/predict
     def _serve_steps_impl(self, realtime: bool):
         for events in self.scheduler.steps(self._read_slot,
                                            realtime=realtime):

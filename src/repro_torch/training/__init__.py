@@ -1,0 +1,9 @@
+"""Training of the Molecular Transformer: the port of ``repro.training``."""
+
+from repro_torch.training.loss import cross_entropy_loss
+from repro_torch.training.optimizer import adam_init, adam_update, noam_schedule
+from repro_torch.training.trainer import (Trainer, make_seq2seq_train_step,
+                                          seq2seq_loss_and_grads)
+
+__all__ = ["cross_entropy_loss", "adam_init", "adam_update", "noam_schedule",
+           "Trainer", "make_seq2seq_train_step", "seq2seq_loss_and_grads"]

@@ -1,5 +1,6 @@
 """The port's kernels against the JAX package's (``decode_gqa``, its paged
-variant ``paged_decode_gqa``, ``draft_verify``).
+variant ``paged_decode_gqa``, ``draft_verify``, ``flash_attention`` with
+the port's backward).
 
 On the CPU the port's wrappers run their plain versions; these are held to
 the JAX Pallas kernels (``interpret=True``, as ``tests/test_kernels.py``
@@ -23,13 +24,17 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.session import _accept_lengths  # noqa: E402
 from repro_torch.kernels import (decode_gqa_attention, draft_verify,  # noqa: E402
+                                 flash_attention, flash_attention_bshd,
                                  paged_decode_gqa_attention)
 from repro_torch.kernels.cases import (  # noqa: E402
-    DECODE_SWEEP, PAGED_SWEEP, VERIFY_SWEEP, decode_inputs, paged_inputs,
-    ring_inputs, verify_inputs)
+    DECODE_SWEEP, FLASH_MASKS, FLASH_SWEEP, PAGED_SWEEP, VERIFY_SWEEP,
+    decode_inputs, flash_inputs, paged_inputs, ragged_lengths, ring_inputs,
+    verify_inputs)
 from repro_torch.kernels.decode_gqa.ref import (  # noqa: E402
     decode_gqa_ref, paged_decode_gqa_ref)
 from repro_torch.kernels.draft_verify.ref import draft_verify_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_bwd_ref, flash_attention_ref)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -45,10 +50,13 @@ def jx():
                                               paged_decode_gqa_ref)
     from repro.kernels.draft_verify.ops import draft_verify
     from repro.kernels.draft_verify.ref import draft_verify_ref
-    return dict(jnp=jax.numpy, decode=decode_gqa_attention,
+    from repro.kernels.flash_attention.ops import flash_attention
+    from repro.kernels.flash_attention.ref import flash_attention_ref
+    return dict(jax=jax, jnp=jax.numpy, decode=decode_gqa_attention,
                 decode_ref=decode_gqa_ref, paged=paged_decode_gqa_attention,
                 paged_ref=paged_decode_gqa_ref, verify=draft_verify,
-                verify_ref=draft_verify_ref)
+                verify_ref=draft_verify_ref, flash=flash_attention,
+                flash_ref=flash_attention_ref)
 
 
 @pytest.fixture
@@ -260,6 +268,172 @@ def test_wrappers_refuse_other_devices_and_bad_shapes():
 
 
 # ---------------------------------------------------------------------------
+# flash_attention (full-sequence attention, forward and backward)
+
+FLASH_KEYS = ("B", "S", "H", "hd")
+MASK_IDS = ["causal", "bidirectional", "window24"]
+
+
+def _flash(cfg, *, ragged=False, seed=4):
+    """numpy q, k, v, dO (B, S, H, hd) and a key mask (ragged rows or
+    None) for a sweep case."""
+    lengths = ragged_lengths(cfg["B"], cfg["S"]) if ragged else None
+    return flash_inputs(*(cfg[k] for k in FLASH_KEYS), lengths=lengths,
+                        seed=seed)
+
+
+def _bhsd(a):
+    """(B, S, H, hd) -> the Pallas wrapper's (B, H, S, hd)."""
+    return np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("cfg", FLASH_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS, ids=MASK_IDS)
+def test_flash_attention_plain_matches_jax(jx, cfg, dtype, causal, window):
+    """The Pallas contract (no key mask) on the JAX kernel test's sweep:
+    the port's (B, H, S, hd) wrapper against the JAX Pallas kernel
+    (interpret mode, 32-row blocks) and the JAX oracle."""
+    q, k, v, _, _ = _flash(cfg)
+    (jq, jk, jv), (tq, tk, tv) = _both(jx, [_bhsd(a) for a in (q, k, v)],
+                                       dtype)
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == TDT[dtype] and out.shape == tq.shape
+    for ref in (jx["flash"](jq, jk, jv, causal=causal, window=window, bq=32,
+                            bk=32),
+                jx["flash_ref"](jq, jk, jv, causal=causal, window=window)):
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_key_mask_matches_jax_attention(causal):
+    """The key-mask extension: the port's ``attention()`` (projections,
+    then ``flash_attention_bshd`` with the padding mask as key mask)
+    against the JAX model's einsum ``attention(..., padding_mask=)`` on
+    ragged rows, pad query rows included, at 1e-5."""
+    jax = pytest.importorskip("jax")
+    from repro.configs.mt import tiny_config as jax_tiny_config
+    from repro.models.attention import attention as jax_attention
+    from repro_torch.configs.mt import tiny_config
+    from repro_torch.models.attention import attention
+
+    cfg_j, cfg_t = jax_tiny_config(48, d_model=64), tiny_config(48,
+                                                                d_model=64)
+    rng = np.random.default_rng(6)
+    p = {n: {"w": rng.standard_normal((64, 64)).astype(np.float32) / 8,
+             "b": 0.1 * rng.standard_normal(64).astype(np.float32)}
+         for n in ("wq", "wk", "wv", "wo")}
+    x = rng.standard_normal((3, 21, 64)).astype(np.float32)
+    pad = np.arange(21)[None] < np.array([21, 9, 1])[:, None]
+    out = attention({n: {a: torch.from_numpy(b) for a, b in d.items()}
+                     for n, d in p.items()}, cfg_t, torch.from_numpy(x),
+                    causal=causal, padding_mask=torch.from_numpy(pad))
+    ref = jax_attention(jax.tree.map(jax.numpy.asarray, p), cfg_j,
+                        jax.numpy.asarray(x), causal=causal,
+                        padding_mask=jax.numpy.asarray(pad))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("cfg", FLASH_SWEEP[:2] + FLASH_SWEEP[3:])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS, ids=MASK_IDS)
+def test_flash_backward_plain_matches_jax_grad(jx, cfg, causal, window):
+    """The explicit backward (P from the saved lse) against ``jax.grad``
+    of the JAX oracle, at 1e-4."""
+    jax, jnp = jx["jax"], jx["jnp"]
+    q, k, v, do, _ = _flash(cfg)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    grads = flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal=causal,
+                                    window=window)
+
+    def f(jq, jk, jv):
+        out = jx["flash_ref"](jq, jk, jv, causal=causal, window=window)
+        return jnp.sum(out * jnp.asarray(_bhsd(do)))
+
+    jgrads = jax.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(_bhsd(a)) for a in (q, k, v)))
+    for g, jg in zip(grads, jgrads):
+        np.testing.assert_allclose(_bhsd(g.numpy()), np.asarray(jg),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("cfg", FLASH_SWEEP[:2] + FLASH_SWEEP[3:])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS, ids=MASK_IDS)
+def test_flash_backward_plain_matches_autograd(cfg, causal, window):
+    """With ragged key masks: the explicit backward against torch autograd
+    through the plain forward (1e-4), and the autograd Function (what the
+    model differentiates) equal to the explicit backward."""
+    q, k, v, do, km = _flash(cfg, ragged=True)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    km = torch.from_numpy(km)
+    kw = dict(causal=causal, window=window, key_mask=km)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    o, lse = flash_attention_ref(*leaves, **kw)
+    auto = torch.autograd.grad(o, leaves, tdo)
+    grads = flash_attention_bwd_ref(tq, tk, tv, o.detach(), lse.detach(),
+                                    tdo, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    fn = torch.autograd.grad(flash_attention_bshd(*leaves, **kw), leaves, tdo)
+    for a, g, f in zip(auto, grads, fn):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), a.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        assert torch.equal(f, g)
+
+
+def test_flash_fully_masked_row_is_zero_with_zero_gradient():
+    """A query row with no visible key (a source row of padding only)
+    outputs 0 and gets zero gradient, with lse -inf and no NaN; the JAX
+    einsum gives the mean of V there. The other rows are untouched."""
+    cfg = FLASH_SWEEP[0]
+    q, k, v, do, _ = _flash(cfg)
+    km = np.ones((cfg["B"], cfg["S"]), bool)
+    km[1] = False
+    tq, tk, tv, tdo, tkm = (torch.from_numpy(a) for a in (q, k, v, do, km))
+    o, lse = flash_attention_ref(tq, tk, tv, causal=False, key_mask=tkm)
+    assert not o[1].any() and torch.isinf(lse[1]).all() and (lse[1] < 0).all()
+    dq, dk, dv = flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo,
+                                         causal=False, key_mask=tkm)
+    assert all(torch.isfinite(g).all() for g in (dq, dk, dv))
+    assert not (dq[1].any() or dk[1].any() or dv[1].any())
+    o0, _ = flash_attention_ref(tq[:1], tk[:1], tv[:1], causal=False)
+    assert torch.equal(o[0], o0[0])
+
+
+def test_flash_wrappers_refuse_other_devices_bad_shapes_and_gqa():
+    """A tensor neither on the CPU nor on the card, mismatched shapes, a
+    bad key mask or window raise; ``attention()`` refuses GQA (it comes
+    with the decoder-only families) and takes no positions: the kernel
+    masks by index."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.configs.mt import tiny_config
+    from repro_torch.models.attention import attention
+
+    q, k, v, _, km = (None if a is None else torch.from_numpy(a)
+                      for a in _flash(FLASH_SWEEP[0], ragged=True))
+    with pytest.raises(ValueError):
+        flash_attention_bshd(*(t.to("meta") for t in (q, k, v)), causal=True)
+    with pytest.raises(ValueError):
+        flash_attention_bshd(q, k[:, :-1], v, causal=True)
+    with pytest.raises(ValueError):
+        flash_attention_bshd(q, k, v, causal=False, key_mask=km[:, :-1])
+    with pytest.raises(ValueError):
+        flash_attention_bshd(q, k, v, causal=True, window=-1)
+    gqa = ModelConfig(name="gqa", family="seq2seq", n_layers=1, d_model=32,
+                      n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=16)
+    with pytest.raises(ValueError, match="Queue 1 item 6"):
+        attention({}, gqa, torch.zeros((1, 3, 32)))
+    cfg = tiny_config(16, d_model=32)
+    p = {n: {"w": torch.zeros((32, 32))} for n in ("wq", "wk", "wv", "wo")}
+    x = torch.zeros((2, 3, 32))
+    assert attention(p, cfg, x).shape == x.shape
+    with pytest.raises(TypeError):
+        attention(p, cfg, x, positions=torch.arange(3).expand(2, 3) + 1)
+
+
+# ---------------------------------------------------------------------------
 # on the card: kernel against its plain version
 
 
@@ -303,3 +477,42 @@ def test_draft_verify_kernel_matches_plain(cuda, N, T, V):
     tok, acc = draft_verify(*tx)
     rtok, racc = draft_verify_ref(*tx)
     assert torch.equal(tok, rtok) and torch.equal(acc, racc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", FLASH_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS, ids=MASK_IDS)
+@pytest.mark.parametrize("ragged", [False, True])
+def test_flash_attention_kernel_matches_plain(cuda, cfg, dtype, causal,
+                                              window, ragged):
+    q, k, v, _, km = _flash(cfg, ragged=ragged)
+    tx = [t.to(cuda) for t in _torch((q, k, v), dtype)]
+    km = None if km is None else torch.from_numpy(km).to(cuda)
+    kw = dict(causal=causal, window=window, key_mask=km)
+    out = flash_attention_bshd(*tx, **kw)
+    ref, _ = flash_attention_ref(*tx, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", FLASH_SWEEP)
+@pytest.mark.parametrize("causal,window", FLASH_MASKS, ids=MASK_IDS)
+@pytest.mark.parametrize("ragged", [False, True])
+def test_flash_backward_kernel_matches_plain(cuda, cfg, causal, window,
+                                             ragged):
+    q, k, v, do, km = _flash(cfg, ragged=ragged)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(cuda) for a in (q, k, v, do))
+    km = None if km is None else torch.from_numpy(km).to(cuda)
+    kw = dict(causal=causal, window=window, key_mask=km)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    grads = torch.autograd.grad(flash_attention_bshd(*leaves, **kw), leaves,
+                                tdo)
+    o, lse = flash_attention_ref(tq, tk, tv, **kw)
+    ref = flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
