@@ -7,11 +7,14 @@
 In order:
   1. print the card's name and power limit; exit nonzero without a card;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-     source, all started together; timed);
+     source, all started together; timed) and print each kernel
+     instance's registers and spills (fail if a flash_attention instance
+     of the model's head_dim bucket, 32, spills);
   3. hold each kernel against its plain PyTorch version on the card, at the
      test sweeps and at the main paths' shapes (flash_attention forward and
      backward: the serving encoder's B 16 x S 128 and the training batch's
-     B 24 x S 96, H 8, hd 32), then time the kernel, the plain version and
+     B 24 x S 96, H 8, hd 32; two flash calls on the same inputs must agree
+     bitwise), then time the kernel, the plain version and
      a PyTorch library call (a yardstick only) with CUDA events, median
      over launches with the L2 cache flushed before each, beside the least
      time the card could take (bytes or flops);
@@ -97,6 +100,42 @@ def timed_ms(torch, fn, iters: int = 50, warm: int = 5) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def report_ptxas(source: str, log: str) -> None:
+    """Print registers and spills of every kernel instance from nvcc's
+    ``-Xptxas=-v`` output (flash instances as ``name<type, head_dim
+    bucket>``); fail if a flash instance of the model's bucket, hd 32,
+    spills."""
+    import re
+
+    label, spills = None, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkdv)I"
+                          r"(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+            if m is None:
+                label = mangled
+            else:
+                dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(
+                    m.group(2), "")
+                label = f"{m.group(1)}<{dtype}{m.group(3)}>"
+            continue
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if stores:
+            spills = (int(stores.group(1)), int(stores.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            print(f"  {source}: {label}: {regs.group(1)} registers, spill "
+                  f"stores/loads {spills} bytes")
+            if (label and label.startswith("flash_") and
+                    re.search(r"\b32>$", label) and spills != (0, 0)):
+                raise AssertionError(f"{label} spills: {spills} bytes")
+        elif "error" in line:
+            print(f"  {source}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -267,8 +306,9 @@ def check_flash(torch, main: dict) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_bshd
-    from repro_torch.kernels.cases import (FLASH_MASKS, FLASH_SWEEP,
-                                           flash_inputs, ragged_lengths)
+    from repro_torch.kernels.cases import (FLASH_MASKS, FLASH_PLAIN_LOADS,
+                                           FLASH_SWEEP, flash_inputs,
+                                           ragged_lengths)
     from repro_torch.kernels.flash_attention.ops import _backward, _forward
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
@@ -285,8 +325,8 @@ def check_flash(torch, main: dict) -> dict:
         return e.max().item()
 
     err_f = err_b = 0.0
-    cases = [(c, cw, ragged) for c in FLASH_SWEEP for cw in FLASH_MASKS
-             for ragged in (False, True)]
+    cases = [(c, cw, ragged) for c in FLASH_SWEEP + FLASH_PLAIN_LOADS
+             for cw in FLASH_MASKS for ragged in (False, True)]
     cases += [(dict(B=m["B"], S=m["S"], H=m["H"], hd=m["hd"]),
                (m["causal"], 0), m["lengths"]) for m in main.values()]
     for c, (causal, window), ragged in cases:
@@ -315,6 +355,19 @@ def check_flash(torch, main: dict) -> dict:
                 err_b = max(err_b, agree(f"flash_attention_bwd {n} {c} "
                                          f"{causal} {window}", g, r, 1e-4))
 
+    # no atomics: two calls on the same inputs agree bitwise
+    m = main["train_encoder"]
+    (q, k, v, do), km = inputs(m["B"], m["S"], m["H"], m["hd"], m["lengths"])
+    fw = [_forward(q, k, v, km, m["causal"], 0, with_lse=True)
+          for _ in range(2)]
+    bw = [_backward(q, k, v, *fw[0], do, km, m["causal"], 0)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, (a, b) in (("flash_attention", fw), ("flash_attention_bwd", bw)):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name}: two calls on the same inputs "
+                                 f"differ")
+
     fwd, bwd = {}, {}
     for name, m in main.items():
         B, S, H, hd, causal = (m[k] for k in ("B", "S", "H", "hd", "causal"))
@@ -333,7 +386,8 @@ def check_flash(torch, main: dict) -> dict:
         bound_ms, bound_by = bound(nbytes, flops)
         fwd[name] = dict(
             shape=shape,
-            ms=timed_ms(torch, lambda: _forward(q, k, v, km, causal, 0)),
+            ms=timed_ms(torch, lambda: _forward(q, k, v, km, causal, 0,
+                                                with_lse=m["backward"])),
             plain_ms=timed_ms(torch, lambda: flash_attention_ref(q, k, v,
                                                                  **kw)),
             library_ms=timed_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -341,7 +395,7 @@ def check_flash(torch, main: dict) -> dict:
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
         if not m["backward"]:
             continue
-        o, lse = _forward(q, k, v, km, causal, 0)
+        o, lse = _forward(q, k, v, km, causal, 0, with_lse=True)
         lq, lk, lv = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
         lib_out = F.scaled_dot_product_attention(lq, lk, lv, **lib_kw)
         dot = do.transpose(1, 2)
@@ -512,7 +566,7 @@ def report_profile(prof, wall_us: float, label: str, path: Path) -> None:
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
           f"top: {top}", flush=True)
     path.write_text(prof.key_averages().table(sort_by="device_time_total",
-                                              row_limit=40))
+                                              row_limit=-1))
 
 
 def profile_modes(torch, ds, cfg, params, ekw, queries, modes,
@@ -857,9 +911,7 @@ def main() -> int:
     build_s = _build.build_all()
     print(f"build: {build_s:.1f} s", flush=True)
     for name, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {name}: {line.strip()}")
+        report_ptxas(name, log)
 
     ds = SyntheticReactionDataset(16, seed=SEED + 1)
     queries = [ds.pair(i)[0] for i in range(16)]

@@ -1,4 +1,5 @@
-// Full-sequence (flash) attention for Hopper (sm_90a), forward and backward.
+// Full-sequence (flash) attention for Hopper (sm_90a), forward and backward,
+// on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // flash_attention_kernel (body _attn_kernel, oracle flash_attention_ref) and
@@ -15,29 +16,61 @@
 // gradient (the TPU kernel averages V over its padded tile there).
 //
 // Three kernels, three launches per forward plus backward, no atomics (so
-// the gradients are deterministic):
-//   flash_fwd        one block per (batch*head, 32-query tile); streams the
-//                    32-key tiles with the online softmax (running max, sum
-//                    and accumulator in shared memory), writes O and the
-//                    fp32 log-sum-exp lse (B, H, S);
-//   flash_bwd_dkdv   one block per (batch*head, 32-key tile); loops over
-//                    the query tiles that can see it, recomputes
-//                    P = exp(s*scale - lse) and D = rowsum(dO*O) on the fly,
-//                    accumulates dV = P^T dO and dK = scale * dS^T Q;
-//   flash_bwd_dq     one block per (batch*head, 32-query tile); loops over
-//                    the key tiles it can see, accumulates dQ = scale * dS K.
+// the gradients are deterministic). Each warp owns 16 rows, two warps a
+// block, and streams 32-row tiles of the other side:
+//   flash_fwd        per (batch*head, 32 queries); streams the key tiles
+//                    with the online softmax in registers, writes O and,
+//                    when asked (training), the fp32 log-sum-exp lse
+//                    (B, H, S); inference passes lse = NULL;
+//   flash_bwd_dq     runs first: per (batch*head, 32 queries); computes
+//                    D = rowsum(dO*O) once per query row into a (B, H, S)
+//                    buffer, then streams the key tiles: recomputes
+//                    S = QK^T and dP = dO V^T, P = exp(S*scale - lse) and
+//                    dS = P (dP - D), accumulates dQ = scale * dS K;
+//   flash_bwd_dkdv   runs second: per (batch*head, 32 keys; in the 128
+//                    bucket, half the head_dim columns: two accumulators of
+//                    16 x 128 a warp would spill); streams the query
+//                    tiles that can see them, recomputes S^T = K Q^T
+//                    and dP^T = V dO^T with lse and D read from memory,
+//                    accumulates dV = P^T dO and dK = scale * dS^T Q.
 //
-// What bounds it on this card: at the port's shapes (S <= 128, hd 32) each
-// (batch, head) moves 4*S*hd*4 bytes and does 4*S^2*hd flops, about S/4
-// flops per byte, so fp32 arithmetic (67 TFLOP/s outside the tensor cores)
-// and bytes (3.35 TB/s) are within a factor of two of each other. The TPU
-// kernel walked the keys on a sequential grid axis with VMEM scratch;
-// blocks here run in no order, so each block loops over the other axis
-// itself. Tiles are staged through shared memory once and shared by the
-// block's 32 rows; causal and windowed blocks skip tiles nobody can see.
+// What bounds it on this card, and the design. At the port's shapes (S <=
+// 128, hd 32) a (batch, head) moves 4*S*hd*4 bytes and needs 4*S^2*hd
+// flops forward: S/4 flops per byte, so neither the 3.35 TB/s nor the
+// tensor cores bound a block; its own chain does: a global load, then
+// three or four tiles of dependent products and a softmax. So every
+// product runs on the tensor cores, with few instructions between loads:
+//   - every product is mma.sync.m16n8k8 with TF32 operands and fp32
+//     accumulation. S, P, dS and the O/dQ/dK/dV accumulators stay in
+//     registers. The accumulator fragment (rows g, g+8; columns 2t, 2t+1)
+//     is not the A fragment's layout (columns t, t+4), so the second
+//     product of each pair permutes its k axis instead of moving data:
+//     k index t stands for tile row 2t and t+4 for row 2t+1, both in the
+//     A fragment taken from the accumulator and in the B fragment read
+//     from shared memory. No shuffle, no staging tile;
+//   - 3xTF32 for fp32 inputs: each operand x splits into hi = tf32(x) and
+//     lo = tf32(x - hi) (cvt.rna), and a product is hi*lo + lo*hi + hi*hi.
+//     One TF32 product keeps 11 significant bits, a relative error up to
+//     2^-11 (5e-4) per operand, 25x the 2e-5 the forward is held to
+//     against its fp32 plain version; the split leaves errors near 2^-22
+//     relative (the dropped lo*lo term, lo's own rounding), close to
+//     fp32's 2^-24, and the kernels agree with the plain versions within
+//     1e-5 at every check shape (chip_smoke.py). bf16 inputs are exact in
+//     TF32, so the bf16 forward runs one TF32 product, P rounded to TF32
+//     (held to 2e-2);
+//   - tiles arrive by 16-byte cp.async, double-buffered: the next tile's
+//     copy is issued before the current one is computed; two barriers a
+//     tile. Rows past S and head_dim columns past hd arrive as zeros
+//     (zero-fill), so every head_dim runs in the next bucket of 16, 32, 64
+//     or 128 (a template parameter) with zero-padded fragments. Tensors
+//     whose pointer, strides or hd are not whole 16-byte chunks are
+//     copied by plain loads instead;
+//   - rows are padded by 16 bytes in shared memory: fragment reads of one
+//     warp then fall in 32 distinct banks;
+//   - a tile whose keys are all masked is skipped (__syncthreads_or), and
+//     a key block with no valid key writes zero gradients and returns.
 // Q, K, V, O and dO are read in the model's (B, S, H, hd) layout through
-// their strides (no transposed copy). This is a first, simple version:
-// scalar fp32 FMAs, no tensor cores (wgmma) and no TMA.
+// their strides (no transposed copy).
 //
 // Plain C interface, loaded with ctypes: each launch function returns the
 // cudaError_t of its launches (0 = success).
@@ -45,17 +78,42 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <initializer_list>
+#include <type_traits>
 
 namespace {
 
-constexpr int TILE = 32;       // query rows and keys per tile (a warp wide)
-constexpr int THREADS = 128;   // four warps
-constexpr int NW = THREADS / 32;
-constexpr int PS = TILE + 1;   // padded row of a (TILE, TILE) score tile
+constexpr int NW = 2;          // warps per block
+constexpr int NT = 32 * NW;    // threads per block
+constexpr int ROWS = 16 * NW;  // the block's own rows: queries (keys: dK/dV)
+constexpr int TILE = 32;       // a streamed tile's rows: keys (queries: dK/dV)
+constexpr int NJ = TILE / 8;   // 8-column accumulator tiles across a tile
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(NT >= TILE && NT >= ROWS, "one thread per row for flags/stats");
 
 struct Str {                   // element strides of a (B, S, H, hd) tensor
   long long b, s, h;
 };
+
+// Everything a launch passes its kernels (by value).
+struct Params {
+  const void *q, *k, *v, *o, *dout;
+  const unsigned char* key_mask;
+  void* out;
+  float *lse, *D, *dq, *dk, *dv;
+  Str qs, ks, vs, os, dos;
+  int S, H, hd, causal, window, vec;
+  float scale;
+};
+
+// row pitch of a shared tile in elements: 16 bytes of padding keep rows
+// 16-byte aligned and put the 8 rows of a fragment read in distinct banks
+template <typename T, int HD>
+__host__ __device__ constexpr int pitch() {
+  return HD + 16 / (int)sizeof(T);
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -71,22 +129,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// may query qp see key kp (both inside [0, S); the key's own validity is
-// checked by the caller)
+// may query qp see key kp (the key's own validity is checked by the caller)
 __device__ __forceinline__ bool visible(int qp, int kp, int S, int causal,
                                         int window) {
-  if (qp >= S) return false;   // padding row of the last query tile
+  if (qp >= S) return false;   // padding row of the last query block
   if (causal) {
     if (kp > qp) return false;
     if (window > 0 && kp <= qp - window) return false;
@@ -94,36 +140,143 @@ __device__ __forceinline__ bool visible(int qp, int kp, int S, int causal,
   return true;
 }
 
-// rows [r0, r0 + TILE) of head h of batch b into dst (TILE, ld) as fp32;
-// rows past S read as 0
-template <typename T>
-__device__ void load_tile(float* dst, int ld, const T* __restrict__ x, Str st,
-                          int b, int h, int r0, int S, int hd) {
-  for (int i = threadIdx.x; i < TILE * hd; i += THREADS) {
-    const int r = i / hd, d = i - r * hd;
-    const int s = r0 + r;
-    dst[r * ld + d] =
-        s < S ? to_f(x[b * st.b + (long long)s * st.s + h * st.h + d]) : 0.f;
+__device__ __forceinline__ int key_ok(const unsigned char* km, int b, int kp,
+                                      int S) {
+  return kp < S && (km == nullptr || km[(long long)b * S + kp] != 0);
+}
+
+// ---------------------------------------------------------------------------
+// asynchronous copies
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  // ok false: the 16 bytes are zero-filled and nothing is read
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + R) of head h of batch b of x (B, S, H, hd) into dst (R,
+// pitch) of T; rows past S and columns past hd read as 0
+template <typename T, int HD, int R>
+__device__ __forceinline__ void load_rows(T* dst, const T* x, Str st, int b,
+                                          int h, int r0, int S, int hd,
+                                          int vec) {
+  constexpr int LD = pitch<T, HD>(), EPC = 16 / (int)sizeof(T),
+                CPR = HD / EPC;
+  const T* base = x + b * st.b + h * st.h;
+  if (vec) {
+    for (int i = threadIdx.x; i < R * CPR; i += NT) {
+      const int r = i / CPR, c = (i % CPR) * EPC, s = r0 + r;
+      const bool ok = s < S && c < hd;
+      cp_async16(dst + r * LD + c, ok ? base + s * st.s + c : x, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * HD; i += NT) {
+      const int r = i / HD, d = i % HD, s = r0 + r;
+      dst[r * LD + d] =
+          s < S && d < hd ? base[s * st.s + d] : from_f<T>(0.f);
+    }
   }
 }
 
-// validity of keys [k0, k0 + TILE): inside S and set in key_mask
-__device__ void load_key_valid(int* kv_s, const unsigned char* key_mask,
-                               int b, int k0, int S) {
-  for (int j = threadIdx.x; j < TILE; j += THREADS) {
-    const int s = k0 + j;
-    kv_s[j] = s < S && (key_mask == nullptr ||
-                        key_mask[(long long)b * S + s] != 0);
+// ---------------------------------------------------------------------------
+// tensor-core fragments (mma.sync m16n8k8, TF32 operands, fp32 sums)
+// lane = 4 g + t; A (16 x 8): a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+// a3 (g+8, t+4); B (8 x 8): b0 (t, g), b1 (t+4, g); C (16 x 8): c0 (g, 2t),
+// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
+
+__device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
+__device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
+
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+template <int N> struct Frag {
+  unsigned hi[N], lo[N];
+};
+
+template <bool SPLIT, int N>
+__device__ __forceinline__ void split(Frag<N>& f, const float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    f.hi[i] = to_tf32(x[i]);
+    if (SPLIT) f.lo[i] = to_tf32(x[i] - __uint_as_float(f.hi[i]));
   }
 }
 
-// the key tiles a query tile [q0, q0 + TILE) can see: [lo, hi)
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b: 3xTF32 (small terms first) when SPLIT, else one TF32 product
+template <bool SPLIT>
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a,
+                                     const Frag<2>& b) {
+  if (SPLIT) {
+    mma(d, a.lo, b.hi);
+    mma(d, a.hi, b.lo);
+  }
+  mma(d, a.hi, b.hi);
+}
+
+// A from a row-major (row, k) shared tile at (r0, k0)
+template <bool SPLIT, typename T>
+__device__ __forceinline__ void frag_a(Frag<4>& f, const T* s, int ld, int r0,
+                                       int k0) {
+  const T* p = s + (r0 + lane_g()) * ld + k0 + lane_t();
+  const float x[4] = {to_f(p[0]), to_f(p[8 * ld]), to_f(p[4]),
+                      to_f(p[8 * ld + 4])};
+  split<SPLIT>(f, x);
+}
+
+// B (k x n) from a shared tile stored as (n, k) rows: K in QK^T, Q in KQ^T
+template <bool SPLIT, typename T>
+__device__ __forceinline__ void frag_b_nk(Frag<2>& f, const T* s, int ld,
+                                          int n0, int k0) {
+  const T* p = s + (n0 + lane_g()) * ld + k0 + lane_t();
+  const float x[2] = {to_f(p[0]), to_f(p[4])};
+  split<SPLIT>(f, x);
+}
+
+// B (k x n) from a shared tile stored as (k, n) rows, k permuted (index t
+// is row 2t, t + 4 is row 2t + 1): V in PV, K in dS K, dO and Q in dV, dK
+template <bool SPLIT, typename T>
+__device__ __forceinline__ void frag_b_kn(Frag<2>& f, const T* s, int ld,
+                                          int k0, int n0) {
+  const T* p = s + (k0 + 2 * lane_t()) * ld + n0 + lane_g();
+  const float x[2] = {to_f(p[0]), to_f(p[ld])};
+  split<SPLIT>(f, x);
+}
+
+// A from an accumulator tile (16 x 8), with frag_b_kn's k permutation
+template <bool SPLIT>
+__device__ __forceinline__ void frag_a_acc(Frag<4>& f, const float (&c)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+  split<SPLIT>(f, x);
+}
+
+// the key range a query block [q0, q0 + ROWS) can see: [lo, hi)
 __device__ __forceinline__ void key_range(int q0, int S, int causal,
                                           int window, int* lo, int* hi) {
   *lo = 0;
   *hi = S;
   if (causal) {
-    *hi = min(S, q0 + TILE);
+    *hi = min(S, q0 + ROWS);
     if (window > 0) *lo = max(0, q0 - window + 1);
   }
   *lo = (*lo / TILE) * TILE;
@@ -132,312 +285,474 @@ __device__ __forceinline__ void key_range(int q0, int S, int causal,
 // ---------------------------------------------------------------------------
 // forward
 
-size_t fwd_smem(int hd) {
-  const int ld = hd + 1;
-  return (3 * (size_t)TILE * ld + (size_t)TILE * hd + (size_t)TILE * PS +
-          2 * (size_t)TILE) * sizeof(float) + TILE * sizeof(int);
+template <typename T, int HD>
+constexpr size_t fwd_smem() {
+  return (size_t)(ROWS + 4 * TILE) * pitch<T, HD>() * sizeof(T) +
+         2 * TILE * sizeof(int);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const unsigned char* __restrict__ key_mask,
-          T* __restrict__ out, float* __restrict__ lse, int S, int H, int hd,
-          Str qs, Str ks, Str vs, int causal, int window, float scale) {
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.y * TILE;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ld = hd + 1;  // padded rows: lanes on different keys, no conflict
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT)
+flash_fwd(const __grid_constant__ Params p) {
+  constexpr int LD = pitch<T, HD>(), NK = HD / 8;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  const int S = p.S, bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
+  const int q0 = blockIdx.y * ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, t = lane_t();
+  const T *q = static_cast<const T*>(p.q), *k = static_cast<const T*>(p.k),
+          *v = static_cast<const T*>(p.v);
 
-  extern __shared__ float smem[];
-  float* q_s = smem;               // (TILE, ld)
-  float* k_s = q_s + TILE * ld;    // (TILE, ld)
-  float* v_s = k_s + TILE * ld;    // (TILE, ld)
-  float* acc = v_s + TILE * ld;    // (TILE, hd)
-  float* p_s = acc + TILE * hd;    // (TILE, PS) scores, then probabilities
-  float* m_s = p_s + TILE * PS;    // (TILE,) running max
-  float* l_s = m_s + TILE;         // (TILE,) running sum
-  int* kv_s = reinterpret_cast<int*>(l_s + TILE);  // (TILE,) key valid
-
-  load_tile(q_s, ld, q, qs, b, h, q0, S, hd);
-  for (int i = tid; i < TILE * hd; i += THREADS) acc[i] = 0.f;
-  for (int r = tid; r < TILE; r += THREADS) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);   // (ROWS, LD)
+  T* k_s = q_s + ROWS * LD;              // 2 x (TILE, LD)
+  T* v_s = k_s + 2 * TILE * LD;          // 2 x (TILE, LD)
+  int* kv_s = reinterpret_cast<int*>(v_s + 2 * TILE * LD);  // 2 x (TILE,)
 
   int k_lo, k_hi;
-  key_range(q0, S, causal, window, &k_lo, &k_hi);
-  for (int k0 = k_lo; k0 < k_hi; k0 += TILE) {
-    __syncthreads();  // set-up written / previous tile consumed
-    load_tile(k_s, ld, k, ks, b, h, k0, S, hd);
-    load_tile(v_s, ld, v, vs, b, h, k0, S, hd);
-    load_key_valid(kv_s, key_mask, b, k0, S);
-    __syncthreads();
+  key_range(q0, S, p.causal, p.window, &k_lo, &k_hi);
+  const int ntiles = (k_hi - k_lo + TILE - 1) / TILE;
+  // copies of key tile it into buffer it & 1 (one commit group); returns
+  // this thread's key flag, stored once the buffer is free
+  auto issue = [&](int it) {
+    const int buf = it & 1, k0 = k_lo + it * TILE;
+    load_rows<T, HD, TILE>(k_s + buf * TILE * LD, k, p.ks, b, h, k0, S,
+                           p.hd, p.vec);
+    load_rows<T, HD, TILE>(v_s + buf * TILE * LD, v, p.vs, b, h, k0, S,
+                           p.hd, p.vec);
+    cp_commit();
+    return tid < TILE ? key_ok(p.key_mask, b, k0 + tid, S) : 0;
+  };
+  load_rows<T, HD, ROWS>(q_s, q, p.qs, b, h, q0, S, p.hd, p.vec);
+  const int flag0 = issue(0);
+  if (tid < TILE) kv_s[tid] = flag0;
 
-    // scores of every (row, key) pair of the tile; invisible -> -inf
-    for (int i = tid; i < TILE * TILE; i += THREADS) {
-      const int r = i / TILE, j = i - r * TILE;
-      float sc = -INFINITY;
-      if (kv_s[j] && visible(q0 + r, k0 + j, S, causal, window)) {
-        const float* qr = q_s + r * ld;
-        const float* kr = k_s + j * ld;
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-        sc = dot * scale;
-      }
-      p_s[r * PS + j] = sc;
+  float o[NK][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int row = q0 + warp * 16 + lane_g();   // rows row and row + 8
+  const bool active = q0 + warp * 16 < S;      // the warp has a real row
+  for (int it = 0; it < ntiles; ++it) {
+    const int cur = it & 1, k0 = k_lo + it * TILE;
+    int next = 0;
+    if (it + 1 < ntiles) {
+      next = issue(it + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    __syncthreads();
-
-    // online softmax: warp w owns rows w, w + NW, ... for the whole loop
-    for (int r = warp; r < TILE; r += NW) {
-      const float sc = p_s[r * PS + lane];
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(sc));
-      float p = 0.f, alpha = 1.f;
-      if (m_new != -INFINITY) {  // some key of this row is visible so far
-        alpha = expf(m_old - m_new);
-        p = sc == -INFINITY ? 0.f : expf(sc - m_new);
+    // tile `it` is in shared memory; skip it if all its keys are masked
+    const int any = __syncthreads_or(tid < TILE && kv_s[cur * TILE + tid]);
+    if (any && active) {
+      const T* kt = k_s + cur * TILE * LD;
+      const T* vt = v_s + cur * TILE * LD;
+      const int* kv = kv_s + cur * TILE;
+      float s[NJ][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        Frag<4> a;
+        frag_a<SPLIT>(a, q_s, LD, warp * 16, kk * 8);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          Frag<2> bk;
+          frag_b_nk<SPLIT>(bk, kt, LD, j * 8, kk * 8);
+          mma3<SPLIT>(s[j], a, bk);
+        }
       }
-      const float psum = warp_sum(p);
-      p_s[r * PS + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + psum;
+      // mask and scale; the row max across the quad
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = j * 8 + 2 * t + (e & 1), r = e >> 1;
+          const bool ok = kv[kj] && visible(row + 8 * r, k0 + kj, S,
+                                            p.causal, p.window);
+          s[j][e] = ok ? s[j][e] * p.scale : -INFINITY;
+          mx[r] = fmaxf(mx[r], s[j][e]);
+        }
+      float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        // no visible key in the row so far: keep everything as it is
+        alpha[r] = m_new == -INFINITY ? 1.f : expf(m[r] - m_new);
+        m[r] = m_new;
       }
-      for (int d = lane; d < hd; d += 32) {
-        float a = acc[r * hd + d] * alpha;
-        for (int j = 0; j < TILE; ++j)
-          a = fmaf(p_s[r * PS + j], v_s[j * ld + d], a);
-        acc[r * hd + d] = a;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float pe = s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - m[r]);
+          s[j][e] = pe;
+          psum[r] += pe;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+      // O += P V
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        Frag<4> a;
+        frag_a_acc<SPLIT>(a, s[j]);
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          Frag<2> bv;
+          frag_b_kn<SPLIT>(bv, vt, LD, j * 8, n * 8);
+          mma3<SPLIT>(o[n], a, bv);
+        }
       }
     }
+    if (it + 1 < ntiles && tid < TILE) kv_s[(cur ^ 1) * TILE + tid] = next;
+    __syncthreads();   // buffer `cur` consumed before its next copy
   }
-  __syncthreads();
 
-  // out (B, S, H, hd) contiguous; lse (B, H, S)
-  for (int i = tid; i < TILE * hd; i += THREADS) {
-    const int r = i / hd, d = i - r * hd;
-    const int s = q0 + r;
-    if (s < S) {
-      const float l = l_s[r];
-      out[(((long long)b * S + s) * H + h) * hd + d] =
-          from_f<T>(l > 0.f ? acc[i] / l : 0.f);  // no visible key -> 0
-    }
-  }
-  for (int r = tid; r < TILE; r += THREADS) {
-    const int s = q0 + r;
-    if (s < S)
-      lse[(long long)bh * S + s] =
-          l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : -INFINITY;
+  // out (B, S, H, hd) contiguous; lse (B, H, S) when asked for
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    const int s = row + 8 * r;
+    if (s >= S) continue;
+    T* orow = static_cast<T*>(p.out) +
+              (((long long)b * S + s) * p.H + h) * p.hd;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = n * 8 + 2 * t + c;
+        if (d < p.hd)   // no visible key -> 0
+          orow[d] = from_f<T>(l[r] > 0.f ? o[n][2 * r + c] / l[r] : 0.f);
+      }
+    if (p.lse != nullptr && t == 0)
+      p.lse[(long long)bh * S + s] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
   }
 }
 
 // ---------------------------------------------------------------------------
 // backward (fp32)
 
-// lse and D = rowsum(dO * O) of query rows [q0, q0 + TILE); do_s holds the
-// dO tile already. Rows past S get 0.
-__device__ void load_row_stats(float* lse_s, float* D_s, const float* do_s,
-                               int ld, const float* __restrict__ o, Str os,
-                               const float* __restrict__ lse, int b, int h,
-                               int bh, int q0, int S, int hd) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < TILE; r += NW) {
-    const int s = q0 + r;
-    float acc = 0.f;
-    if (s < S) {
-      const float* orow = o + b * os.b + (long long)s * os.s + h * os.h;
-      for (int d = lane; d < hd; d += 32) acc = fmaf(do_s[r * ld + d], orow[d], acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      D_s[r] = acc;
-      lse_s[r] = s < S ? lse[(long long)bh * S + s] : 0.f;
-    }
-  }
+template <int HD>
+constexpr size_t dq_smem() {
+  return (size_t)(2 * ROWS + 4 * TILE) * pitch<float, HD>() * sizeof(float) +
+         2 * TILE * sizeof(int);
 }
 
-// P (if p_s) and dS of one (query tile q0, key tile k0) pair into (TILE, PS)
-// tiles: P = exp(s*scale - lse) on visible pairs and exactly 0 elsewhere,
-// dS = P * (dO . V - D).
-__device__ void p_ds_tile(float* p_s, float* ds_s, const float* q_s,
-                          const float* do_s, const float* k_s,
-                          const float* v_s, int ld, const float* lse_s,
-                          const float* D_s, const int* kv_s, int q0, int k0,
-                          int S, int hd, int causal, int window, float scale) {
-  for (int i = threadIdx.x; i < TILE * TILE; i += THREADS) {
-    const int r = i / TILE, j = i - r * TILE;
-    float p = 0.f, ds = 0.f;
-    if (kv_s[j] && visible(q0 + r, k0 + j, S, causal, window)) {
-      const float* qr = q_s + r * ld;
-      const float* kr = k_s + j * ld;
-      const float* dr = do_s + r * ld;
-      const float* vr = v_s + j * ld;
-      float dot = 0.f, dp = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        dot = fmaf(qr[d], kr[d], dot);
-        dp = fmaf(dr[d], vr[d], dp);
-      }
-      p = expf(dot * scale - lse_s[r]);
-      ds = p * (dp - D_s[r]);
-    }
-    if (p_s != nullptr) p_s[r * PS + j] = p;
-    ds_s[r * PS + j] = ds;
-  }
-}
+template <int HD>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq(const __grid_constant__ Params p) {
+  constexpr int LD = pitch<float, HD>(), NK = HD / 8;
+  const int S = p.S, bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
+  const int q0 = blockIdx.y * ROWS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5,
+            g = lane_g(), t = lane_t();
+  const float *q = static_cast<const float*>(p.q),
+              *k = static_cast<const float*>(p.k),
+              *v = static_cast<const float*>(p.v),
+              *o = static_cast<const float*>(p.o),
+              *dout = static_cast<const float*>(p.dout);
 
-size_t dkdv_smem(int hd) {
-  const int ld = hd + 1;
-  return (4 * (size_t)TILE * ld + 2 * (size_t)TILE * hd +
-          2 * (size_t)TILE * PS + 2 * (size_t)TILE) * sizeof(float) +
-         TILE * sizeof(int);
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ o,
-               const float* __restrict__ dout,
-               const unsigned char* __restrict__ key_mask,
-               const float* __restrict__ lse, float* __restrict__ dk,
-               float* __restrict__ dv, int S, int H, int hd, Str qs, Str ks,
-               Str vs, Str os, Str dos, int causal, int window, float scale) {
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const int k0 = blockIdx.y * TILE;
-  const int tid = threadIdx.x;
-  const int ld = hd + 1;
-
-  extern __shared__ float smem[];
-  float* k_s = smem;                // (TILE, ld)
-  float* v_s = k_s + TILE * ld;     // (TILE, ld)
-  float* q_s = v_s + TILE * ld;     // (TILE, ld)
-  float* do_s = q_s + TILE * ld;    // (TILE, ld)
-  float* dk_acc = do_s + TILE * ld; // (TILE, hd)
-  float* dv_acc = dk_acc + TILE * hd;
-  float* p_s = dv_acc + TILE * hd;  // (TILE, PS)
-  float* ds_s = p_s + TILE * PS;    // (TILE, PS)
-  float* lse_s = ds_s + TILE * PS;  // (TILE,)
-  float* D_s = lse_s + TILE;        // (TILE,)
-  int* kv_s = reinterpret_cast<int*>(D_s + TILE);
-
-  load_tile(k_s, ld, k, ks, b, h, k0, S, hd);
-  load_tile(v_s, ld, v, vs, b, h, k0, S, hd);
-  load_key_valid(kv_s, key_mask, b, k0, S);
-  for (int i = tid; i < TILE * hd; i += THREADS) {
-    dk_acc[i] = 0.f;
-    dv_acc[i] = 0.f;
-  }
-  // a tile of masked keys gets no gradient: skip its query loop
-  const int any_key = __syncthreads_or(tid < TILE && kv_s[tid]);
-
-  // the query tiles that can see keys [k0, k0 + TILE)
-  int q_lo = 0, q_hi = S;
-  if (causal) {
-    q_lo = k0;
-    if (window > 0) q_hi = min(S, k0 + TILE - 1 + window);
-  }
-  q_lo = (q_lo / TILE) * TILE;
-  for (int q0 = q_lo; any_key && q0 < q_hi; q0 += TILE) {
-    __syncthreads();  // previous tile consumed
-    load_tile(q_s, ld, q, qs, b, h, q0, S, hd);
-    load_tile(do_s, ld, dout, dos, b, h, q0, S, hd);
-    __syncthreads();
-    load_row_stats(lse_s, D_s, do_s, ld, o, os, lse, b, h, bh, q0, S, hd);
-    __syncthreads();
-    p_ds_tile(p_s, ds_s, q_s, do_s, k_s, v_s, ld, lse_s, D_s, kv_s, q0, k0,
-              S, hd, causal, window, scale);
-    __syncthreads();
-    // thread per (key j, dim d): dV += P^T dO, dK += dS^T Q
-    for (int i = tid; i < TILE * hd; i += THREADS) {
-      const int j = i / hd, d = i - j * hd;
-      float a = dv_acc[i], c = dk_acc[i];
-      for (int r = 0; r < TILE; ++r) {
-        a = fmaf(p_s[r * PS + j], do_s[r * ld + d], a);
-        c = fmaf(ds_s[r * PS + j], q_s[r * ld + d], c);
-      }
-      dv_acc[i] = a;
-      dk_acc[i] = c;
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < TILE * hd; i += THREADS) {
-    const int j = i / hd, d = i - j * hd;
-    const int s = k0 + j;
-    if (s < S) {
-      const long long at = (((long long)b * S + s) * H + h) * hd + d;
-      dk[at] = dk_acc[i] * scale;
-      dv[at] = dv_acc[i];
-    }
-  }
-}
-
-size_t dq_smem(int hd) {
-  const int ld = hd + 1;
-  return (4 * (size_t)TILE * ld + (size_t)TILE * hd + (size_t)TILE * PS +
-          2 * (size_t)TILE) * sizeof(float) + TILE * sizeof(int);
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ o,
-             const float* __restrict__ dout,
-             const unsigned char* __restrict__ key_mask,
-             const float* __restrict__ lse, float* __restrict__ dq, int S,
-             int H, int hd, Str qs, Str ks, Str vs, Str os, Str dos,
-             int causal, int window, float scale) {
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.y * TILE;
-  const int tid = threadIdx.x;
-  const int ld = hd + 1;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;                // (TILE, ld)
-  float* do_s = q_s + TILE * ld;    // (TILE, ld)
-  float* k_s = do_s + TILE * ld;    // (TILE, ld)
-  float* v_s = k_s + TILE * ld;     // (TILE, ld)
-  float* dq_acc = v_s + TILE * ld;  // (TILE, hd)
-  float* ds_s = dq_acc + TILE * hd; // (TILE, PS)
-  float* lse_s = ds_s + TILE * PS;  // (TILE,)
-  float* D_s = lse_s + TILE;        // (TILE,)
-  int* kv_s = reinterpret_cast<int*>(D_s + TILE);
-
-  load_tile(q_s, ld, q, qs, b, h, q0, S, hd);
-  load_tile(do_s, ld, dout, dos, b, h, q0, S, hd);
-  for (int i = tid; i < TILE * hd; i += THREADS) dq_acc[i] = 0.f;
-  __syncthreads();
-  load_row_stats(lse_s, D_s, do_s, ld, o, os, lse, b, h, bh, q0, S, hd);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);   // (ROWS, LD)
+  float* do_s = q_s + ROWS * LD;                 // (ROWS, LD)
+  float* k_s = do_s + ROWS * LD;                 // 2 x (TILE, LD)
+  float* v_s = k_s + 2 * TILE * LD;              // 2 x (TILE, LD)
+  int* kv_s = reinterpret_cast<int*>(v_s + 2 * TILE * LD);  // 2 x (TILE,)
 
   int k_lo, k_hi;
-  key_range(q0, S, causal, window, &k_lo, &k_hi);
-  for (int k0 = k_lo; k0 < k_hi; k0 += TILE) {
-    __syncthreads();  // row stats written / previous tile consumed
-    load_tile(k_s, ld, k, ks, b, h, k0, S, hd);
-    load_tile(v_s, ld, v, vs, b, h, k0, S, hd);
-    load_key_valid(kv_s, key_mask, b, k0, S);
-    __syncthreads();
-    p_ds_tile(nullptr, ds_s, q_s, do_s, k_s, v_s, ld, lse_s, D_s, kv_s, q0,
-              k0, S, hd, causal, window, scale);
-    __syncthreads();
-    // thread per (row r, dim d): dQ += dS K
-    for (int i = tid; i < TILE * hd; i += THREADS) {
-      const int r = i / hd, d = i - r * hd;
-      float a = dq_acc[i];
-      for (int j = 0; j < TILE; ++j)
-        a = fmaf(ds_s[r * PS + j], k_s[j * ld + d], a);
-      dq_acc[i] = a;
-    }
-  }
+  key_range(q0, S, p.causal, p.window, &k_lo, &k_hi);
+  const int ntiles = (k_hi - k_lo + TILE - 1) / TILE;
+  auto issue = [&](int it) {
+    const int buf = it & 1, k0 = k_lo + it * TILE;
+    load_rows<float, HD, TILE>(k_s + buf * TILE * LD, k, p.ks, b, h, k0, S,
+                               p.hd, p.vec);
+    load_rows<float, HD, TILE>(v_s + buf * TILE * LD, v, p.vs, b, h, k0, S,
+                               p.hd, p.vec);
+    cp_commit();
+    return tid < TILE ? key_ok(p.key_mask, b, k0 + tid, S) : 0;
+  };
+  load_rows<float, HD, ROWS>(q_s, q, p.qs, b, h, q0, S, p.hd, p.vec);
+  load_rows<float, HD, ROWS>(do_s, dout, p.dos, b, h, q0, S, p.hd, p.vec);
+  cp_commit();
+  const int flag0 = issue(0);
+  if (tid < TILE) kv_s[tid] = flag0;
+  cp_wait<1>();   // Q and dO have arrived
   __syncthreads();
 
-  for (int i = tid; i < TILE * hd; i += THREADS) {
-    const int r = i / hd, d = i - r * hd;
-    const int s = q0 + r;
-    if (s < S) dq[(((long long)b * S + s) * H + h) * hd + d] = dq_acc[i] * scale;
+  // D = rowsum(dO * O) of the warp's 16 rows, once per query row: two
+  // lanes per row; written out for the dK/dV kernel
+  const int row = q0 + warp * 16 + g;   // rows row and row + 8
+  float D_r[2], lse_r[2];
+  {
+    const int r = warp * 16 + (lane >> 1), s = q0 + r;
+    float acc = 0.f;
+    if (s < S) {
+      const float* orow = o + b * p.os.b + s * p.os.s + h * p.os.h;
+      const float* drow = do_s + r * LD;
+      for (int d = lane & 1; d < p.hd; d += 2)
+        acc = fmaf(drow[d], orow[d], acc);
+    }
+    acc += __shfl_xor_sync(FULL, acc, 1);
+    if ((lane & 1) == 0 && s < S) p.D[(long long)bh * S + s] = acc;
+    D_r[0] = __shfl_sync(FULL, acc, 2 * g);
+    D_r[1] = __shfl_sync(FULL, acc, 2 * (g + 8));
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lse_r[i] = row + 8 * i < S ? p.lse[(long long)bh * S + row + 8 * i]
+                                 : 0.f;
+  }
+
+  float dqa[NK][4] = {};
+  const bool active = q0 + warp * 16 < S;
+  for (int it = 0; it < ntiles; ++it) {
+    const int cur = it & 1, k0 = k_lo + it * TILE;
+    int next = 0;
+    if (it + 1 < ntiles) {
+      next = issue(it + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    const int any = __syncthreads_or(tid < TILE && kv_s[cur * TILE + tid]);
+    if (any && active) {
+      const float* kt = k_s + cur * TILE * LD;
+      const float* vt = v_s + cur * TILE * LD;
+      const int* kv = kv_s + cur * TILE;
+      float s[NJ][4] = {}, dp[NJ][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        Frag<4> aq, ado;
+        frag_a<true>(aq, q_s, LD, warp * 16, kk * 8);
+        frag_a<true>(ado, do_s, LD, warp * 16, kk * 8);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          Frag<2> bk, bv;
+          frag_b_nk<true>(bk, kt, LD, j * 8, kk * 8);
+          mma3<true>(s[j], aq, bk);
+          frag_b_nk<true>(bv, vt, LD, j * 8, kk * 8);
+          mma3<true>(dp[j], ado, bv);
+        }
+      }
+      // P = exp(S * scale - lse) on visible pairs, 0 elsewhere;
+      // dS = P (dP - D), into s
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = j * 8 + 2 * t + (e & 1), r = e >> 1;
+          const bool ok = kv[kj] && visible(row + 8 * r, k0 + kj, S,
+                                            p.causal, p.window);
+          const float pe = ok ? expf(s[j][e] * p.scale - lse_r[r]) : 0.f;
+          s[j][e] = pe * (dp[j][e] - D_r[r]);
+        }
+      // dQ += dS K
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        Frag<4> a;
+        frag_a_acc<true>(a, s[j]);
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          Frag<2> bk;
+          frag_b_kn<true>(bk, kt, LD, j * 8, n * 8);
+          mma3<true>(dqa[n], a, bk);
+        }
+      }
+    }
+    if (it + 1 < ntiles && tid < TILE) kv_s[(cur ^ 1) * TILE + tid] = next;
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = row + 8 * r;
+    if (s >= S) continue;
+    float* drow = p.dq + (((long long)b * S + s) * p.H + h) * p.hd;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = n * 8 + 2 * t + c;
+        if (d < p.hd) drow[d] = dqa[n][2 * r + c] * p.scale;
+      }
   }
 }
+
+// blocks that share the head_dim columns of a dK/dV row block: two in the
+// 128 bucket, where a warp's two (16, 128) accumulators alone would take
+// 128 registers a thread; each recomputes S^T and dP^T in full
+template <int HD>
+__host__ __device__ constexpr int dkdv_splits() {
+  return HD > 64 ? 2 : 1;
+}
+
+template <int HD>
+constexpr size_t dkdv_smem() {
+  return (size_t)(2 * ROWS + 4 * TILE) * pitch<float, HD>() * sizeof(float) +
+         (4 * TILE + ROWS) * sizeof(float);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkdv(const __grid_constant__ Params p) {
+  constexpr int LD = pitch<float, HD>(), NK = HD / 8,
+                NC = NK / dkdv_splits<HD>();   // the block's column tiles
+  const int c0 = blockIdx.z * NC;
+  const int S = p.S, bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
+  const int k0 = blockIdx.y * ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, g = lane_g(), t = lane_t();
+  const float *q = static_cast<const float*>(p.q),
+              *k = static_cast<const float*>(p.k),
+              *v = static_cast<const float*>(p.v),
+              *dout = static_cast<const float*>(p.dout);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);   // (ROWS, LD)
+  float* v_s = k_s + ROWS * LD;                  // (ROWS, LD)
+  float* q_s = v_s + ROWS * LD;                  // 2 x (TILE, LD)
+  float* do_s = q_s + 2 * TILE * LD;               // 2 x (TILE, LD)
+  float* lse_s = do_s + 2 * TILE * LD;             // 2 x (TILE,)
+  float* D_s = lse_s + 2 * TILE;                   // 2 x (TILE,)
+  int* kv_s = reinterpret_cast<int*>(D_s + 2 * TILE);   // (ROWS,)
+
+  const int flag = tid < ROWS ? key_ok(p.key_mask, b, k0 + tid, S) : 0;
+  if (tid < ROWS) kv_s[tid] = flag;
+  if (!__syncthreads_or(flag)) {   // a block of masked keys: zero gradient
+    for (int i = tid; i < ROWS * p.hd; i += NT) {
+      const int j = i / p.hd, d = i - j * p.hd, s = k0 + j;
+      if (s < S) {
+        const long long at = (((long long)b * S + s) * p.H + h) * p.hd + d;
+        p.dk[at] = 0.f;
+        p.dv[at] = 0.f;
+      }
+    }
+    return;
+  }
+
+  // the query range that can see keys [k0, k0 + ROWS)
+  int q_lo = 0, q_hi = S;
+  if (p.causal) {
+    q_lo = k0;
+    if (p.window > 0) q_hi = min(S, k0 + ROWS - 1 + p.window);
+  }
+  q_lo = (q_lo / TILE) * TILE;
+  const int ntiles = (q_hi - q_lo + TILE - 1) / TILE;
+  // copies of query tile it into buffer it & 1; returns this thread's row
+  // statistics (lse, D), stored once the buffer is free
+  auto issue = [&](int it) {
+    const int buf = it & 1, q0 = q_lo + it * TILE;
+    load_rows<float, HD, TILE>(q_s + buf * TILE * LD, q, p.qs, b, h, q0, S,
+                               p.hd, p.vec);
+    load_rows<float, HD, TILE>(do_s + buf * TILE * LD, dout, p.dos, b, h,
+                               q0, S, p.hd, p.vec);
+    cp_commit();
+    const int s = q0 + tid;
+    return tid < TILE && s < S
+               ? make_float2(p.lse[(long long)bh * S + s],
+                             p.D[(long long)bh * S + s])
+               : make_float2(0.f, 0.f);
+  };
+  load_rows<float, HD, ROWS>(k_s, k, p.ks, b, h, k0, S, p.hd, p.vec);
+  load_rows<float, HD, ROWS>(v_s, v, p.vs, b, h, k0, S, p.hd, p.vec);
+  const float2 stat0 = issue(0);   // one group: K, V and query tile 0
+  if (tid < TILE) {
+    lse_s[tid] = stat0.x;
+    D_s[tid] = stat0.y;
+  }
+
+  const int key = k0 + warp * 16 + g;   // keys key and key + 8
+  const int kv_r[2] = {kv_s[warp * 16 + g], kv_s[warp * 16 + g + 8]};
+  const bool active = __any_sync(FULL, kv_r[0] | kv_r[1]);
+  float dka[NC][4] = {}, dva[NC][4] = {};
+  for (int it = 0; it < ntiles; ++it) {
+    const int cur = it & 1, q0 = q_lo + it * TILE;
+    float2 next = make_float2(0.f, 0.f);
+    if (it + 1 < ntiles) {
+      next = issue(it + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const float* qt = q_s + cur * TILE * LD;
+      const float* dot = do_s + cur * TILE * LD;
+      const float* ls = lse_s + cur * TILE;
+      const float* Ds = D_s + cur * TILE;
+      float st[NJ][4] = {}, dpt[NJ][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        Frag<4> ak, av;
+        frag_a<true>(ak, k_s, LD, warp * 16, kk * 8);
+        frag_a<true>(av, v_s, LD, warp * 16, kk * 8);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          Frag<2> bq, bd;
+          frag_b_nk<true>(bq, qt, LD, j * 8, kk * 8);
+          mma3<true>(st[j], ak, bq);
+          frag_b_nk<true>(bd, dot, LD, j * 8, kk * 8);
+          mma3<true>(dpt[j], av, bd);
+        }
+      }
+      // P^T and dS^T = P^T (dP^T - D) on visible pairs, 0 elsewhere
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qj = j * 8 + 2 * t + (e & 1), r = e >> 1;
+          const bool ok = kv_r[r] && visible(q0 + qj, key + 8 * r, S,
+                                             p.causal, p.window);
+          const float pe = ok ? expf(st[j][e] * p.scale - ls[qj]) : 0.f;
+          st[j][e] = pe;
+          dpt[j][e] = pe * (dpt[j][e] - Ds[qj]);
+        }
+      // dV += P^T dO, dK += dS^T Q on the block's columns
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        Frag<4> ap, ads;
+        frag_a_acc<true>(ap, st[j]);
+        frag_a_acc<true>(ads, dpt[j]);
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          Frag<2> bd, bq;
+          frag_b_kn<true>(bd, dot, LD, j * 8, (c0 + n) * 8);
+          mma3<true>(dva[n], ap, bd);
+          frag_b_kn<true>(bq, qt, LD, j * 8, (c0 + n) * 8);
+          mma3<true>(dka[n], ads, bq);
+        }
+      }
+    }
+    if (it + 1 < ntiles && tid < TILE) {
+      lse_s[(cur ^ 1) * TILE + tid] = next.x;
+      D_s[(cur ^ 1) * TILE + tid] = next.y;
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = key + 8 * r;
+    if (s >= S) continue;
+    const long long at = (((long long)b * S + s) * p.H + h) * p.hd;
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = (c0 + n) * 8 + 2 * t + c;
+        if (d < p.hd) {
+          p.dk[at + d] = dka[n][2 * r + c] * p.scale;
+          p.dv[at + d] = dva[n][2 * r + c];
+        }
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
@@ -447,81 +762,141 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       const unsigned char* key_mask, void* out, float* lse,
-                       int B, int S, int H, int hd, Str qs, Str ks, Str vs,
-                       int causal, int window, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = fwd_smem(hd);
-  cudaError_t e = allow_smem(flash_fwd<T>, smem);
+// may every tile row be copied in 16-byte chunks: pointers 16-byte
+// aligned, strides and hd whole chunks of `epc` elements
+int whole_chunks(int epc, int hd, std::initializer_list<const void*> ptrs,
+                 std::initializer_list<Str> strides) {
+  if (hd % epc) return 0;
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return 0;
+  for (const Str& st : strides)
+    if (st.b % epc || st.s % epc || st.h % epc) return 0;
+  return 1;
+}
+
+template <typename T, int HD>
+cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
+  const size_t smem = fwd_smem<T, HD>();
+  cudaError_t e = allow_smem(flash_fwd<T, HD>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, (S + TILE - 1) / TILE);
-  flash_fwd<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), key_mask, static_cast<T*>(out), lse, S, H, hd,
-      qs, ks, vs, causal, window, scale);
+  const dim3 grid(B * p.H, (p.S + ROWS - 1) / ROWS);
+  flash_fwd<T, HD><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t fwd_bucket(const Params& p, int B, cudaStream_t stream) {
+  if (p.hd <= 16) return launch_fwd<T, 16>(p, B, stream);
+  if (p.hd <= 32) return launch_fwd<T, 32>(p, B, stream);
+  if (p.hd <= 64) return launch_fwd<T, 64>(p, B, stream);
+  if (p.hd <= 128) return launch_fwd<T, 128>(p, B, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch_bwd(const Params& p, int B, cudaStream_t stream) {
+  const dim3 grid(B * p.H, (p.S + ROWS - 1) / ROWS),
+      grid_kv(grid.x, grid.y, dkdv_splits<HD>());
+  size_t smem = dq_smem<HD>();
+  cudaError_t e = allow_smem(flash_bwd_dq<HD>, smem);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq<HD><<<grid, NT, smem, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  smem = dkdv_smem<HD>();
+  e = allow_smem(flash_bwd_dkdv<HD>, smem);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv<HD><<<grid_kv, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_bucket(const Params& p, int B, cudaStream_t stream) {
+  if (p.hd <= 16) return launch_bwd<16>(p, B, stream);
+  if (p.hd <= 32) return launch_bwd<32>(p, B, stream);
+  if (p.hd <= 64) return launch_bwd<64>(p, B, stream);
+  if (p.hd <= 128) return launch_bwd<128>(p, B, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Forward. q, k, v: (B, S, H, hd) read through their (b, s, h) element
 // strides, head_dim contiguous; key_mask: (B, S) bytes or NULL; out:
-// (B, S, H, hd) contiguous in q's dtype; lse: (B, H, S) fp32. dtype: 0 =
-// float32, 1 = bfloat16. Returns a cudaError_t.
+// (B, S, H, hd) contiguous in q's dtype; lse: (B, H, S) fp32, or NULL when
+// no backward follows. dtype: 0 = float32, 1 = bfloat16. hd <= 128.
+// Returns a cudaError_t.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, const void* key_mask,
     void* out, float* lse, int B, int S, int H, int hd, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     int causal, int window, float scale, int dtype, void* stream) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.key_mask = static_cast<const unsigned char*>(key_mask);
+  p.out = out;
+  p.lse = lse;
+  p.qs = Str{q_sb, q_ss, q_sh};
+  p.ks = Str{k_sb, k_ss, k_sh};
+  p.vs = Str{v_sb, v_ss, v_sh};
+  p.S = S;
+  p.H = H;
+  p.hd = hd;
+  p.causal = causal;
+  p.window = window;
+  p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned char* km = static_cast<const unsigned char*>(key_mask);
-  const Str qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-  if (dtype == 0)
-    return (int)launch_fwd<float>(q, k, v, km, out, lse, B, S, H, hd, qs, ks,
-                                  vs, causal, window, scale, st);
-  if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16>(q, k, v, km, out, lse, B, S, H, hd,
-                                          qs, ks, vs, causal, window, scale,
-                                          st);
+  if (dtype == 0) {
+    p.vec = whole_chunks(4, hd, {q, k, v}, {p.qs, p.ks, p.vs});
+    return (int)fwd_bucket<float>(p, B, st);
+  }
+  if (dtype == 1) {
+    p.vec = whole_chunks(8, hd, {q, k, v}, {p.qs, p.ks, p.vs});
+    return (int)fwd_bucket<__nv_bfloat16>(p, B, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 // Backward, fp32. q, k, v, o, dout: (B, S, H, hd) through their strides,
-// head_dim contiguous; lse: (B, H, S) from the forward; dq, dk, dv:
-// (B, S, H, hd) contiguous. Two launches on the stream (dK/dV, then dQ).
-// Returns a cudaError_t.
+// head_dim contiguous; lse: (B, H, S) from the forward; D: (B, H, S) fp32
+// scratch the dQ kernel fills with rowsum(dO * O) for the dK/dV kernel;
+// dq, dk, dv: (B, S, H, hd) contiguous. Two launches on the stream (dQ,
+// then dK/dV). hd <= 128. Returns a cudaError_t.
 extern "C" int flash_attention_bwd_launch(
     const float* q, const float* k, const float* v, const float* o,
-    const float* dout, const void* key_mask, const float* lse, float* dq,
-    float* dk, float* dv, int B, int S, int H, int hd, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, long long do_sb,
-    long long do_ss, long long do_sh, int causal, int window, float scale,
-    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned char* km = static_cast<const unsigned char*>(key_mask);
-  const Str qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
-      os{o_sb, o_ss, o_sh}, dos{do_sb, do_ss, do_sh};
-  dim3 grid(B * H, (S + TILE - 1) / TILE);
-
-  size_t smem = dkdv_smem(hd);
-  cudaError_t e = allow_smem(flash_bwd_dkdv, smem);
-  if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv<<<grid, THREADS, smem, st>>>(q, k, v, o, dout, km, lse, dk,
-                                              dv, S, H, hd, qs, ks, vs, os,
-                                              dos, causal, window, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  smem = dq_smem(hd);
-  e = allow_smem(flash_bwd_dq, smem);
-  if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq<<<grid, THREADS, smem, st>>>(q, k, v, o, dout, km, lse, dq, S,
-                                            H, hd, qs, ks, vs, os, dos, causal,
-                                            window, scale);
-  return (int)cudaGetLastError();
+    const float* dout, const void* key_mask, const float* lse, float* D,
+    float* dq, float* dk, float* dv, int B, int S, int H, int hd,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    long long do_sb, long long do_ss, long long do_sh, int causal,
+    int window, float scale, void* stream) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.dout = dout;
+  p.key_mask = static_cast<const unsigned char*>(key_mask);
+  p.lse = const_cast<float*>(lse);
+  p.D = D;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.qs = Str{q_sb, q_ss, q_sh};
+  p.ks = Str{k_sb, k_ss, k_sh};
+  p.vs = Str{v_sb, v_ss, v_sh};
+  p.os = Str{o_sb, o_ss, o_sh};
+  p.dos = Str{do_sb, do_ss, do_sh};
+  p.S = S;
+  p.H = H;
+  p.hd = hd;
+  p.causal = causal;
+  p.window = window;
+  p.scale = scale;
+  // O is read by plain loads (for D), so only the tiled tensors count
+  p.vec = whole_chunks(4, hd, {q, k, v, dout}, {p.qs, p.ks, p.vs, p.dos});
+  return (int)bwd_bucket(p, B, static_cast<cudaStream_t>(stream));
 }

@@ -97,7 +97,7 @@ _ARGTYPES = {
                         + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                            ctypes.c_int, ctypes.c_void_p]),
     "flash_attention_bwd": ("flash_attention", "flash_attention_bwd_launch",
-                            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                             + [ctypes.c_longlong] * 15
                             + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                ctypes.c_void_p]),

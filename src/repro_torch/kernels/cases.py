@@ -29,10 +29,16 @@ PAGED_SWEEP = [
 VERIFY_SWEEP = [(6, 5, 700), (12, 11, 1024), (3, 1, 64), (4, 6, 50),
                 (25, 11, 320)]
 # (B, H, S, hd) x (causal, window): the flash sweep of the JAX package's
-# kernel tests (shapes in its (B, H, S, hd) order)
+# kernel tests (shapes in its (B, H, S, hd) order), then the largest
+# head_dim (MAX_HD) at an S that is no multiple of 16, and a head_dim that
+# runs zero-padded in the next bucket up
 FLASH_SWEEP = [dict(B=2, H=3, S=64, hd=32), dict(B=1, H=2, S=96, hd=16),
-               dict(B=2, H=2, S=128, hd=64), dict(B=1, H=1, S=33, hd=8)]
+               dict(B=2, H=2, S=128, hd=64), dict(B=1, H=1, S=33, hd=8),
+               dict(B=1, H=2, S=72, hd=128), dict(B=2, H=1, S=50, hd=24)]
 FLASH_MASKS = [(True, 0), (False, 0), (True, 24)]
+# card-only: a head_dim whose rows are no whole 16-byte chunks, which the
+# kernels copy by plain loads instead of cp.async
+FLASH_PLAIN_LOADS = [dict(B=2, H=2, S=40, hd=6)]
 
 
 def decode_inputs(B, T, H, Kv, S, hd, *, seed=1):

@@ -64,20 +64,22 @@ def _check_cuda(q, k, v, key_mask) -> None:
                         "bool tensor")
 
 
-def _forward(q, k, v, key_mask, causal, window):
-    """(out (B, S, H, hd), lse (B, H, S) fp32) on the tensors' device."""
+def _forward(q, k, v, key_mask, causal, window, *, with_lse: bool):
+    """(out (B, S, H, hd), lse (B, H, S) fp32) on the tensors' device; lse
+    is None without ``with_lse`` (inference: the kernel writes none)."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   key_mask=key_mask)
+        out, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       key_mask=key_mask)
+        return out, (lse if with_lse else None)
     _check_cuda(q, k, v, key_mask)
     if q.numel() == 0:
-        return (torch.empty_like(q), torch.empty(
+        return torch.empty_like(q), (torch.empty(
             (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
-            device=q.device))
-    out = flash_attention_fwd_kernel(q, k, v, key_mask, causal=causal,
-                                     window=window)
+            device=q.device) if with_lse else None)
+    res = flash_attention_fwd_kernel(q, k, v, key_mask, causal=causal,
+                                     window=window, with_lse=with_lse)
     _build.launch_counts["flash_attention"] += 1
-    return out
+    return res
 
 
 def _backward(q, k, v, o, lse, do, key_mask, causal, window):
@@ -104,7 +106,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, causal, window):
-        out, lse = _forward(q, k, v, key_mask, causal, window)
+        out, lse = _forward(q, k, v, key_mask, causal, window,
+                            with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse, key_mask)
         ctx.causal, ctx.window = causal, window
         return out
@@ -121,14 +124,14 @@ def flash_attention_bshd(q, k, v, *, causal: bool, window: int = 0,
                          key_mask=None) -> torch.Tensor:
     """q, k, v: (B, S, H, hd), the model's layout (read through their
     strides on the card); key_mask: (B, S) bool, True = valid key, or None.
-    Returns (B, S, H, hd) in q's dtype. Differentiable; ``lse`` is kept for
-    the backward only when a gradient is needed, so serving stores
-    nothing."""
+    Returns (B, S, H, hd) in q's dtype. Differentiable; ``lse`` is asked
+    for (and kept for the backward) only when a gradient is needed, so
+    serving writes and stores none."""
     _check(q, k, v, key_mask, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, key_mask, causal, window)
-    return _forward(q, k, v, key_mask, causal, window)[0]
+    return _forward(q, k, v, key_mask, causal, window, with_lse=False)[0]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

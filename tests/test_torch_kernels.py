@@ -27,9 +27,9 @@ from repro_torch.kernels import (decode_gqa_attention, draft_verify,  # noqa: E4
                                  flash_attention, flash_attention_bshd,
                                  paged_decode_gqa_attention)
 from repro_torch.kernels.cases import (  # noqa: E402
-    DECODE_SWEEP, FLASH_MASKS, FLASH_SWEEP, PAGED_SWEEP, VERIFY_SWEEP,
-    decode_inputs, flash_inputs, paged_inputs, ragged_lengths, ring_inputs,
-    verify_inputs)
+    DECODE_SWEEP, FLASH_MASKS, FLASH_PLAIN_LOADS, FLASH_SWEEP, PAGED_SWEEP,
+    VERIFY_SWEEP, decode_inputs, flash_inputs, paged_inputs, ragged_lengths,
+    ring_inputs, verify_inputs)
 from repro_torch.kernels.decode_gqa.ref import (  # noqa: E402
     decode_gqa_ref, paged_decode_gqa_ref)
 from repro_torch.kernels.draft_verify.ref import draft_verify_ref  # noqa: E402
@@ -402,6 +402,37 @@ def test_flash_fully_masked_row_is_zero_with_zero_gradient():
     assert torch.equal(o[0], o0[0])
 
 
+def test_flash_lse_asked_for_only_when_a_gradient_is_needed(monkeypatch):
+    """Inference (no grad, or no input that requires one) asks the forward
+    for no lse, so the kernel writes none; the autograd path asks for it.
+    On the CPU ``_forward`` runs the plain version, so the flag is recorded
+    by wrapping it."""
+    from repro_torch.kernels.flash_attention import ops
+
+    asked = []
+
+    def recording(*args, with_lse):
+        asked.append(with_lse)
+        return forward(*args, with_lse=with_lse)
+
+    forward = ops._forward
+    monkeypatch.setattr(ops, "_forward", recording)
+    q, k, v, do, km = (torch.from_numpy(a) for a in _flash(FLASH_SWEEP[0],
+                                                           ragged=True))
+    kw = dict(causal=False, key_mask=km)
+    ref, _ = flash_attention_ref(q, k, v, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.no_grad():
+        out = flash_attention_bshd(*leaves, **kw)
+    assert asked == [False] and torch.equal(out, ref)
+    assert torch.equal(flash_attention_bshd(q, k, v, **kw), ref)
+    assert asked == [False, False]
+    out = flash_attention_bshd(*leaves, **kw)
+    assert asked == [False, False, True] and torch.equal(out.detach(), ref)
+    torch.autograd.grad(out, leaves, do)
+    assert asked == [False, False, True]
+
+
 def test_flash_wrappers_refuse_other_devices_bad_shapes_and_gqa():
     """A tensor neither on the CPU nor on the card, mismatched shapes, a
     bad key mask or window raise; ``attention()`` refuses GQA (it comes
@@ -480,7 +511,7 @@ def test_draft_verify_kernel_matches_plain(cuda, N, T, V):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cfg", FLASH_SWEEP)
+@pytest.mark.parametrize("cfg", FLASH_SWEEP + FLASH_PLAIN_LOADS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", FLASH_MASKS, ids=MASK_IDS)
 @pytest.mark.parametrize("ragged", [False, True])
@@ -498,7 +529,7 @@ def test_flash_attention_kernel_matches_plain(cuda, cfg, dtype, causal,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cfg", FLASH_SWEEP)
+@pytest.mark.parametrize("cfg", FLASH_SWEEP + FLASH_PLAIN_LOADS)
 @pytest.mark.parametrize("causal,window", FLASH_MASKS, ids=MASK_IDS)
 @pytest.mark.parametrize("ragged", [False, True])
 def test_flash_backward_kernel_matches_plain(cuda, cfg, causal, window,
@@ -516,3 +547,22 @@ def test_flash_backward_kernel_matches_plain(cuda, cfg, causal, window,
     for g, r in zip(grads, ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_kernels_are_deterministic(cuda):
+    """No atomics: two forward calls, and two backward calls, on the same
+    inputs at the train encoder's shape (B 24, S 96, H 8, hd 32, ragged key
+    mask) are bitwise equal."""
+    B, S = 24, 96
+    q, k, v, do, km = flash_inputs(B, S, 8, 32,
+                                   lengths=ragged_lengths(B, S))
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(cuda) for a in (q, k, v, do))
+    kw = dict(causal=False, key_mask=torch.from_numpy(km).to(cuda))
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+        out = flash_attention_bshd(*leaves, **kw)
+        runs.append((out.detach(), *torch.autograd.grad(out, leaves, tdo)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
