@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py            # everything (what the card's run uses)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
+    python3 chip_smoke.py --quick --baseline DIR   # also time the decode
+                                     # kernels of another tree (DIR, e.g. a
+                                     # git archive of an earlier commit)
 
 In order:
   1. print the card's name and power limit; exit nonzero without a card;
@@ -11,13 +14,18 @@ In order:
      instance's registers and spills (fail if a flash_attention instance
      of the model's head_dim bucket, 32, spills);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     test sweeps and at the main paths' shapes (flash_attention forward and
+     test sweeps, the card-only decode lists (split rows, plain loads, the
+     ring of stages) and at the main paths' shapes (decode_gqa and
+     paged_decode_gqa: the verify pass of 8 slots, the greedy step, and
+     where trained serving at B 1 launches them; flash_attention forward and
      backward: the serving encoder's B 16 x S 128 and the training batch's
-     B 24 x S 96, H 8, hd 32; two flash calls on the same inputs must agree
-     bitwise), then time the kernel, the plain version and
+     B 24 x S 96, H 8, hd 32; two calls of each kernel on the same inputs
+     must agree bitwise), then time the kernel, the plain version and
      a PyTorch library call (a yardstick only) with CUDA events, median
      over launches with the L2 cache flushed before each, beside the least
-     time the card could take (bytes or flops);
+     time the card could take (bytes or flops); the decode kernels also
+     with each split count at the trained shapes and a long row, and a
+     one-element fill as the timing floor;
   4. run the port's ReactionEngine at mt-product width (4+4 layers, d_model
      256, 8 heads, d_ff 2048) with weights drawn from a seed, in all four
      modes (16 synthetic queries batched for greedy and speculative, 2 one
@@ -116,12 +124,17 @@ def report_ptxas(source: str, log: str) -> None:
             mangled = entry.group(1)
             m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkdv)I"
                           r"(f|13__nv_bfloat16)?Li(\d+)E", mangled)
-            if m is None:
-                label = mangled
+            d = re.search(r"(decode_attention_kernel)I(f|13__nv_bfloat16)"
+                          r"Li(\d+)ELi(\d+)E", mangled)
+            dtypes = {"f": "float, ", "13__nv_bfloat16": "bf16, "}
+            if m is not None:
+                label = (f"{m.group(1)}<{dtypes.get(m.group(2), '')}"
+                         f"{m.group(3)}>")
+            elif d is not None:   # <type, head_dim bucket, rows a pass>
+                label = (f"{d.group(1)}<{dtypes[d.group(2)]}{d.group(3)}, "
+                         f"{d.group(4)}>")
             else:
-                dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(
-                    m.group(2), "")
-                label = f"{m.group(1)}<{dtype}{m.group(3)}>"
+                label = mangled
             continue
         stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", line)
@@ -194,32 +207,85 @@ def paged_work(q, k_pool, pos_pool, bt, q_pos):
     return int(nbytes), int(4 * hd * H * pairs)
 
 
-def check_paged(torch, ecfg, n_queries: int) -> dict:
-    """paged_decode_gqa against its plain version on the card: the shared
-    paged sweep in fp32 and bf16, then the streaming engine's shapes (a
-    speculative group of ``n_queries`` slots x N_d rows, and a greedy
-    group), timed beside its visible-key bound and the library yardstick
-    (the ``paged_view`` gather, then ``scaled_dot_product_attention``: two
-    calls, since no one PyTorch call computes paged attention)."""
-    import torch.nn.functional as F
+PAGED_KEYS = ("B", "T", "H", "Kv", "P", "ps", "nb", "hd")
+DECODE_KEYS = ("B", "T", "H", "Kv", "S", "hd")
 
-    from repro_torch.kernels import paged_decode_gqa_attention
-    from repro_torch.kernels.cases import PAGED_SWEEP, paged_inputs
-    from repro_torch.kernels.decode_gqa.ref import paged_decode_gqa_ref
-    from repro_torch.models.attention import PagedKVCache, paged_view
 
-    keys = ("B", "T", "H", "Kv", "P", "ps", "nb", "hd")
+def decode_main_shapes(ecfg, n_queries: int) -> dict:
+    """The dense read's timed shapes (H 8, hd 32: mt-product's heads): the
+    one-shot verify pass of ``n_queries`` slots x N_d drafts and its greedy
+    step, then where trained serving at B 1 (``TABLE2``) launches it: the
+    24 drafts at each draft length (T = DL + 1, S = max_new + DL + 2) and
+    the greedy step (S = max_new + 2); and the card-only long row (B 1, S
+    600), which the kernel splits over several blocks."""
+    from repro_torch.kernels.cases import DECODE_CARD_ONLY
+
+    H, hd = 8, 32
+    main = {"speculative": dict(B=n_queries * ecfg.n_drafts,
+                                T=ecfg.draft_len + 1, H=H, Kv=H,
+                                S=ecfg.max_new + ecfg.draft_len + 2, hd=hd,
+                                window=0),
+            "greedy": dict(B=n_queries, T=1, H=H, Kv=H, S=ecfg.max_new + 2,
+                           hd=hd, window=0),
+            "trained_greedy": dict(B=1, T=1, H=H, Kv=H,
+                                   S=TABLE2["max_new"] + 2, hd=hd, window=0)}
+    for dl in TABLE2["draft_lens"]:
+        main[f"trained_dl{dl}"] = dict(B=TABLE2["n_drafts"], T=dl + 1, H=H,
+                                       Kv=H, S=TABLE2["max_new"] + dl + 2,
+                                       hd=hd, window=0)
+    main["long_row"] = DECODE_CARD_ONLY[0]   # split over several blocks
+    return main
+
+
+def paged_main_shapes(ecfg, n_queries: int) -> dict:
+    """The paged read's timed shapes: the streaming engine's speculative
+    group (``n_queries`` slots x N_d rows) and greedy group, and the
+    trained streaming pass (``TRAINED_SLOTS`` slots x 24 drafts, DL 10,
+    ceil((max_new + DL + 2) / 16) blocks of 16); and the card-only long
+    row's paged twin."""
+    from repro_torch.kernels.cases import PAGED_CARD_ONLY
+
     H, hd, ps = 8, 32, ecfg.page_size
     nb_spec = -(-(ecfg.max_new + ecfg.draft_len + 2) // ps)
     nb_greedy = -(-(ecfg.max_new + 2) // ps)
     B_spec = n_queries * ecfg.n_drafts
-    main = {"speculative": dict(B=B_spec, T=ecfg.draft_len + 1, H=H, Kv=H,
+    dl = max(TABLE2["draft_lens"])
+    B_tr = TRAINED_SLOTS * TABLE2["n_drafts"]
+    return {"speculative": dict(B=B_spec, T=ecfg.draft_len + 1, H=H, Kv=H,
                                 P=1 + 4 * B_spec, ps=ps, nb=nb_spec, hd=hd,
                                 window=0, n_mapped=4),
             "greedy": dict(B=n_queries, T=1, H=H, Kv=H, P=1 + 3 * n_queries,
-                           ps=ps, nb=nb_greedy, hd=hd, window=0, n_mapped=3)}
+                           ps=ps, nb=nb_greedy, hd=hd, window=0, n_mapped=3),
+            "trained_streaming": dict(
+                B=B_tr, T=dl + 1, H=H, Kv=H, P=1 + 4 * B_tr, ps=16,
+                nb=-(-(TABLE2["max_new"] + dl + 2) // 16), hd=hd, window=0,
+                n_mapped=4),
+            "long_row": dict(PAGED_CARD_ONLY[0],
+                             n_mapped=PAGED_CARD_ONLY[0]["nb"] - 1)}
+
+
+def check_paged(torch, ecfg, n_queries: int) -> dict:
+    """paged_decode_gqa against its plain version on the card: the shared
+    paged sweep and the card-only list in fp32 and bf16, then the timed
+    shapes (``paged_main_shapes``), timed beside their visible-key bound
+    and the library yardstick (the ``paged_view`` gather, then
+    ``scaled_dot_product_attention``: two calls, since no one PyTorch call
+    computes paged attention); at the trained streaming shape and the long
+    row also with each split count."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_decode_gqa_attention
+    from repro_torch.kernels.cases import (PAGED_CARD_ONLY, PAGED_SWEEP,
+                                           paged_inputs)
+    from repro_torch.kernels.decode_gqa.kernel import (
+        paged_decode_gqa_kernel, plan_splits)
+    from repro_torch.kernels.decode_gqa.ref import paged_decode_gqa_ref
+    from repro_torch.models.attention import PagedKVCache, paged_view
+
+    keys = PAGED_KEYS
+    main = paged_main_shapes(ecfg, n_queries)
     err = 0.0
-    cases = [(c, dt) for c in PAGED_SWEEP
+    cases = [(c, dt) for c in PAGED_SWEEP + PAGED_CARD_ONLY
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(c, torch.float32) for c in main.values()]
     for c, dt in cases:
@@ -235,14 +301,7 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
                                  f"max err {e.max().item()}")
         if dt == torch.float32:
             err = max(err, e.max().item())
-    # an inactive row (every query at -1, table all -1) returns 0, no NaN
-    c = main["speculative"]
-    arrays = list(paged_inputs(*(c[k] for k in keys), n_mapped=4))
-    arrays[4][0] = -1
-    arrays[5][0] = -1
-    out = paged_decode_gqa_attention(*on_card(torch, arrays))
-    if not (torch.isfinite(out).all() and not out[0].any()):
-        raise AssertionError("paged_decode_gqa: inactive row is not 0")
+    # an inactive row gives 0: check_decode_determinism
 
     shapes = {}
     for name, c in main.items():
@@ -262,12 +321,18 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
         nbytes, flops = paged_work(arrays[0], arrays[1], arrays[3],
                                    arrays[4], arrays[5])
         bound_ms, bound_by = bound(nbytes, flops)
+        n_split = plan_splits(c["B"], c["Kv"], c["nb"] * c["ps"],
+                              c["T"] * c["H"] // c["Kv"], c["hd"])
         shapes[name] = dict(
-            shape={d: c[d] for d in keys},
+            shape={d: c[d] for d in keys}, n_split=n_split,
             ms=timed_ms(torch, lambda: paged_decode_gqa_attention(*x)),
             plain_ms=timed_ms(torch, lambda: paged_decode_gqa_ref(*x)),
             library_ms=timed_ms(torch, library),
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+        if name.startswith("trained") or name == "long_row":
+            shapes[name]["split_ms"] = {n: timed_ms(
+                torch, lambda: paged_decode_gqa_kernel(*x, n_split=n))
+                for n in SPLIT_SWEEP}
     return dict(max_abs_err=err, shapes=shapes)
 
 
@@ -415,34 +480,72 @@ def check_flash(torch, main: dict) -> dict:
             "flash_attention_bwd": dict(max_abs_err=err_b, shapes=bwd)}
 
 
+def check_decode_determinism(torch, ecfg, n_queries: int) -> None:
+    """No float atomics: two calls of each decode kernel on the same inputs
+    agree bitwise, dense and paged, at a shape split over several blocks
+    (the card-only B 1 rows) and at one with one block a (row, kv head)
+    (the verify pass); and a paged row whose queries and table are all -1
+    gives 0, split and unsplit."""
+    from repro_torch.kernels import (decode_gqa_attention,
+                                     paged_decode_gqa_attention)
+    from repro_torch.kernels.cases import (DECODE_CARD_ONLY, PAGED_CARD_ONLY,
+                                           decode_inputs, paged_inputs)
+    from repro_torch.kernels.decode_gqa.kernel import plan_splits
+
+    runs = []
+    for c in (DECODE_CARD_ONLY[0], decode_main_shapes(ecfg, n_queries)[
+            "speculative"]):
+        x = on_card(torch, decode_inputs(*(c[k] for k in DECODE_KEYS)))
+        n = plan_splits(c["B"], c["Kv"], c["S"], c["T"] * c["H"] // c["Kv"],
+                        c["hd"])
+        runs.append((f"decode_gqa {c} ({n} splits)",
+                     lambda x=x: decode_gqa_attention(*x)))
+    for c in (PAGED_CARD_ONLY[0], paged_main_shapes(ecfg, n_queries)[
+            "speculative"]):
+        arrays = list(paged_inputs(*(c[k] for k in PAGED_KEYS),
+                                   n_mapped=c.get("n_mapped")))
+        x = on_card(torch, arrays)
+        n = plan_splits(c["B"], c["Kv"], c["nb"] * c["ps"],
+                        c["T"] * c["H"] // c["Kv"], c["hd"])
+        runs.append((f"paged_decode_gqa {c} ({n} splits)",
+                     lambda x=x: paged_decode_gqa_attention(*x)))
+        arrays[4][0] = -1
+        arrays[5][0] = -1
+        out = paged_decode_gqa_attention(*on_card(torch, arrays))
+        if not (torch.isfinite(out).all() and not out[0].any()):
+            raise AssertionError(f"paged_decode_gqa: inactive row is not 0 "
+                                 f"at {c} ({n} splits)")
+    for label, fn in runs:
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: two calls on the same inputs "
+                                 f"differ")
+
+
 def check_kernels(torch, vocab: int, ecfg, n_queries: int,
                   flash_main: dict) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_gqa_attention, draft_verify
-    from repro_torch.kernels.cases import (DECODE_SWEEP, VERIFY_SWEEP,
-                                           decode_inputs, ring_inputs,
-                                           verify_inputs)
+    from repro_torch.kernels.cases import (DECODE_CARD_ONLY, DECODE_SWEEP,
+                                           VERIFY_SWEEP, decode_inputs,
+                                           ring_inputs, verify_inputs)
+    from repro_torch.kernels.decode_gqa.kernel import (decode_gqa_kernel,
+                                                       plan_splits)
     from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
     from repro_torch.kernels.draft_verify.ref import draft_verify_ref
 
     results = {}
     # -- decode_gqa ---------------------------------------------------------
     err = 0.0
-    H, hd = 8, 32
-    S_spec = ecfg.max_new + ecfg.draft_len + 2
-    S_greedy = ecfg.max_new + 2
-    T_spec = ecfg.draft_len + 1
-    B_spec = n_queries * ecfg.n_drafts
-    main = {"speculative": dict(B=B_spec, T=T_spec, H=H, Kv=H, S=S_spec,
-                                hd=hd, window=0),
-            "greedy": dict(B=n_queries, T=1, H=H, Kv=H, S=S_greedy, hd=hd,
-                           window=0)}
-    cases = [(c, dt) for c in DECODE_SWEEP
+    main = decode_main_shapes(ecfg, n_queries)
+    B_spec, T_spec = main["speculative"]["B"], main["speculative"]["T"]
+    cases = [(c, dt) for c in DECODE_SWEEP + DECODE_CARD_ONLY
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(c, torch.float32) for c in main.values()]
     for c, dt in cases:
-        shape = [c[k] for k in ("B", "T", "H", "Kv", "S", "hd")]
+        shape = [c[k] for k in DECODE_KEYS]
         x = on_card(torch, decode_inputs(*shape), dt)
         out = decode_gqa_attention(*x, window=c["window"])
         ref = decode_gqa_ref(*x, window=c["window"])
@@ -462,10 +565,11 @@ def check_kernels(torch, vocab: int, ecfg, n_queries: int,
         raise AssertionError(f"decode_gqa ring buffer: max err {e}")
     err = max(err, e)
 
+    check_decode_determinism(torch, ecfg, n_queries)
+
     shapes = {}
     for name, c in main.items():
-        arrays = decode_inputs(*(c[k] for k in ("B", "T", "H", "Kv", "S",
-                                                "hd")))
+        arrays = decode_inputs(*(c[k] for k in DECODE_KEYS))
         x = on_card(torch, arrays)
         q, k, v, kp, qp = x
         visible = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None]))
@@ -475,12 +579,18 @@ def check_kernels(torch, vocab: int, ecfg, n_queries: int,
                                     arrays[4])
         bound_ms, bound_by = bound(nbytes, flops)
         shapes[name] = dict(
-            shape={d: c[d] for d in ("B", "T", "H", "Kv", "S", "hd")},
+            shape={d: c[d] for d in DECODE_KEYS},
+            n_split=plan_splits(c["B"], c["Kv"], c["S"],
+                                c["T"] * c["H"] // c["Kv"], c["hd"]),
             ms=timed_ms(torch, lambda: decode_gqa_attention(*x)),
             plain_ms=timed_ms(torch, lambda: decode_gqa_ref(*x)),
             library_ms=timed_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask)),
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+        if name.startswith("trained") or name == "long_row":
+            shapes[name]["split_ms"] = {n: timed_ms(
+                torch, lambda: decode_gqa_kernel(*x, n_split=n))
+                for n in SPLIT_SWEEP}
     results["decode_gqa"] = dict(max_abs_err=err, shapes=shapes)
 
     # -- paged_decode_gqa ---------------------------------------------------
@@ -675,6 +785,10 @@ TRAIN = dict(n_train=512, n_test=64, batch=24, max_len=96, lr=1e-3,
 # the trained-serving phase: the paper's Table 2 (B 1), as
 # benchmarks/table2_speculative_greedy.py runs it
 TABLE2 = dict(max_new=72, max_src=96, n_drafts=24, draft_lens=(4, 10))
+TRAINED_SLOTS = 8   # slots of the trained streaming pass
+# split counts the decode kernels are also timed with at the trained shapes
+# (the choice of kernel.py's plan_splits)
+SPLIT_SWEEP = (1, 2, 3, 4, 8)
 
 
 def check_encoder_launches(launches: dict, label: str) -> None:
@@ -801,7 +915,7 @@ def serve_trained(torch, tok, cfg, params, test_ds) -> dict:
             acceptance=float(np.mean([p.acceptance_rate for p in preds])),
             launches=dict(launch_counts))
     eng = StreamingEngine(params, cfg, tok, EngineConfig(
-        mode="speculative", n_slots=8, paged=True, page_size=16,
+        mode="speculative", n_slots=TRAINED_SLOTS, paged=True, page_size=16,
         draft_len=max(TABLE2["draft_lens"]), **base))
     eng.submit(queries[0])
     eng.serve()                                              # warm-up
@@ -879,10 +993,62 @@ def check_train_step(torch, ds, tcfg, cpu_params) -> None:
           f"leaves, max abs err {err:.3g})", flush=True)
 
 
+def decode_times(torch, dense: dict, paged: dict) -> dict:
+    """Kernel time (``timed_ms``) of the public decode wrappers at each
+    shape, on the seeded inputs of ``kernels.cases``: the part of the
+    kernel checks that two trees of the port share, so their kernels can
+    be compared in one call."""
+    from repro_torch.kernels import (decode_gqa_attention,
+                                     paged_decode_gqa_attention)
+    from repro_torch.kernels.cases import decode_inputs, paged_inputs
+
+    out = {}
+    for name, c in dense.items():
+        x = on_card(torch, decode_inputs(*(c[k] for k in DECODE_KEYS)))
+        out[f"decode_gqa/{name}"] = timed_ms(
+            torch, lambda: decode_gqa_attention(*x))
+    for name, c in paged.items():
+        x = on_card(torch, paged_inputs(*(c[k] for k in PAGED_KEYS),
+                                        n_mapped=c["n_mapped"]))
+        out[f"paged_decode_gqa/{name}"] = timed_ms(
+            torch, lambda: paged_decode_gqa_attention(*x))
+    return out
+
+
+def compare_decode(torch, baseline: Path, dense: dict, paged: dict) -> dict:
+    """The decode kernels of another tree of the port (``baseline``, e.g. a
+    ``git archive`` of the parent commit) against this tree's, in turns:
+    baseline, this, this, baseline, each baseline run in a process of its
+    own that imports that tree's ``repro_torch`` and builds its kernels."""
+    spec = json.dumps(dict(src=str(baseline.resolve() / "src"), dense=dense,
+                           paged=paged))
+
+    def run_baseline():
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--decode-times", spec], capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode != 0:
+            raise RuntimeError(f"baseline decode timing failed:\n"
+                               f"{out.stdout}\n{out.stderr}")
+        return json.loads(out.stdout.strip().splitlines()[-1])
+
+    runs = [run_baseline(), decode_times(torch, dense, paged),
+            decode_times(torch, dense, paged), run_baseline()]
+    return {name: dict(baseline_ms=(runs[0][name], runs[3][name]),
+                       ms=(runs[1][name], runs[2][name]))
+            for name in runs[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
+    ap.add_argument("--baseline", metavar="DIR", type=Path,
+                    help="also time the decode kernels of another tree of "
+                         "the port (DIR: its root) against this one's, in "
+                         "turns")
+    ap.add_argument("--decode-times", metavar="JSON",
+                    help=argparse.SUPPRESS)   # compare_decode's child
     ap.add_argument("--profile", metavar="DIR", type=Path,
                     help="also trace each mode with torch.profiler (device "
                          "time by kernel, the device's busy share) and "
@@ -894,6 +1060,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.decode_times:   # time another tree's decode kernels, only
+        spec = json.loads(args.decode_times)
+        sys.path.insert(0, spec["src"])
+        print(json.dumps(decode_times(torch, spec["dense"], spec["paged"])))
+        return 0
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs.mt import product_config, tiny_config, with_vocab
     from repro_torch.data import SyntheticReactionDataset, padded_batch
@@ -944,10 +1115,27 @@ def main() -> int:
           flush=True)
     for name, r in kern.items():
         for shape, m in r["shapes"].items():
-            print(f"  {name} [{shape}] {m['shape']}: kernel {m['ms']:.4f} ms, "
-                  f"plain {m['plain_ms']:.4f} ms, library "
+            splits = "" if "n_split" not in m else (
+                f", {m['n_split']} split(s)" + ("" if "split_ms" not in m else
+                " (forced: " + ", ".join(f"{n} {t:.4f} ms" for n, t in
+                                         m["split_ms"].items()) + ")"))
+            print(f"  {name} [{shape}] {m['shape']}: kernel {m['ms']:.4f} ms"
+                  f"{splits}, plain {m['plain_ms']:.4f} ms, library "
                   f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
                   f"({m['bound_by']}: {m['bytes']} B, {m['flops']} flop)")
+    one = torch.zeros(1, device="cuda")
+    print(f"  timing floor: a 1-element fill, {timed_ms(torch, one.zero_):.4f} "
+          f"ms (launch and event overhead in every kernel time)", flush=True)
+    if args.baseline:
+        n_slots = STREAM_PLAN["speculative"][0]
+        ab = compare_decode(
+            torch, args.baseline, decode_main_shapes(ecfg, n_slots),
+            paged_main_shapes(ecfg, n_slots))
+        for name, r in ab.items():
+            print(f"  A/B {name}: baseline {r['baseline_ms'][0]:.4f} / "
+                  f"{r['baseline_ms'][1]:.4f} ms, this tree {r['ms'][0]:.4f} "
+                  f"/ {r['ms'][1]:.4f} ms (baseline, this, this, baseline)",
+                  flush=True)
     if args.quick:
         print(json.dumps({"kernels_checked": sorted(kern)}))
         return 0

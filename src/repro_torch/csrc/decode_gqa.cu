@@ -2,218 +2,62 @@
 //
 // Replaces the TPU kernel src/repro/kernels/decode_gqa/kernel.py::
 // decode_gqa_kernel (body _decode_kernel, oracle decode_gqa_ref). It is the
-// cached self-attention of every Molecular Transformer decoder layer: the
-// T = DL+1 fed tokens of each draft row attend to the row's (S, Kv, hd) cache,
-// masked on the stored positions (-1 = empty slot, causal k_pos <= q_pos,
-// optional sliding window k_pos > q_pos - window). A query row with no
-// visible key outputs 0.
+// cached self-attention of every Molecular Transformer decoder layer under
+// the one-shot engine and the dense streaming cache: the T = DL+1 fed
+// tokens of each draft row (T = 1 greedy) attend to the row's (S, Kv, hd)
+// cache, masked on the stored positions (-1 = empty slot, causal k_pos <=
+// q_pos, optional sliding window k_pos > q_pos - window). The cache may be
+// a wrapped ring buffer, so keys are pruned by stored position, never by
+// slot. A query row with no visible key outputs 0.
 //
-// What bounds it on this card: bytes. Each (row, kv head) reads its S x hd
-// K and V once and does 4*T*G*S*hd flops on them, far below the ~20 flops per
-// byte where fp32 arithmetic would become the limit. The TPU kernel walked
-// the keys on a sequential grid axis with VMEM scratch; blocks here run in
-// no order, so one block owns one (b, kv head) and loops over the keys
-// itself, keeping the online-softmax state (max, sum, accumulator) in
-// shared memory. K/V tiles of BK keys are staged through shared memory once
-// and reused by all T*G query rows of the head group, so every cache byte is
-// read from device memory exactly once. The cache is read through its
-// (b, s, head) strides, with no transposed copy.
+// The body is decode_attention.cuh's (its notes give the design and what
+// bounds the kernel); this file is the dense key-address policy: key s of
+// row b is slot s, at k + b*k_sb + s*k_ss + g*k_sh, its position
+// k_pos[b, s]. The first kernel of this file walked 32-key tiles
+// serially in one block per (row, kv head): 0.0794 ms on an H100 at the
+// verify pass of 8 slots (B 200, T 11, S 108, hd 32), 8.5x its byte bound,
+// and 8 blocks on the card at B 1 (PERF.md).
 //
 // Plain C interface, loaded with ctypes: decode_gqa_launch returns the
 // cudaError_t of the launch (0 = success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "decode_attention.cuh"
 
 namespace {
 
-constexpr int BK = 32;         // keys per tile: one per lane in the softmax
-constexpr int THREADS = 128;   // four warps
-constexpr int NW = THREADS / 32;
+struct DenseKeys {
+  const int* k_pos;   // (B, S)
+  int S;
+  long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-size_t smem_bytes(int TG, int T_q, int hd) {
-  size_t floats = 2 * (size_t)TG * hd      // q rows + accumulator
-                  + (size_t)BK * (hd + 1)  // K tile (padded rows)
-                  + (size_t)BK * hd        // V tile
-                  + (size_t)TG * BK        // scores / probabilities
-                  + 2 * (size_t)TG;        // running max and sum
-  return floats * sizeof(float) + ((size_t)BK + T_q) * sizeof(int);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-decode_gqa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ k_pos,
-                  const int* __restrict__ q_pos, T* __restrict__ out,
-                  int T_q, int H, int Kv, int S, int hd,
-                  long long k_sb, long long k_ss, long long k_sh,
-                  long long v_sb, long long v_ss, long long v_sh,
-                  int window, float scale) {
-  const int b = blockIdx.x, g = blockIdx.y;
-  const int G = H / Kv;
-  const int TG = T_q * G;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ks = hd + 1;  // padded K row: lanes on different keys, no conflict
-
-  extern __shared__ float smem[];
-  float* q_s = smem;               // (TG, hd)
-  float* acc = q_s + TG * hd;      // (TG, hd)
-  float* k_s = acc + TG * hd;      // (BK, hd + 1)
-  float* v_s = k_s + BK * ks;      // (BK, hd)
-  float* p_s = v_s + BK * hd;      // (TG, BK)
-  float* m_s = p_s + TG * BK;      // (TG,)
-  float* l_s = m_s + TG;           // (TG,)
-  int* kp_s = reinterpret_cast<int*>(l_s + TG);  // (BK,)
-  int* qp_s = kp_s + BK;                         // (T_q,)
-
-  // row r = t*G + gi holds q[b, t, g*G + gi, :]
-  for (int i = tid; i < TG * hd; i += THREADS) {
-    const int r = i / hd, d = i - r * hd;
-    const int t = r / G, gi = r - t * G;
-    q_s[i] = to_f(q[(((long long)b * T_q + t) * H + g * G + gi) * hd + d]);
-    acc[i] = 0.f;
+  __device__ __forceinline__ int n_keys() const { return S; }
+  __device__ __forceinline__ void position(int b, int g, int s, int* kp,
+                                           long long* ko,
+                                           long long* vo) const {
+    decode_attention::cp_async4(kp, k_pos + (long long)b * S + s);
+    *ko = b * k_sb + s * k_ss + g * k_sh;
+    *vo = b * v_sb + s * v_ss + g * v_sh;
   }
-  for (int r = tid; r < TG; r += THREADS) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
-  for (int t = tid; t < T_q; t += THREADS) qp_s[t] = q_pos[(long long)b * T_q + t];
-
-  const T* kb = k + b * k_sb + g * k_sh;
-  const T* vb = v + b * v_sb + g * v_sh;
-  for (int s0 = 0; s0 < S; s0 += BK) {
-    __syncthreads();  // set-up written / previous tile consumed
-    for (int i = tid; i < BK * hd; i += THREADS) {
-      const int j = i / hd, d = i - j * hd;
-      const int s = s0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (s < S) {
-        kx = to_f(kb[s * k_ss + d]);
-        vx = to_f(vb[s * v_ss + d]);
-      }
-      k_s[j * ks + d] = kx;
-      v_s[j * hd + d] = vx;
-    }
-    for (int j = tid; j < BK; j += THREADS) {
-      const int s = s0 + j;
-      kp_s[j] = s < S ? k_pos[(long long)b * S + s] : -1;  // ragged edge
-    }
-    __syncthreads();
-
-    // scores of every (row, key) pair of the tile; invisible keys -> -inf
-    for (int i = tid; i < TG * BK; i += THREADS) {
-      const int r = i / BK, j = i - r * BK;
-      const int qp = qp_s[r / G], kp = kp_s[j];
-      const bool vis = kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
-      float sc = -INFINITY;
-      if (vis) {
-        const float* qr = q_s + r * hd;
-        const float* kr = k_s + j * ks;
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-        sc = dot * scale;
-      }
-      p_s[i] = sc;
-    }
-    __syncthreads();
-
-    // online softmax: warp w owns rows w, w + NW, ... for the whole loop
-    for (int r = warp; r < TG; r += NW) {
-      const float sc = p_s[r * BK + lane];
-      float tmax = sc;
-      for (int o = 16; o > 0; o >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, tmax);
-      float p = 0.f, alpha = 1.f;
-      if (m_new != -INFINITY) {  // some key of this row is visible so far
-        alpha = expf(m_old - m_new);
-        p = sc == -INFINITY ? 0.f : expf(sc - m_new);
-      }
-      float psum = p;
-      for (int o = 16; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      p_s[r * BK + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + psum;
-      }
-      for (int d = lane; d < hd; d += 32) {
-        float a = acc[r * hd + d] * alpha;
-        for (int j = 0; j < BK; ++j) a = fmaf(p_s[r * BK + j], v_s[j * hd + d], a);
-        acc[r * hd + d] = a;
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < TG * hd; i += THREADS) {
-    const int r = i / hd, d = i - r * hd;
-    const int t = r / G, gi = r - t * G;
-    const float l = l_s[r];
-    const float o = l > 0.f ? acc[i] / l : 0.f;  // no visible key -> 0
-    out[(((long long)b * T_q + t) * H + g * G + gi) * hd + d] = from_f<T>(o);
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* k_pos, const int* q_pos, void* out, int B,
-                   int T_q, int H, int Kv, int S, int hd, long long k_sb,
-                   long long k_ss, long long k_sh, long long v_sb,
-                   long long v_ss, long long v_sh, int window, float scale,
-                   cudaStream_t stream) {
-  const int TG = T_q * (H / Kv);
-  const size_t smem = smem_bytes(TG, T_q, hd);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_gqa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid(B, Kv);
-  decode_gqa_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), k_pos, q_pos, static_cast<T*>(out), T_q, H,
-      Kv, S, hd, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, window, scale);
-  return cudaGetLastError();
-}
+};
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head_dim
-// axis of the cache must be contiguous. Returns a cudaError_t.
-extern "C" int decode_gqa_launch(const void* q, const void* k, const void* v,
-                                 const int* k_pos, const int* q_pos, void* out,
-                                 int B, int T_q, int H, int Kv, int S, int hd,
-                                 long long k_sb, long long k_ss, long long k_sh,
-                                 long long v_sb, long long v_ss, long long v_sh,
-                                 int window, float scale, int dtype,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, k_pos, q_pos, out, B, T_q, H, Kv, S, hd,
-                              k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, window,
-                              scale, st);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, k_pos, q_pos, out, B, T_q, H,
-                                      Kv, S, hd, k_sb, k_ss, k_sh, v_sb, v_ss,
-                                      v_sh, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+// axis of the cache must be contiguous. part / part_ml: the split partials
+// (n_split > 1 only, else NULL), tickets: B*Kv zeros (n_split > 1 only);
+// chunk: keys per split; vec: 16-byte copies (pointers, strides and rows
+// 16-byte aligned) or plain loads. Returns a cudaError_t.
+extern "C" int decode_gqa_launch(
+    const void* q, const void* k, const void* v, const int* k_pos,
+    const int* q_pos, void* out, float* part, float* part_ml, int* tickets,
+    int B, int T, int H, int Kv, int S, int hd, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, int window, float scale, int n_split, int chunk, int vec,
+    int dtype, void* stream) {
+  const decode_attention::Params p = decode_attention::make_params(
+      q, out, q_pos, part, part_ml, tickets, T, H, Kv, hd, window, scale,
+      n_split, chunk, vec);
+  const DenseKeys keys{k_pos, S, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  return (int)decode_attention::launch(p, keys, k, v, B, dtype,
+                                       static_cast<cudaStream_t>(stream));
 }

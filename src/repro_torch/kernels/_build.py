@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. The
 libraries go to ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one loads at once. ``build_all`` starts one
+``.gitignore``), named by a hash of the source, every ``csrc/*.cuh`` header
+and the flags, so a changed source or header rebuilds and an unchanged one
+loads at once. ``build_all`` starts one
 ``nvcc`` per source, all together. Nothing here runs at import: the CPU
 tests import every module and this machine may have no ``nvcc``.
 
@@ -43,8 +44,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # any source may include one
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
@@ -79,15 +83,15 @@ def build_all(names=KERNELS) -> float:
 # launch function -> (source, C symbol, argtypes); one launch count each
 _ARGTYPES = {
     "decode_gqa": ("decode_gqa", "decode_gqa_launch",
-                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 6
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p]),
+                   + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p]),
     "paged_decode_gqa": ("paged_decode_gqa", "paged_decode_gqa_launch",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                          + [ctypes.c_longlong] * 6
-                         + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                            ctypes.c_void_p]),
+                         + [ctypes.c_int, ctypes.c_float]
+                         + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "draft_verify": ("draft_verify", "draft_verify_launch",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                      + [ctypes.c_void_p]),

@@ -25,6 +25,27 @@ PAGED_SWEEP = [
     dict(B=2, T=11, H=8, Kv=4, P=31, ps=16, nb=6, hd=64, window=24),
     dict(B=3, T=3, H=6, Kv=1, P=16, ps=8, nb=4, hd=8, window=0),    # MQA
 ]
+# card-only (the CPU suite's JAX interpret-mode time stays as it is): rows
+# that reach the kernels' other paths. A long row split over several blocks
+# with a ragged last split (B 1, T 1, S 600), the same with T*G = 22 query
+# rows (two row passes a block) and a window; a head_dim whose rows are no
+# whole 16-byte chunks (hd 6: plain loads); and a long row at a batch that
+# fills the card (one block a (row, kv head)), whose keys stream through
+# the two-stage ring, with two row passes re-reading it
+DECODE_CARD_ONLY = [
+    dict(B=1, T=1, H=8, Kv=8, S=600, hd=32, window=0),
+    dict(B=1, T=11, H=8, Kv=4, S=600, hd=32, window=48),
+    dict(B=2, T=3, H=4, Kv=2, S=40, hd=6, window=0),
+    dict(B=34, T=11, H=8, Kv=4, S=700, hd=32, window=0),
+]
+# their paged twins (nb * ps keys a row, all but the last block mapped)
+PAGED_CARD_ONLY = [
+    dict(B=1, T=1, H=8, Kv=8, P=40, ps=16, nb=38, hd=32, window=0),
+    dict(B=1, T=11, H=8, Kv=4, P=40, ps=16, nb=38, hd=32, window=48),
+    dict(B=2, T=3, H=4, Kv=2, P=12, ps=8, nb=5, hd=6, window=0),
+    dict(B=34, T=11, H=8, Kv=4, P=1 + 34 * 43, ps=16, nb=44, hd=32,
+         window=0),
+]
 # (N, T, V): rows, fed positions (DL + 1), vocab
 VERIFY_SWEEP = [(6, 5, 700), (12, 11, 1024), (3, 1, 64), (4, 6, 50),
                 (25, 11, 320)]

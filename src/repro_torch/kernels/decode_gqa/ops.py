@@ -7,7 +7,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_gqa.kernel import (_DTYPES, decode_gqa_kernel,
+from repro_torch.kernels.decode_gqa.kernel import (_DTYPES, MAX_HD,
+                                                   decode_gqa_kernel,
                                                    paged_decode_gqa_kernel)
 from repro_torch.kernels.decode_gqa.ref import (decode_gqa_ref,
                                                 paged_decode_gqa_ref)
@@ -55,6 +56,9 @@ def decode_gqa_attention(q, k_cache, v_cache, k_pos, q_pos, *,
     if k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError("decode_gqa: the cache's head_dim axis must be "
                          "contiguous")
+    if q.shape[-1] > MAX_HD:
+        raise ValueError(f"decode_gqa: head_dim {q.shape[-1]} > {MAX_HD}, "
+                         f"the kernel's largest bucket")
     if q.numel() == 0:
         return torch.empty_like(q)
     out = decode_gqa_kernel(q, k_cache, v_cache, k_pos, q_pos, window=window)
@@ -114,6 +118,9 @@ def paged_decode_gqa_attention(q, k_pool, v_pool, pos_pool, block_tables,
     if k_pool.stride(3) != 1 or v_pool.stride(3) != 1:
         raise ValueError("paged_decode_gqa: the pool's head_dim axis must be "
                          "contiguous")
+    if q.shape[-1] > MAX_HD:
+        raise ValueError(f"paged_decode_gqa: head_dim {q.shape[-1]} > "
+                         f"{MAX_HD}, the kernel's largest bucket")
     if q.numel() == 0:
         return torch.empty_like(q)
     out = paged_decode_gqa_kernel(q, k_pool, v_pool, pos_pool, block_tables,

@@ -26,10 +26,12 @@ from repro_torch.core.session import _accept_lengths  # noqa: E402
 from repro_torch.kernels import (decode_gqa_attention, draft_verify,  # noqa: E402
                                  flash_attention, flash_attention_bshd,
                                  paged_decode_gqa_attention)
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
-    DECODE_SWEEP, FLASH_MASKS, FLASH_PLAIN_LOADS, FLASH_SWEEP, PAGED_SWEEP,
-    VERIFY_SWEEP, decode_inputs, flash_inputs, paged_inputs, ragged_lengths,
-    ring_inputs, verify_inputs)
+    DECODE_CARD_ONLY, DECODE_SWEEP, FLASH_MASKS, FLASH_PLAIN_LOADS,
+    FLASH_SWEEP, PAGED_CARD_ONLY, PAGED_SWEEP, VERIFY_SWEEP, decode_inputs,
+    flash_inputs, paged_inputs, ragged_lengths, ring_inputs, verify_inputs)
+from repro_torch.kernels.decode_gqa import kernel as decode_kernel  # noqa: E402
 from repro_torch.kernels.decode_gqa.ref import (  # noqa: E402
     decode_gqa_ref, paged_decode_gqa_ref)
 from repro_torch.kernels.draft_verify.ref import draft_verify_ref  # noqa: E402
@@ -265,6 +267,83 @@ def test_wrappers_refuse_other_devices_and_bad_shapes():
         draft_verify(logits.to("meta"), drafts.to("meta"), mask.to("meta"))
     with pytest.raises(ValueError):
         draft_verify(logits, drafts[:, :-1], mask)
+
+
+# ---------------------------------------------------------------------------
+# the Python around the decode kernels: split plan, copy mode, build cache
+
+# (B, Kv, keys a row, T*G, hd): the main path's shapes (the verify pass of
+# 8 slots, trained serving at B 1 and B 24, the paged verify pass), then
+# long rows at B 1 and a card-filling batch of long rows
+SPLIT_CASES = [(200, 8, 108, 11, 32), (1, 8, 74, 1, 32), (24, 8, 84, 11, 32),
+               (192, 8, 96, 11, 32), (1, 8, 600, 1, 32), (1, 4, 600, 22, 32),
+               (1, 1, 4096, 1, 128), (34, 4, 700, 22, 32), (3, 2, 33, 5, 6)]
+
+
+@pytest.mark.parametrize("B,Kv,n_keys,TG,hd", SPLIT_CASES)
+def test_plan_splits_bounds(B, Kv, n_keys, TG, hd):
+    """At least one block a (row, kv head), never more splits than key
+    tiles, every split holds keys, and the splits cover the row."""
+    n = decode_kernel.plan_splits(B, Kv, n_keys, TG, hd)
+    chunk = decode_kernel.split_chunk(n_keys, n)
+    tiles = -(-n_keys // decode_kernel.KEY_TILE)
+    assert 1 <= n <= tiles
+    assert chunk % decode_kernel.KEY_TILE == 0
+    assert (n - 1) * chunk < n_keys <= n * chunk
+
+
+def test_plan_splits_where_the_grid_fills_the_card_or_the_row_is_short():
+    """One block a (row, kv head) at the verify pass of 8 slots (B 200) and
+    at the trained shapes, whose rows a block's warps take at once; several
+    for a long row at B 1, whose blocks would leave most SMs idle."""
+    plan = decode_kernel.plan_splits
+    assert plan(200, 8, 108, 11, 32) == 1      # 1600 blocks
+    assert plan(24, 8, 84, 11, 32) == 1        # 192 blocks
+    assert plan(1, 8, 74, 1, 32) == 1          # 3 key tiles: one block
+    assert plan(1, 8, 600, 1, 32) > 1
+    assert plan(1, 1, 4096, 1, 128) > plan(1, 8, 4096, 1, 128) > 1
+
+
+@pytest.mark.parametrize("hd,itemsize,ptrs,strides,expected", [
+    (32, 4, (256, 512), (8192, 256, 32), True),     # fp32 cache, hd 32
+    (8, 2, (256, 512), (2048, 64, 8), True),         # bf16, hd 8 = 16 bytes
+    (6, 4, (256, 512), (1536, 48, 6), False),        # rows of 24 bytes
+    (4, 2, (256, 512), (512, 16, 4), False),         # bf16 rows of 8 bytes
+    (32, 4, (260, 512), (8192, 256, 32), False),     # a base off 16 bytes
+    (32, 4, (256, 512), (8192, 258, 32), False),     # a stride off 16 bytes
+])
+def test_vector_loads_choice(hd, itemsize, ptrs, strides, expected):
+    assert decode_kernel.vector_loads(hd, itemsize, ptrs, strides) is expected
+
+
+def test_vector_loads_from_tensors():
+    """The wrappers' choice on real tensors: a contiguous cache copies by
+    16-byte chunks; a view that starts one element in, or whose rows are 6
+    floats, takes plain loads."""
+    k = torch.zeros((2, 16, 4, 32))
+    assert decode_kernel._vec(k, k.clone()) == 1
+    wide = torch.zeros((2, 16, 4, 33))
+    assert decode_kernel._vec(wide[..., 1:], wide[..., 1:]) == 0
+    narrow = torch.zeros((2, 16, 4, 6))
+    assert decode_kernel._vec(narrow, narrow) == 0
+
+
+def test_lib_path_covers_headers(tmp_path, monkeypatch):
+    """A library is named by its source, every csrc header and the flags: a
+    changed header builds anew; a file that is no header does not."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._lib_path("k")
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert _build._lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build._lib_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// another header\n")
+    assert _build._lib_path("k") != second
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// changed\n')
+    assert _build._lib_path("k") not in (first, second)
 
 
 # ---------------------------------------------------------------------------
@@ -566,3 +645,63 @@ def test_flash_kernels_are_deterministic(cuda):
         runs.append((out.detach(), *torch.autograd.grad(out, leaves, tdo)))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", DECODE_CARD_ONLY)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_gqa_kernel_card_only_shapes(cuda, cfg, dtype):
+    """Several splits with a ragged last one, two row passes, plain loads
+    (hd 6) and the two-stage ring."""
+    tx = [t.to(cuda) for t in _torch(_decode_inputs(cfg), dtype)]
+    out = decode_gqa_attention(*tx, window=cfg["window"])
+    ref = decode_gqa_ref(*tx, window=cfg["window"])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", PAGED_CARD_ONLY)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_gqa_kernel_card_only_shapes(cuda, cfg, dtype):
+    tx = [t.to(cuda) for t in _torch(_paged_inputs(cfg), dtype)]
+    out = paged_decode_gqa_attention(*tx, window=cfg["window"])
+    ref = paged_decode_gqa_ref(*tx, window=cfg["window"])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [False, True], ids=["one_block", "split"])
+def test_decode_kernels_are_deterministic(cuda, split):
+    """No float atomics: two calls on the same inputs are bitwise equal,
+    dense and paged, with one block a (row, kv head) (B 24, the trained
+    verify pass) and split over several (the B 1 long rows)."""
+    dense = (DECODE_CARD_ONLY[0] if split else
+             dict(B=24, T=11, H=8, Kv=8, S=84, hd=32, window=0))
+    paged = (PAGED_CARD_ONLY[0] if split else
+             dict(B=24, T=11, H=8, Kv=8, P=97, ps=16, nb=6, hd=32, window=0))
+    n = decode_kernel.plan_splits(dense["B"], dense["Kv"], dense["S"],
+                                  dense["T"] * dense["H"] // dense["Kv"],
+                                  dense["hd"])
+    assert (n > 1) == split
+    tx = [t.to(cuda) for t in _torch(_decode_inputs(dense), "float32")]
+    px = [t.to(cuda) for t in _torch(_paged_inputs(paged), "float32")]
+    runs = [(decode_gqa_attention(*tx), paged_decode_gqa_attention(*px))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_paged_inactive_row_is_zero_when_split(cuda):
+    """A row whose queries and table are all -1 gives 0, no NaN, when its
+    keys are split over several blocks too."""
+    arrays = list(_paged_inputs(PAGED_CARD_ONLY[0]))
+    arrays[4][0] = -1
+    arrays[5][0] = -1
+    out = paged_decode_gqa_attention(*(torch.from_numpy(a).to(cuda)
+                                       for a in arrays))
+    assert torch.isfinite(out).all() and not out.any()
