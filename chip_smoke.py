@@ -4,8 +4,12 @@
     python3 chip_smoke.py            # everything (what the card's run uses)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
     python3 chip_smoke.py --quick --baseline DIR   # also time the decode
-                                     # kernels of another tree (DIR, e.g. a
-                                     # git archive of an earlier commit)
+                                     # and verify kernels of another tree
+                                     # (DIR, e.g. a git archive of an
+                                     # earlier commit) in turns with these
+    python3 chip_smoke.py --plain-flash bwd   # train only, with the flash
+                                     # backward's plain version (all: the
+                                     # forward's too), for the loss curve
 
 In order:
   1. print the card's name and power limit; exit nonzero without a card;
@@ -17,15 +21,19 @@ In order:
      test sweeps, the card-only decode lists (split rows, plain loads, the
      ring of stages) and at the main paths' shapes (decode_gqa and
      paged_decode_gqa: the verify pass of 8 slots, the greedy step, and
-     where trained serving at B 1 launches them; flash_attention forward and
-     backward: the serving encoder's B 16 x S 128 and the training batch's
-     B 24 x S 96, H 8, hd 32; two calls of each kernel on the same inputs
-     must agree bitwise), then time the kernel, the plain version and
-     a PyTorch library call (a yardstick only) with CUDA events, median
+     where trained serving at B 1 launches them; draft_verify, bitwise:
+     its sweep and card-only list in fp32 and bf16 with NaN / -inf / +inf
+     rows, and every launch group of the main path; flash_attention forward
+     and backward: the serving encoder's B 16 x S 128 and the training
+     batch's B 24 x S 96, H 8, hd 32; two calls of each kernel on the same
+     inputs must agree bitwise), then time the kernel, the plain version
+     and a PyTorch library call (a yardstick only) with CUDA events, median
      over launches with the L2 cache flushed before each, beside the least
      time the card could take (bytes or flops); the decode kernels also
-     with each split count at the trained shapes and a long row, and a
-     one-element fill as the timing floor;
+     with each split count at the trained shapes and a long row,
+     draft_verify at its launch groups and at a language model's vocabs
+     (with each split count there), and a one-element fill as the timing
+     floor;
   4. run the port's ReactionEngine at mt-product width (4+4 layers, d_model
      256, 8 heads, d_ff 2048) with weights drawn from a seed, in all four
      modes (16 synthetic queries batched for greedy and speculative, 2 one
@@ -47,11 +55,16 @@ In order:
      Table 2 set-up): greedy, then speculative at DL 4 and 10 (24 drafts,
      max_new 72, max_src 96), whose tokens must equal greedy's; wall per
      query, decoder calls, acceptance, top-1 exact match; then one
-     speculative paged StreamingEngine pass over the same queries;
+     speculative paged StreamingEngine pass over the same queries; then
+     draft_verify's launches by (N, T, V) over steps 4-7, each group's
+     times and its launch-weighted gap, launches x (time - max(bound,
+     floor)), with --baseline the other tree's beside;
   8. run a tiny model on the card and on the CPU with the same weights: the
      card's tokens must match the CPU's plain path, one-shot and paged
-     streaming, and one train step's loss and gradients must match within
-     1e-4;
+     streaming, and a streaming speculative pass at draft_len 32 (T 33
+     fed positions), and one train step's loss and gradients must match
+     within 1e-4; then 50 train steps on both, printing the first step
+     whose losses part by more than 1e-4;
   9. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
@@ -523,24 +536,163 @@ def check_decode_determinism(torch, ecfg, n_queries: int) -> None:
                                  f"differ")
 
 
-def check_kernels(torch, vocab: int, ecfg, n_queries: int,
+def verify_main_shapes(ecfg, n_slots: int, n_oneshot: int, vocab: int,
+                       trained_vocab: int) -> dict:
+    """draft_verify's launch groups, (N, T, V) by name: the streaming
+    verify pass (``n_slots`` x N_d rows, T = DL + 1) and greedy step
+    (``n_slots`` rows, T 1), their one-shot twins at ``n_oneshot`` queries,
+    and trained serving at B 1 (``TABLE2``: greedy, 24 drafts at each draft
+    length, the streaming pass of ``TRAINED_SLOTS`` x 24) at the trained
+    tokenizer's vocab. The main path's run counts its own shapes
+    (``VerifyShapes``); a shape it launches that is not here is timed
+    after it."""
+    T = ecfg.draft_len + 1
+    main = {"speculative": (n_slots * ecfg.n_drafts, T, vocab),
+            "greedy": (n_slots, 1, vocab),
+            "oneshot_speculative": (n_oneshot * ecfg.n_drafts, T, vocab),
+            "oneshot_greedy": (n_oneshot, 1, vocab),
+            "trained_greedy": (1, 1, trained_vocab)}
+    for dl in TABLE2["draft_lens"]:
+        main[f"trained_dl{dl}"] = (TABLE2["n_drafts"], dl + 1, trained_vocab)
+    main["trained_streaming"] = (TRAINED_SLOTS * TABLE2["n_drafts"],
+                                 max(TABLE2["draft_lens"]) + 1, trained_vocab)
+    return main
+
+
+# draft_verify's timed card-only shapes: the USPTO-MIT vocab at the verify
+# pass of 8 slots, a decoder-only verify pass (24 drafts, DL 10) at
+# SmolLM's 49,152 and a greedy step at Qwen3's 151,936 (split path)
+VERIFY_TIMED_CARD_ONLY = {"uspto_vocab": (200, 11, 320),
+                          "lm_verify": (24, 11, 49_152),
+                          "lm_greedy": (1, 1, 151_936)}
+
+
+def verify_timing(torch, N: int, T: int, V: int) -> dict:
+    """draft_verify at (N, T, V) fp32 (``kernels.cases`` inputs): the kernel,
+    the plain version and ``torch.argmax`` (tokens only; a yardstick),
+    beside the bound: each input read once and each output written once,
+    one compare per logit."""
+    from repro_torch.kernels import draft_verify
+    from repro_torch.kernels.cases import verify_inputs
+    from repro_torch.kernels.draft_verify.kernel import (draft_verify_kernel,
+                                                         plan)
+    from repro_torch.kernels.draft_verify.ref import draft_verify_ref
+
+    x = on_card(torch, verify_inputs(N, T, V))
+    logits = x[0]
+    nbytes = sum(t.nbytes for t in x) + (N * T + N) * 4
+    bound_ms, bound_by = bound(nbytes, N * T * V)
+    p = plan(N, T, V, 4)
+    out = dict(shape=dict(N=N, T=T, V=V),
+               ms=timed_ms(torch, lambda: draft_verify(*x)),
+               plain_ms=timed_ms(torch, lambda: draft_verify_ref(*x)),
+               library_ms=timed_ms(torch, lambda: torch.argmax(logits,
+                                                               dim=-1)),
+               bytes=nbytes, flops=N * T * V, bound_ms=bound_ms,
+               bound_by=bound_by)
+    if p.rows and not p.lanes:
+        out["path"] = f"greedy kernel: {p.rows} row(s) a block, a warp each"
+    elif p.rows:
+        out["path"] = (f"row path: {p.rows} row(s) a block, {p.warps} "
+                       f"warp(s) a row, {p.lanes} lanes a position")
+    else:   # the split path, also with each split count forced
+        out.update(path=f"split path, {p.chunk} entries a split",
+                   n_split=p.n_split, split_ms={n: timed_ms(
+                       torch, lambda: draft_verify_kernel(*x, n_split=n))
+                       for n in VERIFY_SPLIT_SWEEP})
+    return out
+
+
+def check_verify(torch, main: dict) -> dict:
+    """draft_verify against its plain version on the card, bitwise (tokens
+    and accepted lengths): the shared sweep and the card-only list in fp32
+    and bf16 and the launch groups (``main``) in fp32, each with the NaN /
+    -inf / +inf row of ``verify_inputs(special=True)``; T 40 must launch the
+    kernel. Then each launch group and ``VERIFY_TIMED_CARD_ONLY`` timed
+    (``verify_timing``)."""
+    from repro_torch.kernels import _build, draft_verify
+    from repro_torch.kernels.cases import (VERIFY_CARD_ONLY, VERIFY_SWEEP,
+                                           verify_inputs)
+    from repro_torch.kernels.draft_verify.ref import draft_verify_ref
+
+    cases = [(c, dt) for c in VERIFY_SWEEP + VERIFY_CARD_ONLY
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(c, torch.float32) for c in main.values()]
+    for (N, T, V), dt in cases:
+        x = on_card(torch, verify_inputs(N, T, V, special=True), dt)
+        before = _build.launch_counts["draft_verify"]
+        tok, acc = draft_verify(*x)
+        launched = _build.launch_counts["draft_verify"] - before
+        rtok, racc = draft_verify_ref(*x)
+        torch.cuda.synchronize()
+        if not (torch.equal(tok, rtok) and torch.equal(acc, racc)):
+            raise AssertionError(f"draft_verify disagrees at {(N, T, V)} "
+                                 f"{dt}")
+        if launched != (1 if N else 0):
+            raise AssertionError(f"draft_verify at {(N, T, V)}: {launched} "
+                                 f"launches")
+    shapes = {name: verify_timing(torch, *c)
+              for name, c in dict(main, **VERIFY_TIMED_CARD_ONLY).items()}
+    return dict(max_abs_err=0.0, shapes=shapes)
+
+
+class VerifyShapes:
+    """Counts the (N, T, V) of every ``draft_verify`` call the decoding
+    session makes on the card, around the session's own reference to the
+    op (the call itself, and its launch count, are the op's)."""
+
+    def __init__(self):
+        import repro_torch.core.session as session
+
+        self.counts: dict[tuple, int] = {}
+        self._op = session.draft_verify
+        session.draft_verify = self
+
+    def __call__(self, logits, drafts, draft_mask):
+        if logits.is_cuda:
+            key = tuple(logits.shape)
+            self.counts[key] = self.counts.get(key, 0) + 1
+        return self._op(logits, drafts, draft_mask)
+
+    def reset(self) -> None:
+        self.counts = {}
+
+    def read(self) -> dict:
+        return dict(self.counts)
+
+
+_verify_shapes: VerifyShapes | None = None   # installed by main()
+
+
+def reset_counts() -> None:
+    """Every launch count, and draft_verify's shape counts, to 0."""
+    from repro_torch.kernels import reset_launch_counts
+
+    reset_launch_counts()
+    if _verify_shapes is not None:
+        _verify_shapes.reset()
+
+
+def verify_shapes() -> dict:
+    """draft_verify's launches by (N, T, V) since ``reset_counts``."""
+    return {} if _verify_shapes is None else _verify_shapes.read()
+
+
+def check_kernels(torch, ecfg, n_queries: int, verify_main: dict,
                   flash_main: dict) -> dict:
     import torch.nn.functional as F
 
-    from repro_torch.kernels import decode_gqa_attention, draft_verify
+    from repro_torch.kernels import decode_gqa_attention
     from repro_torch.kernels.cases import (DECODE_CARD_ONLY, DECODE_SWEEP,
-                                           VERIFY_SWEEP, decode_inputs,
-                                           ring_inputs, verify_inputs)
+                                           decode_inputs, ring_inputs)
     from repro_torch.kernels.decode_gqa.kernel import (decode_gqa_kernel,
                                                        plan_splits)
     from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
-    from repro_torch.kernels.draft_verify.ref import draft_verify_ref
 
     results = {}
     # -- decode_gqa ---------------------------------------------------------
     err = 0.0
     main = decode_main_shapes(ecfg, n_queries)
-    B_spec, T_spec = main["speculative"]["B"], main["speculative"]["T"]
     cases = [(c, dt) for c in DECODE_SWEEP + DECODE_CARD_ONLY
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(c, torch.float32) for c in main.values()]
@@ -597,35 +749,7 @@ def check_kernels(torch, vocab: int, ecfg, n_queries: int,
     results["paged_decode_gqa"] = check_paged(torch, ecfg, n_queries)
 
     # -- draft_verify -------------------------------------------------------
-    err = 0
-    sweep = VERIFY_SWEEP + [(B_spec, T_spec, vocab), (n_queries, 1, vocab),
-                            (B_spec, T_spec, 320), (B_spec, T_spec, 1024)]
-    for N, T, V in sweep:
-        x = on_card(torch, verify_inputs(N, T, V))
-        tok, acc = draft_verify(*x)
-        rtok, racc = draft_verify_ref(*x)
-        torch.cuda.synchronize()
-        e = max((tok - rtok).abs().max().item(),
-                (acc - racc).abs().max().item())
-        if e != 0:
-            raise AssertionError(f"draft_verify disagrees at {(N, T, V)}")
-        err = max(err, e)
-    shapes = {}
-    for name, (N, T) in {"speculative": (B_spec, T_spec),
-                         "greedy": (n_queries, 1)}.items():
-        x = on_card(torch, verify_inputs(N, T, vocab))
-        logits = x[0]
-        nbytes = logits.numel() * 4 + x[1].numel() * 4 + x[2].numel() + (
-            N * T + N) * 4
-        flops = logits.numel()            # one compare per logit
-        bound_ms, bound_by = bound(nbytes, flops)
-        shapes[name] = dict(
-            shape=dict(N=N, T=T, V=vocab),
-            ms=timed_ms(torch, lambda: draft_verify(*x)),
-            plain_ms=timed_ms(torch, lambda: draft_verify_ref(*x)),
-            library_ms=timed_ms(torch, lambda: torch.argmax(logits, dim=-1)),
-            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
-    results["draft_verify"] = dict(max_abs_err=float(err), shapes=shapes)
+    results["draft_verify"] = check_verify(torch, verify_main)
     results.update(check_flash(torch, flash_main))
     return results
 
@@ -638,7 +762,7 @@ def run_engine(torch, ds, cfg, params, ecfg_kw: dict, queries, modes,
                device="cuda"):
     """Each mode's predictions and launch counts (counts set to 0 just
     before the mode runs, read just after)."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts
     from repro_torch.serving import EngineConfig, ReactionEngine
 
     out = {}
@@ -646,7 +770,7 @@ def run_engine(torch, ds, cfg, params, ecfg_kw: dict, queries, modes,
         eng = ReactionEngine(params, cfg, ds.tokenizer,
                              EngineConfig(mode=mode, **ecfg_kw),
                              device=device)
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         if mode in ("greedy", "speculative"):
             preds = eng.predict(queries)
@@ -654,7 +778,7 @@ def run_engine(torch, ds, cfg, params, ecfg_kw: dict, queries, modes,
             preds = [eng.predict_topn(q) for q in queries]
         wall = time.perf_counter() - t0
         out[mode] = dict(preds=preds, wall_s=wall,
-                         launches=dict(launch_counts))
+                         launches=dict(launch_counts), shapes=verify_shapes())
     return out
 
 
@@ -713,7 +837,7 @@ def run_streaming(torch, ds, cfg, params, ekw: dict, queries, plan: dict, *,
     to 0 just before each mode and read just after. Returns per mode the
     SMILES and log-probs per query (best first), wall, steps, pages and
     counts."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts
     from repro_torch.serving import EngineConfig, StreamingEngine
 
     out = {}
@@ -723,12 +847,13 @@ def run_streaming(torch, ds, cfg, params, ekw: dict, queries, plan: dict, *,
         qs = queries[:n_q]
         if device == "cuda":
             torch.cuda.synchronize()
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         handles = [eng.submit(q) for q in qs]
         res = eng.serve()
         wall = time.perf_counter() - t0
         launches = dict(launch_counts)
+        shapes = verify_shapes()
         results = [res[int(h)] for h in handles]
         out[mode] = dict(
             smiles=[[ds.tokenizer.decode(t) for t in r.tokens]
@@ -739,7 +864,7 @@ def run_streaming(torch, ds, cfg, params, ekw: dict, queries, plan: dict, *,
             / max(1, sum(int(r.lengths[0]) for r in results)),
             wall_s=wall, steps=eng.loop_stats()["n_iterations"],
             footprint=eng.cache_footprint(), launches=launches,
-            preemptions=eng.scheduler.n_preemptions)
+            shapes=shapes, preemptions=eng.scheduler.n_preemptions)
         if paged:
             eng.allocator.check()
     return out
@@ -787,8 +912,10 @@ TRAIN = dict(n_train=512, n_test=64, batch=24, max_len=96, lr=1e-3,
 TABLE2 = dict(max_new=72, max_src=96, n_drafts=24, draft_lens=(4, 10))
 TRAINED_SLOTS = 8   # slots of the trained streaming pass
 # split counts the decode kernels are also timed with at the trained shapes
-# (the choice of kernel.py's plan_splits)
+# (the choice of kernel.py's plan_splits); and those draft_verify is timed
+# with at the shapes of its split path (the choice of its plan)
 SPLIT_SWEEP = (1, 2, 3, 4, 8)
+VERIFY_SPLIT_SWEEP = (1, 2, 4, 8, 16, 32, 64)
 
 
 def check_encoder_launches(launches: dict, label: str) -> None:
@@ -811,7 +938,7 @@ def run_training(torch, train_ds):
     Returns (trainer, summary)."""
     from repro_torch.configs.mt import product_config, with_vocab
     from repro_torch.data import batched_dataset
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts
     from repro_torch.models import seq2seq as s2s
     from repro_torch.training import Trainer
 
@@ -827,7 +954,7 @@ def run_training(torch, train_ds):
 
     n_steps = TRAIN["epochs"] * (len(train_ds) // TRAIN["batch"])
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     hist = trainer.fit(batches(), log_every=TRAIN["log_every"], verbose=False)
     torch.cuda.synchronize()
@@ -888,7 +1015,7 @@ def serve_trained(torch, tok, cfg, params, test_ds) -> dict:
     draft length (tokens must equal greedy's), then one speculative paged
     StreamingEngine pass with every query submitted at once. Launch counts
     set to 0 before each run, read after."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts
     from repro_torch.serving import (EngineConfig, ReactionEngine,
                                      StreamingEngine)
 
@@ -905,7 +1032,7 @@ def serve_trained(torch, tok, cfg, params, test_ds) -> dict:
         eng = ReactionEngine(params, cfg, tok, EngineConfig(**base, **kw))
         eng.predict(queries[:1])                             # warm-up
         torch.cuda.synchronize()
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         preds = [eng.predict([q])[0] for q in queries]
         wall = time.perf_counter() - t0
@@ -913,14 +1040,14 @@ def serve_trained(torch, tok, cfg, params, test_ds) -> dict:
             smiles=[p.smiles[0] for p in preds], wall_s=wall,
             n_calls=sum(p.n_calls for p in preds),
             acceptance=float(np.mean([p.acceptance_rate for p in preds])),
-            launches=dict(launch_counts))
+            launches=dict(launch_counts), shapes=verify_shapes())
     eng = StreamingEngine(params, cfg, tok, EngineConfig(
         mode="speculative", n_slots=TRAINED_SLOTS, paged=True, page_size=16,
         draft_len=max(TABLE2["draft_lens"]), **base))
     eng.submit(queries[0])
     eng.serve()                                              # warm-up
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     handles = [eng.submit(q) for q in queries]
     res = eng.serve()
@@ -931,7 +1058,7 @@ def serve_trained(torch, tok, cfg, params, test_ds) -> dict:
         n_calls=eng.loop_stats()["n_iterations"],
         acceptance=sum(r.accepted for r in results)
         / max(1, sum(int(r.lengths[0]) for r in results)),
-        launches=dict(launch_counts))
+        launches=dict(launch_counts), shapes=verify_shapes())
     greedy = out["greedy"]
     for name, r in out.items():
         if r["smiles"] != greedy["smiles"]:
@@ -993,14 +1120,54 @@ def check_train_step(torch, ds, tcfg, cpu_params) -> None:
           f"leaves, max abs err {err:.3g})", flush=True)
 
 
-def decode_times(torch, dense: dict, paged: dict) -> dict:
-    """Kernel time (``timed_ms``) of the public decode wrappers at each
-    shape, on the seeded inputs of ``kernels.cases``: the part of the
-    kernel checks that two trees of the port share, so their kernels can
-    be compared in one call."""
-    from repro_torch.kernels import (decode_gqa_attention,
+def check_train_drift(torch, ds, tcfg, cpu_params, n_steps: int = 50):
+    """``n_steps`` whole train steps (clip + Adam) of the tiny model on the
+    card and on the CPU from the same weights, over the same batches (8
+    queries each, in turn): prints the first step whose losses part by
+    more than 1e-4, or that none did. A measurement, not a check: fp32
+    sums taken in another order may part after enough steps."""
+    from repro_torch.data import padded_batch
+    from repro_torch.training import make_seq2seq_train_step
+    from repro_torch.training.optimizer import (adam_init, tree_leaves,
+                                                tree_unflatten)
+
+    batches = [padded_batch(ds.tokenizer, [ds.pair((8 * i + j) % len(ds))
+                                           for j in range(8)], 48, 48)
+               for i in range(2)]
+    step = make_seq2seq_train_step(tcfg, lr=TRAIN["lr"], label_smoothing=0.1)
+
+    def losses(dev):
+        p = tree_unflatten(cpu_params, [t.detach().to(dev, copy=True)
+                                        for t in tree_leaves(cpu_params)])
+        opt = adam_init(p)
+        bs = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+              for b in batches]
+        out = []
+        for i in range(n_steps):
+            p, opt, m = step(p, opt, bs[i % len(bs)])
+            out.append(float(m["loss"]))
+        return np.asarray(out)
+
+    card, cpu = losses("cuda"), losses("cpu")
+    diff = np.abs(card - cpu)
+    parted = np.flatnonzero(diff > 1e-4)
+    first = (f"first at step {int(parted[0])} (card {card[parted[0]]:.6f}, "
+             f"CPU {cpu[parted[0]]:.6f})" if parted.size else "never")
+    print(f"train drift: tiny model, {n_steps} steps on the card and the "
+          f"CPU from the same weights: losses part by > 1e-4 {first}; "
+          f"max |diff| {diff.max():.3g}; last loss card {card[-1]:.6f}, CPU "
+          f"{cpu[-1]:.6f}", flush=True)
+
+
+def decode_times(torch, dense: dict, paged: dict, verify: dict) -> dict:
+    """Kernel time (``timed_ms``) of the public decode and verify wrappers
+    at each shape, on the seeded inputs of ``kernels.cases``: the part of
+    the kernel checks that two trees of the port share, so their kernels
+    can be compared in one call."""
+    from repro_torch.kernels import (decode_gqa_attention, draft_verify,
                                      paged_decode_gqa_attention)
-    from repro_torch.kernels.cases import decode_inputs, paged_inputs
+    from repro_torch.kernels.cases import (decode_inputs, paged_inputs,
+                                           verify_inputs)
 
     out = {}
     for name, c in dense.items():
@@ -1012,31 +1179,103 @@ def decode_times(torch, dense: dict, paged: dict) -> dict:
                                         n_mapped=c["n_mapped"]))
         out[f"paged_decode_gqa/{name}"] = timed_ms(
             torch, lambda: paged_decode_gqa_attention(*x))
+    for name, (N, T, V) in verify.items():
+        x = on_card(torch, verify_inputs(N, T, V))
+        out[f"draft_verify/{name}"] = timed_ms(torch,
+                                               lambda: draft_verify(*x))
     return out
 
 
-def compare_decode(torch, baseline: Path, dense: dict, paged: dict) -> dict:
-    """The decode kernels of another tree of the port (``baseline``, e.g. a
-    ``git archive`` of the parent commit) against this tree's, in turns:
-    baseline, this, this, baseline, each baseline run in a process of its
-    own that imports that tree's ``repro_torch`` and builds its kernels."""
-    spec = json.dumps(dict(src=str(baseline.resolve() / "src"), dense=dense,
-                           paged=paged))
+def compare_decode(baseline: Path, dense: dict, paged: dict,
+                   verify: dict) -> dict:
+    """The decode and verify kernels of another tree of the port
+    (``baseline``, e.g. a ``git archive`` of the parent commit) against
+    this tree's, in turns: baseline, this, this, baseline, each run in a
+    process of its own that imports that tree's ``repro_torch`` and builds
+    its kernels (both sides alike: one tree's times moved by up to 5%
+    between this process, after the kernel checks, and a fresh one).
+    ``verify``: (N, T, V) by name, each T within what both trees' kernels
+    take."""
 
-    def run_baseline():
+    def run(tree: Path) -> dict:
+        spec = json.dumps(dict(src=str(tree.resolve() / "src"), dense=dense,
+                               paged=paged, verify=verify))
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                               "--decode-times", spec], capture_output=True,
                              text=True, timeout=600)
         if out.returncode != 0:
-            raise RuntimeError(f"baseline decode timing failed:\n"
+            raise RuntimeError(f"decode timing of {tree} failed:\n"
                                f"{out.stdout}\n{out.stderr}")
         return json.loads(out.stdout.strip().splitlines()[-1])
 
-    runs = [run_baseline(), decode_times(torch, dense, paged),
-            decode_times(torch, dense, paged), run_baseline()]
+    this = Path(__file__).resolve().parent
+    runs = [run(baseline), run(this), run(this), run(baseline)]
     return {name: dict(baseline_ms=(runs[0][name], runs[3][name]),
                        ms=(runs[1][name], runs[2][name]))
             for name in runs[0]}
+
+
+def train_plain_flash(torch, train_ds, which: str) -> None:
+    """The train phase with flash_attention's plain versions in place of
+    its kernels on CUDA tensors: the backward's (``flash_attention_bwd_ref``)
+    for ``which`` "bwd", the forward's too for "all". The loss curve is
+    held against the kernels' (ROADMAP Queue 3, the training drift). The
+    launch counts then count the plain calls."""
+    import importlib
+
+    ops = importlib.import_module("repro_torch.kernels.flash_attention.ops")
+
+    def plain_bwd(q, k, v, o, lse, do, key_mask, *, causal, window):
+        return ops.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                           window=window, key_mask=key_mask)
+
+    def plain_fwd(q, k, v, key_mask, *, causal, window, with_lse):
+        out, lse = ops.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, key_mask=key_mask)
+        return out, (lse if with_lse else None)
+
+    ops.flash_attention_bwd_kernel = plain_bwd
+    if which == "all":
+        ops.flash_attention_fwd_kernel = plain_fwd
+    swapped = "forward and backward" if which == "all" else "backward"
+    print(f"train: flash_attention's plain versions on the card in place of "
+          f"its kernels: {swapped}", flush=True)
+    run_training(torch, train_ds)
+
+
+def print_verify_gaps(torch, timed: dict, seen: dict, floor_ms: float,
+                      ab: dict | None) -> None:
+    """draft_verify where the main path launched it: each (N, T, V) of this
+    run (``seen``: launches by shape) with its kernel, bound, plain and
+    ``torch.argmax`` times (``timed``, by name; a shape not timed yet is
+    timed now) and its launch-weighted gap, launches x (time - max(bound,
+    floor)), ``floor_ms`` being a one-element fill's time; with
+    ``--baseline`` (``ab``) also the gap of each tree's mean time in the
+    turns."""
+    by_shape = {tuple(m["shape"].values()): (name, m)
+                for name, m in timed.items()}
+    total = {"this run": 0.0, "A/B baseline": 0.0, "A/B this": 0.0}
+    for shape, n in sorted(seen.items(), key=lambda kv: -kv[1]):
+        name, m = by_shape.get(shape) or (None, verify_timing(torch, *shape))
+        floor = max(m["bound_ms"], floor_ms)
+        gap = n * (m["ms"] - floor)
+        total["this run"] += gap
+        line = (f"  draft_verify {list(shape)} ({name or 'not a group'}): "
+                f"{n} launches, kernel {m['ms']:.4f} ms ({m['path']}), "
+                f"bound {m['bound_ms']:.5f}, plain {m['plain_ms']:.4f}, "
+                f"argmax {m['library_ms']:.4f}; gap {gap:.2f} ms")
+        r = (ab or {}).get(f"draft_verify/{name}")
+        if r is not None:
+            b, t = float(np.mean(r["baseline_ms"])), float(np.mean(r["ms"]))
+            total["A/B baseline"] += n * (b - floor)
+            total["A/B this"] += n * (t - floor)
+            line += (f" [A/B: baseline {b:.4f} ms, gap {n * (b - floor):.2f};"
+                     f" this {t:.4f} ms, gap {n * (t - floor):.2f}]")
+        print(line, flush=True)
+    print(f"  draft_verify launch-weighted gap total (floor "
+          f"{floor_ms:.4f} ms): " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in total.items()
+              if ab or k == "this run"), flush=True)
 
 
 def main() -> int:
@@ -1049,6 +1288,11 @@ def main() -> int:
                          "turns")
     ap.add_argument("--decode-times", metavar="JSON",
                     help=argparse.SUPPRESS)   # compare_decode's child
+    ap.add_argument("--plain-flash", choices=("bwd", "all"),
+                    help="train mt-product only, with flash_attention's "
+                         "plain version in place of its backward kernel "
+                         "(bwd) or of both kernels (all), and print the "
+                         "loss curve")
     ap.add_argument("--profile", metavar="DIR", type=Path,
                     help="also trace each mode with torch.profiler (device "
                          "time by kernel, the device's busy share) and "
@@ -1060,10 +1304,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if args.decode_times:   # time another tree's decode kernels, only
+    if args.decode_times:   # time one tree's decode and verify kernels, only
         spec = json.loads(args.decode_times)
         sys.path.insert(0, spec["src"])
-        print(json.dumps(decode_times(torch, spec["dense"], spec["paged"])))
+        print(json.dumps(decode_times(torch, spec["dense"], spec["paged"],
+                                      spec["verify"])))
         return 0
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs.mt import product_config, tiny_config, with_vocab
@@ -1092,6 +1337,11 @@ def main() -> int:
     # 64 held out, all through the training set's tokenizer
     train_ds = SyntheticReactionDataset(TRAIN["n_train"], seed=SEED)
     test_ds = SyntheticReactionDataset(TRAIN["n_test"], seed=10_000)
+    if args.plain_flash:
+        train_plain_flash(torch, train_ds, args.plain_flash)
+        return 0
+    global _verify_shapes
+    _verify_shapes = VerifyShapes()
     src = np.stack([ds.tokenizer.encode_padded(q, ecfg.max_src, add_eos=True)
                     for q in queries])
     batch0 = padded_batch(train_ds.tokenizer, [train_ds.pair(i) for i in
@@ -1109,8 +1359,10 @@ def main() -> int:
                               backward=True, lengths=None)}
     t0 = time.perf_counter()
     # the timed shapes are those of 8 slots (speculative: 8 x N_d rows)
-    kern = check_kernels(torch, vocab, ecfg, STREAM_PLAN["speculative"][0],
-                         flash_main)
+    n_slots = STREAM_PLAN["speculative"][0]
+    verify_main = verify_main_shapes(ecfg, n_slots, len(queries), vocab,
+                                     train_ds.tokenizer.vocab_size)
+    kern = check_kernels(torch, ecfg, n_slots, verify_main, flash_main)
     print(f"kernel checks passed ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     for name, r in kern.items():
@@ -1120,17 +1372,20 @@ def main() -> int:
                 " (forced: " + ", ".join(f"{n} {t:.4f} ms" for n, t in
                                          m["split_ms"].items()) + ")"))
             print(f"  {name} [{shape}] {m['shape']}: kernel {m['ms']:.4f} ms"
-                  f"{splits}, plain {m['plain_ms']:.4f} ms, library "
+                  f"{splits}{', ' + m['path'] if 'path' in m else ''}, "
+                  f"plain {m['plain_ms']:.4f} ms, library "
                   f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
                   f"({m['bound_by']}: {m['bytes']} B, {m['flops']} flop)")
     one = torch.zeros(1, device="cuda")
-    print(f"  timing floor: a 1-element fill, {timed_ms(torch, one.zero_):.4f} "
-          f"ms (launch and event overhead in every kernel time)", flush=True)
+    floor_ms = timed_ms(torch, one.zero_)
+    print(f"  timing floor: a 1-element fill, {floor_ms:.4f} ms (launch and "
+          f"event overhead in every kernel time)", flush=True)
+    ab = None
     if args.baseline:
-        n_slots = STREAM_PLAN["speculative"][0]
         ab = compare_decode(
-            torch, args.baseline, decode_main_shapes(ecfg, n_slots),
-            paged_main_shapes(ecfg, n_slots))
+            args.baseline, decode_main_shapes(ecfg, n_slots),
+            paged_main_shapes(ecfg, n_slots),
+            dict(verify_main, **VERIFY_TIMED_CARD_ONLY))
         for name, r in ab.items():
             print(f"  A/B {name}: baseline {r['baseline_ms'][0]:.4f} / "
                   f"{r['baseline_ms'][1]:.4f} ms, this tree {r['ms'][0]:.4f} "
@@ -1141,6 +1396,11 @@ def main() -> int:
         return 0
     names = tuple(_build.launch_counts)
     main_launches = dict.fromkeys(names, 0)
+    main_shapes: dict[tuple, int] = {}
+
+    def add_shapes(r: dict) -> None:
+        for k, n in r["shapes"].items():
+            main_shapes[k] = main_shapes.get(k, 0) + n
 
     # -- one-shot: ReactionEngine at mt-product width, seeded weights ----------
     cfg = with_vocab(product_config(), vocab)
@@ -1171,6 +1431,7 @@ def main() -> int:
                 raise AssertionError(f"{mode}: malformed prediction {p}")
         for k in names:
             main_launches[k] += launches[k]
+        add_shapes(res[mode])
         print(f"main path [one-shot {mode}] mt-product random weights, "
               f"{len(preds)} queries: wall {res[mode]['wall_s']:.3f} s, "
               f"{res[mode]['wall_s'] / len(preds) * 1e3:.2f} ms/query, "
@@ -1214,6 +1475,7 @@ def main() -> int:
                                          f"log-probs {lp} != {ref[i].logprobs}")
             for k in names:
                 main_launches[k] += launches[k]
+            add_shapes(r)
             fp = r["footprint"]
             pages = (f"peak pages {fp['peak_pages']} of {fp['n_pages'] - 1}"
                      if paged else "dense rows")
@@ -1243,6 +1505,13 @@ def main() -> int:
     for r in trained.values():
         for k in names:
             main_launches[k] += r["launches"][k]
+        add_shapes(r)
+    if sum(main_shapes.values()) != main_launches["draft_verify"]:
+        raise AssertionError(f"draft_verify shapes {main_shapes} do not add "
+                             f"up to its {main_launches['draft_verify']} "
+                             f"launches")
+    print_verify_gaps(torch, kern["draft_verify"]["shapes"], main_shapes,
+                      floor_ms, ab)
 
     # -- reference: the card against the CPU's plain path, tiny model ----------
     tcfg = tiny_config(vocab, depth=2, d_model=64)
@@ -1275,7 +1544,26 @@ def main() -> int:
                                  f"cpu {b['smiles']}")
     print("reference check: tiny model, card == CPU plain path in all four "
           "modes, one-shot and paged streaming", flush=True)
+    # draft_len 32: T 33 fed positions, past one warp's 32 lanes
+    dkw = dict(tskw, draft_len=32, max_new=40)
+    dl32 = {dev: run_streaming(torch, ds, tcfg, cpu_params, dkw, queries,
+                               {"speculative": (2, 4)}, paged=True,
+                               device=dev)["speculative"]
+            for dev in ("cuda", "cpu")}
+    a, b = dl32["cuda"], dl32["cpu"]
+    if a["smiles"] != b["smiles"] or a["n_calls"] != b["n_calls"] or \
+            not all(np.allclose(x, y, atol=1e-4, rtol=1e-4)
+                    for x, y in zip(a["logprobs"], b["logprobs"])):
+        raise AssertionError(f"streaming draft_len 32: card {a['smiles']} "
+                             f"!= cpu {b['smiles']}")
+    if not any(k[1] == 33 for k in a["shapes"]):
+        raise AssertionError(f"streaming draft_len 32: draft_verify shapes "
+                             f"{a['shapes']}")
+    print(f"reference check: tiny model, streaming speculative draft_len 32 "
+          f"on the card == the CPU (draft_verify launches {a['shapes']}, "
+          f"n_calls {a['n_calls']})", flush=True)
     check_train_step(torch, ds, tcfg, cpu_params)
+    check_train_drift(torch, ds, tcfg, cpu_params)
 
     sources = {"decode_gqa": ("src/repro_torch/csrc/decode_gqa.cu",
                               "src/repro/kernels/decode_gqa/kernel.py:72"),

@@ -93,7 +93,7 @@ _ARGTYPES = {
                          + [ctypes.c_int, ctypes.c_float]
                          + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "draft_verify": ("draft_verify", "draft_verify_launch",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                      + [ctypes.c_void_p]),
     "flash_attention": ("flash_attention", "flash_attention_fwd_launch",
                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4

@@ -49,6 +49,20 @@ PAGED_CARD_ONLY = [
 # (N, T, V): rows, fed positions (DL + 1), vocab
 VERIFY_SWEEP = [(6, 5, 700), (12, 11, 1024), (3, 1, 64), (4, 6, 50),
                 (25, 11, 320)]
+# card-only draft_verify shapes: where the main path launches it (the
+# verify pass of 8 slots x 25 drafts, one-shot 16 x 25; trained greedy at
+# B 1, trained DL 4 / 10 at 24 drafts, trained streaming 8 x 24 at DL 10;
+# greedy of 16 queries and of 8 slots), the USPTO-MIT vocab (320; its
+# greedy step past the greedy kernel's 256 entries), a
+# decoder-only verify pass and greedy step at language-model vocabs (split
+# path), T 40 (DL 39: positions past one warp), a vocab whose rows are no
+# whole 16-byte chunks on the split path (50,257), the split path at a
+# small vocab (T 40 at V 320 fits no one pass of the row path) and no rows
+VERIFY_CARD_ONLY = [(200, 11, 27), (400, 11, 27), (1, 1, 27), (24, 5, 28),
+                    (24, 11, 28), (192, 11, 28), (16, 1, 27), (8, 1, 27),
+                    (200, 11, 320), (16, 1, 320), (24, 11, 49_152),
+                    (1, 1, 151_936),
+                    (6, 40, 27), (2, 3, 50_257), (4, 40, 320), (0, 11, 27)]
 # (B, H, S, hd) x (causal, window): the flash sweep of the JAX package's
 # kernel tests (shapes in its (B, H, S, hd) order), then the largest
 # head_dim (MAX_HD) at an S that is no multiple of 16, and a head_dim that
@@ -91,17 +105,39 @@ def ring_inputs():
     return q, kc, vc, k_pos, q_pos
 
 
-def verify_inputs(N, T, V, *, seed=3):
+def verify_inputs(N, T, V, *, seed=3, special=False):
     """logits (N, T, V), drafts (N, T - 1) that mostly follow the argmax,
     and a draft mask; row 0 position 0 holds an exact tie between tokens 1
-    and V - 1 (the first index must win)."""
+    and V - 1 (the first index must win). ``special``: the last row's
+    positions hold, in turn, two NaNs (the first wins over every number),
+    nothing but -inf (index 0 wins), +inf at two tokens (the first wins)
+    and -inf beside numbers (the greatest number wins), and its drafts
+    follow those tokens up to the 36th, where T > 36, which misses."""
     rng = np.random.default_rng(seed)
     logits = rng.standard_normal((N, T, V)).astype(np.float32)
-    logits[0, 0, [1, V - 1]] = 50.0
-    greedy = logits.argmax(-1)
+    if N:
+        logits[0, 0, [1, V - 1]] = 50.0
+    if special and N:
+        row = logits[N - 1]
+        for t in range(T):
+            kind = t % 4
+            if kind == 0:
+                row[t, [V // 2, V - 1, V // 3]] = [np.nan, np.nan, 1e30]
+            elif kind == 1:
+                row[t] = -np.inf
+            elif kind == 2:
+                row[t, [V - 1, V // 4]] = np.inf
+            else:
+                row[t, ::2] = -np.inf
+    greedy = logits.argmax(-1)   # numpy's order is torch.argmax's
     drafts = np.where(rng.random((N, T - 1)) < 0.7, greedy[:, :T - 1],
                       rng.integers(0, V, (N, T - 1))).astype(np.int32)
     mask = rng.random(N) < 0.8
+    if special and N:
+        drafts[N - 1] = greedy[N - 1, :T - 1]
+        if T > 36:   # the first miss past the first 32 drafts
+            drafts[N - 1, 35] = (greedy[N - 1, 35] + 1) % V
+        mask[N - 1] = True
     return logits, drafts, mask
 
 

@@ -29,9 +29,11 @@ from repro_torch.kernels import (decode_gqa_attention, draft_verify,  # noqa: E4
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
     DECODE_CARD_ONLY, DECODE_SWEEP, FLASH_MASKS, FLASH_PLAIN_LOADS,
-    FLASH_SWEEP, PAGED_CARD_ONLY, PAGED_SWEEP, VERIFY_SWEEP, decode_inputs,
-    flash_inputs, paged_inputs, ragged_lengths, ring_inputs, verify_inputs)
+    FLASH_SWEEP, PAGED_CARD_ONLY, PAGED_SWEEP, VERIFY_CARD_ONLY, VERIFY_SWEEP,
+    decode_inputs, flash_inputs, paged_inputs, ragged_lengths, ring_inputs,
+    verify_inputs)
 from repro_torch.kernels.decode_gqa import kernel as decode_kernel  # noqa: E402
+from repro_torch.kernels.draft_verify import kernel as verify_kernel  # noqa: E402
 from repro_torch.kernels.decode_gqa.ref import (  # noqa: E402
     decode_gqa_ref, paged_decode_gqa_ref)
 from repro_torch.kernels.draft_verify.ref import draft_verify_ref  # noqa: E402
@@ -236,6 +238,39 @@ def test_draft_verify_ties_first_index_wins(jx):
     assert tok[2, 1] == 129 and tok[3, 2] == 0
 
 
+def test_draft_verify_long_drafts_match_jax(jx):
+    """T 40 (DL 39): positions past one warp's 32 lanes, and an accepted
+    prefix past 32 drafts (the last row matches its first 35)."""
+    _assert_verify_matches_jax(jx, *verify_inputs(6, 40, 27))
+    logits, drafts, mask = verify_inputs(5, 40, 320, special=True)
+    logits[-1] = np.random.default_rng(0).standard_normal((40, 320))
+    drafts[-1] = logits[-1, :39].argmax(-1)
+    drafts[-1, 35] = (drafts[-1, 35] + 1) % 320
+    _assert_verify_matches_jax(jx, logits, drafts, mask)
+    _, acc = draft_verify(*(torch.from_numpy(a) for a in (logits, drafts,
+                                                          mask)))
+    assert acc[-1] == 35
+
+
+@pytest.mark.parametrize("N,T,V", [(3, 5, 27), (2, 40, 27), (2, 11, 300)])
+def test_draft_verify_nan_and_inf_rows_match_jax_ref(jx, N, T, V):
+    """NaN is above every number and the first NaN wins; a row of nothing
+    but -inf gives index 0; the first of two +inf wins: the port's plain
+    version gives what JAX's ``draft_verify_ref`` (jnp.argmax, the JAX
+    main path's argmax) gives. The Pallas body passes over a NaN, so it is
+    not held to these rows."""
+    logits, drafts, mask = verify_inputs(N, T, V, special=True)
+    tok, acc = draft_verify(*(torch.from_numpy(a) for a in (logits, drafts,
+                                                            mask)))
+    j_tok, j_acc = jx["verify_ref"](*(jx["jnp"].asarray(a)
+                                      for a in (logits, drafts, mask)))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(j_tok))
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(j_acc))
+    last = tok[-1].tolist()
+    assert last[0] == V // 2 and last[1] == 0 and last[2] == V // 4
+    assert acc[-1] == (35 if T > 36 else T - 1)
+
+
 def test_draft_verify_matches_core_acceptance():
     """The port's fused op implements exactly the session's accept rule."""
     rng = np.random.default_rng(5)
@@ -344,6 +379,101 @@ def test_lib_path_covers_headers(tmp_path, monkeypatch):
     assert _build._lib_path("k") != second
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n// changed\n')
     assert _build._lib_path("k") not in (first, second)
+
+
+# ---------------------------------------------------------------------------
+# the Python around the draft_verify kernel: row or split path, load width
+
+# (N, T, V): the main path at the MT's vocab (verify pass, trained greedy
+# and verify, one-shot N 400), T 40, the USPTO-MIT vocab, a language
+# model's verify pass and greedy step, and no rows
+VERIFY_PLAN_CASES = [(200, 11, 27), (1, 1, 27), (24, 11, 28), (400, 11, 27),
+                     (6, 40, 27), (200, 11, 320), (4, 40, 320),
+                     (24, 11, 49_152), (1, 1, 151_936), (1, 40, 151_936),
+                     (2, 3, 50_257), (0, 11, 27)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("N,T,V", VERIFY_PLAN_CASES)
+def test_draft_verify_plan_bounds(N, T, V, itemsize):
+    """The greedy kernel takes T 1 rows of at most GREEDY_V entries, one
+    warp a row; the row path fits its rows in a block's shared memory and
+    its warps in a block, and shares a position among a power of two of
+    lanes; the split path's splits are whole CHUNK_ALIGN multiples, cover
+    the vocab, none empty, and are split only while the grid is under
+    SPLIT_BLOCKS, each at least SPLIT_BYTES."""
+    k = verify_kernel
+    p = k.plan(N, T, V, itemsize)
+    if p.rows and p.lanes == 0:
+        assert T == 1 and V <= k.GREEDY_V and p.warps == 1
+        assert 1 <= p.rows <= k.MAX_WARPS
+        return
+    if p.rows:
+        assert V * itemsize <= k.ROW_VOCAB_BYTES
+        assert 1 <= p.warps and p.rows * p.warps <= k.MAX_WARPS
+        assert p.rows * k.row_bytes(T, V, itemsize) <= k.SMEM_LIMIT
+        assert p.lanes in (1, 2, 4, 8, 16, 32)
+        assert p.rows == 1 or N // p.rows >= k.N_SMS
+        return
+    assert p.chunk % k.CHUNK_ALIGN == 0
+    assert (p.n_split - 1) * p.chunk < V <= p.n_split * p.chunk
+    if p.n_split > 1:
+        assert N * T * (p.n_split - 1) < k.SPLIT_BLOCKS
+        assert V * itemsize >= (p.n_split - 1) * k.SPLIT_BYTES
+
+
+def test_draft_verify_plan_choices():
+    """Greedy rows (T 1) of the MT's vocab take the greedy kernel. Its
+    verify pass takes the row path, one warp a row and one row a block up
+    to N 264 (the verify pass of 8 slots: 200 blocks), three rows at the
+    one-shot N 400, two lanes a position at T 11, three warps at T 40; the
+    USPTO-MIT vocab seven warps a row, 16 lanes a position (one warp at T
+    1). A language model's vocab takes the split path: two splits at 24 x
+    11 (528 blocks), 38 of 4,000 entries for one greedy row of 151,936 in
+    fp32 (19 in bf16), one where the rows fill the card. T 40 at V 320
+    overflows the shared memory in fp32, not in bf16."""
+    plan = verify_kernel.plan
+    assert plan(1, 1, 27, 4) == (1, 1, 0, 1, 27)
+    assert plan(16, 1, 27, 2) == (1, 1, 0, 1, 27)
+    assert plan(200, 11, 27, 4) == (1, 1, 2, 1, 27)
+    assert plan(400, 11, 27, 4) == (3, 1, 2, 1, 27)
+    assert plan(24, 11, 28, 4)[:3] == (1, 1, 2)
+    assert plan(6, 40, 27, 4)[:3] == (1, 3, 2)
+    assert plan(200, 11, 320, 4) == (1, 7, 16, 1, 320)
+    assert plan(1, 1, 320, 4) == (1, 1, 32, 1, 320)
+    assert plan(4, 40, 320, 4) == (0, 0, 0, 1, 320)
+    assert plan(4, 40, 320, 2).rows == 1
+    assert plan(24, 11, 49_152, 4) == (0, 0, 0, 2, 24_576)
+    assert plan(1, 1, 151_936, 4) == (0, 0, 0, 38, 4_000)
+    assert plan(1, 1, 151_936, 2) == (0, 0, 0, 19, 8_000)
+    assert plan(1024, 1, 151_936, 4).n_split == 1
+
+
+@pytest.mark.parametrize("ptr,itemsize,run,expected", [
+    (256, 4, 27, False),          # one row of V 27 fp32: 108 bytes
+    (256, 4, 11 * 27, False),     # the verify pass's T 11 run: 1,188 bytes
+    (256, 4, 16 * 27, True),      # T 16: 1,728 bytes, whole chunks
+    (256, 4, 11 * 320, True),     # the USPTO-MIT vocab
+    (256, 2, 8 * 27, True),       # bf16, 432 bytes
+    (256, 2, 27, False),          # bf16, 54 bytes
+    (256, 4, 49_152, True),
+    (256, 4, 151_936, True),
+    (256, 4, 50_257, False),      # GPT-2's vocab: 201,028-byte rows
+    (260, 4, 11 * 320, False),    # a base off 16 bytes
+])
+def test_draft_verify_vector_loads(ptr, itemsize, run, expected):
+    assert verify_kernel.vector_loads(ptr, itemsize, run) is expected
+
+
+@pytest.mark.parametrize("T,V,warps,lanes", [
+    (2, 27, 1, 4), (5, 27, 1, 4), (11, 27, 1, 2), (40, 27, 3, 2),
+    (11, 320, 7, 16), (1, 1024, 2, 32), (11, 1024, 8, 16)])
+def test_draft_verify_warps_and_lanes(T, V, warps, lanes):
+    """One warp a row at the MT's T 11 x V 27, more as T*V grows; few
+    lanes a position where the positions fill the row's lanes and the
+    vocab is short, more as the vocab grows."""
+    assert verify_kernel.warps_per_row(T, V) == warps
+    assert verify_kernel.lanes_per_position(T, V, warps) == lanes
 
 
 # ---------------------------------------------------------------------------
@@ -580,13 +710,49 @@ def test_paged_decode_gqa_kernel_matches_plain(cuda, cfg, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("N,T,V", VERIFY_SWEEP)
-def test_draft_verify_kernel_matches_plain(cuda, N, T, V):
-    tx = [torch.from_numpy(a).to(cuda) for a in verify_inputs(N, T, V)]
+def _assert_verify_kernel_matches_plain(cuda, N, T, V, dtype):
+    """Bitwise equal to the plain version, the NaN / -inf / +inf row of
+    ``verify_inputs(special=True)`` included, in one launch (none at N 0)."""
+    tx = [t.to(cuda) for t in _torch(verify_inputs(N, T, V, special=True),
+                                     dtype)]
+    before = _build.launch_counts["draft_verify"]
     tok, acc = draft_verify(*tx)
     rtok, racc = draft_verify_ref(*tx)
+    torch.cuda.synchronize()
     assert torch.equal(tok, rtok) and torch.equal(acc, racc)
+    assert _build.launch_counts["draft_verify"] - before == (1 if N else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,T,V", VERIFY_SWEEP)
+def test_draft_verify_kernel_matches_plain(cuda, N, T, V, dtype):
+    _assert_verify_kernel_matches_plain(cuda, N, T, V, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,T,V", VERIFY_CARD_ONLY)
+def test_draft_verify_kernel_card_only_shapes(cuda, N, T, V, dtype):
+    """The main path's launch groups (greedy kernel and row path), the
+    row path's several warps a row (V 320, T 40), the split path at
+    language-model vocabs, at rows of no whole 16-byte chunks and at T 40
+    x V 320 in fp32, and N 0."""
+    _assert_verify_kernel_matches_plain(cuda, N, T, V, dtype)
+
+
+@pytest.mark.gpu
+def test_draft_verify_split_tickets_reset(cuda):
+    """The split path's combining blocks leave the ticket counters at 0, so
+    two calls agree bitwise and a third at another shape is right."""
+    runs = []
+    for N, T, V in ((1, 1, 151_936), (1, 1, 151_936), (24, 11, 49_152)):
+        tx = [torch.from_numpy(a).to(cuda) for a in verify_inputs(N, T, V)]
+        runs.append((draft_verify(*tx), draft_verify_ref(*tx)))
+    torch.cuda.synchronize()
+    assert not verify_kernel._tickets[tx[0].device].any()
+    for (tok, acc), (rtok, racc) in runs:
+        assert torch.equal(tok, rtok) and torch.equal(acc, racc)
 
 
 @pytest.mark.gpu
