@@ -59,13 +59,29 @@ In order:
      draft_verify's launches by (N, T, V) over steps 4-7, each group's
      times and its launch-weighted gap, launches x (time - max(bound,
      floor)), with --baseline the other tree's beside;
-  8. run a tiny model on the card and on the CPU with the same weights: the
+  8. the serving surface on the trained weights: save them and the
+     trainer's Adam state with ``repro_torch.checkpoint`` (the JAX package's
+     file layout) under ``build/``, load them into fresh params on the card
+     (bitwise, step round-trips, no ``msgpack`` module); serve the 64
+     held-out queries through ``FrontDoorServer`` on loopback (realtime,
+     overload policy with aging on; 32 over SSE and 32 over NDJSON from 16
+     client threads): one accepted and one done each, deltas == done ==
+     the trained streaming pass's tokens, time to first delta p50 / p95;
+     serve them twice through a ``prefix_cache=True`` engine (the second
+     pass hits the encoder-output LRU on every lookup and launches no
+     flash_attention; tokens equal); ``submit_child`` against a plain
+     submit of the joined query and ``cancel_subtree`` on a running parent
+     with two queued children (all three cancelled, every page back); two
+     in-process replicas behind a ``FleetRouter``, 16 queries through it
+     (tokens equal). All five use the trained streaming pass's
+     EngineConfig, on the loaded weights; counts set to 0 before each;
+  9. run a tiny model on the card and on the CPU with the same weights: the
      card's tokens must match the CPU's plain path, one-shot and paged
      streaming, and a streaming speculative pass at draft_len 32 (T 33
      fed positions), and one train step's loss and gradients must match
      within 1e-4; then 50 train steps on both, printing the first step
      whose losses part by more than 1e-4;
-  9. print the ``kernels`` JSON line, the card line, and
+  10. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
 Every serving phase must launch flash_attention (the encoder).
@@ -642,23 +658,29 @@ class VerifyShapes:
     op (the call itself, and its launch count, are the op's)."""
 
     def __init__(self):
+        import threading
+
         import repro_torch.core.session as session
 
         self.counts: dict[tuple, int] = {}
+        self._lock = threading.Lock()   # the fleet phase's two drive threads
         self._op = session.draft_verify
         session.draft_verify = self
 
     def __call__(self, logits, drafts, draft_mask):
         if logits.is_cuda:
             key = tuple(logits.shape)
-            self.counts[key] = self.counts.get(key, 0) + 1
+            with self._lock:
+                self.counts[key] = self.counts.get(key, 0) + 1
         return self._op(logits, drafts, draft_mask)
 
     def reset(self) -> None:
-        self.counts = {}
+        with self._lock:
+            self.counts = {}
 
     def read(self) -> dict:
-        return dict(self.counts)
+        with self._lock:
+            return dict(self.counts)
 
 
 _verify_shapes: VerifyShapes | None = None   # installed by main()
@@ -911,6 +933,17 @@ TRAIN = dict(n_train=512, n_test=64, batch=24, max_len=96, lr=1e-3,
 # benchmarks/table2_speculative_greedy.py runs it
 TABLE2 = dict(max_new=72, max_src=96, n_drafts=24, draft_lens=(4, 10))
 TRAINED_SLOTS = 8   # slots of the trained streaming pass
+
+
+def trained_stream_kw() -> dict:
+    """The trained streaming pass's EngineConfig. Every later phase held to
+    its tokens serves with this config: the decode kernels' split counts
+    follow the shapes it sets (slots, draft length, max_src), and another
+    config may move a logit's last bits and so break an argmax tie."""
+    return dict(mode="speculative", n_slots=TRAINED_SLOTS, paged=True,
+                page_size=16, draft_len=max(TABLE2["draft_lens"]),
+                max_new=TABLE2["max_new"], max_src=TABLE2["max_src"],
+                n_drafts=TABLE2["n_drafts"])
 # split counts the decode kernels are also timed with at the trained shapes
 # (the choice of kernel.py's plan_splits); and those draft_verify is timed
 # with at the shapes of its split path (the choice of its plan)
@@ -1041,9 +1074,7 @@ def serve_trained(torch, tok, cfg, params, test_ds) -> dict:
             n_calls=sum(p.n_calls for p in preds),
             acceptance=float(np.mean([p.acceptance_rate for p in preds])),
             launches=dict(launch_counts), shapes=verify_shapes())
-    eng = StreamingEngine(params, cfg, tok, EngineConfig(
-        mode="speculative", n_slots=TRAINED_SLOTS, paged=True, page_size=16,
-        draft_len=max(TABLE2["draft_lens"]), **base))
+    eng = StreamingEngine(params, cfg, tok, EngineConfig(**trained_stream_kw()))
     eng.submit(queries[0])
     eng.serve()                                              # warm-up
     torch.cuda.synchronize()
@@ -1055,6 +1086,7 @@ def serve_trained(torch, tok, cfg, params, test_ds) -> dict:
     results = [res[int(h)] for h in handles]
     out["streaming_speculative"] = dict(
         smiles=[tok.decode(r.tokens[0]) for r in results], wall_s=wall,
+        tokens=[r.tokens[0][:int(r.lengths[0])].tolist() for r in results],
         n_calls=eng.loop_stats()["n_iterations"],
         acceptance=sum(r.accepted for r in results)
         / max(1, sum(int(r.lengths[0]) for r in results)),
@@ -1080,6 +1112,371 @@ def serve_trained(torch, tok, cfg, params, test_ds) -> dict:
               f"{r['acceptance']:.4f}, top-1 {top1:.4f}, launches "
               f"{r['launches']}", flush=True)
     return out
+
+
+# -- the serving surface on the trained weights: checkpoint, front door,
+# encoder-output reuse, tree of requests, fleet ------------------------------
+WIRE_CLIENTS = 16    # concurrent client threads of the front-door phase
+FLEET_QUERIES = 16
+FLEET_STAGGER_S = 0.02   # between the fleet phase's client arrivals
+
+
+def same_tree(torch, a, b) -> bool:
+    """Bitwise equality of two trees of tensors (dict keys as sets)."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(torch, a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (len(a) == len(b)
+                and all(same_tree(torch, x, y) for x, y in zip(a, b)))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.device == b.device and torch.equal(a, b))
+
+
+def check_checkpoint(torch, trainer, build_dir: Path) -> dict:
+    """Save the trained params and the trainer's Adam state (the JAX
+    package's file layout, the port's own codec), load the file into fresh
+    params on the card: every leaf bitwise equal, the steps round-trip, and
+    no ``msgpack`` module was imported. Returns the loaded params."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.models import seq2seq as s2s
+    from repro_torch.training.optimizer import adam_init
+
+    build_dir.mkdir(parents=True, exist_ok=True)
+    path = build_dir / "chip_smoke_mt_product.msgpack"
+    step = trainer.opt_state.step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), params=trainer.params,
+                    opt_state=trainer.opt_state, step=step)
+    save_s = time.perf_counter() - t0
+    fresh = s2s.init(torch.Generator().manual_seed(SEED + 3), trainer.cfg,
+                     device="cuda")
+    t0 = time.perf_counter()
+    got = load_checkpoint(str(path), params_like=fresh,
+                          opt_like=adam_init(fresh))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    opt = got["opt"]
+    checks = {"params": same_tree(torch, got["params"], trainer.params),
+              "mu": same_tree(torch, opt.mu, trainer.opt_state.mu),
+              "nu": same_tree(torch, opt.nu, trainer.opt_state.nu),
+              "step": got["step"] == step and opt.step == step,
+              "no msgpack": "msgpack" not in sys.modules}
+    if not all(checks.values()):
+        raise AssertionError(f"checkpoint round trip: {checks}")
+    size = path.stat().st_size
+    print(f"checkpoint [mt-product, params + Adam state, step {step}]: "
+          f"{size} bytes, save {save_s:.3f} s, load onto the card "
+          f"{load_s:.3f} s; every leaf bitwise equal, step round-trips, "
+          f"no msgpack module", flush=True)
+    return got["params"]
+
+
+def wire_request(port: int, query: str, sse: bool) -> dict:
+    """One request over the front door's socket (SSE or NDJSON): its
+    events, the seconds to the first delta and to the end."""
+    import socket
+
+    req = {"query": query}
+    t0 = time.perf_counter()
+    first = None
+    events = []
+    with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
+        if sse:
+            body = json.dumps(req).encode()
+            s.sendall(f"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                      f"Content-Type: application/json\r\nContent-Length: "
+                      f"{len(body)}\r\n\r\n".encode() + body)
+        else:
+            s.sendall(json.dumps({"op": "generate", **req}).encode() + b"\n")
+        buf, head = b"", not sse
+        while True:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+            if not head:
+                if b"\r\n\r\n" not in buf:
+                    continue
+                status, _, buf = buf.partition(b"\r\n\r\n")
+                if b" 200 " not in status.split(b"\r\n", 1)[0]:
+                    raise AssertionError(f"front door answered {status!r}")
+                head = True
+            sep = b"\n\n" if sse else b"\n"
+            *frames, buf = buf.split(sep)
+            for f in frames:
+                if not f.strip():
+                    continue
+                ev = json.loads(f[len(b"data: "):] if sse else f)
+                if ev["event"] == "delta" and first is None:
+                    first = time.perf_counter() - t0
+                events.append(ev)
+    return dict(events=events, first_s=first,
+                wall_s=time.perf_counter() - t0)
+
+
+def check_wire_events(label: str, i: int, events: list, want: list) -> None:
+    """One accepted and one done, the deltas concatenated equal the done
+    tokens, and the tokens equal the trained streaming pass's."""
+    kinds = [e["event"] for e in events]
+    if kinds.count("accepted") != 1 or kinds.count("done") != 1 \
+            or kinds[-1] != "done" or events[-1]["status"] != "finished":
+        raise AssertionError(f"{label} query {i}: events {kinds}, last "
+                             f"{events[-1] if events else None}")
+    deltas = [t for e in events if e["event"] == "delta" for t in e["tokens"]]
+    done = events[-1]["tokens"][0]
+    if deltas != done or done != want:
+        raise AssertionError(f"{label} query {i}: deltas {deltas}, done "
+                             f"{done}, trained streaming pass {want}")
+
+
+def warm_engine(tok, cfg, params, query, **kw):
+    from repro_torch.serving import EngineConfig, StreamingEngine
+
+    eng = StreamingEngine(params, cfg, tok,
+                          EngineConfig(**trained_stream_kw(), **kw))
+    eng.submit(query)
+    eng.serve()
+    eng.reset()
+    return eng
+
+
+def percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def serve_front_door(torch, tok, cfg, params, queries, want) -> dict:
+    """The 64 held-out queries through ``FrontDoorServer`` on loopback
+    (realtime drive, overload policy with aging on) from concurrent client
+    threads, half over SSE and half over NDJSON; every request's events
+    checked against the trained streaming pass."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving import (FrontDoorServer, OverloadPolicy,
+                                     ServerConfig)
+
+    eng = warm_engine(tok, cfg, params, queries[0],
+                      overload=OverloadPolicy(aging_rate=0.05))
+    srv = FrontDoorServer(eng, ServerConfig(realtime=True)).start()
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(WIRE_CLIENTS) as pool:
+            futs = [pool.submit(wire_request, srv.port, q, i % 2 == 0)
+                    for i, q in enumerate(queries)]
+            res = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        launches, shapes = dict(launch_counts), verify_shapes()
+        stats = srv.stats()
+    finally:
+        srv.shutdown(drain=False)
+    for i, r in enumerate(res):
+        check_wire_events("front door", i, r["events"], want[i])
+    check_stream_launches(launches, "front door")
+    first = [r["first_s"] for r in res]
+    n = len(queries)
+    print(f"front door [trained mt-product, {n} held-out queries, "
+          f"{n // 2} SSE + {n - n // 2} NDJSON, {WIRE_CLIENTS} client "
+          f"threads, realtime, aging 0.05]: wall {wall:.3f} s, "
+          f"{wall / n * 1e3:.2f} ms per request; time to first delta p50 "
+          f"{percentile(first, 50) * 1e3:.2f} ms, p95 "
+          f"{percentile(first, 95) * 1e3:.2f} ms; request wall p50 "
+          f"{percentile([r['wall_s'] for r in res], 50) * 1e3:.2f} ms; "
+          f"scheduler steps {stats['n_steps']}, preemptions "
+          f"{stats['n_preemptions']}, launches {launches}; every request "
+          f"one accepted + one done, deltas == done == the trained "
+          f"streaming pass", flush=True)
+    return dict(wall_s=wall, launches=launches, shapes=shapes,
+                first_s=first)
+
+
+def check_stream_launches(launches: dict, label: str) -> None:
+    """A paged speculative phase runs paged_decode_gqa and draft_verify,
+    never decode_gqa, and the encoder through flash_attention."""
+    if launches["paged_decode_gqa"] == 0 or launches["draft_verify"] == 0 \
+            or launches["decode_gqa"]:
+        raise AssertionError(f"{label}: launches {launches}")
+    check_encoder_launches(launches, label)
+
+
+def serve_encode_reuse(torch, tok, cfg, params, queries, want) -> dict:
+    """The 64 queries twice through a ``prefix_cache=True`` engine: the
+    second pass hits the encoder-output LRU on every lookup and launches no
+    encoder flash kernel; both passes' tokens equal the trained pass's."""
+    from repro_torch.kernels import launch_counts
+
+    eng = warm_engine(tok, cfg, params, queries[0], prefix_cache=True)
+    out = []
+    for n_pass in (1, 2):
+        before = eng.prefix_stats()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        handles = [eng.submit(q) for q in queries]
+        res = eng.serve()
+        wall = time.perf_counter() - t0
+        launches, shapes = dict(launch_counts), verify_shapes()
+        after = eng.prefix_stats()
+        toks = [res[int(h)].tokens[0][:int(res[int(h)].lengths[0])].tolist()
+                for h in handles]
+        if toks != want:
+            bad = [i for i, (a, b) in enumerate(zip(toks, want)) if a != b]
+            raise AssertionError(f"encoder reuse pass {n_pass}: tokens "
+                                 f"differ from the trained pass on {bad}")
+        hit = after["hit_tokens"] - before["hit_tokens"]
+        look = after["lookup_tokens"] - before["lookup_tokens"]
+        if n_pass == 1:
+            check_stream_launches(launches, "encoder reuse pass 1")
+        elif hit != look or launches["flash_attention"] \
+                or launches["flash_attention_bwd"] \
+                or launches["paged_decode_gqa"] == 0:
+            raise AssertionError(f"encoder reuse pass 2: hit {hit} of "
+                                 f"{look} lookup tokens, launches "
+                                 f"{launches}")
+        out.append(dict(wall_s=wall, launches=launches, shapes=shapes,
+                        hit=hit, look=look, stats=after))
+        print(f"encoder reuse pass {n_pass} [{len(queries)} queries, "
+              f"prefix_cache on]: wall {wall:.3f} s, "
+              f"{wall / len(queries) * 1e3:.2f} ms per request; lookups hit "
+              f"{hit} of {look} source tokens, cumulative hit rate "
+              f"{after['prefix_hit_rate']:.4f}, LRU entries "
+              f"{after['nodes']}; launches {launches}", flush=True)
+    return dict(passes=out)
+
+
+def check_request_tree(torch, tok, cfg, params, queries) -> dict:
+    """``submit_child(parent, suffix)`` gives the tokens of a plain submit
+    of ``parent + suffix``; ``cancel_subtree`` on a running parent with two
+    queued children cancels all three, and every page comes back."""
+    from repro_torch.kernels import launch_counts
+
+    eng = warm_engine(tok, cfg, params, queries[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    root = eng.submit(queries[1])
+    root.result()
+    child = root.submit_child(".C")
+    plain = eng.submit(queries[1] + ".C")
+    a, b = child.result(), plain.result()
+    if not (np.array_equal(a.tokens, b.tokens)
+            and np.array_equal(a.lengths, b.lengths)):
+        raise AssertionError(f"submit_child tokens {a.tokens[0]} != plain "
+                             f"submit {b.tokens[0]}")
+    eng.allocator.reclaim(eng.scheduler.state)
+    free0 = eng.allocator.free_pages
+    parent = eng.submit(queries[2])
+    fillers = [eng.submit(q) for q in queries[3:3 + TRAINED_SLOTS - 1]]
+    while str(parent.status) != "running":
+        eng._pump_once()
+    kids = [parent.submit_child(s) for s in (".C", ".N")]
+    statuses = [str(h.status) for h in (parent, *kids)]
+    if statuses != ["running", "queued", "queued"]:
+        raise AssertionError(f"request tree: before the cancel {statuses}")
+    n = eng.cancel_subtree(int(parent))
+    statuses = [str(h.status) for h in (parent, *kids)]
+    eng.serve()
+    eng.allocator.reclaim(eng.scheduler.state)
+    eng.allocator.check()
+    free1 = eng.allocator.free_pages
+    if n != 3 or statuses != ["cancelled"] * 3 or free1 != free0 or \
+            any(str(f.status) != "finished" for f in fillers):
+        raise AssertionError(f"cancel_subtree: {n} cancelled, {statuses}, "
+                             f"free pages {free0} -> {free1}")
+    launches, shapes = dict(launch_counts), verify_shapes()
+    check_stream_launches(launches, "request tree")
+    print(f"request tree: submit_child tokens == plain submit of the "
+          f"joined query ({int(a.lengths[0])} tokens); cancel_subtree "
+          f"cancelled a running parent and its 2 queued children, free "
+          f"pages back at {free1}; launches {launches}", flush=True)
+    return dict(launches=launches, shapes=shapes)
+
+
+def serve_fleet(torch, tok, cfg, params, queries, want) -> dict:
+    """Two in-process replicas on the one card (each a ``FrontDoorServer``
+    over its own engine) behind a ``FleetRouter`` on loopback: 16 queries
+    through the router from concurrent clients; tokens equal the trained
+    streaming pass's, one accepted and one done each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving import (FleetConfig, FleetRouter,
+                                     FrontDoorServer, ServerConfig)
+
+    srvs = [FrontDoorServer(warm_engine(tok, cfg, params, queries[0]),
+                            ServerConfig(realtime=True)).start()
+            for _ in range(2)]
+    router = None
+    try:
+        router = FleetRouter([("127.0.0.1", s.port) for s in srvs],
+                             FleetConfig(probe_interval_s=0.05)).start()
+        time.sleep(0.2)   # one probe round
+        qs = queries[:FLEET_QUERIES]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(qs)) as pool:
+            futs = []
+            for i, q in enumerate(qs):
+                futs.append(pool.submit(wire_request, router.port, q,
+                                        i % 2 == 0))
+                # the router books a replica's load once its stream is
+                # open: arrivals this far apart see each other's bookings
+                time.sleep(FLEET_STAGGER_S)
+            res = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        launches, shapes = dict(launch_counts), verify_shapes()
+        stats = router.stats()
+    finally:
+        if router is not None:
+            router.shutdown()
+        for s in srvs:
+            s.shutdown(drain=False)
+    for i, r in enumerate(res):
+        check_wire_events("fleet", i, r["events"], want[i])
+    check_stream_launches(launches, "fleet")
+    placed = {k: v["submitted"] for k, v in stats["replicas"].items()}
+    print(f"fleet [2 replicas on one card, {len(qs)} queries through the "
+          f"router, concurrent clients arriving {FLEET_STAGGER_S * 1e3:.0f} "
+          f"ms apart]: wall {wall:.3f} s, "
+          f"{wall / len(qs) * 1e3:.2f} ms per request; placements by "
+          f"replica {placed}, reroutes {stats['reroutes']}, lost "
+          f"{stats['lost']}; launches {launches}; tokens == the trained "
+          f"streaming pass", flush=True)
+    return dict(wall_s=wall, launches=launches, shapes=shapes,
+                placed=placed)
+
+
+def serve_surface(torch, trainer, tok, test_ds, trained: dict,
+                  build_dir: Path) -> dict:
+    """The five serving-surface phases on the trained weights, loaded back
+    from their checkpoint (``tok``: the training set's tokenizer, as
+    ``serve_trained`` uses). Returns each phase's launches and shapes."""
+    t0 = time.perf_counter()
+    queries = [test_ds.pair(i)[0] for i in range(len(test_ds))]
+    want = trained["streaming_speculative"]["tokens"]
+    params = check_checkpoint(torch, trainer, build_dir)
+    cfg = trainer.cfg
+    runs = {"front_door": serve_front_door(torch, tok, cfg, params, queries,
+                                           want)}
+    n = len(queries)
+    print(f"front door vs direct: "
+          f"{runs['front_door']['wall_s'] / n * 1e3:.2f} ms per request "
+          f"over the wire, "
+          f"{trained['streaming_speculative']['wall_s'] / n * 1e3:.2f} ms "
+          f"through the engine alone (the trained streaming pass)",
+          flush=True)
+    reuse = serve_encode_reuse(torch, tok, cfg, params, queries, want)
+    for i, r in enumerate(reuse["passes"]):
+        runs[f"encoder_reuse_{i + 1}"] = r
+    runs["request_tree"] = check_request_tree(torch, tok, cfg, params,
+                                              queries)
+    runs["fleet"] = serve_fleet(torch, tok, cfg, params, queries, want)
+    print(f"serving surface: {time.perf_counter() - t0:.1f} s, engine "
+          f"construction and warm-ups included", flush=True)
+    return runs
 
 
 def check_train_step(torch, ds, tcfg, cpu_params) -> None:
@@ -1503,6 +1900,13 @@ def main() -> int:
     trained = serve_trained(torch, train_ds.tokenizer, trainer.cfg,
                             trainer.params, test_ds)
     for r in trained.values():
+        for k in names:
+            main_launches[k] += r["launches"][k]
+        add_shapes(r)
+    # -- the serving surface: checkpoint, front door, reuse, tree, fleet -----
+    surface = serve_surface(torch, trainer, train_ds.tokenizer, test_ds,
+                            trained, Path(__file__).resolve().parent / "build")
+    for r in surface.values():
         for k in names:
             main_launches[k] += r["launches"][k]
         add_shapes(r)

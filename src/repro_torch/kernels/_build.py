@@ -7,7 +7,10 @@ libraries go to ``build/repro_torch/`` at the repository root (listed in
 and the flags, so a changed source or header rebuilds and an unchanged one
 loads at once. ``build_all`` starts one
 ``nvcc`` per source, all together. Nothing here runs at import: the CPU
-tests import every module and this machine may have no ``nvcc``.
+tests import every module and this machine may have no ``nvcc``. One lock
+covers building and loading, so threads of one process that reach a first
+launch together (a server's drive thread, two replicas' engines) build
+each library once.
 
 The launch counts live here too: each kernel wrapper adds one to its count
 where it launches its kernel and nowhere else, so a run can show that the
@@ -21,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -32,6 +36,7 @@ KERNELS = ("decode_gqa", "draft_verify", "flash_attention",
            "paged_decode_gqa")   # the sources, csrc/<name>.cu
 
 _libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.RLock()   # build_all and load (load calls build_all)
 build_log: dict[str, str] = {}   # nvcc's output (ptxas register/smem report)
 
 
@@ -55,6 +60,11 @@ def _lib_path(name: str) -> Path:
 def build_all(names=KERNELS) -> float:
     """Compile every kernel whose library is missing, in parallel; returns
     the wall seconds spent. Raises with nvcc's output if one fails."""
+    with _lock:
+        return _build_all(names)
+
+
+def _build_all(names) -> float:
     t0 = time.perf_counter()
     todo = [n for n in names if not _lib_path(n).exists()]
     if todo:
@@ -62,7 +72,8 @@ def build_all(names=KERNELS) -> float:
         nvcc = _nvcc()
         procs = {}
         for name in todo:
-            tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+            tmp = _lib_path(name).with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -107,24 +118,52 @@ _ARGTYPES = {
                                ctypes.c_void_p]),
 }
 launch_counts: dict[str, int] = {name: 0 for name in _ARGTYPES}
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``name``'s launch count (under a lock: engines on two
+    threads launch the same kernels)."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
 
 
 def load(name: str):
     """The C launch function ``name`` (a key of ``launch_counts``), its
     source built at first use."""
     source, fn_name, argtypes = _ARGTYPES[name]
-    if source not in _libs:
-        build_all((source,))
-        _libs[source] = ctypes.CDLL(str(_lib_path(source)))
-    fn = getattr(_libs[source], fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    with _lock:
+        if source not in _libs:
+            build_all((source,))
+            _libs[source] = ctypes.CDLL(str(_lib_path(source)))
+        fn = getattr(_libs[source], fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return fn
+
+
+_ticket_lock = threading.Lock()
+
+
+def tickets(store: dict, device, n: int, zeros):
+    """A split launch's ticket counters: a zeroed int32 buffer of at least
+    ``n`` entries (``zeros(size)`` makes one), kept per device in ``store``
+    (the kernel module's dict) and grown under a lock, so two threads of one
+    process never swap it out from under each other. The combining block of
+    each row resets its counter, so the buffer stays zero between launches
+    on one stream (every thread's default)."""
+    with _ticket_lock:
+        t = store.get(device)
+        if t is None or t.numel() < n:
+            t = zeros(max(n, 1024))
+            store[device] = t
+        return t
 
 
 def check(name: str, err: int) -> None:

@@ -71,18 +71,14 @@ def _vec(k, v) -> int:
 
 def _scratch(device, B, Kv, TG, hd, n_split):
     """Split partials (accumulators, then (max, sum) pairs) and the ticket
-    counters, or NULLs when one block takes each (row, kv head). The
-    tickets are zeros kept per device: the combining block of each
-    (row, kv head) resets its counter, so they stay zero between calls on
-    one stream."""
+    counters (``_build.tickets``), or NULLs when one block takes each
+    (row, kv head)."""
     if n_split == 1:
         return None, 0, 0, 0
     rows = B * Kv * n_split * TG
     part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=device)
-    t = _tickets.get(device)
-    if t is None or t.numel() < B * Kv:
-        t = torch.zeros(max(B * Kv, 1024), dtype=torch.int32, device=device)
-        _tickets[device] = t
+    t = _build.tickets(_tickets, device, B * Kv, lambda n: torch.zeros(
+        n, dtype=torch.int32, device=device))
     return (part, part.data_ptr(), part.data_ptr() + rows * hd * 4,
             t.data_ptr())
 

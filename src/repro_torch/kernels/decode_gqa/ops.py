@@ -62,7 +62,7 @@ def decode_gqa_attention(q, k_cache, v_cache, k_pos, q_pos, *,
     if q.numel() == 0:
         return torch.empty_like(q)
     out = decode_gqa_kernel(q, k_cache, v_cache, k_pos, q_pos, window=window)
-    _build.launch_counts["decode_gqa"] += 1
+    _build.count_launch("decode_gqa")
     return out
 
 
@@ -125,5 +125,5 @@ def paged_decode_gqa_attention(q, k_pool, v_pool, pos_pool, block_tables,
         return torch.empty_like(q)
     out = paged_decode_gqa_kernel(q, k_pool, v_pool, pos_pool, block_tables,
                                   q_pos, window=window)
-    _build.launch_counts["paged_decode_gqa"] += 1
+    _build.count_launch("paged_decode_gqa")
     return out

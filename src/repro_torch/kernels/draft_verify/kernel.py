@@ -114,17 +114,14 @@ def vector_loads(ptr: int, itemsize: int, run: int) -> bool:
 
 
 def _scratch(device, N, T, p: Plan):
-    """Split partials and the per-row ticket counters (zeros kept per
-    device: the combining block of each row resets its counter, so they
-    stay zero between calls on one stream), or NULLs on the row path."""
+    """Split partials and the per-row ticket counters
+    (``_build.tickets``), or NULLs on the row path."""
     if p.rows:
         return None, 0, 0
     part = torch.empty(2 * N * T * p.n_split, dtype=torch.float32,
                        device=device)
-    t = _tickets.get(device)
-    if t is None or t.numel() < N:
-        t = torch.zeros(max(N, 1024), dtype=torch.int32, device=device)
-        _tickets[device] = t
+    t = _build.tickets(_tickets, device, N, lambda n: torch.zeros(
+        n, dtype=torch.int32, device=device))
     return part, part.data_ptr(), t.data_ptr()
 
 

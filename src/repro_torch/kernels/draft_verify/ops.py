@@ -45,5 +45,5 @@ def draft_verify(logits, drafts, draft_mask):
         return (torch.empty((0, T), dtype=torch.int32, device=logits.device),
                 torch.empty((0,), dtype=torch.int32, device=logits.device))
     out = draft_verify_kernel(logits, drafts, draft_mask)
-    _build.launch_counts["draft_verify"] += 1
+    _build.count_launch("draft_verify")
     return out

@@ -78,7 +78,7 @@ def _forward(q, k, v, key_mask, causal, window, *, with_lse: bool):
             device=q.device) if with_lse else None)
     res = flash_attention_fwd_kernel(q, k, v, key_mask, causal=causal,
                                      window=window, with_lse=with_lse)
-    _build.launch_counts["flash_attention"] += 1
+    _build.count_launch("flash_attention")
     return res
 
 
@@ -96,7 +96,7 @@ def _backward(q, k, v, o, lse, do, key_mask, causal, window):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     grads = flash_attention_bwd_kernel(q, k, v, o, lse, do, key_mask,
                                        causal=causal, window=window)
-    _build.launch_counts["flash_attention_bwd"] += 1
+    _build.count_launch("flash_attention_bwd")
     return grads
 
 

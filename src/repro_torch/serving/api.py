@@ -256,8 +256,27 @@ class RequestHandle(int):
         deltas equal ``result().tokens[0][:lengths[0]]`` exactly."""
         return self._engine._stream(self.rid)
 
-    def cancel(self) -> bool:
+    def cancel(self, recursive: bool = False) -> bool:
         """Abandon the request: dequeue if queued, evict + reclaim pages
         if resident. Returns False when it already reached a terminal
-        state (finished results stay available)."""
+        state (finished results stay available).
+
+        ``recursive=True`` prunes the whole request subtree rooted here
+        (every descendant made via ``submit_child``): the planner's
+        abandon-this-branch operation. Returns True if ANY request in the
+        subtree was newly cancelled."""
+        if recursive:
+            return self._engine.cancel_subtree(self.rid) > 0
         return self._engine._cancel(self.rid)
+
+    def submit_child(self, suffix, *, arrival: float = 0.0,
+                     mode: str | None = None,
+                     params: "GenerationParams | None" = None,
+                     priority: int | None = None,
+                     deadline: float | None = None) -> "RequestHandle":
+        """Submit a child request whose query is this request's query plus
+        ``suffix`` (string + string, or concatenated token arrays). Mode
+        and priority default to the parent's."""
+        return self._engine.submit_child(
+            self.rid, suffix, arrival=arrival, mode=mode, params=params,
+            priority=priority, deadline=deadline)

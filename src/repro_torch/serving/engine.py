@@ -33,9 +33,17 @@ JAX's one donated jitted megastep becomes an eager PyTorch function over
 tensors the engine updates in place. A steady-state iteration of a paged
 session reads the card twice: the plan's exhaustion flag (and copy count)
 before the plan is applied, and the iteration's small output bundle after
-the step; a dense session reads once. The prefix cache, the overload
-policy, mesh sharding and the decoder-only backend are not ported yet and
-are refused at construction.
+the step; a dense session reads once. Mesh sharding and the decoder-only
+backend are not ported yet and are refused at construction.
+
+``EngineConfig(overload=OverloadPolicy(...))`` drives the scheduler's
+priority aging, deadline-aware preemption and load shedding.
+``EngineConfig(prefix_cache=True)`` keeps an LRU of encoder outputs keyed by
+the source tokens: a repeated source skips the encoder, and hit and miss
+admit alike (``Seq2SeqBackend.admit_cache_precomputed``), so reuse never
+changes a token. (The JAX package's radix page tree serves only its
+decoder-only backend.) ``submit_child`` / ``cancel_subtree`` serve a tree
+of requests, as a retrosynthesis planner expands and prunes one.
 
 On the card the decoder's cached self-attention runs the ``decode_gqa``
 kernel (dense cache) or the ``paged_decode_gqa`` kernel (paged cache), and
@@ -44,6 +52,7 @@ the greedy-family accept op the ``draft_verify`` kernel.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 import warnings
@@ -71,7 +80,8 @@ from repro_torch.serving.api import (MAX_STOP_IDS, GenerationParams,
                                      RequestRejected, RequestSpec,
                                      RequestStatus)
 from repro_torch.serving.backend import make_backend
-from repro_torch.serving.scheduler import ContinuousScheduler, SlotResult
+from repro_torch.serving.scheduler import (ContinuousScheduler,
+                                           OverloadPolicy, SlotResult)
 
 MODES = ("greedy", "speculative", "beam", "speculative_beam")
 
@@ -80,9 +90,11 @@ MODES = ("greedy", "speculative", "beam", "speculative_beam")
 class EngineConfig:
     """The fields of ``repro.serving.engine.EngineConfig`` the port serves:
     the one-shot decode knobs and the ``StreamingEngine``'s slots, mode
-    groups and paged cache. ``prefix_cache``, ``overload`` and ``mesh``
-    exist so that a configuration asking for them is refused at engine
-    construction (not ported yet: ROADMAP Queue 1 items 5 and 9)."""
+    groups, paged cache, encoder-output reuse and overload policy. ``mesh``
+    exists so that a configuration asking for it is refused at engine
+    construction (not ported yet: ROADMAP Queue 1 item 9);
+    ``prefix_cache_pages`` sizes the decoder-only radix cache, which comes
+    with that backend (item 6), and is only validated here."""
 
     mode: str = "speculative"        # greedy|speculative|beam|speculative_beam
     draft_len: int = 10              # the paper's best DL
@@ -101,8 +113,13 @@ class EngineConfig:
     page_size: int = 16              # tokens per page
     n_pages: int | None = None       # pool size; None = worst case
     backend: str = "auto"            # "auto" | "seq2seq"
-    prefix_cache: bool = False       # refused by StreamingEngine
-    overload: object | None = None   # refused by StreamingEngine
+    # seq2seq: an LRU of encoder outputs (cross-attention K/V + mask) keyed
+    # by the source tokens, ``prefix_cache_entries`` of them
+    prefix_cache: bool = False
+    prefix_cache_pages: int | None = None   # decoder-only radix cache
+    prefix_cache_entries: int = 128
+    # priority aging, deadline-aware preemption, load shedding; None = off
+    overload: OverloadPolicy | None = None
     mesh: object | None = None       # refused by StreamingEngine
 
     def __post_init__(self):
@@ -112,6 +129,15 @@ class EngineConfig:
             if getattr(self, name) < lo:
                 raise ValueError(f"EngineConfig.{name}={getattr(self, name)} "
                                  f"must be >= {lo}")
+        if self.prefix_cache_pages is not None and self.prefix_cache_pages < 1:
+            raise ValueError(
+                f"EngineConfig.prefix_cache_pages={self.prefix_cache_pages} "
+                f"must be >= 1 (it is the radix cache's retained-page "
+                f"capacity)")
+        if self.prefix_cache_entries < 1:
+            raise ValueError(
+                f"EngineConfig.prefix_cache_entries="
+                f"{self.prefix_cache_entries} must be >= 1")
         if self.n_pages is not None and self.n_pages < 2:
             raise ValueError(
                 f"EngineConfig.n_pages={self.n_pages}: a paged pool needs at "
@@ -282,7 +308,8 @@ class StreamingEngine:
     Every scheduler iteration (the one pump behind ``serve``, ``wait``,
     ``stream``, ``drain`` and ``predict``) runs under ``torch.no_grad()``,
     so params that require grad build no graph through the in-place cache
-    writes."""
+    writes; so do ``_cancel`` and ``begin_drain``, which evict slots
+    outside the pump."""
 
     # terminal records kept for RequestHandle.result()/.status after their
     # serve() epoch: bounded, oldest insertions evict first
@@ -293,12 +320,10 @@ class StreamingEngine:
                  engine_cfg: EngineConfig | None = None, *,
                  backend=None, device=None):
         self.ecfg = ecfg = engine_cfg or EngineConfig()
-        for name, item in (("prefix_cache", 5), ("overload", 5),
-                           ("mesh", 9)):
-            if getattr(ecfg, name) not in (None, False):
-                raise NotImplementedError(
-                    f"EngineConfig.{name} is not ported yet (ROADMAP.md "
-                    f"Queue 1 item {item})")
+        if ecfg.mesh is not None:
+            raise NotImplementedError(
+                "EngineConfig.mesh is not ported yet (ROADMAP.md Queue 1 "
+                "item 9)")
         self.device = resolve_device(device)
         self.params = _to(params, self.device)
         self.cfg = cfg
@@ -452,14 +477,37 @@ class StreamingEngine:
         gi = self.mode_names.index(mode)
         be = self.backend
         args = tuple(a.to(self.device) for a in req.args)
-        be.admit_cache(self.params, gstate.cache,
-                       self._slot_rows(mode, local), *args)
+        rows = self._slot_rows(mode, local)
+        if self.ecfg.prefix_cache:   # seq2seq: the whole source is the prefix
+            mkv, mask = self._encode_cached(req.prompt, args[0])
+            be.admit_cache_precomputed(self.params, gstate.cache, rows, mkv,
+                                       mask)
+        else:
+            be.admit_cache(self.params, gstate.cache, rows, *args)
         last, pos0, drafts, dmask = be.reset_args(*args)
         max_out, stop_ids, eff_dl, eff_beams = req.gen
         reset_slot(spec, gstate.groups[gi], local, last, pos0, drafts, dmask,
                    max_out=max_out, stop_ids=stop_ids, eff_dl=eff_dl,
                    eff_beams=eff_beams)
         return gstate
+
+    def _encode_cached(self, prompt: np.ndarray, src: torch.Tensor):
+        """The encoder leg of an admission through the encoder-output LRU,
+        keyed by the source's token bytes: a hit skips the encoder."""
+        key = np.asarray(prompt, np.int32).tobytes()
+        c = self._prefix_counters
+        c["lookups"] += 1
+        c["lookup_tokens"] += int(np.size(prompt))
+        ent = self._encode_lru.pop(key, None)
+        if ent is None:
+            ent = self.backend.encode_kv(self.params, src)
+            self.n_dispatches += 1
+        else:
+            c["hit_tokens"] += int(np.size(prompt))
+        self._encode_lru[key] = ent
+        while len(self._encode_lru) > self.ecfg.prefix_cache_entries:
+            self._encode_lru.popitem(last=False)
+        return ent
 
     def _release(self, gstate, mode: str, local: int):
         """Evict a local slot of ``mode``'s group, in place, and (paged)
@@ -536,6 +584,7 @@ class StreamingEngine:
             self.allocator.peak_pages = max(
                 self.allocator.peak_pages,
                 (self.allocator.n_pages - 1) - int(out["n_free_alloc"]))
+            self.pages_allocated += int(out["need"].sum())
             self._mirror_free = int(out["n_free_final"])
             # bookings made before this bundle's dispatch are now visible
             # in the device counter; keep only the ones it cannot see yet
@@ -584,9 +633,19 @@ class StreamingEngine:
         self._booked: list[tuple] = []   # (dispatch stamp, pages)
         self._n_dispatched = 0
         self._last_sync_t = None
+        # the encoder-output LRU and its counters, the lineage behind the
+        # tree-of-requests API (rid -> query / parent / children / priority
+        # / mode; bounded like _done), and the reuse counters
+        self._encode_lru: collections.OrderedDict = collections.OrderedDict()
+        self._lineage: collections.OrderedDict = collections.OrderedDict()
+        self._prefix_counters = {"lookups": 0, "hit_tokens": 0,
+                                 "lookup_tokens": 0}
+        self.pages_allocated = 0
+        self.requests_admitted = 0
 
         def admit(state, slot, payload):
             mode, req = payload
+            self.requests_admitted += 1
             if self.allocator is not None:
                 # book the admission's worst-case first-step pages against
                 # the mirror until a later bundle's free count reflects it
@@ -625,7 +684,7 @@ class StreamingEngine:
             hooks.update(admit_ok=self._mirror_admit_ok)
         state = grouped_init_state(tuple(self._groups.values()), cache)
         return ContinuousScheduler(self.spec, state, admit=admit, step=step,
-                                   **hooks)
+                                   policy=ecfg.overload, **hooks)
 
     # -- instrumentation -------------------------------------------------------
     def loop_stats(self) -> dict:
@@ -651,6 +710,43 @@ class StreamingEngine:
             "step_gap_p50_s": pct(0.50),
             "step_gap_p95_s": pct(0.95),
         }
+
+    def shard_stats(self) -> dict:
+        """Per-shard balance counters (``GET /v1/stats`` reads them): the
+        port's engine is one shard until mesh sharding is ported (ROADMAP
+        Queue 1 item 9), so its one shard holds every admission. (The JAX
+        package's unsharded engine counts no shard admissions and reports
+        ``[0]`` here.)"""
+        return {"n_shards": 1, "admitted_by_shard": [self.requests_admitted],
+                "admit_imbalance": 1.0}
+
+    def prefix_stats(self) -> dict:
+        """Prefix-reuse counters: lookups of the encoder-output LRU and the
+        source tokens they covered and hit, entries held, pages allocated
+        per admitted request. Cumulative over the session (``reset()``
+        starts them again)."""
+        c = self._prefix_counters
+        hit_t, look_t = c["hit_tokens"], c["lookup_tokens"]
+        return {
+            "lookups": int(c["lookups"]),
+            "hit_tokens": int(hit_t),
+            "lookup_tokens": int(look_t),
+            "prefix_hit_rate": (hit_t / look_t) if look_t else 0.0,
+            "nodes": len(self._encode_lru),
+            "inserted": 0,
+            "evicted": 0,
+            "pages_allocated": int(self.pages_allocated),
+            "requests_admitted": int(self.requests_admitted),
+            "pages_per_request": (self.pages_allocated
+                                  / self.requests_admitted
+                                  if self.requests_admitted else 0.0),
+        }
+
+    def clear_prefix_cache(self) -> int:
+        """Drop the whole encoder-output LRU. Returns the number of radix
+        nodes dropped, which is 0: the seq2seq backend keeps none."""
+        self._encode_lru.clear()
+        return 0
 
     def cache_footprint(self) -> dict:
         """Self-attention cache accounting: ``capacity_bytes`` reserved up
@@ -738,8 +834,18 @@ class StreamingEngine:
         rid = self.scheduler.submit(payload, arrival=rspec.arrival,
                                     mode=mode, priority=rspec.priority,
                                     deadline=rspec.deadline)
+        # a shed submission landed a terminal record, not a queue entry:
+        # store it now so handle.status is SHED at once
         for r in self.scheduler.drain_shed():
             self._finish_result(r)
+        # lineage for submit_child / cancel_subtree, bounded like _done: an
+        # aged-out parent can no longer be extended (a KeyError)
+        q = rspec.query if isinstance(rspec.query, str) else \
+            np.asarray(rspec.query, np.int32).reshape(-1).copy()
+        self._lineage[rid] = {"query": q, "parent": None, "children": [],
+                              "priority": rspec.priority, "mode": mode}
+        while len(self._lineage) > self._DONE_CAP:
+            self._lineage.popitem(last=False)
         return RequestHandle(rid, self, mode=mode, params=payload[1].params)
 
     def submit(self, query, *, arrival: float = 0.0,
@@ -757,6 +863,56 @@ class StreamingEngine:
         return self.submit_spec(RequestSpec(
             query=query, params=params or GenerationParams(), mode=mode,
             priority=priority, deadline=deadline, arrival=arrival))
+
+    # -- tree of requests (search-tree serving) -----------------------------
+    def submit_child(self, parent, suffix, *, arrival: float = 0.0,
+                     mode: str | None = None,
+                     params: GenerationParams | None = None,
+                     priority: int | None = None,
+                     deadline: float | None = None) -> RequestHandle:
+        """Submit a child whose query extends ``parent``'s (query +
+        ``suffix``): the planning search's expansion step. Mode and
+        priority default to the parent's (a subtree inherits its root's
+        urgency)."""
+        prid = int(parent)
+        info = self._lineage.get(prid)
+        if info is None:
+            raise KeyError(
+                f"parent request {prid} is unknown to this session "
+                f"(reset(), or the bounded lineage store evicted it)")
+        pq = info["query"]
+        if isinstance(pq, str):
+            if not isinstance(suffix, str):
+                raise TypeError("parent query is a string; the child "
+                                "suffix must be a string too")
+            q = pq + suffix
+        else:
+            q = np.concatenate([np.asarray(pq, np.int32).reshape(-1),
+                                np.asarray(suffix, np.int32).reshape(-1)])
+        h = self.submit(q, arrival=arrival, mode=mode or info["mode"],
+                        params=params,
+                        priority=(info["priority"] if priority is None
+                                  else priority),
+                        deadline=deadline)
+        self._lineage[int(h)]["parent"] = prid
+        info["children"].append(int(h))
+        return h
+
+    def cancel_subtree(self, rid: int) -> int:
+        """Cancel ``rid`` and every known descendant (a pruned search
+        subtree). Returns the number newly cancelled."""
+        order: list[int] = []
+        stack, seen = [int(rid)], set()
+        while stack:
+            r = stack.pop()
+            if r in seen:
+                continue
+            seen.add(r)
+            order.append(r)
+            info = self._lineage.get(r)
+            if info is not None:
+                stack.extend(info["children"])
+        return sum(1 for r in order if self._cancel(r))
 
     # -- step pump: one drive shared by serve()/result()/stream() -----------
     def serve_steps(self, *, realtime: bool = False):
@@ -885,6 +1041,9 @@ class StreamingEngine:
                 self._flush_stream_tail(st, r)
         return st
 
+    def unsubscribe(self, rid: int) -> None:
+        self._streams.pop(rid, None)
+
     def _stream(self, rid: int):
         """Generator behind ``RequestHandle.stream()``."""
         st = self.subscribe(rid)
@@ -918,6 +1077,7 @@ class StreamingEngine:
             DeprecationWarning, stacklevel=2)
         return self._stream(rid)
 
+    @torch.no_grad()
     def _cancel(self, rid: int) -> bool:
         """Cancel a queued (dequeue) or resident (evict + reclaim pages)
         request. Returns False once the request is already terminal."""
@@ -941,6 +1101,7 @@ class StreamingEngine:
     def draining(self) -> bool:
         return self.scheduler.draining
 
+    @torch.no_grad()
     def begin_drain(self) -> int:
         """Enter drain mode without blocking: every queued request is shed
         with a retry hint, residents decode to completion, later

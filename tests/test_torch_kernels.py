@@ -17,6 +17,11 @@ cases there with
 (``chip_smoke.py`` makes the same comparisons).
 """
 
+import sys
+import threading
+import time
+import types
+
 import numpy as np
 import pytest
 
@@ -379,6 +384,85 @@ def test_lib_path_covers_headers(tmp_path, monkeypatch):
     assert _build._lib_path("k") != second
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n// changed\n')
     assert _build._lib_path("k") not in (first, second)
+
+
+def _race(fn, n_threads: int = 8):
+    """Run ``fn(i)`` on ``n_threads`` threads released together, with a
+    short switch interval; returns their results in thread order."""
+    barrier = threading.Barrier(n_threads)
+    out = [None] * n_threads
+
+    def run(i):
+        barrier.wait(timeout=10)
+        out[i] = fn(i)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    return out
+
+
+def test_first_launch_from_threads_builds_and_loads_once(monkeypatch):
+    """Threads that reach a kernel's first launch together (a server's
+    drive thread, two replicas' engines) run one build and one load, and
+    all get the same launch function."""
+    builds, loads = [], []
+
+    def build_all(names=_build.KERNELS):
+        builds.append(tuple(names))
+        time.sleep(0.05)   # a slow nvcc: the window a racing thread needs
+        return 0.0
+
+    class CDLL:
+        def __init__(self, path):
+            loads.append(path)
+            self.draft_verify_launch = types.SimpleNamespace()
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build_all", build_all)
+    monkeypatch.setattr(_build.ctypes, "CDLL", CDLL)
+    fns = _race(lambda i: _build.load("draft_verify"))
+    assert builds == [("draft_verify",)] and len(loads) == 1
+    assert all(f is fns[0] for f in fns)
+    assert fns[0].restype is _build.ctypes.c_int
+
+
+def test_ticket_buffers_grow_under_a_lock():
+    """Threads asking for ticket buffers of different sizes at once: every
+    one gets at least what it asked for, and the buffer kept is the
+    largest (no thread swaps a smaller one in over a larger)."""
+    store = {}
+
+    def zeros(n):
+        time.sleep(0.01)
+        return torch.zeros(n, dtype=torch.int32)
+
+    sizes = [1000 * (i + 1) + 7 for i in range(8)]
+    got = _race(lambda i: _build.tickets(store, "cpu", sizes[i], zeros))
+    assert all(t.numel() >= n for t, n in zip(got, sizes))
+    assert store["cpu"].numel() >= max(sizes)
+
+
+def test_launch_counts_lose_no_update_across_threads(monkeypatch):
+    """Two engines' threads launching at once: every launch is counted."""
+    monkeypatch.setattr(_build, "launch_counts",
+                        dict.fromkeys(_build.launch_counts, 0))
+
+    def launch(i):
+        for _ in range(2000):
+            _build.count_launch("draft_verify")
+
+    _race(launch)
+    assert _build.launch_counts["draft_verify"] == 8 * 2000
 
 
 # ---------------------------------------------------------------------------

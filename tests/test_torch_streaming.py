@@ -46,8 +46,8 @@ from repro_torch.data.tokenizer import SmilesTokenizer  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import seq2seq as ts2s  # noqa: E402
 from repro_torch.serving import (EngineConfig, GenerationParams,  # noqa: E402
-                                 RequestCancelled, StreamingEngine,
-                                 make_backend)
+                                 OverloadPolicy, RequestCancelled,
+                                 StreamingEngine, make_backend)
 
 MAX_NEW = 20
 # the engine configs the tests share (each JAX engine compiles once)
@@ -697,14 +697,15 @@ def test_cancel_frees_the_slot_and_its_pages(toy):
 
 
 def test_refusals_name_the_roadmap_item(toy):
-    """What the slice does not port is refused at construction, naming the
-    queue item that will port it; the paged cache adds no parameter."""
+    """What the port does not serve yet is refused at construction, naming
+    the queue item that will port it (item 5's prefix cache and overload
+    policy are ported and build); the paged cache adds no parameter."""
     cfg_t, pt, tok = toy["cfg_t"], toy["pt"], toy["tok"]
-    for kw, item in ((dict(prefix_cache=True), "item 5"),
-                     (dict(overload=object()), "item 5"),
-                     (dict(mesh=object()), "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            StreamingEngine(pt, cfg_t, tok, EngineConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        StreamingEngine(pt, cfg_t, tok, EngineConfig(mesh=object()),
+                        device="cpu")
+    for kw in (dict(prefix_cache=True), dict(overload=OverloadPolicy())):
+        StreamingEngine(pt, cfg_t, tok, EngineConfig(**kw), device="cpu")
     decoder = dataclasses.replace(cfg_t, family="dense")
     with pytest.raises(ValueError, match="Queue 1 item 6"):
         make_backend(decoder, EngineConfig())
