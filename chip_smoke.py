@@ -21,9 +21,12 @@ In order:
      test sweeps, the card-only decode lists (split rows, plain loads, the
      ring of stages) and at the main paths' shapes (decode_gqa and
      paged_decode_gqa: the verify pass of 8 slots, the greedy step, and
-     where trained serving at B 1 launches them; draft_verify, bitwise:
+     where trained serving at B 1 launches them, and the decoder-only
+     phase's shapes of ``kernels.cases.DECODE_LM`` / ``PAGED_LM`` at
+     SmolLM-135M's heads; draft_verify, bitwise:
      its sweep and card-only list in fp32 and bf16 with NaN / -inf / +inf
-     rows, and every launch group of the main path; flash_attention forward
+     rows, and every launch group of the main path, ``VERIFY_LM`` at
+     SmolLM's 49,152 vocab among them; flash_attention forward
      and backward: the serving encoder's B 16 x S 128 and the training
      batch's B 24 x S 96, H 8, hd 32; two calls of each kernel on the same
      inputs must agree bitwise), then time the kernel, the plain version
@@ -75,13 +78,28 @@ In order:
      in-process replicas behind a ``FleetRouter``, 16 queries through it
      (tokens equal). All five use the trained streaming pass's
      EngineConfig, on the loaded weights; counts set to 0 before each;
-  9. run a tiny model on the card and on the CPU with the same weights: the
+  9. the decoder-only phase (``serve_decoder``): SmolLM-135M at full width
+     (30 layers, d_model 576, 9 query heads over 3 KV heads, hd 64, d_ff
+     1536, vocab 49,152, tied embeddings), weights from seed 0, through
+     the decoder-only StreamingEngine: 16 prompts of 64-448 random tokens
+     (seed 1) in chunks of 32, max_src 512, max_new 64, EOS 2; greedy and
+     speculative (DL 10, 25 drafts) with 8 slots and beam and SBS (5
+     beams) with 2 slots and 2 prompts on the paged cache, the speculative
+     group again dense; speculative == greedy, SBS == beam, dense ==
+     paged, streaming == the one-shot prefill + decode on 4 prompts, the
+     full-width prefill's last logits on the card == the CPU's within 1e-4
+     of the largest |logit|, and the reduced config's tokens on the card
+     == the CPU's in every mode; decode_gqa, paged_decode_gqa and
+     draft_verify must each launch; wall per request, scheduler
+     iterations, prefill chunks, peak pages and time to the first delta
+     per mode;
+  10. run a tiny model on the card and on the CPU with the same weights: the
      card's tokens must match the CPU's plain path, one-shot and paged
      streaming, and a streaming speculative pass at draft_len 32 (T 33
      fed positions), and one train step's loss and gradients must match
      within 1e-4; then 50 train steps on both, printing the first step
      whose losses part by more than 1e-4;
-  10. print the ``kernels`` JSON line, the card line, and
+  11. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
 Every serving phase must launch flash_attention (the encoder).
@@ -189,6 +207,13 @@ def on_card(torch, arrays, dtype=None):
     dtype = dtype or torch.float32
     return [torch.from_numpy(a).to("cuda", dtype) if a.dtype == np.float32
             else torch.from_numpy(a).cuda() for a in arrays]
+
+
+def sdpa_gqa(F, q, k, v, mask):
+    """``scaled_dot_product_attention`` over (B, heads, T, hd) tensors whose
+    K/V may carry fewer heads than q (GQA: ``enable_gqa``, one call)."""
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=k.shape[1] != q.shape[1])
 
 
 def decode_work(q, kc, k_pos, q_pos):
@@ -304,15 +329,15 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import paged_decode_gqa_attention
-    from repro_torch.kernels.cases import (PAGED_CARD_ONLY, PAGED_SWEEP,
-                                           paged_inputs)
+    from repro_torch.kernels.cases import (PAGED_CARD_ONLY, PAGED_LM,
+                                           PAGED_SWEEP, paged_inputs)
     from repro_torch.kernels.decode_gqa.kernel import (
         paged_decode_gqa_kernel, plan_splits)
     from repro_torch.kernels.decode_gqa.ref import paged_decode_gqa_ref
     from repro_torch.models.attention import PagedKVCache, paged_view
 
     keys = PAGED_KEYS
-    main = paged_main_shapes(ecfg, n_queries)
+    main = dict(paged_main_shapes(ecfg, n_queries), **PAGED_LM)
     err = 0.0
     cases = [(c, dt) for c in PAGED_SWEEP + PAGED_CARD_ONLY
              for dt in (torch.float32, torch.bfloat16)]
@@ -344,8 +369,8 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
             k, v, kpos = paged_view(cache)
             mask = ((kpos[:, None, :] >= 0)
                     & (kpos[:, None, :] <= qp_[:, :, None]))[:, None]
-            return F.scaled_dot_product_attention(
-                qt, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)
+            return sdpa_gqa(F, qt, k.transpose(1, 2), v.transpose(1, 2),
+                            mask)
 
         nbytes, flops = paged_work(arrays[0], arrays[1], arrays[3],
                                    arrays[4], arrays[5])
@@ -627,10 +652,11 @@ def check_verify(torch, main: dict) -> dict:
     kernel. Then each launch group and ``VERIFY_TIMED_CARD_ONLY`` timed
     (``verify_timing``)."""
     from repro_torch.kernels import _build, draft_verify
-    from repro_torch.kernels.cases import (VERIFY_CARD_ONLY, VERIFY_SWEEP,
-                                           verify_inputs)
+    from repro_torch.kernels.cases import (VERIFY_CARD_ONLY, VERIFY_LM,
+                                           VERIFY_SWEEP, verify_inputs)
     from repro_torch.kernels.draft_verify.ref import draft_verify_ref
 
+    main = dict(main, **VERIFY_LM)
     cases = [(c, dt) for c in VERIFY_SWEEP + VERIFY_CARD_ONLY
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(c, torch.float32) for c in main.values()]
@@ -711,10 +737,12 @@ def check_kernels(torch, ecfg, n_queries: int, verify_main: dict,
                                                        plan_splits)
     from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
 
+    from repro_torch.kernels.cases import DECODE_LM
+
     results = {}
     # -- decode_gqa ---------------------------------------------------------
     err = 0.0
-    main = decode_main_shapes(ecfg, n_queries)
+    main = dict(decode_main_shapes(ecfg, n_queries), **DECODE_LM)
     cases = [(c, dt) for c in DECODE_SWEEP + DECODE_CARD_ONLY
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(c, torch.float32) for c in main.values()]
@@ -758,8 +786,8 @@ def check_kernels(torch, ecfg, n_queries: int, verify_main: dict,
                                 c["T"] * c["H"] // c["Kv"], c["hd"]),
             ms=timed_ms(torch, lambda: decode_gqa_attention(*x)),
             plain_ms=timed_ms(torch, lambda: decode_gqa_ref(*x)),
-            library_ms=timed_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask)),
+            library_ms=timed_ms(torch, lambda: sdpa_gqa(F, qt, kt, vt,
+                                                        mask)),
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
         if name.startswith("trained") or name == "long_row":
             shapes[name]["split_ms"] = {n: timed_ms(
@@ -1479,6 +1507,255 @@ def serve_surface(torch, trainer, tok, test_ds, trained: dict,
     return runs
 
 
+# -- decoder-only: SmolLM-135M at full width through StreamingEngine --------
+# 16 random prompts (seed 1) of 64-448 tokens, so prefills take 2-14 chunks
+# of 32 with ragged last chunks; random weights (seed 0) never favour EOS
+LM = dict(arch="smollm-135m", n_prompts=16, len_lo=64, len_hi=448,
+          max_src=512, max_new=64, eos_id=2, prefill_chunk=32, page_size=16,
+          draft_len=10, n_drafts=25, n_beams=5)
+LM_PLAN = {"greedy": (8, 16), "speculative": (8, 16), "beam": (2, 2),
+           "speculative_beam": (2, 2)}
+LM_ONESHOT = 4          # prompts held to the one-shot path
+LM_LOGIT_PROMPTS = 2    # full-width prefill logits, card vs CPU
+LM_LOGIT_TOL = 1e-4     # of the largest |logit|
+
+
+def lm_prompts(vocab: int, n: int, lo: int, hi: int, seed: int = 1):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(4, vocab, size=int(L)).astype(np.int32)
+            for L in rng.integers(lo, hi + 1, size=n)]
+
+
+def lm_engine_kw(**kw) -> dict:
+    base = {k: LM[k] for k in ("max_src", "max_new", "eos_id",
+                               "prefill_chunk", "page_size", "draft_len",
+                               "n_drafts", "n_beams")}
+    base.update(kw)
+    return base
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def run_lm(torch, cfg, params, prompts, plan: dict, *, paged: bool,
+           device="cuda", **kw) -> dict:
+    """Each mode through a decoder-only StreamingEngine (``plan``: mode ->
+    (slots, prompts)), every prompt submitted at once, every stream
+    subscribed; launch counts set to 0 just before each mode and read just
+    after. Returns per mode the tokens, log-probs, calls, wall, scheduler
+    iterations, chunks written, pages, time to the first delta per
+    request (greedy family; beams deliver at the end) and counts."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving import EngineConfig, StreamingEngine
+
+    out = {}
+    for mode, (n_slots, n_p) in plan.items():
+        eng = StreamingEngine(params, cfg, None, EngineConfig(
+            mode=mode, n_slots=n_slots, paged=paged, **lm_engine_kw(**kw)),
+            device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        handles = [eng.submit(p) for p in prompts[:n_p]]
+        sinks = {int(h): eng.subscribe(int(h)) for h in handles}
+        first: dict[int, float] = {}
+        while eng._pump_once():
+            now = time.perf_counter() - t0
+            for rid, st in sinks.items():
+                if rid not in first and (st["buf"] or st["done"]):
+                    first[rid] = now
+        wall = time.perf_counter() - t0
+        launches, shapes = dict(launch_counts), verify_shapes()
+        results = [h.result() for h in handles]
+        for r in results:
+            if not (np.all(np.isfinite(r.logprobs))
+                    and r.tokens.shape[1] == eng.ecfg.max_new
+                    and int(r.lengths[0]) >= 1):
+                raise AssertionError(f"decoder-only {mode}: malformed "
+                                     f"result {r}")
+        out[mode] = dict(
+            tokens=[np.asarray(r.tokens) for r in results],
+            logprobs=[np.asarray(r.logprobs, np.float64) for r in results],
+            n_calls=[r.n_calls for r in results],
+            accepted=sum(r.accepted for r in results)
+            / max(1, sum(int(r.lengths[0]) for r in results)),
+            wall_s=wall, steps=eng.loop_stats()["n_iterations"],
+            chunks=eng.prefill_chunks_written,
+            first_s=[first.get(int(h), wall) for h in handles],
+            footprint=eng.cache_footprint(), launches=launches,
+            shapes=shapes, preemptions=eng.scheduler.n_preemptions)
+        if paged:
+            eng.allocator.check()
+    return out
+
+
+def same_lm_runs(a: dict, b: dict, label: str, *, calls: bool = True,
+                 tol: float = 1e-4) -> None:
+    for mode in a:
+        x, y = a[mode], b[mode]
+        for i, (s, t) in enumerate(zip(x["tokens"], y["tokens"])):
+            if not np.array_equal(s, t):
+                raise AssertionError(f"{label} {mode} prompt {i}: tokens "
+                                     f"differ")
+        if calls and x["n_calls"] != y["n_calls"]:
+            raise AssertionError(f"{label} {mode}: calls {x['n_calls']} != "
+                                 f"{y['n_calls']}")
+        for i, (s, t) in enumerate(zip(x["logprobs"], y["logprobs"])):
+            if mode.endswith("beam") and not np.allclose(s, t, atol=tol,
+                                                         rtol=tol):
+                raise AssertionError(f"{label} {mode} prompt {i}: log-probs "
+                                     f"{s} != {t}")
+
+
+def lm_one_shot(torch, cfg, params, prompt, mode: str, device="cuda"):
+    """The port's one-shot path: ``transformer.prefill`` of the prompt
+    minus its last token into a 1-row cache, then the core greedy or
+    speculative decode."""
+    from repro_torch.core import (greedy_decode, prompt_lookup_drafts,
+                                  speculative_greedy_decode,
+                                  transformer_handle)
+    from repro_torch.models import transformer as tr
+
+    P, DL = len(prompt), LM["draft_len"]
+    handle = transformer_handle(params, cfg)
+    cache = tr.init_cache(cfg, 1, P + LM["max_new"] + DL + 4, device=device)
+    tr.prefill(params, cfg, cache,
+               torch.from_numpy(prompt[None, :-1]).to(device),
+               logits_mode="last")
+    last = torch.tensor([int(prompt[-1])], dtype=torch.int32, device=device)
+    pos = torch.tensor([P - 1], dtype=torch.int32, device=device)
+    if mode == "greedy":
+        r = greedy_decode(handle, cache, last, pos, max_new=LM["max_new"],
+                          eos_id=LM["eos_id"])
+    else:
+        d, m = prompt_lookup_drafts(prompt, DL, LM["n_drafts"])
+        r = speculative_greedy_decode(
+            handle, cache, last, pos, torch.from_numpy(d[None]).to(device),
+            torch.from_numpy(m[None]).to(device), max_new=LM["max_new"],
+            eos_id=LM["eos_id"])
+    return r.tokens[0].cpu().numpy()
+
+
+def serve_decoder(torch) -> dict:
+    """The decoder-only phase: SmolLM-135M at full width (30 layers,
+    d_model 576, 9 heads over 3 KV heads, hd 64, d_ff 1536, vocab 49,152,
+    tied embeddings), random weights, served through the port's
+    StreamingEngine with chunked ragged prefill and prompt-lookup drafts.
+    Asserts: speculative == greedy and SBS == beam (paged), the dense
+    speculative pass == the paged one, streaming == the one-shot path on
+    ``LM_ONESHOT`` prompts, card == CPU in every mode on the reduced
+    config, and the full-width prefill's last logits on the card == the
+    CPU's within ``LM_LOGIT_TOL`` of the largest |logit|. Returns each
+    counted run's launches and draft_verify shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+
+    cfg = get_config(LM["arch"])
+    t_phase = time.perf_counter()
+    params = tr.init(torch.Generator().manual_seed(SEED), cfg, device="cuda")
+    prompts = lm_prompts(cfg.vocab_size, LM["n_prompts"], LM["len_lo"],
+                         LM["len_hi"])
+    run_lm(torch, cfg, params, prompts[:1],                     # warm-up
+           {"speculative": (8, 1)}, paged=True, max_new=4)
+    paged = run_lm(torch, cfg, params, prompts, LM_PLAN, paged=True)
+    dense = run_lm(torch, cfg, params, prompts,
+                   {"speculative": LM_PLAN["speculative"]}, paged=False)
+    for mode, ref in (("speculative", "greedy"),
+                      ("speculative_beam", "beam")):
+        same_lm_runs({mode: paged[mode]}, {mode: paged[ref]},
+                     f"decoder-only {mode} vs {ref}", calls=False)
+    same_lm_runs(dense, {"speculative": paged["speculative"]},
+                 "decoder-only dense vs paged")
+    for label, runs, read in (("paged", paged, "paged_decode_gqa"),
+                              ("dense", dense, "decode_gqa")):
+        for mode, r in runs.items():
+            other = ("decode_gqa" if read == "paged_decode_gqa"
+                     else "paged_decode_gqa")
+            lc = r["launches"]
+            if lc[read] == 0 or lc[other] != 0 or (
+                    mode in ("greedy", "speculative")
+                    and lc["draft_verify"] == 0):
+                raise AssertionError(f"decoder-only {label} {mode}: "
+                                     f"launches {lc}")
+            fp = r["footprint"]
+            pages = (f"peak pages {fp['peak_pages']} of {fp['n_pages'] - 1}"
+                     if label == "paged" else "dense rows")
+            n_p = len(r["tokens"])
+            fs = r["first_s"]
+            print(f"decoder-only [smollm-135m full width, {label} {mode}] "
+                  f"{LM_PLAN[mode][0]} slots, {n_p} prompts: wall "
+                  f"{r['wall_s']:.3f} s, {r['wall_s'] / n_p * 1e3:.2f} ms "
+                  f"per request; scheduler iterations {r['steps']}, prefill "
+                  f"chunks written {r['chunks']}, {pages}, preemptions "
+                  f"{r['preemptions']}; time to first delta p50 "
+                  f"{percentile(fs, 50) * 1e3:.2f} ms, p95 "
+                  f"{percentile(fs, 95) * 1e3:.2f} ms; acceptance "
+                  f"{r['accepted']:.4f} (random weights: means nothing); "
+                  f"launches {lc}", flush=True)
+    print("decoder-only check: speculative == greedy, SBS == beam, dense "
+          "== paged", flush=True)
+    # the one-shot path on a few prompts
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts[:LM_ONESHOT]):
+        for mode in ("greedy", "speculative"):
+            want = paged[mode]["tokens"][i][0]
+            got = lm_one_shot(torch, cfg, params, p, mode)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"decoder-only one-shot {mode} prompt "
+                                     f"{i}: {got} != streaming {want}")
+    print(f"decoder-only check: streaming == one-shot prefill + decode on "
+          f"{LM_ONESHOT} prompts, greedy and speculative "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    # full-width prefill logits: the card against the CPU
+    cpu_params = tree_to(params, "cpu")
+    short = lm_prompts(cfg.vocab_size, LM_LOGIT_PROMPTS, 64, 128, seed=2)
+    for i, p in enumerate(short):
+        logits = {}
+        for dev, prm in (("cuda", params), ("cpu", cpu_params)):
+            cache = tr.init_cache(cfg, 1, len(p), device=dev)
+            lg, _ = tr.prefill(prm, cfg, cache,
+                               torch.from_numpy(p[None]).to(dev),
+                               logits_mode="last")
+            logits[dev] = lg.cpu()
+        scale = logits["cpu"].abs().max().item()
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        if not err <= LM_LOGIT_TOL * scale:
+            raise AssertionError(f"decoder-only prefill logits, prompt {i} "
+                                 f"({len(p)} tokens): card vs CPU max err "
+                                 f"{err} > {LM_LOGIT_TOL} x {scale}")
+        print(f"decoder-only check: full-width prefill of {len(p)} tokens, "
+              f"last logits card vs CPU max err {err:.3e} (largest |logit| "
+              f"{scale:.3f})", flush=True)
+    del cpu_params
+    # the reduced config on the card and on the CPU, every mode
+    rcfg = get_config(LM["arch"], reduced=True)
+    rparams = tr.init(torch.Generator().manual_seed(SEED), rcfg,
+                      device="cpu")
+    rprompts = lm_prompts(rcfg.vocab_size, 4, 16, 120, seed=3)
+    rplan = {"greedy": (2, 4), "speculative": (2, 4), "beam": (2, 2),
+             "speculative_beam": (2, 2)}
+    rkw = dict(max_src=128, max_new=24)
+    for paged_ in (True, False):
+        card = run_lm(torch, rcfg, rparams, rprompts, rplan, paged=paged_,
+                      **rkw)
+        cpu = run_lm(torch, rcfg, rparams, rprompts, rplan, paged=paged_,
+                     device="cpu", **rkw)
+        same_lm_runs(card, cpu, f"decoder-only reduced card vs CPU "
+                                f"({'paged' if paged_ else 'dense'})")
+    print("decoder-only check: smollm-135m reduced, card == CPU in all "
+          "four modes, paged and dense", flush=True)
+    print(f"decoder-only phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {f"{k} {m}": r for k, runs in (("paged", paged), ("dense", dense))
+            for m, r in runs.items()}
+
+
 def check_train_step(torch, ds, tcfg, cpu_params) -> None:
     """One train step of the tiny model on the card against the CPU's plain
     path, same weights and batch: loss, metrics and every gradient leaf
@@ -1910,6 +2187,19 @@ def main() -> int:
         for k in names:
             main_launches[k] += r["launches"][k]
         add_shapes(r)
+    # -- decoder-only: SmolLM-135M at full width ------------------------------
+    lm = serve_decoder(torch)
+    lm_launches = dict.fromkeys(names, 0)
+    for r in lm.values():
+        for k in names:
+            main_launches[k] += r["launches"][k]
+            lm_launches[k] += r["launches"][k]
+        add_shapes(r)
+    for k in ("decode_gqa", "paged_decode_gqa", "draft_verify"):
+        if lm_launches[k] == 0:
+            raise AssertionError(f"decoder-only phase: {k} was never "
+                                 f"launched ({lm_launches})")
+    print(f"decoder-only phase launches: {lm_launches}", flush=True)
     if sum(main_shapes.values()) != main_launches["draft_verify"]:
         raise AssertionError(f"draft_verify shapes {main_shapes} do not add "
                              f"up to its {main_launches['draft_verify']} "

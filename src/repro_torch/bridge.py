@@ -1,4 +1,5 @@
-"""Carry a seq2seq param tree between the JAX package and the port.
+"""Carry a seq2seq or decoder-only param tree between the JAX package and
+the port.
 
 ``seq2seq_params_from_jax`` takes the JAX package's tree as nested dicts of
 numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``);
@@ -7,7 +8,10 @@ gradient tree) back in that layout, as numpy arrays. So this module needs
 no JAX.
 
 - ``enc_blocks`` / ``dec_blocks`` are stacked on a leading layer axis by
-  ``jax.vmap`` in the JAX init; they become per-layer lists.
+  ``jax.vmap`` in the JAX init; they become per-layer lists. The
+  decoder-only ``blocks`` is a tuple (one entry per layer-pattern
+  position) of such stacks; it becomes a tuple of per-repeat lists
+  (``transformer_params_from_jax``).
 - Dense ``w`` stays ``(d_in, d_out)``: the port applies it as ``x @ w``, so
   nothing is transposed (``repro_torch.models.layers.dense``).
 - The embedding ``tok`` is shared by encoder and decoder in both packages.
@@ -63,4 +67,26 @@ def seq2seq_params_to_jax(params: dict) -> dict:
            for k, v in params.items() if k not in ("enc_blocks", "dec_blocks")}
     out["enc_blocks"] = _stack(params["enc_blocks"])
     out["dec_blocks"] = _stack(params["dec_blocks"])
+    return out
+
+
+def transformer_params_from_jax(tree: dict, *, device=None) -> dict:
+    """JAX ``repro.models.transformer`` params (numpy leaves) -> port params:
+    ``blocks`` (a tuple of stacked dicts) becomes a tuple of per-repeat
+    lists; ``tok``, ``final_norm`` and ``lm_head`` carry over as they are."""
+    dev = resolve_device(device)
+    out = {k: _map(v, lambda a: _tensor(a, dev)) for k, v in tree.items()
+           if k != "blocks"}
+    out["blocks"] = tuple(
+        _unstack(stacked, len(np.asarray(stacked["norm1"]["scale"])), dev)
+        for stacked in tree["blocks"])
+    return out
+
+
+def transformer_params_to_jax(params: dict) -> dict:
+    """Port decoder-only params -> the JAX package's tree with numpy
+    leaves (each pattern position's layers restacked)."""
+    out = {k: _map(v, lambda t: t.detach().cpu().numpy())
+           for k, v in params.items() if k != "blocks"}
+    out["blocks"] = tuple(_stack(list(b)) for b in params["blocks"])
     return out

@@ -1,18 +1,24 @@
-"""Model configuration: the ``ModelConfig`` fields the Molecular Transformer
-uses, an own copy of ``repro.configs.base.ModelConfig`` restricted to them
-(the port imports nothing of the JAX package). The MT's positional encoding
-is sinusoidal and its attention spans the whole cache, so the JAX fields
-``pos`` and ``sliding_window`` have one value here and are left out."""
+"""Model configuration dataclass + registry: an own copy of
+``repro.configs.base`` restricted to the families the port serves (the
+port imports nothing of the JAX package).
+
+The Molecular Transformer (``configs/mt.py``) and the dense decoder-only
+architectures (``configs/{smollm_135m,qwen3_8b,starcoder2_15b,
+command_r_35b}.py``) use these fields. The JAX package's MoE, Mamba, RWKV
+and frontend (VLM / audio) fields come with those families (ROADMAP.md
+Queue 1 item 6.3 and 6.4).
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "seq2seq" (the only family ported so far)
+    family: str                    # "seq2seq" | "dense"
     n_layers: int                  # decoder depth
     d_model: int
     n_heads: int
@@ -21,17 +27,69 @@ class ModelConfig:
     vocab_size: int
 
     head_dim: int = 0              # 0 -> d_model // n_heads
+    qk_norm: bool = False          # Qwen3-style per-head RMSNorm on q/k
     use_bias: bool = False
     gated_ffn: bool = True         # SwiGLU vs plain GELU
     norm: str = "rmsnorm"          # rmsnorm | layernorm
-    n_encoder_layers: int = 0
+    # rope | sinusoidal | none; "" = the family's own (the MT's sinusoidal
+    # table, RoPE otherwise), so a seq2seq config built without it stays
+    # the MT
+    pos: str = ""
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    causal: bool = True
+
+    # repeating layer-block pattern, tiled to n_layers; the port serves
+    # "attn" (self-attention + FFN) with "dense" FFNs
+    layer_pattern: tuple[str, ...] = ("attn",)
+    ffn_pattern: tuple[str, ...] = ("dense",)
+
+    # 0 = full attention; > 0 = sliding-window length for decode
+    sliding_window: int = 0
+
+    n_encoder_layers: int = 0      # seq2seq: encoder depth
     max_len: int = 1024            # positional table length
 
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if not self.pos:
+            object.__setattr__(self, "pos", "sinusoidal"
+                               if self.family == "seq2seq" else "rope")
+        assert self.n_layers % len(self.layer_pattern) == 0, (
+            f"{self.name}: n_layers={self.n_layers} not a multiple of "
+            f"pattern length {len(self.layer_pattern)}")
+        assert len(self.ffn_pattern) == len(self.layer_pattern)
         assert self.n_heads % max(self.n_kv_heads, 1) == 0
+
+    @property
+    def n_repeats(self) -> int:
+        return self.n_layers // len(self.layer_pattern)
 
     @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+
+# ---------------------------------------------------------------------------
+# registry: the decoder-only architectures the port serves
+
+_REGISTRY: dict[str, tuple[Callable[[], ModelConfig],
+                           Callable[[], ModelConfig]]] = {}
+
+
+def register(arch_id: str, full: Callable[[], ModelConfig],
+             reduced: Callable[[], ModelConfig]) -> None:
+    _REGISTRY[arch_id] = (full, reduced)
+
+
+def get_config(arch_id: str, *, reduced: bool = False) -> ModelConfig:
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch_id!r}; the port serves "
+                       f"{sorted(_REGISTRY)}")
+    full, red = _REGISTRY[arch_id]
+    return red() if reduced else full()
+
+
+def list_archs() -> list[str]:
+    return sorted(_REGISTRY)

@@ -19,7 +19,8 @@ def _mt(name: str, depth: int) -> ModelConfig:
         n_layers=depth, n_encoder_layers=depth,
         d_model=256, n_heads=8, n_kv_heads=8,
         d_ff=2048, vocab_size=320,
-        use_bias=True, norm="layernorm", gated_ffn=False, max_len=512,
+        use_bias=True, norm="layernorm", gated_ffn=False,
+        pos="sinusoidal", max_len=512,
     )
 
 
@@ -43,5 +44,6 @@ def tiny_config(vocab_size: int = 64, *, depth: int = 2, d_model: int = 128,
         n_layers=depth, n_encoder_layers=depth,
         d_model=d_model, n_heads=4, n_kv_heads=4,
         d_ff=4 * d_model, vocab_size=vocab_size,
-        use_bias=True, norm="layernorm", gated_ffn=False, max_len=max_len,
+        use_bias=True, norm="layernorm", gated_ffn=False,
+        pos="sinusoidal", max_len=max_len,
     )

@@ -5,6 +5,9 @@ a sliding window of length ``draft_len`` and stride 1, capped at ``n_drafts``
 (the paper's N_d ≈ 25). No draft model, no extra heads: the cost of drafting
 is negligible next to a decoder forward pass.
 
+For decoder-only LMs the same extraction applied to the prompt is
+"prompt-lookup" drafting (``prompt_lookup_drafts``).
+
 ``dilations``: the paper (§3.1) suggests adding source subsequences "dilated
 by one token" to raise the acceptance rate; ``dilations=(1, 2)`` adds
 every-other-token windows.
@@ -50,6 +53,14 @@ def extract_drafts(
         drafts[i, : len(w)] = w
         mask[i] = True
     return drafts, mask
+
+
+def prompt_lookup_drafts(prompt_tokens, draft_len: int, n_drafts: int, *,
+                         pad_id: int = 0,
+                         dilations: tuple[int, ...] = (1,)):
+    """Decoder-only analogue: drafts are substrings of the prompt."""
+    return extract_drafts(prompt_tokens, draft_len, n_drafts, pad_id=pad_id,
+                          dilations=dilations)
 
 
 def batch_drafts(token_rows: np.ndarray, draft_len: int, n_drafts: int, *,

@@ -109,6 +109,8 @@ class SessionState(NamedTuple):
 def _cache_device(cache) -> torch.device:
     if isinstance(cache, dict):
         return _cache_device(next(iter(cache.values())))
+    if isinstance(cache, (tuple, list)):
+        return _cache_device(cache[0])
     if isinstance(cache, KVCache):
         return cache.k.device
     if isinstance(cache, PagedKVCache):
@@ -184,11 +186,14 @@ def release_slot(state: SessionState, slot: int) -> SessionState:
 
 def paged_cache_entries(cache) -> list[PagedKVCache]:
     """The ``PagedKVCache`` nodes of a model cache (the seq2seq cache has
-    one, under "self"), walked through its dicts."""
+    one, under "self"; the decoder-only cache one per attention pattern
+    position), walked through its dicts and tuples."""
     if isinstance(cache, PagedKVCache):
         return [cache]
     if isinstance(cache, dict):
-        return [n for v in cache.values() for n in paged_cache_entries(v)]
+        cache = list(cache.values())
+    if isinstance(cache, (tuple, list)):
+        return [n for v in cache for n in paged_cache_entries(v)]
     return []
 
 
@@ -284,8 +289,7 @@ class PoolExhausted(RuntimeError):
 class PageAllocator:
     """Host-side free-list allocator + block-table maintenance for a session
     whose model cache holds a ``PagedKVCache``, the port of
-    ``repro.core.session.PageAllocator`` (without the chunked-prefill
-    pinning, which only the decoder-only backend uses).
+    ``repro.core.session.PageAllocator``.
 
     ``reclaim(state)`` recomputes page reference counts from the block
     tables and returns every unreferenced page to the free list.
@@ -293,7 +297,11 @@ class PageAllocator:
     + DL]`` and maps it to pages owned by exactly one row: lazy growth for
     unmapped blocks, copy-on-write of a shared draft-boundary page. The
     streaming engine runs the same walk on the device (``device_page_plan``)
-    and uses this class for admission accounting and ``check()``.
+    and uses this class for admission accounting and ``check()``. A
+    chunked prefill (the decoder-only backend) maps prompt pages into a
+    slot whose state stays inactive until the prompt is written: its rows
+    are pinned (``pin_rows``) so every scan counts them live, and
+    ``map_prefill`` maps a chunk's blocks on the host.
 
     Page 0 is the reserved trash page and is never allocated. The pool must
     cover one slot's worst case so the oldest resident can always run to
@@ -301,9 +309,15 @@ class PageAllocator:
     """
 
     def __init__(self, spec, *, n_pages: int, page_size: int,
-                 row_lens: dict | None = None):
+                 row_lens: dict | None = None,
+                 prefill_blocks: dict | None = None):
         # ``spec``: one SessionSpec, or an ordered {group_key: SessionSpec}
-        # (declaration order == row order, matching GroupedState.groups)
+        # (declaration order == row order, matching GroupedState.groups).
+        # ``row_lens``: per-group logical row length (decoder-only rows
+        # also hold the prompt); default spec.cache_len. ``prefill_blocks``:
+        # per-group worst-case prompt blocks a chunked prefill maps into
+        # one row before the slot's siblings alias them (0 = the seq2seq
+        # admission writes no prompt into the paged cache).
         self.groups: dict = ({None: spec} if isinstance(spec, SessionSpec)
                              else dict(spec))
         self.spec = next(iter(self.groups.values()))
@@ -313,9 +327,22 @@ class PageAllocator:
         self._blocks = {k: -(-int(row_lens.get(k, s.cache_len))
                              // self.page_size)
                         for k, s in self.groups.items()}
+        self._prefill_blocks = {k: int((prefill_blocks or {}).get(k, 0))
+                                for k in self.groups}
         self.n_blocks = max(self._blocks.values())
-        self._slot_worst = {k: s.rows_per_slot * self._blocks[k]
-                            for k, s in self.groups.items()}
+        # one slot's worst case: prompt pages are mapped once and shared by
+        # the slot's rows (only the draft-boundary page is split per row),
+        # so a chunked-prefill group needs prefill_blocks + rows * (decode
+        # blocks + the split boundary); a single-row slot never shares and
+        # a monolithic group writes no prompt: both keep rows * blocks
+        self._slot_worst = {}
+        for k, s in self.groups.items():
+            pb = self._prefill_blocks[k]
+            if pb and s.rows_per_slot > 1:
+                self._slot_worst[k] = pb + s.rows_per_slot * (
+                    -(-s.cache_len // self.page_size) + 1)
+            else:
+                self._slot_worst[k] = s.rows_per_slot * self._blocks[k]
         need_one_slot = max(self._slot_worst.values())
         if self.n_pages - 1 < need_one_slot:
             raise ValueError(
@@ -324,6 +351,9 @@ class PageAllocator:
                 f"no admission policy can make progress")
         self._free: list[int] = list(range(self.n_pages - 1, TRASH_PAGE, -1))
         self._used: set[int] = set()
+        # rows live in every scan while their slot is still inactive (a
+        # chunked prefill in flight)
+        self._pinned_rows: set[int] = set()
         self.peak_pages = 0
 
     @property
@@ -346,13 +376,15 @@ class PageAllocator:
 
     def admit_pages_for(self, group=None) -> int:
         """Pages a fresh ``group`` admission maps on its first step (window
-        at pos 0) plus one window of headroom, clamped to one slot's worst
-        case so an empty pool can always admit."""
+        at pos 0) plus one window of headroom, and a chunked-prefill
+        group's worst-case prompt blocks, clamped to one slot's worst case
+        so an empty pool can always admit."""
         if group is None:
             group = next(iter(self.groups))
         per_row = len(self.window_blocks(0, group))
-        want = self.groups[group].rows_per_slot * min(2 * per_row,
-                                                      self._blocks[group])
+        want = self._prefill_blocks[group] + (
+            self.groups[group].rows_per_slot * min(2 * per_row,
+                                                   self._blocks[group]))
         return min(want, self._slot_worst[group])
 
     def _alloc(self) -> int:
@@ -394,10 +426,11 @@ class PageAllocator:
         """ONE device readback feeding reclaim, admission accounting and the
         prepare walk: (tables, group views, refcounts). Returns every
         unreferenced page to the free list (rows of released slots must
-        already be unmapped)."""
+        already be unmapped). Pinned rows count as live."""
         bt = self._nodes(state)[0].block_tables[0].cpu().numpy().copy()
         views = list(self._group_views(state))
-        rows = [np.zeros((0,), np.int64)]
+        rows = [np.fromiter(sorted(self._pinned_rows), np.int64,
+                            len(self._pinned_rows))]
         for _, spec, lo, _, active in views:
             rps = spec.rows_per_slot
             rows.append((lo + np.flatnonzero(active)[:, None] * rps
@@ -408,6 +441,41 @@ class PageAllocator:
             self._used.remove(p)
             self._free.append(p)
         return bt, views, refs
+
+    def pin_rows(self, rows) -> None:
+        """Count cache ``rows`` live while their slot is still inactive (a
+        chunked prefill in flight); unpin when the slot activates or its
+        request is preempted or released."""
+        self._pinned_rows.update(int(r) for r in rows)
+
+    def unpin_rows(self, rows) -> None:
+        self._pinned_rows.difference_update(int(r) for r in rows)
+
+    def map_prefill(self, state, row: int, blocks, group=None):
+        """Map fresh pages for logical ``blocks`` of cache row ``row``, in
+        place, so the next prefill chunk writes straight through the
+        slot's block table. Mapped blocks are skipped. Raises
+        ``PoolExhausted`` on pool pressure; pages taken before the raise
+        are unreferenced and return on the next scan."""
+        bt = self._nodes(state)[0].block_tables[0, row].cpu().numpy()
+        set_j, set_p = [], []
+        for j in blocks:
+            if bt[j] >= 0:
+                continue
+            try:
+                set_p.append(self._alloc())
+            except PoolExhausted as e:
+                e.group = group
+                raise
+            set_j.append(int(j))
+        if not set_j:
+            return state
+        for node in self._nodes(state):
+            dev = node.block_tables.device
+            node.block_tables[:, row, torch.as_tensor(set_j, device=dev)] = \
+                torch.as_tensor(set_p, dtype=_I32, device=dev)
+            node.pos[:, torch.as_tensor(set_p, device=dev)] = -1
+        return state
 
     def reclaim(self, state) -> None:
         """Return every page unreferenced by a live row to the free list."""
@@ -514,7 +582,8 @@ class DevicePagePlan(NamedTuple):
     fixed-shape lane tensors over the block table. Allocation is
     all-or-nothing: the engine reads ``exhausted`` and, when it is set,
     applies nothing, so the host can preempt and replay the iteration. All
-    lane tensors share one length L (the decode windows of every group)."""
+    lane tensors share one length L (the decode windows of every group,
+    then the prefill chunks' lanes)."""
 
     exhausted: torch.Tensor      # () bool
     n_free: torch.Tensor         # () int32 free pages before allocation
@@ -549,10 +618,16 @@ def device_free_pages(cache, n_pages: int) -> torch.Tensor:
 
 
 def device_page_plan(specs, blocks, page_size: int, n_pages: int,
-                     gstate: GroupedState) -> DevicePagePlan:
+                     gstate: GroupedState, prefill=None) -> DevicePagePlan:
     """Plan this iteration's page maintenance on the device.
 
     ``specs``/``blocks`` are the groups' specs and logical block counts.
+    ``prefill`` is None or a per-group tuple ``(rows0, pos0, n_valid,
+    chunk)``: the prompt chunk each slot of the group writes this
+    iteration (``rows0`` the slots' leading cache rows, a host list;
+    ``pos0`` / ``n_valid`` (S_g,) tensors, ``n_valid == 0`` an idle lane).
+    Its lanes map the chunk's unmapped blocks to fresh pages, after the
+    decode lanes.
     A lane keeps its current page iff no out-of-window row references it
     (``refs == win_refs``) AND it is the highest-row in-window referencer
     (the host walk visits rows in ascending order, so its LAST visitor sees
@@ -608,6 +683,33 @@ def device_page_plan(specs, blocks, page_size: int, n_pages: int,
     keep = vc & (refs[cc] == win_refs[cc]) & (r == keeper[cc])
     need = valid & ~keep
     copy = need & vc & w0 & (posl % ps != 0)
+
+    if prefill is not None:
+        # frontier growth for this iteration's prompt chunks: fresh pages
+        # for row 0's unmapped blocks the chunk's valid tokens reach
+        pr, pj, pn, pc, pu, pg = [r], [jb], [need], [copy], [cur], [gsel]
+        for gi, (rows0, pos0, n_valid, chunk) in enumerate(prefill):
+            CB = -(-int(chunk) // ps) + 1
+            c = torch.arange(CB, dtype=_I32, device=dev)
+            pos0 = pos0.to(dev, _I32)
+            n_valid = n_valid.to(dev, _I32)
+            j = torch.div(pos0, ps, rounding_mode="floor")[:, None] + c[None]
+            hi = torch.div(pos0 + n_valid.clamp(min=1) - 1, ps,
+                           rounding_mode="floor")
+            r0 = torch.as_tensor(rows0, dtype=_I32, device=dev)
+            mapped = bt[r0.long()[:, None],
+                        j.clamp(0, n_blocks - 1).long()] >= 0
+            v = (n_valid[:, None] > 0) & (j <= hi[:, None]) & ~mapped
+            L = v.numel()
+            pr.append(r0[:, None].expand(j.shape).reshape(-1))
+            pj.append(j.reshape(-1))
+            pn.append(v.reshape(-1))
+            pc.append(torch.zeros((L,), dtype=torch.bool, device=dev))
+            pu.append(torch.full((L,), -1, dtype=_I32, device=dev))
+            pg.append(torch.full((L,), gi, dtype=torch.long, device=dev))
+        r, jb = torch.cat(pr), torch.cat(pj)
+        need, copy = torch.cat(pn), torch.cat(pc)
+        cur, gsel = torch.cat(pu), torch.cat(pg)
 
     need_i = need.to(_I32)
     need_by_group = torch.zeros((len(specs),), dtype=_I32, device=dev)

@@ -1,7 +1,8 @@
 """Batch-row helpers for draft-expanded caches, dense and paged (the port of
 ``repro.core.tree_batch``).
 
-Cache leaves store batch on axis 1 (axis 0 is the layer axis), so the
+Cache leaves store batch on axis 1 (axis 0 is the layer axis) in dicts
+(the seq2seq cache) or tuples (the decoder-only cache), so the
 paper's effective-batch inflation (B -> B*N_d), the post-verification winner
 sync and the beam reorder are maps over axis 1 of every leaf. Each returns
 new tensors; the inputs are left as they were.
@@ -28,6 +29,8 @@ def _paged_map(fn, cache):
     block tables only (the pool has no batch axis to operate on)."""
     if isinstance(cache, dict):
         return {k: _paged_map(fn, v) for k, v in cache.items()}
+    if isinstance(cache, tuple):
+        return tuple(_paged_map(fn, v) for v in cache)
     if isinstance(cache, PagedKVCache):
         return dataclasses.replace(cache, block_tables=fn(cache.block_tables))
     if isinstance(cache, KVCache):
@@ -41,6 +44,8 @@ def _zip_map(fn, full, part):
     paged nodes passed whole."""
     if isinstance(full, dict):
         return {k: _zip_map(fn, full[k], part[k]) for k in full}
+    if isinstance(full, tuple):
+        return tuple(_zip_map(fn, f, p) for f, p in zip(full, part))
     if isinstance(full, KVCache):
         return KVCache(**{f.name: fn(getattr(full, f.name),
                                      getattr(part, f.name))
@@ -129,6 +134,14 @@ def put_rows(cache, sub, rows):
         return full
 
     return _zip_map(one, cache, sub)
+
+
+def strided_rows(cache, start: int, step: int, n: int):
+    """Batch rows ``start, start + step, ...`` (``n`` of them) on axis 1 as
+    views: a decode step's in-place cache writes through them land in the
+    full cache. Paged nodes take only their block-table rows."""
+    return _paged_map(lambda a: a[:, start:start + step * (n - 1) + 1:step],
+                      cache)
 
 
 def dynamic_slice_rows(cache, start, n: int):

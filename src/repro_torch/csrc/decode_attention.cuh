@@ -57,6 +57,15 @@
 //     ticket keeps it one launch: a second combine kernel would add a
 //     launch and a round trip. A split with no visible key has max -inf
 //     and sum 0 and adds nothing.
+//   - Query rows split across blocks where the blocks of the (row, kv head,
+//     split) grid leave the card idle and there are many rows (a prompt
+//     chunk: T 32 x G 3 = 96 rows at B 8), or where the rows would
+//     overflow a block's shared memory (a one-shot prefill of hundreds of
+//     tokens): each block takes a group of whole 16-row passes
+//     (kernel.py's plan_groups), loads only its rows' queries and only
+//     the keys they can see, and the split combine runs per group (its own
+//     ticket). One group (all T*G rows, the layout and arithmetic of
+//     before) elsewhere.
 //   - Deterministic: every sum runs in a fixed order (lane trees, warp
 //     order, split order), no float atomics; the plan depends on shapes
 //     only, so two calls agree bitwise.
@@ -95,10 +104,12 @@ struct Params {
   const int* q_pos;     // (B, T)
   float* part;          // split partials: (B*Kv, n_split, TG, hd) accumulators
   float* part_ml;       //   and (B*Kv, n_split, TG, 2) max, sum
-  int* tickets;         // (B*Kv,) zeros; each combining block resets its own
+  int* tickets;         // (B*Kv*q_groups,) zeros; each combining block
+                        // resets its own
   int T, H, Kv, hd, G, TG, window;
   float scale;
   int n_split, chunk;   // keys [split*chunk, +chunk) per block
+  int q_groups, group_rows;   // query rows [qg*group_rows, +group_rows)
   int stage_keys;       // keys per stage (a multiple of STEP)
   int n_stages;         // 1: the block's keys are resident; else a ring of 2
   int vec;              // 16-byte cp.async (1) or plain loads (0)
@@ -107,7 +118,8 @@ struct Params {
 inline Params make_params(const void* q, void* out, const int* q_pos,
                           float* part, float* part_ml, int* tickets, int T,
                           int H, int Kv, int hd, int window, float scale,
-                          int n_split, int chunk, int vec) {
+                          int n_split, int chunk, int q_groups,
+                          int group_rows, int vec) {
   Params p{};
   p.q = q;
   p.out = out;
@@ -125,6 +137,8 @@ inline Params make_params(const void* q, void* out, const int* q_pos,
   p.scale = scale;
   p.n_split = n_split;
   p.chunk = chunk;
+  p.q_groups = q_groups;
+  p.group_rows = group_rows;
   p.vec = vec;
   return p;
 }
@@ -516,17 +530,21 @@ decode_attention_kernel(const __grid_constant__ Params p,
   constexpr int PMC = HD > STEP ? HD : STEP;
   constexpr int C4 = HD / 4;                   // float4s a merge row
 
-  const int b = blockIdx.x, g = blockIdx.y, split = blockIdx.z;
+  const int b = blockIdx.x, g = blockIdx.y;
+  const int split = blockIdx.z % p.n_split, qg = blockIdx.z / p.n_split;
   const int bg = b * p.Kv + g;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5, nt = blockDim.x;
-  const int TG = p.TG, hd = p.hd, G = p.G, rows = round_up(TG, R);
+  const int TG = p.TG, hd = p.hd, G = p.G;
+  // this block's query rows: [row0, row0 + NR) of the (row, kv head)'s TG
+  const int GR = p.group_rows, row0 = qg * GR, NR = min(GR, TG - row0);
+  const int rows = round_up(GR, R);
   const int SK = p.stage_keys;
   const int c0 = split * p.chunk;
   const int c1 = min(keys.n_keys(), c0 + p.chunk);
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout<T, HD, R>(SK, p.n_stages, TG, nw, p.n_split,
+  const Layout L = layout<T, HD, R>(SK, p.n_stages, GR, nw, p.n_split,
                                     !Rows::kScratch && rows == R);
   T* kv_s = reinterpret_cast<T*>(smem + L.kv);
   T* q_s = reinterpret_cast<T*>(smem + L.q);             // (rows, LD)
@@ -538,7 +556,7 @@ decode_attention_kernel(const __grid_constant__ Params p,
   int* flag_s = qp_s + rows;
   int* qr_s = flag_s + 1;                            // q_lo, q_hi
   long long* oo_s = reinterpret_cast<long long*>(smem + L.oo);  // (rows,)
-  float* comb_s = reinterpret_cast<float*>(smem + L.comb);  // (n_split, TG)
+  float* comb_s = reinterpret_cast<float*>(smem + L.comb);  // (n_split, NR)
 
   // A stage st of the block's keys goes to buffer buf in two steps, a
   // barrier apart. resolve: each key's stored position into kp_s (copied;
@@ -588,12 +606,13 @@ decode_attention_kernel(const __grid_constant__ Params p,
     }
   };
 
-  // set-up, all in one round trip (paged: two): the query rows (row r = t*G + gi holds q[b, t, g*G + gi]) in T,
+  // set-up, all in one round trip (paged: two): the group's query rows
+  // (local row r = row0 + r = t*G + gi holds q[b, t, g*G + gi]) in T,
   // zero-padded to whole passes and to HD (by 16-byte copies where q's rows
   // allow it); each row's position (padded rows at INT_MIN see no key) and
   // output offset; stage 0's (and 1's) key positions; and in warp 0 the
-  // row's widest query range (a key outside it is seen by no query and
-  // never loaded)
+  // group's widest query range (a key outside it is seen by no query of
+  // the group and never loaded)
   const int* qpb = p.q_pos + (long long)b * p.T;
   {
     const T* q = static_cast<const T*>(p.q);
@@ -602,8 +621,8 @@ decode_attention_kernel(const __grid_constant__ Params p,
     const int per = qvec ? CPR : HD;
     for (int i = tid; i < rows * per; i += nt) {
       const int r = i / per, c = (i - r * per) * (qvec ? EPC : 1);
-      const int t = r / G, gi = r - t * G;
-      const bool ok = r < TG && c < hd;
+      const int t = (row0 + r) / G, gi = row0 + r - t * G;
+      const bool ok = r < NR && c < hd;
       const T* src = q + (((long long)b * p.T + t) * p.H + g * G + gi) * hd + c;
       if (qvec) {
         cp_async16(q_s + r * LD + c, ok ? src : q, ok);
@@ -612,9 +631,9 @@ decode_attention_kernel(const __grid_constant__ Params p,
       }
     }
     for (int r = tid; r < rows; r += nt) {
-      if (r < TG) {
-        cp_async4(qp_s + r, qpb + r / G);
-        const int t = r / G, gi = r - t * G;
+      if (r < NR) {
+        const int t = (row0 + r) / G, gi = row0 + r - t * G;
+        cp_async4(qp_s + r, qpb + t);
         oo_s[r] = (((long long)b * p.T + t) * p.H + g * G + gi) * hd;
       } else {
         qp_s[r] = INT_MIN;
@@ -626,7 +645,8 @@ decode_attention_kernel(const __grid_constant__ Params p,
   cp_commit();
   if (warp == 0) {
     int lo = INT_MAX, hi = INT_MIN;
-    for (int t = lane; t < p.T; t += 32) {
+    const int t_end = (row0 + NR - 1) / G;   // the group's fed positions
+    for (int t = row0 / G + lane; t <= t_end; t += 32) {
       lo = min(lo, qpb[t]);
       hi = max(hi, qpb[t]);
     }
@@ -649,8 +669,8 @@ decode_attention_kernel(const __grid_constant__ Params p,
   const int n_steps = SK / STEP;
   float* pw = pm_s + (size_t)warp * R * PMC;   // this warp's (R, PMC) rows
 
-  for (int r0 = 0; r0 < TG; r0 += R) {
-    const int nr = min(R, TG - r0);
+  for (int r0 = 0; r0 < NR; r0 += R) {
+    const int nr = min(R, NR - r0);
     Rows state;
     state.init();
     for (int st = 0; st < p.n_stages; ++st) {
@@ -726,7 +746,7 @@ decode_attention_kernel(const __grid_constant__ Params p,
         for (int w = 0; w < nw; ++w) ml_s[w * R + r] *= inv;
       } else {
         const long long pr =
-            ((long long)bg * p.n_split + split) * TG + r0 + r;
+            ((long long)bg * p.n_split + split) * TG + row0 + r0 + r;
         p.part_ml[2 * pr] = M;
         p.part_ml[2 * pr + 1] = Ls;
       }
@@ -753,7 +773,8 @@ decode_attention_kernel(const __grid_constant__ Params p,
           if (d + u < hd) dst[u] = from_f<T>(o4[u]);
       } else {
         float* dst = p.part +
-            (((long long)bg * p.n_split + split) * TG + row) * hd + d;
+            (((long long)bg * p.n_split + split) * TG + row0 + row) * hd +
+            d;
 #pragma unroll
         for (int u = 0; u < 4; ++u)
           if (d + u < hd) dst[u] = o4[u];
@@ -763,16 +784,18 @@ decode_attention_kernel(const __grid_constant__ Params p,
   }
 
   if (p.n_split == 1) return;
-  // the last split block of (b, g) to finish combines the partials
+  // the last split block of (b, g, query group) to finish combines the
+  // partials of the group's rows
   __threadfence();
   __syncthreads();
-  if (tid == 0) *flag_s = atomicAdd(p.tickets + bg, 1) == p.n_split - 1;
+  const int ticket = bg * p.q_groups + qg;
+  if (tid == 0) *flag_s = atomicAdd(p.tickets + ticket, 1) == p.n_split - 1;
   __syncthreads();
   if (!*flag_s) return;
   __threadfence();
   // per row: the splits' factors 2^(m_s - M) / L, then the sums
-  for (int r = tid; r < TG; r += nt) {
-    const long long p0 = (long long)bg * p.n_split * TG + r;
+  for (int r = tid; r < NR; r += nt) {
+    const long long p0 = (long long)bg * p.n_split * TG + row0 + r;
     float M = -INFINITY;
     for (int sp = 0; sp < p.n_split; ++sp)
       M = fmaxf(M, __ldcg(p.part_ml + 2 * (p0 + (long long)sp * TG)));
@@ -782,22 +805,22 @@ decode_attention_kernel(const __grid_constant__ Params p,
       const float ms = __ldcg(p.part_ml + 2 * pr);
       const float e = ms == -INFINITY ? 0.f : exp2f(ms - M);
       Ls += __ldcg(p.part_ml + 2 * pr + 1) * e;
-      comb_s[sp * TG + r] = e;   // a split with no visible key: 0
+      comb_s[sp * NR + r] = e;   // a split with no visible key: 0
     }
     const float inv = Ls > 0.f ? 1.f / Ls : 0.f;
-    for (int sp = 0; sp < p.n_split; ++sp) comb_s[sp * TG + r] *= inv;
+    for (int sp = 0; sp < p.n_split; ++sp) comb_s[sp * NR + r] *= inv;
   }
   __syncthreads();
-  for (int i = tid; i < TG * hd; i += nt) {
+  for (int i = tid; i < NR * hd; i += nt) {
     const int row = i / hd, d = i - row * hd;
-    const long long p0 = (long long)bg * p.n_split * TG + row;
+    const long long p0 = (long long)bg * p.n_split * TG + row0 + row;
     float O = 0.f;
     for (int sp = 0; sp < p.n_split; ++sp)
       O += __ldcg(p.part + (p0 + (long long)sp * TG) * hd + d) *
-           comb_s[sp * TG + row];
+           comb_s[sp * NR + row];
     static_cast<T*>(p.out)[oo_s[row] + d] = from_f<T>(O);
   }
-  if (tid == 0) p.tickets[bg] = 0;   // ready for the next launch
+  if (tid == 0) p.tickets[ticket] = 0;   // ready for the next launch
 }
 
 template <typename T, int HD, int R, typename Rows, typename Keys>
@@ -817,8 +840,9 @@ cudaError_t launch_instance(Params p, const Keys& keys, const void* k,
   const int steps = p.stage_keys / STEP;
   const int nw = steps < MAX_WARPS ? steps : MAX_WARPS;
   const size_t smem =
-      layout<T, HD, R>(p.stage_keys, p.n_stages, p.TG, nw, p.n_split,
-                       !Rows::kScratch && round_up(p.TG, R) == R)
+      layout<T, HD, R>(p.stage_keys, p.n_stages, p.group_rows, nw,
+                       p.n_split,
+                       !Rows::kScratch && round_up(p.group_rows, R) == R)
           .total;
   auto kern = decode_attention_kernel<T, HD, R, Rows, Keys>;
   if (smem > 48 * 1024) {
@@ -826,7 +850,7 @@ cudaError_t launch_instance(Params p, const Keys& keys, const void* k,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid(B, p.Kv, p.n_split);
+  dim3 grid(B, p.Kv, p.n_split * p.q_groups);
   kern<<<grid, nw * 32, smem, stream>>>(p, keys, static_cast<const T*>(k),
                                         static_cast<const T*>(v));
   return cudaGetLastError();

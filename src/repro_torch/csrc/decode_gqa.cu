@@ -44,19 +44,20 @@ struct DenseKeys {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head_dim
 // axis of the cache must be contiguous. part / part_ml: the split partials
-// (n_split > 1 only, else NULL), tickets: B*Kv zeros (n_split > 1 only);
-// chunk: keys per split; vec: 16-byte copies (pointers, strides and rows
-// 16-byte aligned) or plain loads. Returns a cudaError_t.
+// (n_split > 1 only, else NULL), tickets: B*Kv*q_groups zeros (n_split > 1
+// only); chunk: keys per split; q_groups x group_rows: the query rows of a
+// (row, kv head) in groups, one block each; vec: 16-byte copies (pointers,
+// strides and rows 16-byte aligned) or plain loads. Returns a cudaError_t.
 extern "C" int decode_gqa_launch(
     const void* q, const void* k, const void* v, const int* k_pos,
     const int* q_pos, void* out, float* part, float* part_ml, int* tickets,
     int B, int T, int H, int Kv, int S, int hd, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, int window, float scale, int n_split, int chunk, int vec,
-    int dtype, void* stream) {
+    long long v_sh, int window, float scale, int n_split, int chunk,
+    int q_groups, int group_rows, int vec, int dtype, void* stream) {
   const decode_attention::Params p = decode_attention::make_params(
       q, out, q_pos, part, part_ml, tickets, T, H, Kv, hd, window, scale,
-      n_split, chunk, vec);
+      n_split, chunk, q_groups, group_rows, vec);
   const DenseKeys keys{k_pos, S, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   return (int)decode_attention::launch(p, keys, k, v, B, dtype,
                                        static_cast<cudaStream_t>(stream));

@@ -56,17 +56,18 @@ struct PagedKeys {
 // dtype: 0 = float32, 1 = bfloat16. Pool strides (page, slot, head) are in
 // elements; the head_dim axis of the pools must be contiguous, pos (P, ps),
 // bt (B, nb) and q_pos (B, T) contiguous int32. part / part_ml / tickets,
-// chunk and vec as for decode_gqa_launch. Returns a cudaError_t.
+// chunk, q_groups / group_rows and vec as for decode_gqa_launch. Returns a
+// cudaError_t.
 extern "C" int paged_decode_gqa_launch(
     const void* q, const void* k, const void* v, const int* pos, const int* bt,
     const int* q_pos, void* out, float* part, float* part_ml, int* tickets,
     int B, int T, int H, int Kv, int ps, int nb, int hd, long long k_sp,
     long long k_ss, long long k_sh, long long v_sp, long long v_ss,
-    long long v_sh, int window, float scale, int n_split, int chunk, int vec,
-    int dtype, void* stream) {
+    long long v_sh, int window, float scale, int n_split, int chunk,
+    int q_groups, int group_rows, int vec, int dtype, void* stream) {
   const decode_attention::Params p = decode_attention::make_params(
       q, out, q_pos, part, part_ml, tickets, T, H, Kv, hd, window, scale,
-      n_split, chunk, vec);
+      n_split, chunk, q_groups, group_rows, vec);
   const PagedKeys keys{pos, bt, ps, nb, k_sp, k_ss, k_sh, v_sp, v_ss, v_sh};
   return (int)decode_attention::launch(p, keys, k, v, B, dtype,
                                        static_cast<cudaStream_t>(stream));

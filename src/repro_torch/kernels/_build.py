@@ -96,13 +96,13 @@ _ARGTYPES = {
     "decode_gqa": ("decode_gqa", "decode_gqa_launch",
                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 6
-                   + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 6
                    + [ctypes.c_void_p]),
     "paged_decode_gqa": ("paged_decode_gqa", "paged_decode_gqa_launch",
                          [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                          + [ctypes.c_longlong] * 6
                          + [ctypes.c_int, ctypes.c_float]
-                         + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+                         + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
     "draft_verify": ("draft_verify", "draft_verify_launch",
                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                      + [ctypes.c_void_p]),

@@ -46,6 +46,29 @@ PAGED_CARD_ONLY = [
     dict(B=34, T=11, H=8, Kv=4, P=1 + 34 * 43, ps=16, nb=44, hd=32,
          window=0),
 ]
+# the decoder-only serving phase's shapes at SmolLM-135M's width (H 9 over
+# Kv 3, hd 64; a row holds max_src 512 + max_new 64 + DL 10 + 2 = 588
+# slots): the prefill lane of 8 slots x a chunk of 32 (T*G 96), the verify
+# pass of 8 slots x 25 drafts (T 11), the greedy step of 8 slots; the
+# 2-slot modes' prefill lane (B 2 x T 32: few blocks, so its query rows
+# spread over groups), beam step (2 slots x 5 beams) and SBS verify pass
+# (2 x 5 x 25 drafts); and a one-shot prefill of 447 tokens (T*G 1,341
+# query rows, in groups)
+LM_ROW = 588
+DECODE_LM = {
+    name: dict(B=B, T=T, H=9, Kv=3, S=LM_ROW, hd=64, window=0)
+    for name, B, T in (("smollm_prefill_lane", 8, 32),
+                       ("smollm_verify", 200, 11), ("smollm_greedy", 8, 1),
+                       ("smollm_prefill_lane_2slot", 2, 32),
+                       ("smollm_beam", 10, 1), ("smollm_sbs_verify", 250, 11),
+                       ("smollm_oneshot_prefill", 1, 447))}
+# their paged twins: 37 blocks of 16 a row, the first 18 mapped (as
+# ``decode_inputs`` half fills a row; all 37 for the one-shot feed), one page
+# per mapped block
+PAGED_LM = {name: dict(B=c["B"], T=c["T"], H=9, Kv=3, ps=16, nb=37, hd=64,
+                       window=0, P=1 + c["B"] * mapped, n_mapped=mapped)
+            for name, c in DECODE_LM.items()
+            for mapped in [37 if name == "smollm_oneshot_prefill" else 18]}
 # (N, T, V): rows, fed positions (DL + 1), vocab
 VERIFY_SWEEP = [(6, 5, 700), (12, 11, 1024), (3, 1, 64), (4, 6, 50),
                 (25, 11, 320)]
@@ -63,6 +86,10 @@ VERIFY_CARD_ONLY = [(200, 11, 27), (400, 11, 27), (1, 1, 27), (24, 5, 28),
                     (200, 11, 320), (16, 1, 320), (24, 11, 49_152),
                     (1, 1, 151_936),
                     (6, 40, 27), (2, 3, 50_257), (4, 40, 320), (0, 11, 27)]
+# draft_verify on the decoder-only phase's main path: SmolLM's vocab at
+# the verify pass of 8 slots x 25 drafts and the greedy step of 8 slots
+VERIFY_LM = {"smollm_verify": (200, 11, 49_152),
+             "smollm_greedy": (8, 1, 49_152)}
 # (B, H, S, hd) x (causal, window): the flash sweep of the JAX package's
 # kernel tests (shapes in its (B, H, S, hd) order), then the largest
 # head_dim (MAX_HD) at an S that is no multiple of 16, and a head_dim that

@@ -4,9 +4,10 @@ port of ``repro.kernels.decode_gqa.kernel.decode_gqa_kernel``) and
 body of ``csrc/decode_attention.cuh``. They take tensors the wrappers in
 ``ops.py`` have already checked.
 
-The Python around the launches decides two things from what it is given,
-so the CPU tests can reach both: how many blocks share one (row, kv head)'s
-keys (``plan_splits``), and whether the kernel copies K/V by 16-byte
+The Python around the launches decides three things from what it is
+given, so the CPU tests can reach them: how many blocks share one (row, kv
+head)'s keys (``plan_splits``), how many share its query rows
+(``plan_groups``), and whether the kernel copies K/V by 16-byte
 ``cp.async`` or by plain loads (``vector_loads``).
 """
 
@@ -46,6 +47,32 @@ def plan_splits(B: int, Kv: int, n_keys: int, TG: int, hd: int) -> int:
     return -(-tiles // per)
 
 
+ROW_PASS = 16            # query rows a tensor-core pass takes
+Q_ROW_BYTES = 96 << 10   # shared memory one block's query rows may take
+_HD_BUCKETS = (16, 32, 64, 128, 256)
+
+
+def plan_groups(B: int, Kv: int, n_split: int, TG: int, hd: int,
+                itemsize: int) -> tuple[int, int]:
+    """(q_groups, group_rows): blocks that share one (row, kv head, split)'s
+    T*G query rows, each taking ``group_rows`` of them in whole passes.
+    One group of all TG rows where the grid already gives every SM two
+    blocks or there is at most one pass; else enough groups for two
+    blocks an SM, each at least one pass. Either way a group's rows, at
+    the head-dim bucket's shared-memory pitch, fit ``Q_ROW_BYTES``."""
+    bucket = next(b for b in _HD_BUCKETS if hd <= b)
+    cap = max(ROW_PASS, Q_ROW_BYTES // ((bucket + 16 // itemsize) * itemsize)
+              // ROW_PASS * ROW_PASS)
+    passes = -(-TG // ROW_PASS)
+    blocks = B * Kv * n_split
+    n = 1 if blocks >= 2 * N_SMS else min(passes, -(-2 * N_SMS // blocks))
+    n = max(n, -(-TG // cap))
+    if n <= 1:
+        return 1, TG
+    rows = -(-passes // n) * ROW_PASS
+    return -(-TG // rows), rows
+
+
 def split_chunk(n_keys: int, n_split: int) -> int:
     """Keys per split block: whole tiles, the last split ragged."""
     tiles = max(1, -(-n_keys // KEY_TILE))
@@ -69,16 +96,17 @@ def _vec(k, v) -> int:
                             (*k.stride()[:3], *v.stride()[:3])))
 
 
-def _scratch(device, B, Kv, TG, hd, n_split):
+def _scratch(device, B, Kv, TG, hd, n_split, q_groups):
     """Split partials (accumulators, then (max, sum) pairs) and the ticket
-    counters (``_build.tickets``), or NULLs when one block takes each
-    (row, kv head)."""
+    counters (``_build.tickets``, one a (row, kv head, query group)), or
+    NULLs when one block takes each (row, kv head)'s keys."""
     if n_split == 1:
         return None, 0, 0, 0
     rows = B * Kv * n_split * TG
     part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=device)
-    t = _build.tickets(_tickets, device, B * Kv, lambda n: torch.zeros(
-        n, dtype=torch.int32, device=device))
+    t = _build.tickets(_tickets, device, B * Kv * q_groups,
+                       lambda n: torch.zeros(n, dtype=torch.int32,
+                                             device=device))
     return (part, part.data_ptr(), part.data_ptr() + rows * hd * 4,
             t.data_ptr())
 
@@ -93,14 +121,16 @@ def decode_gqa_kernel(q, k_cache, v_cache, k_pos, q_pos, *, window: int = 0,
     S, Kv = k_cache.shape[1], k_cache.shape[2]
     TG = T * (H // Kv)
     n = n_split or plan_splits(B, Kv, S, TG, hd)
+    groups = plan_groups(B, Kv, n, TG, hd, q.element_size())
     out = torch.empty_like(q)
-    keep, part, part_ml, tickets = _scratch(q.device, B, Kv, TG, hd, n)
+    keep, part, part_ml, tickets = _scratch(q.device, B, Kv, TG, hd, n,
+                                            groups[0])
     fn = _build.load("decode_gqa")
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              k_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
              part, part_ml, tickets, B, T, H, Kv, S, hd,
              *k_cache.stride()[:3], *v_cache.stride()[:3],
-             window, 1.0 / math.sqrt(hd), n, split_chunk(S, n),
+             window, 1.0 / math.sqrt(hd), n, split_chunk(S, n), *groups,
              _vec(k_cache, v_cache), _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_gqa", err)
@@ -123,15 +153,17 @@ def paged_decode_gqa_kernel(q, k_pool, v_pool, pos_pool, block_tables, q_pos,
     nb = block_tables.shape[1]
     TG = T * (H // Kv)
     n = n_split or plan_splits(B, Kv, nb * ps, TG, hd)
+    groups = plan_groups(B, Kv, n, TG, hd, q.element_size())
     out = torch.empty_like(q)
-    keep, part, part_ml, tickets = _scratch(q.device, B, Kv, TG, hd, n)
+    keep, part, part_ml, tickets = _scratch(q.device, B, Kv, TG, hd, n,
+                                            groups[0])
     fn = _build.load("paged_decode_gqa")
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              pos_pool.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
              out.data_ptr(), part, part_ml, tickets, B, T, H, Kv, ps, nb, hd,
              *k_pool.stride()[:3], *v_pool.stride()[:3],
              window, 1.0 / math.sqrt(hd), n, split_chunk(nb * ps, n),
-             _vec(k_pool, v_pool), _DTYPES[q.dtype],
+             *groups, _vec(k_pool, v_pool), _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("paged_decode_gqa", err)
     del keep

@@ -1,10 +1,12 @@
-"""Attention of the Molecular Transformer with a position-tagged KV cache,
-dense or paged: the port of ``repro.models.attention``.
+"""Grouped-query attention with a position-tagged KV cache, dense or paged:
+the port of ``repro.models.attention`` (the Molecular Transformer's and the
+dense decoder-only transformer's: RoPE, qk-norm, sliding window).
 
 Dense cache (as in the JAX package): ``(B, S, n_kv, head_dim)`` K/V buffers
 plus a ``(B, S)`` int32 ``pos`` array holding the absolute position stored in
 each slot (-1 = empty). Writes go to ``slot = position % S``; masking is on
-stored positions, so a ring buffer and a linear cache are one code path.
+stored positions, so a ring buffer (sliding window, ``S = window``) and a
+linear cache are one code path.
 
 Paged cache (``PagedKVCache``): a page pool shared by all batch rows plus
 per-row block tables, so batch-row ops (winner sync, beam reorder, slot
@@ -33,7 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_gqa.ops import (decode_gqa_attention,
                                                paged_decode_gqa_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
-from repro_torch.models.layers import dense, dense_init
+from repro_torch.models.layers import apply_norm, apply_rope, dense, dense_init
 
 _NEG_INF = -1e30
 
@@ -46,12 +48,16 @@ def attn_init(gen, cfg: ModelConfig, *, device, cross: bool = False) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     n_kv = cfg.n_heads if cross else cfg.n_kv_heads  # cross-attn: MHA
     kw = dict(use_bias=cfg.use_bias, device=device)
-    return {
+    p = {
         "wq": dense_init(gen, d, cfg.n_heads * hd, **kw),
         "wk": dense_init(gen, d, n_kv * hd, **kw),
         "wv": dense_init(gen, d, n_kv * hd, **kw),
         "wo": dense_init(gen, cfg.n_heads * hd, d, **kw),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": torch.ones((hd,), device=device)}
+        p["k_norm"] = {"scale": torch.ones((hd,), device=device)}
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -65,14 +71,20 @@ class KVCache:
     pos: torch.Tensor  # (..., B, S) int32, absolute position in slot, -1 empty
 
 
+def _cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Slots a row keeps: the window when there is one (a ring buffer)."""
+    w = cfg.sliding_window
+    return max_len if w == 0 else min(max_len, w)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                   dtype=torch.float32) -> KVCache:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    size = _cache_len(cfg, max_len)
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        pos=torch.full((batch, max_len), -1, dtype=torch.int32,
-                       device=device),
+        pos=torch.full((batch, size), -1, dtype=torch.int32, device=device),
     )
 
 
@@ -128,11 +140,11 @@ def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                         n_pages: int, page_size: int, device,
                         dtype=torch.float32) -> PagedKVCache:
     """Empty pool + unmapped tables. ``n_blocks`` covers the same logical
-    length the dense cache would reserve per row; page 0 is the reserved
-    trash page."""
+    length the dense cache would reserve per row (a ring over blocks when a
+    sliding window applies); page 0 is the reserved trash page."""
     if n_pages < 2:
         raise ValueError("n_pages must be >= 2 (page 0 is the trash page)")
-    n_blocks = -(-max_len // page_size)
+    n_blocks = -(-_cache_len(cfg, max_len) // page_size)
     shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return PagedKVCache(
         k_pool=torch.zeros(shape, dtype=dtype, device=device),
@@ -205,6 +217,9 @@ def _project_qkv(p: dict, cfg: ModelConfig, x, kv_input, *, cross: bool):
     q = dense(p["wq"], x).reshape(B, T, cfg.n_heads, hd)
     k = dense(p["wk"], kv_input).reshape(B, kv_input.shape[1], n_kv, hd)
     v = dense(p["wv"], kv_input).reshape(B, kv_input.shape[1], n_kv, hd)
+    if cfg.qk_norm:
+        q = apply_norm(p["q_norm"], q, "rmsnorm")
+        k = apply_norm(p["k_norm"], k, "rmsnorm")
     return q, k, v
 
 
@@ -220,14 +235,16 @@ def attention(p: dict, cfg: ModelConfig, x, *, causal: bool = True,
 
     x: (B, T, d); padding_mask: (B, T) True = valid key. The kernel masks by
     index, so positions are always ``arange(T)`` (all the MT needs). GQA
-    (``q_per_kv > 1``) is refused; it and position-aware full attention
-    come with the decoder-only families (ROADMAP Queue 1 item 6).
+    (``q_per_kv > 1``) is refused: the flash kernels' kv-head mapping and
+    position masks come with ``transformer.apply`` and LM training (ROADMAP
+    Queue 1 item 6.5); decoder-only serving reads through
+    ``cached_attention``.
     """
     B, T = x.shape[:2]
     if cfg.q_per_kv != 1:
         raise ValueError(f"attention: q_per_kv={cfg.q_per_kv}; full-sequence "
-                         f"GQA comes with the decoder-only families (ROADMAP "
-                         f"Queue 1 item 6)")
+                         f"GQA comes with transformer.apply and LM training "
+                         f"(ROADMAP Queue 1 item 6.5)")
     q, k, v = _project_qkv(p, cfg, x, x, cross=False)
     out = flash_attention_bshd(q, k, v, causal=causal, key_mask=padding_mask)
     return dense(p["wo"], out.reshape(B, T, -1))
@@ -252,6 +269,8 @@ def memory_kv(p: dict, cfg: ModelConfig, memory) -> dict:
     hd = cfg.head_dim
     k = dense(p["wk"], memory).reshape(B, M, cfg.n_heads, hd)
     v = dense(p["wv"], memory).reshape(B, M, cfg.n_heads, hd)
+    if cfg.qk_norm:
+        k = apply_norm(p["k_norm"], k, "rmsnorm")
     return {"mk": k, "mv": v}
 
 
@@ -260,6 +279,8 @@ def cached_cross_attention(p: dict, cfg: ModelConfig, x, cache: dict, *,
     """Cross-attention against precomputed memory K/V (decode time)."""
     B, T = x.shape[:2]
     q = dense(p["wq"], x).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = apply_norm(p["q_norm"], q, "rmsnorm")
     mask = torch.ones((B, T, cache["mk"].shape[1]), dtype=torch.bool,
                       device=x.device)
     if memory_mask is not None:
@@ -269,16 +290,19 @@ def cached_cross_attention(p: dict, cfg: ModelConfig, x, cache: dict, *,
     return dense(p["wo"], out.reshape(B, T, -1))
 
 
-def cached_attention(p: dict, cfg: ModelConfig, x, cache, positions
-                     ) -> tuple[torch.Tensor, object]:
+def cached_attention(p: dict, cfg: ModelConfig, x, cache, positions, *,
+                     rope=None) -> tuple[torch.Tensor, object]:
     """Cached causal decode over a dense ``KVCache`` or a ``PagedKVCache``.
 
     x: (B, T, d) new tokens; positions: (B, T) absolute positions of those
     tokens (rows may differ — the speculative decoder relies on this).
     ``positions == -1`` marks invalid tokens: their K/V land in a throwaway
     slot (dense: slot S-1; paged: the trash page) with stored position -1,
-    which every query masks. Returns (B, T, d) and the cache, updated in
-    place.
+    which every query masks. With ``cfg.pos == "rope"`` q and the new k are
+    rotated at their positions before the write (``rope``: the positions'
+    ``rope_tables``, when the caller made them for every layer);
+    ``cfg.sliding_window`` masks keys older than the window. Returns (B, T,
+    d) and the cache, updated in place.
 
     Fully masked query rows: the read goes through the ``decode_gqa`` /
     ``paged_decode_gqa`` kernel (its plain version on the CPU), which
@@ -294,14 +318,21 @@ def cached_attention(p: dict, cfg: ModelConfig, x, cache, positions
     B, T = x.shape[:2]
     q, k_new, v_new = _project_qkv(p, cfg, x, x, cross=False)
     positions = positions.to(torch.int32).contiguous()
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, tables=rope)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta, tables=rope)
+    window = cfg.sliding_window
     if isinstance(cache, PagedKVCache):
         cache = _write_cache_paged(cache, k_new, v_new, positions)
         out = paged_decode_gqa_attention(q.contiguous(), cache.k_pool,
                                          cache.v_pool, cache.pos,
                                          cache.block_tables.contiguous(),
-                                         positions)
+                                         positions, window=window)
     else:
+        # a strided row view (a chunked prefill's slot-leading rows) reads
+        # its stored positions through a compact copy
         cache = _write_cache(cache, k_new, v_new, positions)
         out = decode_gqa_attention(q.contiguous(), cache.k, cache.v,
-                                   cache.pos, positions)
+                                   cache.pos.contiguous(), positions,
+                                   window=window)
     return dense(p["wo"], out.reshape(B, T, -1)), cache

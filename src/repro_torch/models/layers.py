@@ -1,4 +1,5 @@
-"""Parameter init and primitive layers of the Molecular Transformer.
+"""Parameter init and primitive layers of the Molecular Transformer and
+the dense decoder-only transformer.
 
 Params are nested dicts of tensors, with the JAX package's names and
 layouts: a dense ``w`` is ``(d_in, d_out)`` and is applied as ``x @ w``, so
@@ -45,10 +46,16 @@ def norm_init(d: int, kind: str, device) -> dict:
     return p
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in fp32 (no dispatch when it already is: eager decoding pays
+    for every call)."""
+    return t if t.dtype == torch.float32 else t.float()
+
+
 def apply_norm(p: dict, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm / LayerNorm computed in fp32 (the JAX package's numerics)."""
-    xf = x.float()
+    xf = _f32(x)
     if kind == "rmsnorm":
         y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
     elif kind == "layernorm":
@@ -57,14 +64,51 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str,
         y = (xf - mu) * torch.rsqrt(var + eps)
     else:
         raise ValueError(kind)
-    y = y * p["scale"].float()
+    y = y * _f32(p["scale"])
     if "bias" in p:
-        y = y + p["bias"].float()
-    return y.to(x.dtype)
+        y = y + _f32(p["bias"])
+    return y if y.dtype == x.dtype else y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # positions
+
+
+def rope_frequencies(head_dim: int, theta: float, *, device=None
+                     ) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos | cos, -sin | sin), each (..., T, 1, head_dim) in fp32, for
+    ``apply_rope``: every layer of a forward rotates at the same
+    positions, so a stack computes them once."""
+    freqs = rope_frequencies(head_dim, theta, device=positions.device)
+    angles = positions[..., :, None].float() * freqs       # (..., T, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return (torch.cat([cos, cos], -1)[..., None, :],
+            torch.cat([-sin, sin], -1)[..., None, :])
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
+               tables=None) -> torch.Tensor:
+    """Rotary embedding in fp32 with the half-split rotation (the first and
+    second halves of the head dim are the pair), as the JAX package does.
+    x: (..., T, H, head_dim); positions: broadcastable to (..., T);
+    ``tables``: ``rope_tables`` of these positions, if already made.
+
+    Written as ``x * (cos | cos) + (x2 | x1) * (-sin | sin)``: halves
+    ``x1 cos - x2 sin`` and ``x2 cos + x1 sin``, bitwise the JAX package's
+    ``x1 cos - x2 sin`` and ``x1 sin + x2 cos`` (negation is exact and
+    addition commutes), in four kernels instead of seven."""
+    cos2, sin2 = (rope_tables(positions, x.shape[-1], theta) if tables is None
+                  else tables)
+    xf = _f32(x)
+    x1, x2 = xf.chunk(2, dim=-1)
+    out = xf * cos2 + torch.cat([x2, x1], dim=-1) * sin2
+    return out if out.dtype == x.dtype else out.to(x.dtype)
 
 
 def sinusoidal_positions(max_len: int, d_model: int, *, device=None,
@@ -115,6 +159,11 @@ def embed_init(gen, vocab: int, d_model: int, device) -> dict:
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return p["embed"][tokens.long()]
+
+
+def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied output projection: ``x @ embed.T``."""
+    return x @ p["embed"].T
 
 
 def logits_init(gen, d_model: int, vocab: int, device) -> dict:

@@ -7,7 +7,8 @@ from repro_torch.serving.api import (MAX_STOP_IDS, GenerationParams,
                                      RequestCancelled, RequestHandle,
                                      RequestRejected, RequestSpec,
                                      RequestStatus)
-from repro_torch.serving.backend import Seq2SeqBackend, make_backend
+from repro_torch.serving.backend import (DecoderOnlyBackend, Seq2SeqBackend,
+                                         make_backend)
 from repro_torch.serving.engine import (EngineConfig, Prediction,
                                         ReactionEngine, StreamingEngine)
 from repro_torch.serving.scheduler import (ContinuousScheduler,
@@ -20,7 +21,7 @@ __all__ = [
     "ReactionEngine", "StreamingEngine", "EngineConfig", "Prediction",
     "ContinuousScheduler", "ScheduledRequest", "SlotResult",
     "OverloadPolicy",
-    "Seq2SeqBackend", "make_backend",
+    "Seq2SeqBackend", "DecoderOnlyBackend", "make_backend",
     "GenerationParams", "RequestSpec", "RequestHandle", "RequestStatus",
     "RequestCancelled", "RequestRejected", "MAX_STOP_IDS",
     "FrontDoorServer", "ServerConfig",

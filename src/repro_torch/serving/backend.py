@@ -1,19 +1,29 @@
 """ModelBackend — the architecture layer under ``StreamingEngine`` (the port
-of ``repro.serving.backend``, seq2seq backend).
+of ``repro.serving.backend``).
 
 The scheduler and the session step are model-agnostic (they drive a
 ``DecoderHandle``); what is not is admission: how a request's context
 enters its slot's cache rows. A backend owns that surface: cache
 construction (``init_cache``), the step handle (``step_handle``), host-side
-request preparation (``make_request``: tokenization and drafting) and the
-device-side admission (``admit_cache``).
+request preparation (``make_request``: tokenization, drafting, prefill
+chunks) and the device-side admission pieces.
 
-The Molecular Transformer's admission is monolithic: encode the query once
-and scatter its cross-attention K/V and memory mask into the slot's rows;
-the self-attention cache starts empty (dense rows marked empty, paged rows
-unmapped). The decoder-only backend, with its chunked ragged prefill, is
-not ported yet (ROADMAP Queue 1 item 6); ``_clean_rows`` and
-``_adopt_row0`` are its cache-row helpers.
+``Seq2SeqBackend`` (``chunked = False``): the Molecular Transformer's
+admission is monolithic: encode the query once and scatter its
+cross-attention K/V and memory mask into the slot's rows; the
+self-attention cache starts empty (dense rows marked empty, paged rows
+unmapped).
+
+``DecoderOnlyBackend`` (``chunked = True``): ragged chunked prefill. The
+prompt minus its last token (which seeds decoding) is cut on the host into
+fixed-size chunks; each scheduler iteration writes ONE chunk per
+mid-prefill slot into the slot's first cache row (through its block table
+when paged), interleaved with the decode step, so residents never stall
+behind a long admission. When the prompt is written the slot's other rows
+adopt row 0: dense rows by a copy, paged rows by aliasing its block table
+(the page planner then copy-on-writes the draft-boundary page).
+Drafts are prompt-lookup drafts: the paper's source-copy trick applied to
+a decoder-only LM.
 """
 
 from __future__ import annotations
@@ -24,12 +34,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.drafting import batch_drafts
-from repro_torch.core.handles import DecoderHandle, seq2seq_handle
+from repro_torch.core.drafting import batch_drafts, prompt_lookup_drafts
+from repro_torch.core.handles import (DecoderHandle, seq2seq_handle,
+                                      transformer_handle)
 from repro_torch.core.session import SessionSpec, unmap_cache_rows
-from repro_torch.core.tree_batch import set_rows
+from repro_torch.core.tree_batch import set_rows, strided_rows
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import seq2seq as s2s
+from repro_torch.models import transformer as tr
 from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.serving.api import GenerationParams
 
@@ -38,9 +50,12 @@ from repro_torch.serving.api import GenerationParams
 class Request:
     """One admission, backend-prepared on the host at ``submit()`` time.
 
-    ``args``: host tensors for the admit call (source tokens, drafts, draft
-    mask). ``chunks``: prefill chunks (always empty for the monolithic
-    seq2seq backend). ``gen``: the request's slot params for ``reset_slot``
+    ``args``: host values for the admit call (seq2seq: source tokens,
+    drafts, draft mask) or for the slot's activation once its prompt is
+    written (decoder-only: last prompt token, its position, drafts, draft
+    mask). ``chunks``: ``[(tokens (C,), pos0, n_valid)]`` fixed-shape
+    prefill chunks (empty for the seq2seq backend and one-token prompts).
+    ``gen``: the request's slot params for ``reset_slot``
     (``ResolvedParams.device_args``). ``params``: the host-side
     ``ResolvedParams`` (read-out trimming). ``prompt``: the host token array
     the request was built from.
@@ -70,6 +85,8 @@ def _pad_drafts(drafts: np.ndarray, dmask: np.ndarray, spec: SessionSpec):
 def _map_nodes(fn, cache):
     if isinstance(cache, dict):
         return {k: _map_nodes(fn, v) for k, v in cache.items()}
+    if isinstance(cache, tuple):
+        return tuple(_map_nodes(fn, v) for v in cache)
     return fn(cache)
 
 
@@ -143,6 +160,9 @@ class Seq2SeqBackend:
     def pageable(self) -> bool:
         return True
 
+    def prefill_blocks(self, page_size: int) -> int:
+        return 0   # admission writes no prompt into the self-attn cache
+
     def per_token_bytes(self) -> int:
         cfg = self.cfg
         return cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 4
@@ -213,16 +233,139 @@ class Seq2SeqBackend:
         return self.tok.bos_id, 0, drafts, dmask
 
 
+class DecoderOnlyBackend:
+    """Decoder-only LM backend (``repro_torch.models.transformer``, the
+    dense ``("attn",)`` pattern): chunked ragged prompt prefill with
+    prompt-lookup drafts."""
+
+    chunked = True
+
+    def __init__(self, cfg: ModelConfig, ecfg, tokenizer=None):
+        if cfg.family == "seq2seq":
+            raise ValueError("use Seq2SeqBackend for encoder-decoder models")
+        if cfg.family == "audio":
+            raise ValueError("encoder-only architecture: no decode step")
+        tr.check_serves(cfg)
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.tok = tokenizer
+
+    # ---- cache / step ----------------------------------------------------
+    def step_handle(self, params) -> DecoderHandle:
+        return transformer_handle(params, self.cfg)
+
+    def row_len(self, spec: SessionSpec) -> int:
+        # the prompt shares the row with the generated tokens
+        return self.ecfg.max_src + spec.cache_len
+
+    def init_cache(self, n_rows: int, row_len: int, paged=None, *, device):
+        return tr.init_cache(self.cfg, n_rows, row_len, paged=paged,
+                             device=device)
+
+    def pageable(self) -> bool:
+        return "attn" in self.cfg.layer_pattern
+
+    def prefill_blocks(self, page_size: int) -> int:
+        """Worst-case prompt blocks one admission maps into row 0 before
+        the slot's siblings alias them (``PageAllocator`` accounting)."""
+        return -(-self.ecfg.max_src // page_size)
+
+    def per_token_bytes(self) -> int:
+        cfg = self.cfg
+        n_attn = sum(1 for k in cfg.layer_pattern if k == "attn")
+        return cfg.n_repeats * n_attn * 2 * cfg.n_kv_heads * cfg.head_dim * 4
+
+    # ---- host-side request prep ------------------------------------------
+    def make_request(self, query, spec: SessionSpec, params=None) -> Request:
+        ecfg = self.ecfg
+        if params is None:
+            params = GenerationParams().resolve(spec)
+        if isinstance(query, str):
+            if self.tok is None:
+                raise ValueError("string queries need a tokenizer; submit "
+                                 "token arrays instead")
+            prompt = np.asarray(self.tok.encode(query), np.int32)
+        else:
+            prompt = np.asarray(query, np.int32).reshape(-1)
+        P = int(prompt.shape[0])
+        if not 1 <= P <= ecfg.max_src:
+            raise ValueError(f"prompt length {P} outside [1, "
+                             f"max_src={ecfg.max_src}]")
+        dl, nd = params.draft_len, params.n_drafts
+        if dl > 0:
+            drafts, dmask = prompt_lookup_drafts(prompt, dl, nd,
+                                                 dilations=ecfg.dilations)
+        else:
+            drafts = np.zeros((nd, 0), np.int32)
+            dmask = np.ones((nd,), bool)
+        drafts, dmask = _pad_drafts(drafts, dmask, spec)
+        # the prompt minus its last token (which seeds decoding as
+        # ``last``), in chunks of one fixed shape: a ragged stream of
+        # prompt lengths only changes the chunk COUNT, on the host
+        return Request(
+            args=(int(prompt[P - 1]), P - 1,
+                  torch.from_numpy(np.ascontiguousarray(drafts)),
+                  torch.from_numpy(np.ascontiguousarray(dmask))),
+            chunks=self.suffix_chunks(prompt[:P - 1]),
+            gen=params.device_args(spec), params=params, prompt=prompt)
+
+    def prompt_body(self, req: Request) -> np.ndarray:
+        """The request's committed prompt body: the prompt minus its last
+        token, which seeds decoding and is never written to the cache."""
+        return np.asarray(req.prompt, np.int32).reshape(-1)[:-1]
+
+    def suffix_chunks(self, body: np.ndarray, m0: int = 0) -> list:
+        """Fixed-shape prefill chunks for ``body[m0:]`` with ABSOLUTE
+        positions (chunk c0 starts at token c0 of the full body)."""
+        C = max(1, int(self.ecfg.prefill_chunk))
+        chunks = []
+        for c0 in range(int(m0), len(body), C):
+            seg = body[c0:c0 + C]
+            padded = np.zeros((C,), np.int32)
+            padded[:len(seg)] = seg
+            chunks.append((padded, c0, len(seg)))
+        return chunks
+
+    # ---- device-side admission pieces -------------------------------------
+    def begin_cache(self, cache, rows):
+        return _clean_rows(cache, rows)
+
+    def prefill_chunks_cache(self, params, cache, rows0, tokens, pos0,
+                             n_valid):
+        """Write this iteration's prompt chunk of EVERY slot of a group at
+        once, in place: ``rows0`` the group's slot-leading cache rows (a
+        host list, evenly spaced), ``tokens`` (S_g, C), ``pos0`` /
+        ``n_valid`` (S_g,) device tensors. Pad positions are -1: their
+        writes land in the throwaway slot or trash page, so an idle lane
+        (``n_valid == 0``) leaves its row as it was. The rows are views of
+        the cache (no take / put copies), and the logits, which nobody
+        reads, are never computed."""
+        step = rows0[1] - rows0[0] if len(rows0) > 1 else 1
+        sub = strided_rows(cache, rows0[0], step, len(rows0))
+        C = tokens.shape[1]
+        rel = torch.arange(C, dtype=torch.int32, device=tokens.device)
+        positions = torch.where(rel[None, :] < n_valid[:, None],
+                                pos0[:, None] + rel[None, :], -1)
+        tr.write_prompt(params, self.cfg, sub, tokens, positions)
+        return cache
+
+    def finish_cache(self, cache, rows):
+        return _adopt_row0(cache, rows)
+
+    def reset_args(self, last, pos, drafts, dmask):
+        """Decoding resumes from the prompt's last token at its own
+        position."""
+        return last, pos, drafts, dmask
+
+
 def make_backend(cfg: ModelConfig, ecfg, tokenizer=None):
     """Default backend for a config: ``EngineConfig.backend`` may name one
-    ("seq2seq"); "auto" keys off the model family. Only the seq2seq backend
-    is ported: any other family is refused."""
+    ("seq2seq" | "decoder_only"); "auto" keys off the model family."""
     kind = getattr(ecfg, "backend", "auto")
     if kind == "auto":
         kind = "seq2seq" if cfg.family == "seq2seq" else "decoder_only"
     if kind == "seq2seq":
         return Seq2SeqBackend(cfg, ecfg, tokenizer)
-    raise ValueError(
-        f"backend {kind!r} (model family {cfg.family!r}) is not ported: the "
-        f"decoder-only backend and its families are ROADMAP.md Queue 1 "
-        f"item 6")
+    if kind == "decoder_only":
+        return DecoderOnlyBackend(cfg, ecfg, tokenizer)
+    raise ValueError(f"unknown backend {kind!r}")

@@ -33,8 +33,17 @@ JAX's one donated jitted megastep becomes an eager PyTorch function over
 tensors the engine updates in place. A steady-state iteration of a paged
 session reads the card twice: the plan's exhaustion flag (and copy count)
 before the plan is applied, and the iteration's small output bundle after
-the step; a dense session reads once. Mesh sharding and the decoder-only
-backend are not ported yet and are refused at construction.
+the step; a dense session reads once. Mesh sharding is not ported yet
+and is refused at construction.
+
+The decoder-only backend (``DecoderOnlyBackend``, a dense GQA language
+model served with ``tokenizer=None`` and ``EngineConfig.eos_id``) admits by
+ragged chunked prefill: admission only recycles the slot's rows; each
+iteration's step first writes one ``prefill_chunk``-token chunk of every
+mid-prefill slot's prompt into the slot's first row (the paged plan maps
+the chunk's pages in the same pass), and the iteration whose bundle shows
+a slot's last chunk written activates the slot: its other rows adopt row
+0 and decoding starts from the prompt's last token.
 
 ``EngineConfig(overload=OverloadPolicy(...))`` drives the scheduler's
 priority aging, deadline-aware preemption and load shedding.
@@ -93,8 +102,8 @@ class EngineConfig:
     groups, paged cache, encoder-output reuse and overload policy. ``mesh``
     exists so that a configuration asking for it is refused at engine
     construction (not ported yet: ROADMAP Queue 1 item 9);
-    ``prefix_cache_pages`` sizes the decoder-only radix cache, which comes
-    with that backend (item 6), and is only validated here."""
+    ``prefix_cache_pages`` sizes the decoder-only radix cache (item 6.1b)
+    and is only validated here."""
 
     mode: str = "speculative"        # greedy|speculative|beam|speculative_beam
     draft_len: int = 10              # the paper's best DL
@@ -112,9 +121,20 @@ class EngineConfig:
     paged: bool = False
     page_size: int = 16              # tokens per page
     n_pages: int | None = None       # pool size; None = worst case
-    backend: str = "auto"            # "auto" | "seq2seq"
+    # model backend: "auto" routes on cfg.family (seq2seq -> monolithic
+    # admission, a dense decoder-only LM -> chunked prefill), or name one:
+    # "seq2seq" | "decoder_only"
+    backend: str = "auto"
+    # chunked ragged prefill (decoder-only): prompt tokens written per
+    # scheduler iteration while a prompt streams into its slot's rows
+    prefill_chunk: int = 32
+    # decoder-only sessions have no chemistry tokenizer: special ids come
+    # from here when StreamingEngine is built with tokenizer=None
+    eos_id: int | None = None
+    pad_id: int = 0
     # seq2seq: an LRU of encoder outputs (cross-attention K/V + mask) keyed
-    # by the source tokens, ``prefix_cache_entries`` of them
+    # by the source tokens, ``prefix_cache_entries`` of them; a paged
+    # decoder-only engine's radix page sharing is not ported yet (item 6.1b)
     prefix_cache: bool = False
     prefix_cache_pages: int | None = None   # decoder-only radix cache
     prefix_cache_entries: int = 128
@@ -125,7 +145,7 @@ class EngineConfig:
     def __post_init__(self):
         for name, lo in (("max_new", 1), ("max_src", 1), ("draft_len", 0),
                          ("n_drafts", 1), ("n_beams", 1), ("n_slots", 1),
-                         ("page_size", 1)):
+                         ("prefill_chunk", 1), ("page_size", 1)):
             if getattr(self, name) < lo:
                 raise ValueError(f"EngineConfig.{name}={getattr(self, name)} "
                                  f"must be >= {lo}")
@@ -177,8 +197,8 @@ def _mode_shape(ecfg: EngineConfig,
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
     return tree.to(device)
 
 
@@ -329,13 +349,20 @@ class StreamingEngine:
         self.cfg = cfg
         self.tok = tokenizer
         self.backend = backend or make_backend(cfg, ecfg, tokenizer)
-        if self.backend.chunked:
+        if self.backend.chunked and ecfg.prefix_cache and ecfg.paged:
             raise NotImplementedError(
-                "chunked-prefill backends (decoder-only) are not ported yet "
-                "(ROADMAP.md Queue 1 item 6)")
-        if tokenizer is None:
-            raise ValueError("StreamingEngine needs a tokenizer (its EOS and "
-                             "pad ids end and pad every sequence)")
+                "prefix_cache on a paged decoder-only engine (the radix page "
+                "sharing) is not ported yet (ROADMAP.md Queue 1 item 6.1b)")
+        eos_id = tokenizer.eos_id if tokenizer is not None else ecfg.eos_id
+        pad_id = tokenizer.pad_id if tokenizer is not None else ecfg.pad_id
+        if eos_id is None:
+            raise ValueError(
+                "StreamingEngine built with tokenizer=None needs "
+                "EngineConfig.eos_id so sequences can terminate")
+        # seq2seq reuses encoder outputs; a dense decoder-only engine has
+        # nothing to reuse (the JAX package's flag is a no-op there too)
+        self._encode_reuse = bool(ecfg.prefix_cache
+                                  and not self.backend.chunked)
         group_slots = (dict(ecfg.mode_groups) if ecfg.mode_groups
                        else {ecfg.mode: ecfg.n_slots})
         self._groups: dict[str, SessionSpec] = {}
@@ -343,8 +370,8 @@ class StreamingEngine:
             kind, K, N_d, DL = _mode_shape(ecfg, mode)
             self._groups[mode] = SessionSpec(
                 n_slots=int(n_slots), n_beams=K, n_drafts=N_d, draft_len=DL,
-                max_new=ecfg.max_new, eos_id=tokenizer.eos_id,
-                pad_id=tokenizer.pad_id, kind=kind, n_stop=MAX_STOP_IDS)
+                max_new=ecfg.max_new, eos_id=eos_id,
+                pad_id=pad_id, kind=kind, n_stop=MAX_STOP_IDS)
         self.mode_names = list(self._groups)
         self.default_mode = (ecfg.mode if ecfg.mode in self._groups
                              else self.mode_names[0])
@@ -379,20 +406,30 @@ class StreamingEngine:
         self.scheduler = self._new_scheduler()
 
     # -- the step ----------------------------------------------------------
-    def _megastep(self, gstate):
+    def _megastep(self, gstate, prefill=None):
         """One scheduler iteration on the card: (paged) plan the page
         maintenance on the device, read its exhaustion flag, and — unless
         the pool is exhausted, in which case nothing is applied so the host
-        can preempt and replay the iteration exactly — apply the plan and
-        run the grouped decode step. Returns ``(gstate, bundle)``: the
-        bundle holds everything the host reads afterwards."""
+        can preempt and replay the iteration exactly — apply the plan,
+        write this iteration's prefill chunks (``prefill``: per group
+        ``(tokens, pos0, n_valid)``, or None) and run the grouped decode
+        step. Returns ``(gstate, bundle)``: the bundle holds everything the
+        host reads afterwards."""
         specs = tuple(self._groups.values())
         n_out0 = self._slot_counts(gstate)
         plan = None
         if self.ecfg.paged:
             n_pages, ps = self._paged_geometry()
             blocks = tuple(self.allocator._blocks[m] for m in self.mode_names)
-            plan = device_page_plan(specs, blocks, ps, n_pages, gstate)
+            plan_prefill = None
+            if prefill is not None:
+                C = max(1, int(self.ecfg.prefill_chunk))
+                plan_prefill = tuple(
+                    (self._chunk_rows0(m), pos0, n_valid, C)
+                    for m, (_, pos0, n_valid) in zip(self.mode_names,
+                                                     prefill))
+            plan = device_page_plan(specs, blocks, ps, n_pages, gstate,
+                                    prefill=plan_prefill)
             exhausted, n_copy = torch.stack(
                 [plan.exhausted.to(_I32), plan.copy.sum(dtype=_I32)]).tolist()
             if exhausted:
@@ -400,9 +437,27 @@ class StreamingEngine:
                                     n_free_alloc=plan.n_free,
                                     need=plan.need_by_group)
             apply_page_plan(gstate.cache, plan, n_copy)
+        self._write_chunks(gstate, prefill)
         handle = self.backend.step_handle(self.params)
         gstate = grouped_step(specs, handle, gstate)
         return gstate, self._make_bundle(gstate, n_out0, plan)
+
+    def _chunk_rows0(self, mode: str) -> list[int]:
+        """Slot-leading cache rows of ``mode``'s group (row 0 of each slot,
+        the row a chunked prefill writes)."""
+        spec = self._groups[mode]
+        lo = self._row_lo[mode]
+        return [lo + i * spec.rows_per_slot for i in range(spec.n_slots)]
+
+    def _write_chunks(self, gstate, prefill) -> None:
+        """Write the staged prefill chunk lanes of every group, in place
+        (idle lanes are ``n_valid == 0`` and write nothing readable)."""
+        if prefill is None:
+            return
+        for mode, (tokens, pos0, n_valid) in zip(self.mode_names, prefill):
+            self.backend.prefill_chunks_cache(
+                self.params, gstate.cache, self._chunk_rows0(mode), tokens,
+                pos0, n_valid)
 
     def _slot_counts(self, gstate) -> torch.Tensor:
         """(n_slots,) committed-token counts on each slot's row 0, global
@@ -478,7 +533,7 @@ class StreamingEngine:
         be = self.backend
         args = tuple(a.to(self.device) for a in req.args)
         rows = self._slot_rows(mode, local)
-        if self.ecfg.prefix_cache:   # seq2seq: the whole source is the prefix
+        if self._encode_reuse:   # seq2seq: the whole source is the prefix
             mkv, mask = self._encode_cached(req.prompt, args[0])
             be.admit_cache_precomputed(self.params, gstate.cache, rows, mkv,
                                        mask)
@@ -509,6 +564,20 @@ class StreamingEngine:
             self._encode_lru.popitem(last=False)
         return ent
 
+    def _finish(self, gstate, mode: str, local: int, req):
+        """A slot's prompt is written: its other rows adopt row 0's context
+        (dense: a copy; paged: the block table) and the slot goes live."""
+        spec = self._groups[mode]
+        gi = self.mode_names.index(mode)
+        be = self.backend
+        be.finish_cache(gstate.cache, self._slot_rows(mode, local))
+        last, pos0, drafts, dmask = be.reset_args(*req.args)
+        max_out, stop_ids, eff_dl, eff_beams = req.gen
+        reset_slot(spec, gstate.groups[gi], local, last, pos0, drafts, dmask,
+                   max_out=max_out, stop_ids=stop_ids, eff_dl=eff_dl,
+                   eff_beams=eff_beams)
+        return gstate
+
     def _release(self, gstate, mode: str, local: int):
         """Evict a local slot of ``mode``'s group, in place, and (paged)
         unmap its rows so the page planners see its pages free."""
@@ -527,6 +596,11 @@ class StreamingEngine:
         ``n_pages`` lower to oversubscribe (admission then defers on pool
         pressure)."""
         ecfg = self.ecfg
+        if self.cfg.sliding_window:
+            raise NotImplementedError(
+                "paged serving sessions require sliding_window == 0: the "
+                "page allocator maps a linear block space, not the window's "
+                "block ring")
         ps = ecfg.page_size
         if ecfg.n_pages is not None:
             return ecfg.n_pages, ps
@@ -535,9 +609,48 @@ class StreamingEngine:
         return worst + 1, ps
 
     def _finished_mask(self, gstate) -> np.ndarray:
-        """(n_slots,) bool by global slot id."""
-        return torch.cat([gs.finished.all(dim=1)
+        """(n_slots,) bool by global slot id. Mid-prefill slots are never
+        finished: their state is still the released one."""
+        mask = torch.cat([gs.finished.all(dim=1)
                           for gs in gstate.groups]).cpu().numpy()
+        for slot in self._prefilling:
+            mask[slot] = False
+        return mask
+
+    def _slot_row_range(self, slot: int) -> range:
+        """Cache rows of a global slot (row 0 first)."""
+        mode, local = self._slot_of(slot)
+        rps = self._groups[mode].rows_per_slot
+        lo = self._row_lo[mode] + local * rps
+        return range(lo, lo + rps)
+
+    def _stage_chunks(self):
+        """This iteration's prefill chunk lanes from the mid-prefill
+        cursors: per group ``(tokens (S_g, C), pos0 (S_g,), n_valid
+        (S_g,))`` on the device, covering every slot (idle lanes have
+        ``n_valid == 0``), and the staged slots; None when no prompt is
+        mid-stream. One chunk per slot per iteration. The cursor lives on
+        the host record, not the request, so a preempted request requeues
+        with its whole chunk plan and replays it."""
+        staged = [s for s in sorted(self._prefilling)
+                  if self._prefilling[s]["next"]
+                  < len(self._prefilling[s]["chunks"])]
+        if not staged:
+            return None, []
+        C = max(1, int(self.ecfg.prefill_chunk))
+        lanes = {m: (np.zeros((spec.n_slots, C), np.int32),
+                     np.zeros((spec.n_slots,), np.int32),
+                     np.zeros((spec.n_slots,), np.int32))
+                 for m, spec in self._groups.items()}
+        for slot in staged:
+            rec = self._prefilling[slot]
+            toks, pos0, nval = lanes[rec["mode"]]
+            local = slot - self._slot_base[rec["mode"]]
+            toks[local], pos0[local], nval[local] = \
+                rec["chunks"][rec["next"]]
+        prefill = tuple(tuple(torch.from_numpy(a).to(self.device)
+                              for a in lanes[m]) for m in self.mode_names)
+        return prefill, staged
 
     # -- dispatch-ahead drive hooks ------------------------------------------
     def _dispatch_step(self, state):
@@ -545,9 +658,13 @@ class StreamingEngine:
         ran for (resident rids). The step's kernels stay queued on the
         card's stream while the host goes on to the next iteration's expiry
         and admissions."""
+        prefill, staged = (self._stage_chunks() if self.backend.chunked
+                           else (None, []))
+        self._staged_slots = staged
         self._dispatch_rids = {s: r.rid
                                for s, r in self.scheduler._resident.items()}
-        state, bundle = self._megastep(state)
+        self._dispatch_prefilling = set(self._prefilling)
+        state, bundle = self._megastep(state, prefill)
         self._n_dispatched += 1
         self.n_dispatches += 1
         self._bundle = bundle
@@ -555,10 +672,11 @@ class StreamingEngine:
 
     def _sync_step(self) -> dict:
         """Scheduler ``sync`` hook: read the megastep's bundle (the
-        iteration's second and last device read), then refresh the mirrored
-        page counters, stash the stream deltas, and build the eviction mask
-        (guarded by the dispatch-time rid snapshot, so a slot recycled since
-        the dispatch is never evicted by a stale mask)."""
+        iteration's second and last device read), then advance the prefill
+        cursors and activate the slots whose prompt is now written, refresh
+        the mirrored page counters, stash the stream deltas, and build the
+        eviction mask (guarded by the dispatch-time rid snapshot, so a slot
+        recycled since the dispatch is never evicted by a stale mask)."""
         out = self._read_bundle(self._bundle)
         t = time.perf_counter()
         if self._last_sync_t is not None:
@@ -580,6 +698,25 @@ class StreamingEngine:
         if len(self._dispatch_samples) > 4096:
             del self._dispatch_samples[:2048]
         self._disp_mark = self.n_dispatches
+        for slot in self._staged_slots:     # the dispatched chunks are written
+            rec = self._prefilling.get(slot)
+            if rec is not None:
+                rec["next"] += 1
+                self.prefill_chunks_written += 1
+        self._staged_slots = []
+        for slot in sorted(self._dispatch_prefilling):
+            rec = self._prefilling.get(slot)
+            if rec is None or rec["next"] < len(rec["chunks"]):
+                continue
+            # prompt written: the siblings adopt row 0 and the slot goes
+            # live for the next dispatch
+            mode = rec["mode"]
+            self._finish(self.scheduler.state, mode,
+                         slot - self._slot_base[mode], rec["req"])
+            self.n_dispatches += 1
+            del self._prefilling[slot]
+            if self.allocator is not None:
+                self.allocator.unpin_rows(self._slot_row_range(slot))
         if self.allocator is not None:
             self.allocator.peak_pages = max(
                 self.allocator.peak_pages,
@@ -590,15 +727,20 @@ class StreamingEngine:
             # in the device counter; keep only the ones it cannot see yet
             self._booked = [b for b in self._booked
                             if b[0] >= self._n_dispatched]
-        self._stream_bundle = dict(n_out=out["n_out"], n_new=out["n_new"],
-                                   delta=out["delta"],
-                                   rids=dict(self._dispatch_rids))
+        self._stream_bundle = dict(
+            n_out=out["n_out"], n_new=out["n_new"], delta=out["delta"],
+            # mid-prefill slots' session rows still hold the previous
+            # occupant's counts: not this rid's tokens, never streamed
+            rids={s: r for s, r in self._dispatch_rids.items()
+                  if s not in self._dispatch_prefilling})
         mask = np.asarray(out["finished"], bool).copy()
         for slot in range(self.n_slots):
             sreq = self.scheduler._resident.get(slot)
             rid = self._dispatch_rids.get(slot)
             if rid is None or sreq is None or sreq.rid != rid:
                 mask[slot] = False
+        for slot in self._dispatch_prefilling:
+            mask[slot] = False
         return {"exhausted": False, "finished": mask}
 
     def _mirror_recount(self) -> None:
@@ -629,6 +771,12 @@ class StreamingEngine:
                                         paged=paged, device=self.device)
         self._bundle = None
         self._stream_bundle = None
+        # chunked prefill: global slot -> {mode, req, chunks, next chunk};
+        # the chunks and mid-prefill slots of the in-flight dispatch
+        self._prefilling: dict[int, dict] = {}
+        self._staged_slots: list[int] = []
+        self._dispatch_prefilling: set[int] = set()
+        self.prefill_chunks_written = 0
         self._dispatch_rids: dict[int, int] = {}
         self._booked: list[tuple] = []   # (dispatch stamp, pages)
         self._n_dispatched = 0
@@ -645,6 +793,7 @@ class StreamingEngine:
 
         def admit(state, slot, payload):
             mode, req = payload
+            local = slot - self._slot_base[mode]
             self.requests_admitted += 1
             if self.allocator is not None:
                 # book the admission's worst-case first-step pages against
@@ -652,10 +801,24 @@ class StreamingEngine:
                 self._booked.append((self._n_dispatched,
                                      self.allocator.admit_pages_for(mode)))
             self.n_dispatches += 1
-            return self._admit(state, mode, slot - self._slot_base[mode], req)
+            if not self.backend.chunked:
+                return self._admit(state, mode, local, req)
+            # chunked: recycle the rows now; the prompt streams into the
+            # step's chunk lanes and the slot activates at the sync that
+            # sees its last chunk written
+            self.backend.begin_cache(state.cache,
+                                     self._slot_rows(mode, local))
+            self._prefilling[slot] = {"mode": mode, "req": req, "next": 0,
+                                      "chunks": req.chunks}
+            if self.allocator is not None:
+                self.allocator.pin_rows(self._slot_row_range(slot))
+            return state
 
         def release(state, slot):
             mode, local = self._slot_of(slot)
+            self._prefilling.pop(slot, None)   # preempted mid-prefill
+            if self.allocator is not None:
+                self.allocator.unpin_rows(self._slot_row_range(slot))
             self.n_dispatches += 1
             return self._release(state, mode, local)
 
@@ -679,7 +842,9 @@ class StreamingEngine:
             self.allocator = PageAllocator(
                 self._groups, n_pages=paged[0], page_size=paged[1],
                 row_lens={m: self.backend.row_len(s)
-                          for m, s in self._groups.items()})
+                          for m, s in self._groups.items()},
+                prefill_blocks={m: self.backend.prefill_blocks(paged[1])
+                                for m in self._groups})
             self._mirror_free = self.allocator.n_pages - 1
             hooks.update(admit_ok=self._mirror_admit_ok)
         state = grouped_init_state(tuple(self._groups.values()), cache)

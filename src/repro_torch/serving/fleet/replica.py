@@ -17,11 +17,12 @@ seed, so a request rerouted mid-queue decodes the exact token stream the
 first replica would have produced.
 
 The model: ``--model synthetic``, the toy Molecular Transformer —
-``SyntheticReactionDataset`` + the tiny seq2seq config, weights drawn from
-``torch.Generator().manual_seed(0)``. ``--model arch`` (a decoder-only
-architecture) waits for that backend (ROADMAP.md Queue 1 item 6) and is
-refused. ``--device`` follows the port's rule: the card unless ``cpu`` is
-asked for.
+``SyntheticReactionDataset`` + the tiny seq2seq config; ``--model arch
+--arch <name> [--reduced]``, a dense decoder-only architecture of
+``repro_torch.configs`` served token-in / token-out (``tokenizer=None``,
+EOS id 2). Weights are drawn from ``torch.Generator().manual_seed(0)``.
+``--device`` follows the port's rule: the card unless ``cpu`` is asked
+for.
 
 SIGTERM drains gracefully (residents finish token-identically, the
 router reroutes refused work); SIGKILL is the replica-death drill — the
@@ -42,30 +43,43 @@ import time
 def build_engine(args):
     """Deterministic model + warmed ``StreamingEngine`` (imports live
     here so ``spawn_replicas`` is importable without torch)."""
+    import numpy as np
     import torch
 
-    from repro_torch.configs.mt import tiny_config
-    from repro_torch.data import SyntheticReactionDataset
-    from repro_torch.models import seq2seq as s2s
     from repro_torch.serving import EngineConfig, StreamingEngine
 
-    if args.model != "synthetic":
-        raise NotImplementedError(
-            f"--model {args.model}: decoder-only architectures are not "
-            f"ported yet (ROADMAP.md Queue 1 item 6)")
-    ecfg = EngineConfig(mode=args.mode, max_new=args.max_new,
-                        max_src=args.max_src, n_slots=args.slots,
-                        draft_len=args.draft_len, n_drafts=args.n_drafts,
-                        paged=args.paged, page_size=args.page_size,
-                        prefix_cache=args.prefix_cache)
-    ds = SyntheticReactionDataset(16, seed=0)
-    cfg = tiny_config(ds.tokenizer.vocab_size, depth=2, d_model=64,
-                      max_len=192)
-    params = s2s.init(torch.Generator().manual_seed(0), cfg,
-                      device=args.device)
-    eng = StreamingEngine(params, cfg, ds.tokenizer, ecfg,
-                          device=args.device)
-    eng.submit(ds.pair(0)[0])
+    ecfg_kw = dict(mode=args.mode, max_new=args.max_new,
+                   max_src=args.max_src, n_slots=args.slots,
+                   draft_len=args.draft_len, n_drafts=args.n_drafts,
+                   paged=args.paged, page_size=args.page_size,
+                   prefix_cache=args.prefix_cache,
+                   prefill_chunk=args.prefill_chunk)
+    gen = torch.Generator().manual_seed(0)
+    if args.model == "synthetic":
+        from repro_torch.configs.mt import tiny_config
+        from repro_torch.data import SyntheticReactionDataset
+        from repro_torch.models import seq2seq as s2s
+
+        ds = SyntheticReactionDataset(16, seed=0)
+        cfg = tiny_config(ds.tokenizer.vocab_size, depth=2, d_model=64,
+                          max_len=192)
+        params = s2s.init(gen, cfg, device=args.device)
+        eng = StreamingEngine(params, cfg, ds.tokenizer,
+                              EngineConfig(**ecfg_kw), device=args.device)
+        warm = ds.pair(0)[0]
+    else:
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as tr
+
+        cfg = get_config(args.arch, reduced=args.reduced)
+        params = tr.init(gen, cfg, device=args.device)
+        eng = StreamingEngine(params, cfg, None,
+                              EngineConfig(eos_id=2, **ecfg_kw),
+                              device=args.device)
+        rng = np.random.default_rng(0)
+        warm = rng.integers(4, cfg.vocab_size,
+                            size=(min(16, args.max_src),), dtype=np.int32)
+    eng.submit(warm)
     eng.serve()
     eng.reset()
     return eng
@@ -77,6 +91,8 @@ def main(argv=None) -> None:
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--model", default="synthetic",
                     choices=("synthetic", "arch"))
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--mode", default="greedy")
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--max-new", type=int, default=64)
@@ -86,6 +102,7 @@ def main(argv=None) -> None:
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--device", default=None,
                     help="where the engine runs (default: the card)")
     ap.add_argument("--step-clock", action="store_true",

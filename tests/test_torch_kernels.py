@@ -33,10 +33,10 @@ from repro_torch.kernels import (decode_gqa_attention, draft_verify,  # noqa: E4
                                  paged_decode_gqa_attention)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
-    DECODE_CARD_ONLY, DECODE_SWEEP, FLASH_MASKS, FLASH_PLAIN_LOADS,
-    FLASH_SWEEP, PAGED_CARD_ONLY, PAGED_SWEEP, VERIFY_CARD_ONLY, VERIFY_SWEEP,
-    decode_inputs, flash_inputs, paged_inputs, ragged_lengths, ring_inputs,
-    verify_inputs)
+    DECODE_CARD_ONLY, DECODE_LM, DECODE_SWEEP, FLASH_MASKS, FLASH_PLAIN_LOADS,
+    FLASH_SWEEP, PAGED_CARD_ONLY, PAGED_LM, PAGED_SWEEP, VERIFY_CARD_ONLY,
+    VERIFY_LM, VERIFY_SWEEP, decode_inputs, flash_inputs, paged_inputs,
+    ragged_lengths, ring_inputs, verify_inputs)
 from repro_torch.kernels.decode_gqa import kernel as decode_kernel  # noqa: E402
 from repro_torch.kernels.draft_verify import kernel as verify_kernel  # noqa: E402
 from repro_torch.kernels.decode_gqa.ref import (  # noqa: E402
@@ -757,6 +757,41 @@ def test_flash_wrappers_refuse_other_devices_bad_shapes_and_gqa():
         attention(p, cfg, x, positions=torch.arange(3).expand(2, 3) + 1)
 
 
+# (B, Kv, n_split, TG, hd, itemsize) -> (q_groups, group_rows): the main
+# paths' shapes keep one group (MT verify pass and trained rows, the
+# SmolLM verify pass, greedy and beam steps and SBS verify pass); the
+# SmolLM prefill lanes (96 rows on 96 blocks at 8 slots, on 24 at 2) and
+# the card-only T*G 22 row at B 1 take groups; a one-shot prefill of 447
+# positions (1,341 rows on 12 blocks) takes groups that fit shared memory,
+# as it must at hd 256
+GROUP_CASES = [((200, 8, 1, 11, 32, 4), (1, 11)),
+               ((24, 8, 1, 11, 32, 4), (1, 11)),
+               ((200, 3, 1, 33, 64, 4), (1, 33)),
+               ((250, 3, 1, 33, 64, 4), (1, 33)),
+               ((8, 3, 4, 3, 64, 4), (1, 3)),
+               ((10, 3, 4, 3, 64, 4), (1, 3)),
+               ((8, 3, 4, 96, 64, 4), (3, 32)),
+               ((2, 3, 4, 96, 64, 4), (6, 16)),
+               ((1, 4, 4, 22, 32, 4), (2, 16)),
+               ((1, 3, 4, 1341, 64, 4), (21, 64)),
+               ((1, 3, 4, 1341, 64, 2), (21, 64)),
+               ((600, 1, 1, 1341, 256, 4), (17, 80))]
+
+
+@pytest.mark.parametrize("args,expected", GROUP_CASES)
+def test_plan_groups(args, expected):
+    """Whole passes of 16 rows a group, every row in one group, and a
+    group's query rows within ``Q_ROW_BYTES`` of shared memory."""
+    B, Kv, n_split, TG, hd, itemsize = args
+    n, rows = decode_kernel.plan_groups(*args)
+    assert (n, rows) == expected
+    assert (n - 1) * rows < TG <= n * rows
+    assert n == 1 or rows % decode_kernel.ROW_PASS == 0
+    bucket = next(b for b in (16, 32, 64, 128, 256) if hd <= b)
+    assert rows * (bucket + 16 // itemsize) * itemsize <= max(
+        decode_kernel.Q_ROW_BYTES, 16 * (bucket + 16 // itemsize) * itemsize)
+
+
 # ---------------------------------------------------------------------------
 # on the card: kernel against its plain version
 
@@ -771,6 +806,43 @@ def test_decode_gqa_kernel_matches_plain(cuda, cfg, dtype):
     torch.cuda.synchronize()
     np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DECODE_LM))
+def test_decode_gqa_kernel_lm_shapes(cuda, name):
+    """The decoder-only phase's shapes: T*G 96 at hd 64 (the prefill
+    lanes of 8 and 2 slots, in query groups over 4 splits), the verify
+    passes at B 200 and 250, the greedy and beam steps, and a feed of 447
+    positions (1,341 query rows in 21 groups)."""
+    cfg = DECODE_LM[name]
+    tx = [t.to(cuda) for t in _torch(_decode_inputs(cfg), "float32")]
+    out = decode_gqa_attention(*tx)
+    ref = decode_gqa_ref(*tx)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(PAGED_LM))
+def test_paged_decode_gqa_kernel_lm_shapes(cuda, name):
+    cfg = PAGED_LM[name]
+    tx = [t.to(cuda) for t in _torch(
+        paged_inputs(*(cfg[k] for k in ("B", "T", "H", "Kv", "P", "ps", "nb",
+                                        "hd")), n_mapped=cfg["n_mapped"]),
+        "float32")]
+    out = paged_decode_gqa_attention(*tx)
+    ref = paged_decode_gqa_ref(*tx)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,T,V", list(VERIFY_LM.values()))
+def test_draft_verify_kernel_lm_shapes(cuda, N, T, V):
+    _assert_verify_kernel_matches_plain(cuda, N, T, V, "float32")
 
 
 @pytest.mark.gpu

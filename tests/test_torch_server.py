@@ -773,9 +773,48 @@ def test_no_healthy_replica_is_a_typed_retryable_rejection(toy):
         srv.shutdown(drain=False)
 
 
+def _replica_args(**kw):
+    base = dict(model="arch", arch="smollm-135m", reduced=True,
+                mode="speculative", slots=2, max_new=8, max_src=24,
+                draft_len=4, n_drafts=4, paged=True, page_size=8,
+                prefix_cache=False, prefill_chunk=5, device="cpu")
+    base.update(kw)
+    return type("Args", (), base)()
+
+
 def test_replica_entry_point_refuses_decoder_only_models():
+    """``--model arch`` builds the dense decoder-only families; one the port
+    does not serve yet is refused, naming the ones it does."""
     from repro_torch.serving.fleet import replica
 
-    args = type("Args", (), dict(model="arch"))()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        replica.build_engine(args)
+    with pytest.raises(KeyError, match="smollm-135m"):
+        replica.build_engine(_replica_args(arch="rwkv6-1.6b"))
+
+
+def test_replica_serves_a_decoder_only_arch():
+    """``--model arch --arch smollm-135m --reduced`` behind the front door:
+    token ids in, and the done event's tokens equal an engine built
+    directly from the same seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.fleet import replica
+
+    eng = replica.build_engine(_replica_args())
+    prompt = np.random.default_rng(5).integers(4, 500, 19).tolist()
+    cfg = get_config("smollm-135m", reduced=True)
+    ref = StreamingEngine(
+        tr.init(torch.Generator().manual_seed(0), cfg, device="cpu"), cfg,
+        None, EngineConfig(mode="speculative", n_slots=2, max_new=8,
+                           max_src=24, draft_len=4, n_drafts=4, paged=True,
+                           page_size=8, prefill_chunk=5, eos_id=2),
+        device="cpu")
+    want = ref.submit(np.asarray(prompt, np.int32)).result().tokens[0]
+    srv = FrontDoorServer(eng, ServerConfig(realtime=False)).start()
+    try:
+        events = sse_events(HOST, srv.port, {"query": prompt})
+    finally:
+        srv.shutdown(drain=False)
+    assert [e["event"] for e in events][0] == "accepted"
+    done = events[-1]
+    assert done["event"] == "done"
+    np.testing.assert_array_equal(done["tokens"][0], want)
