@@ -93,16 +93,38 @@ In order:
      draft_verify must each launch; wall per request, scheduler
      iterations, prefill chunks, peak pages and time to the first delta
      per mode;
-  10. run a tiny model on the card and on the CPU with the same weights: the
+  10. the prefix-sharing phase (``serve_prefix_sharing``): the same model
+     and weights on the paged cache with the radix page cache; a 384-token
+     prefix (seed 4) served alone, then 16 children extending it by 16-96
+     tokens (seed 5) at 8 slots, max_new 32, greedy and speculative, once
+     with ``prefix_cache=False`` (cold) and once shared: shared tokens ==
+     cold tokens, paged_decode_gqa and draft_verify launch and decode_gqa
+     does not; prints chunks written, ``prefix_stats()``, peak pages,
+     wall per request and time to the first delta; the shared greedy pass
+     again on a pool of 106 pages (radix evictions > 0, cold tokens);
+     ``cancel_subtree`` on a running child with two queued children
+     (after ``clear_prefix_cache()`` every page is free); two replicas
+     behind a ``FleetRouter``, 8 children of each of two prefixes (tokens
+     == a direct engine's; placements by reason, replica hit rates);
+  11. the multi-draft phase (``serve_multidraft``): 4 of the decoder-only
+     prompts at B 1 and B 4 on a dense cache through
+     ``multidraft_speculative_decode`` (one row of T 251 a sequence), the
+     expanded-batch speculative decode (25 rows of T 11) and greedy:
+     tokens equal, calls equal the expanded path's, with prompt-lookup
+     drafts and again with drafts cut from the greedy output (drafts
+     accepted whole: every sequence accepts, fewer calls than greedy);
+     wall per query, calls and one verify call's device time in each form;
+  12. run a tiny model on the card and on the CPU with the same weights: the
      card's tokens must match the CPU's plain path, one-shot and paged
      streaming, and a streaming speculative pass at draft_len 32 (T 33
      fed positions), and one train step's loss and gradients must match
      within 1e-4; then 50 train steps on both, printing the first step
      whose losses part by more than 1e-4;
-  11. print the ``kernels`` JSON line, the card line, and
+  13. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
-Every serving phase must launch flash_attention (the encoder).
+Every Molecular Transformer serving phase must launch flash_attention (the
+encoder).
 
 Any failed check raises, so the exit code is nonzero and no result prints.
 fp32 throughout with TF32 off. Imports nothing of JAX or of the JAX package.
@@ -242,22 +264,25 @@ def bound(nbytes: int, flops: int) -> tuple[float, str]:
 def paged_work(q, k_pool, pos_pool, bt, q_pos):
     """Bytes and flops that one paged read needs for these inputs, from the
     visible keys only: a key counts when its block is mapped, its stored
-    position is >= 0 and <= the row's newest query. Bytes: those keys' K
-    and V, the stored positions of the mapped blocks, the block table, q,
-    the output and q_pos; flops: 4·hd per visible (query head, key)
-    pair."""
+    position is >= 0 and <= the newest query of a row that maps it, and a
+    page several rows alias (a shared prefix) counts once. Bytes: those
+    keys' K and V, the stored positions of the mapped pages, the block
+    table, q, the output and q_pos; flops: 4·hd per visible (query head,
+    key) pair of each row."""
     B, T, H, hd = q.shape
     ps, Kv = k_pool.shape[1], k_pool.shape[2]
     mapped = bt >= 0
     kpos = np.where(mapped[..., None], pos_pool[np.where(mapped, bt, 0)], -1
                     ).reshape(B, -1)
     qmax = q_pos.max(1, keepdims=True)
-    visible = ((kpos >= 0) & (kpos <= qmax)).sum()
+    key_id = (np.where(mapped, bt, 0)[..., None] * ps
+              + np.arange(ps)).reshape(B, -1)
+    visible = np.unique(key_id[(kpos >= 0) & (kpos <= qmax)]).size
     pairs = ((kpos[:, None, :] >= 0)
              & (kpos[:, None, :] <= q_pos[:, :, None])).sum()
     nbytes = (2 * visible * Kv * hd * k_pool.itemsize + 2 * q.nbytes
-              + int(mapped.sum()) * ps * pos_pool.itemsize + bt.nbytes
-              + q_pos.nbytes)
+              + np.unique(bt[mapped]).size * ps * pos_pool.itemsize
+              + bt.nbytes + q_pos.nbytes)
     return int(nbytes), int(4 * hd * H * pairs)
 
 
@@ -320,8 +345,10 @@ def paged_main_shapes(ecfg, n_queries: int) -> dict:
 
 def check_paged(torch, ecfg, n_queries: int) -> dict:
     """paged_decode_gqa against its plain version on the card: the shared
-    paged sweep and the card-only list in fp32 and bf16, then the timed
-    shapes (``paged_main_shapes``), timed beside their visible-key bound
+    paged sweep and the card-only list in fp32 and bf16, the tables whose
+    rows alias a shared prefix's pages (``cases.PAGED_ALIASED``), then the
+    timed shapes (``paged_main_shapes``, the decoder-only phase's and the
+    aliased tables), timed beside their visible-key bound
     and the library yardstick (the ``paged_view`` gather, then
     ``scaled_dot_product_attention``: two calls, since no one PyTorch call
     computes paged attention); at the trained streaming shape and the long
@@ -329,8 +356,9 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import paged_decode_gqa_attention
-    from repro_torch.kernels.cases import (PAGED_CARD_ONLY, PAGED_LM,
-                                           PAGED_SWEEP, paged_inputs)
+    from repro_torch.kernels.cases import (PAGED_ALIASED, PAGED_CARD_ONLY,
+                                           PAGED_LM, PAGED_SWEEP,
+                                           aliased_paged_inputs, paged_inputs)
     from repro_torch.kernels.decode_gqa.kernel import (
         paged_decode_gqa_kernel, plan_splits)
     from repro_torch.kernels.decode_gqa.ref import paged_decode_gqa_ref
@@ -356,10 +384,24 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
         if dt == torch.float32:
             err = max(err, e.max().item())
     # an inactive row gives 0: check_decode_determinism
+    # the prefix-sharing phase's tables: rows alias the same leading pages
+    aliased = {name: aliased_paged_inputs(*(c[k] for k in (
+        "B", "T", "H", "Kv", "ps", "nb", "hd", "n_shared", "n_private")))
+        for name, c in PAGED_ALIASED.items()}
+    for name, arrays in aliased.items():
+        x = on_card(torch, arrays)
+        ref = paged_decode_gqa_ref(*x)
+        e = (paged_decode_gqa_attention(*x) - ref).abs()
+        torch.cuda.synchronize()
+        if not torch.all(e <= 2e-5 + 2e-5 * ref.abs()):
+            raise AssertionError(f"paged_decode_gqa disagrees on the aliased "
+                                 f"table {name}: max err {e.max().item()}")
+        err = max(err, e.max().item())
 
     shapes = {}
-    for name, c in main.items():
-        arrays = paged_inputs(*(c[k] for k in keys), n_mapped=c["n_mapped"])
+    for name, c in dict(main, **PAGED_ALIASED).items():
+        arrays = (aliased[name] if name in aliased else
+                  paged_inputs(*(c[k] for k in keys), n_mapped=c["n_mapped"]))
         x = on_card(torch, arrays)
         q, kp_, vp_, pp_, bt_, qp_ = x
         cache = PagedKVCache(k_pool=kp_, v_pool=vp_, pos=pp_, block_tables=bt_)
@@ -832,16 +874,38 @@ def run_engine(torch, ds, cfg, params, ecfg_kw: dict, queries, modes,
     return out
 
 
+def kernel_events(prof) -> list:
+    """(name, device time in us, count) of every kernel in a profile
+    (CPU ops also carry their kernels' time, so only device rows)."""
+    return [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.device_time_total > 0]
+
+
+def device_busy_ms(torch, fn, iters: int = 5, warm: int = 2) -> float:
+    """Device time of ``fn`` per call: its kernels' times summed under
+    torch.profiler. For a whole eager model call this, not a CUDA-event
+    span, is the device's work: a call of a few thousand launches fills
+    the launch queue, so the host's enqueue leaves gaps in the span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(t for _, t, _ in kernel_events(prof)) / iters / 1e3
+
+
 def report_profile(prof, wall_us: float, label: str, path: Path) -> None:
     """Print the device's busy share (sum of kernel times over the wall
     time; overlapping kernels would count twice, and eager PyTorch on one
     stream runs none) and the top kernels by device time; write the full
     table to ``path``."""
-    # kernel-level rows only (CPU ops also carry their kernels' time)
-    events = [(e.key, e.device_time_total, e.count)
-              for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and e.device_time_total > 0]
+    events = kernel_events(prof)
     busy_us = sum(t for _, t, _ in events)
     events.sort(key=lambda e: -e[1])
     top = ", ".join(f"{k[:40]} {t / 1e3:.1f} ms x{n}"
@@ -1642,7 +1706,7 @@ def lm_one_shot(torch, cfg, params, prompt, mode: str, device="cuda"):
     return r.tokens[0].cpu().numpy()
 
 
-def serve_decoder(torch) -> dict:
+def serve_decoder(torch, params) -> dict:
     """The decoder-only phase: SmolLM-135M at full width (30 layers,
     d_model 576, 9 heads over 3 KV heads, hd 64, d_ff 1536, vocab 49,152,
     tied embeddings), random weights, served through the port's
@@ -1658,7 +1722,6 @@ def serve_decoder(torch) -> dict:
 
     cfg = get_config(LM["arch"])
     t_phase = time.perf_counter()
-    params = tr.init(torch.Generator().manual_seed(SEED), cfg, device="cuda")
     prompts = lm_prompts(cfg.vocab_size, LM["n_prompts"], LM["len_lo"],
                          LM["len_hi"])
     run_lm(torch, cfg, params, prompts[:1],                     # warm-up
@@ -1754,6 +1817,458 @@ def serve_decoder(torch) -> dict:
           flush=True)
     return {f"{k} {m}": r for k, runs in (("paged", paged), ("dense", dense))
             for m, r in runs.items()}
+
+
+# -- prefix sharing: the radix page cache at SmolLM-135M's full width ------
+# a 384-token prefix (seed 4) served alone, then 16 children that extend it
+# by 16-96 tokens each (seed 5), at 8 slots, greedy and speculative, cold
+# (prefix_cache=False) and shared; a pool too small to retain every prefix;
+# a request tree; two replicas behind the fleet router
+# pool of the pressure pass: three slots' worst case (35 pages a greedy
+# slot at max_src 512) and the trash page, short of 8 residents plus the
+# retained prefixes
+PREFIX = dict(prefix_len=384, n_children=16, child_lo=16, child_hi=96,
+              slots=8, max_new=32, fleet_children=8,
+              pressure_pages=1 + 3 * 35)
+
+
+def prefix_prompts(vocab: int, seed_prefix: int, seed_children: int,
+                   n: int):
+    """A shared prefix and ``n`` child suffixes of 16-96 tokens."""
+    prefix = np.random.default_rng(seed_prefix).integers(
+        4, vocab, PREFIX["prefix_len"]).astype(np.int32)
+    rng = np.random.default_rng(seed_children)
+    suffixes = [rng.integers(4, vocab, int(L)).astype(np.int32)
+                for L in rng.integers(PREFIX["child_lo"],
+                                      PREFIX["child_hi"] + 1, n)]
+    return prefix, suffixes
+
+
+def prefix_engine(torch, cfg, params, mode: str, share: bool, **kw):
+    from repro_torch.serving import EngineConfig, StreamingEngine
+
+    return StreamingEngine(params, cfg, None, EngineConfig(
+        mode=mode, n_slots=PREFIX["slots"], paged=True, prefix_cache=share,
+        **lm_engine_kw(max_new=PREFIX["max_new"], **kw)))
+
+
+def run_children(torch, eng, prefix, suffixes) -> dict:
+    """Serve ``prefix`` alone (its pages enter the radix tree when sharing
+    is on), then its children, every one submitted at once with its stream
+    subscribed; launch counts set to 0 just before the children and read
+    just after. Returns the children's tokens, wall, time to the first
+    delta, chunks written, stats, pages and counts."""
+    from repro_torch.kernels import launch_counts
+
+    parent = eng.submit(prefix)
+    parent.result()
+    chunks0 = eng.prefill_chunks_written
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    handles = [parent.submit_child(s) for s in suffixes]
+    sinks = {int(h): eng.subscribe(int(h)) for h in handles}
+    first: dict[int, float] = {}
+    while eng._pump_once():
+        now = time.perf_counter() - t0
+        for rid, st in sinks.items():
+            if rid not in first and (st["buf"] or st["done"]):
+                first[rid] = now
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(launch_counts), verify_shapes()
+    results = [h.result() for h in handles]
+    for r in results:
+        if not (r.tokens.shape[1] == PREFIX["max_new"]
+                and int(r.lengths[0]) >= 1):
+            raise AssertionError(f"prefix sharing: malformed result {r}")
+    eng.allocator.check()
+    if eng.radix is not None:
+        eng.radix.check()
+    return dict(tokens=[np.asarray(r.tokens) for r in results],
+                wall_s=wall, first_s=[first.get(int(h), wall)
+                                      for h in handles],
+                chunks=eng.prefill_chunks_written - chunks0,
+                stats=eng.prefix_stats(), footprint=eng.cache_footprint(),
+                preemptions=eng.scheduler.n_preemptions,
+                steps=eng.loop_stats()["n_iterations"], launches=launches,
+                shapes=shapes)
+
+
+def print_children(label: str, r: dict) -> None:
+    st, fp, n = r["stats"], r["footprint"], len(r["tokens"])
+    fs = r["first_s"]
+    print(f"prefix sharing [smollm-135m full width, {label}] "
+          f"{PREFIX['slots']} slots, {n} children of a "
+          f"{PREFIX['prefix_len']}-token prefix: wall {r['wall_s']:.3f} s, "
+          f"{r['wall_s'] / n * 1e3:.2f} ms per request; time to first delta "
+          f"p50 {percentile(fs, 50) * 1e3:.2f} ms, p95 "
+          f"{percentile(fs, 95) * 1e3:.2f} ms; prefill chunks written "
+          f"{r['chunks']} ({r['chunks'] / n:.2f} a child); prefix_stats "
+          f"lookups {st['lookups']}, hit tokens {st['hit_tokens']} of "
+          f"{st['lookup_tokens']}, inserted {st['inserted']}, evicted "
+          f"{st['evicted']}, nodes {st['nodes']}; peak pages "
+          f"{fp['peak_pages']} of {fp['n_pages'] - 1} (retained "
+          f"{fp['retained_pages']}); preemptions {r['preemptions']}; "
+          f"launches {r['launches']}", flush=True)
+
+
+def check_prefix_launches(label: str, mode: str, lc: dict) -> None:
+    if lc["paged_decode_gqa"] == 0 or lc["decode_gqa"] != 0 or (
+            lc["draft_verify"] == 0):
+        raise AssertionError(f"prefix sharing {label} {mode}: launches {lc}")
+
+
+def prefix_tree(torch, cfg, params, prefix, suffixes) -> dict:
+    """``submit_child`` / ``cancel_subtree`` on a running parent whose two
+    children wait in the queue behind 7 fillers: all three are cancelled,
+    the fillers finish, and after ``clear_prefix_cache()`` every page of
+    the pool is free again."""
+    from repro_torch.core.session import device_free_pages
+    from repro_torch.kernels import launch_counts
+
+    eng = prefix_engine(torch, cfg, params, "greedy", True)
+    torch.cuda.synchronize()
+    reset_counts()
+    root = eng.submit(prefix)
+    root.result()
+    parent = root.submit_child(suffixes[0])
+    fillers = [root.submit_child(s)
+               for s in suffixes[1:PREFIX["slots"]]]
+    while str(parent.status) != "running":
+        eng._pump_once()
+    kids = [parent.submit_child(s[:8]) for s in suffixes[-2:]]
+    statuses = [str(h.status) for h in (parent, *kids)]
+    if statuses != ["running", "queued", "queued"]:
+        raise AssertionError(f"prefix tree: before the cancel {statuses}")
+    n = eng.cancel_subtree(int(parent))
+    statuses = [str(h.status) for h in (parent, *kids)]
+    eng.serve()
+    launches, shapes = dict(launch_counts), verify_shapes()
+    nodes = len(eng.radix)
+    dropped = eng.clear_prefix_cache()
+    n_pages, _ = eng._paged_geometry()
+    free = int(device_free_pages(eng.scheduler.state.cache, n_pages))
+    eng.allocator.check()
+    if n != 3 or statuses != ["cancelled"] * 3 or free != n_pages - 1 or \
+            any(str(f.status) != "finished" for f in fillers) or \
+            len(eng.radix) != 0:
+        raise AssertionError(f"prefix tree: {n} cancelled, {statuses}, "
+                             f"free pages {free} of {n_pages - 1}")
+    print(f"prefix tree: cancel_subtree cancelled a running child and its 2 "
+          f"queued children; {nodes} radix nodes, clear_prefix_cache "
+          f"dropped {dropped}; every page free ({free}); launches "
+          f"{launches}", flush=True)
+    return dict(launches=launches, shapes=shapes)
+
+
+def prefix_fleet(torch, cfg, params, suffixes) -> dict:
+    """Two in-process decoder-only replicas (``FrontDoorServer`` over a
+    ``prefix_cache=True`` engine each, as ``serving.fleet.replica
+    --model arch --arch smollm-135m --paged --prefix-cache`` builds them)
+    behind a ``FleetRouter``: two prefixes sent together, then 8 children
+    of each from concurrent clients. Tokens equal one direct engine's;
+    prints the placements by reason and each replica's hit rate."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving import (FleetConfig, FleetRouter,
+                                     FrontDoorServer, ServerConfig)
+
+    k = PREFIX["fleet_children"]
+    prefixes = [prefix_prompts(cfg.vocab_size, seed, seed, 0)[0]
+                for seed in (4, 6)]
+    roots = [p.tolist() for p in prefixes]
+    queries = [np.concatenate([prefixes[i % 2], s]).tolist()
+               for i, s in enumerate(suffixes[:2 * k])]
+    direct = prefix_engine(torch, cfg, params, "greedy", True)
+    handles = [direct.submit(np.asarray(q, np.int32))
+               for q in roots + queries]
+    want = {}
+    for q, h in zip(roots + queries, handles):
+        r = h.result()
+        want[tuple(q)] = r.tokens[0][:int(r.lengths[0])].tolist()
+
+    def replica():
+        eng = prefix_engine(torch, cfg, params, "greedy", True)
+        eng.submit(prefixes[0][:40])
+        eng.serve()
+        eng.reset()
+        return FrontDoorServer(eng, ServerConfig(realtime=True)).start()
+
+    srvs = [replica() for _ in range(2)]
+    router = None
+    try:
+        router = FleetRouter([("127.0.0.1", s.port) for s in srvs],
+                             FleetConfig(probe_interval_s=0.05)).start()
+        time.sleep(0.2)   # one probe round
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(queries)) as pool:
+            futs = []
+            for q in roots:   # together, so least-loaded splits them
+                futs.append(pool.submit(wire_request, router.port, q, True))
+                time.sleep(FLEET_STAGGER_S)
+            done = [f.result() for f in futs]
+            futs = []
+            for i, q in enumerate(queries):
+                futs.append(pool.submit(wire_request, router.port, q,
+                                        i % 2 == 0))
+                time.sleep(FLEET_STAGGER_S)
+            done += [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        launches, shapes = dict(launch_counts), verify_shapes()
+        stats = router.stats(fresh=True)
+    finally:
+        if router is not None:
+            router.shutdown()
+        for s in srvs:
+            s.shutdown(drain=False)
+    for i, (q, r) in enumerate(zip(roots + queries, done)):
+        check_wire_events("prefix fleet", i, r["events"], want[tuple(q)])
+    check_prefix_launches("fleet", "greedy", launches)
+    placed = {i: v["submitted"] for i, v in stats["replicas"].items()}
+    hit = {i: round(v["prefix_hit_rate"], 4)
+           for i, v in stats["replicas"].items()}
+    n_aff = stats["affinity_hits"]
+    print(f"prefix fleet [2 replicas on one card, 2 prefixes then "
+          f"{len(queries)} children through the router]: wall {wall:.3f} s, "
+          f"{wall / len(done) * 1e3:.2f} ms per request; placements "
+          f"{stats['placements']}: {n_aff} by prefix affinity, "
+          f"{stats['placements'] - n_aff} least-loaded; by replica {placed}; "
+          f"replica radix hit rates {hit}; reroutes {stats['reroutes']}; "
+          f"launches {launches}; tokens == the direct engine's", flush=True)
+    return dict(wall_s=wall, launches=launches, shapes=shapes)
+
+
+def serve_prefix_sharing(torch, params) -> dict:
+    """The prefix-sharing phase: SmolLM-135M at full width, random weights,
+    the radix page cache of the paged decoder-only StreamingEngine.
+    Asserts: shared tokens == cold tokens in greedy and speculative, and
+    under pool pressure (with radix evictions); paged_decode_gqa and
+    draft_verify launch and decode_gqa does not; the request tree frees
+    every page; the fleet's tokens == the direct engine's. Returns each
+    counted run's launches and draft_verify shapes."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM["arch"])
+    t_phase = time.perf_counter()
+    prefix, suffixes = prefix_prompts(cfg.vocab_size, 4, 5,
+                                      PREFIX["n_children"])
+    warm = prefix_engine(torch, cfg, params, "speculative", True)
+    warm.submit(prefix[:40])
+    warm.serve()
+    del warm
+    out = {}
+    for mode in ("greedy", "speculative"):
+        runs = {}
+        for label, share in (("cold", False), ("shared", True)):
+            eng = prefix_engine(torch, cfg, params, mode, share)
+            runs[label] = run_children(torch, eng, prefix, suffixes)
+            check_prefix_launches(label, mode, runs[label]["launches"])
+            print_children(f"{label} {mode}", runs[label])
+            out[f"{label} {mode}"] = runs[label]
+        for i, (a, b) in enumerate(zip(runs["shared"]["tokens"],
+                                       runs["cold"]["tokens"])):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"prefix sharing {mode} child {i}: "
+                                     f"shared tokens differ from cold")
+        st = runs["shared"]["stats"]
+        if st["hit_tokens"] <= 0 or runs["shared"]["chunks"] >= \
+                runs["cold"]["chunks"]:
+            raise AssertionError(f"prefix sharing {mode}: no reuse {st}")
+        print(f"prefix sharing check: {mode} shared tokens == cold tokens",
+              flush=True)
+    # pool pressure: room for a few slots' worst case, so retained
+    # prefixes must go before residents are preempted
+    eng = prefix_engine(torch, cfg, params, "greedy", True,
+                        n_pages=PREFIX["pressure_pages"])
+    r = run_children(torch, eng, prefix, suffixes)
+    check_prefix_launches("pressure", "greedy", r["launches"])
+    print_children(f"shared greedy, pool of {PREFIX['pressure_pages']} "
+                   f"pages", r)
+    same = all(np.array_equal(a, b) for a, b in
+               zip(r["tokens"], out["cold greedy"]["tokens"]))
+    if r["stats"]["evicted"] <= 0 or not same:
+        raise AssertionError(f"prefix sharing under pool pressure: evicted "
+                             f"{r['stats']['evicted']}, tokens == cold "
+                             f"{same}")
+    out["pressure greedy"] = r
+    print("prefix sharing check: pool pressure evicted radix nodes, every "
+          "child finished with the cold tokens", flush=True)
+    out["tree"] = prefix_tree(torch, cfg, params, prefix, suffixes)
+    out["fleet"] = prefix_fleet(torch, cfg, params, suffixes)
+    print(f"prefix sharing phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+# -- multi-draft: every draft verified in one row per sequence --------------
+MULTIDRAFT = dict(n_prompts=4, max_new=32)
+
+
+def serve_multidraft(torch, params) -> dict:
+    """The multi-draft phase: SmolLM-135M at full width, random weights, on
+    4 of the decoder-only phase's prompts at B 1 (one at a time) and at B 4
+    (ragged, one batch), on a dense cache: ``multidraft_speculative_decode``
+    (one row of T = 1 + 25 x 10 = 251 a sequence) against the
+    expanded-batch speculative decode (25 rows of T 11) and greedy, with
+    prompt-lookup drafts and with drafts cut from the greedy output (so
+    drafts are accepted whole). Asserts multi-draft == expanded == greedy
+    tokens and equal call counts, and acceptance on the cut drafts; prints
+    the wall per query, the calls and one verify call's device time in
+    each form."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (greedy_decode,
+                                  multidraft_speculative_decode,
+                                  prompt_lookup_drafts,
+                                  speculative_greedy_decode,
+                                  transformer_handle)
+    from repro_torch.core.multidraft import build_local_mask
+    from repro_torch.core.tree_batch import expand_batch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import transformer as tr
+
+    cfg = get_config(LM["arch"])
+    t_phase = time.perf_counter()
+    handle = transformer_handle(params, cfg)
+    prompts = lm_prompts(cfg.vocab_size, LM["n_prompts"], LM["len_lo"],
+                         LM["len_hi"])[:MULTIDRAFT["n_prompts"]]
+    DL, N_d, max_new = LM["draft_len"], LM["n_drafts"], MULTIDRAFT["max_new"]
+
+    def inputs(idx, drafts=None):
+        """A dense cache with prompts ``idx`` minus their last token
+        prefilled (ragged), and the decode's start tokens, positions and
+        drafts: prompt-lookup drafts, or rows ``idx`` of ``drafts``."""
+        batch = [prompts[i] for i in idx]
+        P = np.array([len(p) for p in batch])
+        toks = np.zeros((len(batch), P.max() - 1), np.int32)
+        for b, p in enumerate(batch):
+            toks[b, :len(p) - 1] = p[:-1]
+        cache = tr.init_cache(cfg, len(batch), int(P.max()) + max_new + DL
+                              + 4, device="cuda")
+        tr.prefill(params, cfg, cache, torch.from_numpy(toks).cuda(),
+                   lengths=torch.from_numpy(P - 1).cuda())
+        if drafts is None:
+            d, m = map(np.stack, zip(*(prompt_lookup_drafts(p, DL, N_d)
+                                       for p in batch)))
+        else:
+            d, m = drafts[0][idx], drafts[1][idx]
+        return (cache, torch.tensor([int(p[-1]) for p in batch],
+                                    dtype=torch.int32, device="cuda"),
+                torch.from_numpy((P - 1).astype(np.int32)).cuda(),
+                torch.from_numpy(d).cuda(), torch.from_numpy(m).cuda())
+
+    def greedy_drafts(tokens):
+        """Drafts cut from the greedy output: draft j is the DL tokens at
+        j·(DL + 1), where call j starts once every earlier call accepted a
+        whole draft, so the winner's DL + 1 tokens are committed each call.
+        Draft 2 of prompt 1 is masked off (one call of one token there)."""
+        gt = np.concatenate([tokens, np.zeros((len(tokens), N_d * (DL + 1)),
+                                              np.int32)], 1)
+        d = np.stack([[gt[b, j * (DL + 1):j * (DL + 1) + DL]
+                       for j in range(N_d)] for b in range(len(tokens))])
+        m = np.ones((len(tokens), N_d), bool)
+        m[1, 2] = False
+        return d.astype(np.int32), m
+
+    def run(fn, batches, drafts=None) -> dict:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        runs = [fn(*inputs(b, drafts)) for b in batches]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, shapes = dict(launch_counts), verify_shapes()
+        tokens = np.concatenate([r.tokens.cpu().numpy() for r in runs])
+        acc = [int(a) for r in runs if hasattr(r, "accepted_tokens")
+               for a in r.accepted_tokens.cpu()]
+        return dict(tokens=tokens, calls=[r.n_calls for r in runs],
+                    wall_s=wall, accepted=acc, launches=launches,
+                    shapes=shapes)
+
+    forms = {
+        "multidraft": lambda c, last, pos, d, m: multidraft_speculative_decode(
+            params, cfg, c, last, pos, d, m, max_new=max_new,
+            eos_id=LM["eos_id"]),
+        "expanded": lambda c, last, pos, d, m: speculative_greedy_decode(
+            handle, c, last, pos, d, m, max_new=max_new,
+            eos_id=LM["eos_id"]),
+        "greedy": lambda c, last, pos, d, m: greedy_decode(
+            handle, c, last, pos, max_new=max_new, eos_id=LM["eos_id"])}
+    forms["multidraft"](*inputs([0]))                           # warm-up
+    out = {}
+    n_q = len(prompts)
+    for label, batches in (("B 1", [[i] for i in range(n_q)]),
+                           ("B 4", [list(range(n_q))])):
+        res = {form: run(fn, batches) for form, fn in forms.items()}
+        # drafts cut from the greedy output: whole drafts accepted, so the
+        # winner pick, the multi-token K/V commit and the bookkeeping past
+        # one token run on the card
+        cut = greedy_drafts(res["greedy"]["tokens"])
+        for form in ("multidraft", "expanded"):
+            res[f"{form} greedy-drafts"] = run(forms[form], batches, cut)
+        for form, r in res.items():
+            out[f"multidraft {label} {form}"] = r
+        for md, ex in (("multidraft", "expanded"),
+                       ("multidraft greedy-drafts", "expanded greedy-drafts")):
+            for form in (ex, "greedy"):
+                if not np.array_equal(res[md]["tokens"], res[form]["tokens"]):
+                    raise AssertionError(f"multi-draft {label}: {md} tokens "
+                                         f"differ from {form}")
+            if res[md]["calls"] != res[ex]["calls"]:
+                raise AssertionError(f"multi-draft {label}: {md} calls "
+                                     f"{res[md]['calls']} != {ex} "
+                                     f"{res[ex]['calls']}")
+        cut_md = res["multidraft greedy-drafts"]
+        if min(cut_md["accepted"]) <= 0 \
+                or sum(cut_md["calls"]) >= sum(res["greedy"]["calls"]):
+            raise AssertionError(f"multi-draft {label}: drafts cut from the "
+                                 f"greedy output must be accepted: accepted "
+                                 f"{cut_md['accepted']}, calls "
+                                 f"{cut_md['calls']} against greedy's "
+                                 f"{res['greedy']['calls']}")
+        for form, r in res.items():
+            note = ("drafts cut from the greedy output"
+                    if form.endswith("greedy-drafts") else
+                    "random weights: acceptance near 0 means nothing")
+            print(f"multi-draft [smollm-135m full width, {label}, {form}] "
+                  f"{n_q} prompts, DL {DL}, {N_d} drafts, max_new "
+                  f"{max_new}: wall {r['wall_s']:.3f} s, "
+                  f"{r['wall_s'] / n_q * 1e3:.2f} ms per query (the "
+                  f"one-shot prefill included); calls "
+                  f"{r['calls']}; accepted draft tokens {r['accepted']} "
+                  f"({note}); launches {r['launches']}", flush=True)
+    print("multi-draft check: multi-draft == expanded speculative == greedy "
+          "tokens, calls == expanded, at B 1 and B 4, with prompt-lookup "
+          "drafts and with drafts cut from the greedy output (every "
+          "sequence accepted draft tokens, fewer calls than greedy)",
+          flush=True)
+    # one verify call's device time in each form, B 1, the first prompt
+    cache, last, pos, d, m = inputs([0])
+    T = 1 + N_d * DL
+    toks = torch.cat([last[:, None], d.reshape(1, -1)], dim=1)
+    rel = torch.arange(DL, dtype=torch.int32, device="cuda")
+    positions = torch.cat([pos[:, None], (pos[:, None] + 1 + rel[None])
+                           .repeat(1, N_d)], dim=1)
+    mask = torch.from_numpy(build_local_mask(N_d, DL)).cuda()
+    md_ms = device_busy_ms(torch, lambda: tr.multidraft_verify_step(
+        params, cfg, cache, toks, positions, mask))
+    wide = expand_batch(cache, N_d)
+    etoks = torch.cat([last.repeat(N_d)[:, None], d[0]], dim=1)
+    epos = (pos.repeat(N_d)[:, None]
+            + torch.arange(DL + 1, dtype=torch.int32, device="cuda")[None])
+    ex_ms = device_busy_ms(torch, lambda: tr.decode_step(params, cfg, wide,
+                                                         etoks, epos))
+    print(f"multi-draft verify call, device time (kernel times summed by "
+          f"torch.profiler, mean of 5 calls): one row of T {T} {md_ms:.3f} "
+          f"ms (joint softmax in plain torch einsums: no kernel); {N_d} rows "
+          f"of T {DL + 1} {ex_ms:.3f} ms (decode_gqa; draft_verify "
+          f"excluded)", flush=True)
+    out["verify_ms"] = dict(multidraft=md_ms, expanded=ex_ms)
+    print(f"multi-draft phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
 
 
 def check_train_step(torch, ds, tcfg, cpu_params) -> None:
@@ -2188,7 +2703,12 @@ def main() -> int:
             main_launches[k] += r["launches"][k]
         add_shapes(r)
     # -- decoder-only: SmolLM-135M at full width ------------------------------
-    lm = serve_decoder(torch)
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+
+    lm_params = tr.init(torch.Generator().manual_seed(SEED),
+                        get_config(LM["arch"]), device="cuda")
+    lm = serve_decoder(torch, lm_params)
     lm_launches = dict.fromkeys(names, 0)
     for r in lm.values():
         for k in names:
@@ -2200,6 +2720,23 @@ def main() -> int:
             raise AssertionError(f"decoder-only phase: {k} was never "
                                  f"launched ({lm_launches})")
     print(f"decoder-only phase launches: {lm_launches}", flush=True)
+    # -- prefix sharing and multi-draft, SmolLM-135M at full width -----------
+    for phase, runs, needed in (
+            ("prefix sharing", serve_prefix_sharing(torch, lm_params),
+             ("paged_decode_gqa", "draft_verify")),
+            ("multi-draft", serve_multidraft(torch, lm_params),
+             ("decode_gqa", "draft_verify"))):
+        counts = dict.fromkeys(names, 0)
+        for r in runs.values():
+            if "launches" not in r:
+                continue
+            for k in names:
+                main_launches[k] += r["launches"][k]
+                counts[k] += r["launches"][k]
+            add_shapes(r)
+        if any(counts[k] == 0 for k in needed):
+            raise AssertionError(f"{phase} phase: launches {counts}")
+        print(f"{phase} phase launches: {counts}", flush=True)
     if sum(main_shapes.values()) != main_launches["draft_verify"]:
         raise AssertionError(f"draft_verify shapes {main_shapes} do not add "
                              f"up to its {main_launches['draft_verify']} "

@@ -573,6 +573,250 @@ class PageAllocator:
 
 
 # ---------------------------------------------------------------------------
+# cross-request prefix page sharing: radix tree over committed pages
+
+
+class RadixNode:
+    """One committed page of prompt tokens in the prefix tree. The node
+    owns exactly one page and one *index cell*: a (row, block) slot in the
+    reserved index rows of the block table whose reference keeps the page
+    allocated while no request aliases it."""
+
+    __slots__ = ("key", "page", "parent", "children", "cell", "active",
+                 "last_used", "depth")
+
+    def __init__(self, key, page, parent, cell, depth):
+        self.key = key              # tuple of page_size token ids
+        self.page = int(page)
+        self.parent = parent
+        self.children: dict = {}
+        self.cell = cell            # index cell holding the reference
+        self.active = 0             # resident requests aliasing this page
+        self.last_used = 0          # LRU stamp (monotone counter)
+        self.depth = depth
+
+
+class RadixPageCache:
+    """Host-side radix (prefix) tree over committed prompt pages, the port
+    of ``repro.core.session.RadixPageCache``.
+
+    A request's prompt is keyed in ``page_size``-token chunks; on admission
+    the engine matches the prompt against this tree, aliases the matched
+    pages into the new slot's block table, and prefills only the unmatched
+    suffix. A node's page stays allocated (seen by the host allocator's
+    scan and the device page plan's refcounts) through its *index cell*:
+    one entry in the reserved index rows of the block table. Clearing the
+    cell is the whole eviction; the page then reads as unreferenced and
+    returns to the pool on the next reclaim.
+
+    Shared pages are copy-on-write safe: the index-cell reference makes
+    ``refs > win_refs`` for any decode window touching a shared page, so
+    the device plan (and the host walk) never keep it in place; a writer
+    always copies first. The tree is host bookkeeping only; the engine
+    writes and clears the cells with the block-table edits below."""
+
+    def __init__(self, page_size: int, n_cells: int):
+        self.page_size = int(page_size)
+        self.n_cells = int(n_cells)
+        self.root = RadixNode(None, -1, None, None, 0)
+        self._free_cells = list(range(n_cells - 1, -1, -1))
+        self._nodes_by_cell: dict[int, RadixNode] = {}
+        self._clock = 0
+        self.lookups = 0
+        self.hit_tokens = 0
+        self.lookup_tokens = 0
+        self.inserted = 0
+        self.evicted = 0
+
+    def __len__(self) -> int:
+        return len(self._nodes_by_cell)
+
+    @property
+    def free_cells(self) -> int:
+        return len(self._free_cells)
+
+    def _keys(self, tokens) -> list[tuple]:
+        ps = self.page_size
+        toks = [int(t) for t in tokens]
+        return [tuple(toks[i:i + ps])
+                for i in range(0, len(toks) - ps + 1, ps)]
+
+    def match(self, tokens) -> list[RadixNode]:
+        """Longest-prefix match of ``tokens`` in whole pages: the matched
+        node chain, root first (maybe empty); counts a lookup."""
+        self._clock += 1
+        self.lookups += 1
+        self.lookup_tokens += len(tokens)
+        chain = self.peek(tokens)
+        for nd in chain:
+            nd.last_used = self._clock
+        self.hit_tokens += len(chain) * self.page_size
+        return chain
+
+    def peek(self, tokens) -> list[RadixNode]:
+        """``match`` without side effects: touches neither the LRU clock
+        nor the hit-rate stats (a placement probe)."""
+        chain, node = [], self.root
+        for key in self._keys(tokens):
+            nxt = node.children.get(key)
+            if nxt is None:
+                break
+            chain.append(nxt)
+            node = nxt
+        return chain
+
+    def insert(self, tokens, pages, depth0: int = 0) -> list[RadixNode]:
+        """Extend the tree with ``tokens`` (full pages only) mapped to
+        ``pages`` (one page id per chunk, the finished prefill's committed
+        prompt pages); ``depth0`` skips the chunks matched at admission.
+        Returns the NEW nodes (the engine writes their index cells); chunks
+        already present are refreshed, not replaced. Out of cells, it stops
+        inserting (the tree is a cache, not a ledger)."""
+        self._clock += 1
+        keys = self._keys(tokens)
+        node = self.root
+        for key in keys[:depth0]:
+            nxt = node.children.get(key)
+            if nxt is None:
+                return []          # the matched chain was evicted meanwhile
+            nxt.last_used = self._clock
+            node = nxt
+        new: list[RadixNode] = []
+        for d, key in enumerate(keys[depth0:], start=depth0):
+            nxt = node.children.get(key)
+            if nxt is None:
+                if not self._free_cells:
+                    break
+                cell = self._free_cells.pop()
+                nxt = RadixNode(key, int(pages[d]), node, cell, d + 1)
+                node.children[key] = nxt
+                self._nodes_by_cell[cell] = nxt
+                new.append(nxt)
+                self.inserted += 1
+            nxt.last_used = self._clock
+            node = nxt
+        return new
+
+    def acquire(self, chain) -> None:
+        for node in chain:
+            node.active += 1
+
+    def release(self, chain) -> None:
+        for node in chain:
+            node.active -= 1
+            assert node.active >= 0, "radix node released below zero"
+
+    def _drop(self, node: RadixNode) -> int:
+        """Unlink one leaf node and recycle its cell; returns the cell."""
+        assert not node.children and node.active == 0
+        del node.parent.children[node.key]
+        del self._nodes_by_cell[node.cell]
+        self._free_cells.append(node.cell)
+        self.evicted += 1
+        return node.cell
+
+    def evict_lru(self, n: int) -> list[tuple[int, int]]:
+        """Evict up to ``n`` least-recently-used inactive LEAF nodes (leaf
+        first keeps the tree prefix-closed). Returns the ``(cell, page)``
+        pairs whose index cells the engine must clear."""
+        out: list[tuple[int, int]] = []
+        while len(out) < n:
+            victims = [nd for nd in self._nodes_by_cell.values()
+                       if not nd.children and nd.active == 0]
+            if not victims:
+                break
+            victims.sort(key=lambda nd: nd.last_used)
+            for nd in victims:
+                if len(out) >= n:
+                    break
+                out.append((self._drop(nd), nd.page))
+        return out
+
+    def drop_subtree(self, node: RadixNode) -> list[tuple[int, int]]:
+        """Remove ``node`` and every descendant whose whole chain is
+        inactive (a pruned search subtree). Nodes a resident request still
+        aliases are kept. Returns the cleared ``(cell, page)`` pairs."""
+        out: list[tuple[int, int]] = []
+
+        def walk(nd: RadixNode) -> bool:
+            keep = nd.active > 0
+            for child in list(nd.children.values()):
+                if not walk(child):
+                    keep = True
+            if not keep:
+                out.append((self._drop(nd), nd.page))
+            return not keep
+
+        walk(node)
+        return out
+
+    def check(self) -> None:
+        """Tree invariants."""
+        assert len(set(self._free_cells)) == len(self._free_cells)
+        assert not (set(self._free_cells) & set(self._nodes_by_cell))
+        assert (set(self._free_cells) | set(self._nodes_by_cell)
+                == set(range(self.n_cells))), "index cell leaked"
+
+        def walk(nd):
+            for key, child in nd.children.items():
+                assert child.parent is nd and child.key == key
+                assert self._nodes_by_cell.get(child.cell) is child
+                assert child.active >= 0
+                walk(child)
+
+        walk(self.root)
+
+
+def radix_cell_coords(n_rows: int, n_blocks: int, cells):
+    """Flat index-cell ids -> (index row, block) coordinates. Index rows
+    follow the session's ``n_rows`` group rows in the block table; each
+    holds ``n_blocks`` cells."""
+    cells = np.asarray(list(cells), np.int64)
+    return n_rows + cells // n_blocks, cells % n_blocks
+
+
+def write_index_cells(cache, rows, blocks, pages):
+    """``block_tables[:, rows[i], blocks[i]] = pages[i]`` on every paged
+    node, in place: written into the reserved index rows, the reference
+    that keeps a radix node's page allocated."""
+    if len(rows) == 0:
+        return cache
+    for node in paged_cache_entries(cache):
+        dev = node.block_tables.device
+        r, b, p = (torch.as_tensor(np.asarray(a), device=dev)
+                   for a in (rows, blocks, pages))
+        node.block_tables[:, r.long(), b.long()] = p.to(_I32)
+    return cache
+
+
+def clear_index_cells(cache, rows, blocks):
+    """Reset index cells to -1 (radix eviction, subtree drop), in place;
+    the pages they held return to the pool once no live row aliases them."""
+    return write_index_cells(cache, rows, blocks,
+                             np.full((len(rows),), -1, np.int32))
+
+
+def alias_prefix_pages(cache, row0: int, pages):
+    """Write a matched prefix chain's pages into the leading blocks of
+    cache row ``row0`` (the slot's prefill row), in place: the suffix-only
+    admission's aliasing step. Later blocks keep their (unmapped) entries,
+    so the suffix prefill maps them fresh."""
+    n = len(pages)
+    return write_index_cells(cache, np.full((n,), int(row0)), np.arange(n),
+                             pages)
+
+
+def read_row_pages(cache, rows0, n_blocks: int) -> torch.Tensor:
+    """(len(rows0), n_blocks) int32: the leading ``n_blocks`` block-table
+    entries of ``rows0``, the step bundle's committed-prompt-page feed
+    (the host learns which pages a finished prefill wrote without a read
+    of its own)."""
+    bt = paged_cache_entries(cache)[0].block_tables[0]
+    rows = torch.as_tensor(rows0, dtype=torch.long, device=bt.device)
+    return bt[rows, :n_blocks]
+
+
+# ---------------------------------------------------------------------------
 # paged-cache page allocation (device side)
 
 

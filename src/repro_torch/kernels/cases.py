@@ -69,6 +69,17 @@ PAGED_LM = {name: dict(B=c["B"], T=c["T"], H=9, Kv=3, ps=16, nb=37, hd=64,
                        window=0, P=1 + c["B"] * mapped, n_mapped=mapped)
             for name, c in DECODE_LM.items()
             for mapped in [37 if name == "smollm_oneshot_prefill" else 18]}
+# the prefix-sharing phase's read at SmolLM-135M's heads: 8 rows whose
+# leading 24 blocks alias the same 24 pages (a 384-token prefix served from
+# the radix cache), then each row's own pages, the last one part filled;
+# the greedy step (T 1) and the 8-slot prefill lane of a suffix chunk (T
+# 32, the chunk's own keys read causally)
+PAGED_ALIASED = {
+    name: dict(B=8, T=T, H=9, Kv=3, ps=16, nb=37, hd=64, window=0,
+               n_shared=24, n_private=n_private,
+               P=1 + 24 + 8 * n_private)
+    for name, T, n_private in (("smollm_shared_greedy", 1, 4),
+                               ("smollm_shared_prefill_lane", 32, 3))}
 # (N, T, V): rows, fed positions (DL + 1), vocab
 VERIFY_SWEEP = [(6, 5, 700), (12, 11, 1024), (3, 1, 64), (4, 6, 50),
                 (25, 11, 320)]
@@ -191,6 +202,36 @@ def paged_inputs(B, T, H, Kv, P, ps, nb, hd, *, n_mapped=None, seed=7):
             fill = int(rng.integers(1, ps + 1))
             pos_pool[bt[b, j], :fill] = j * ps + np.arange(fill)
     q_pos = np.tile(n_mapped * ps - 2 + np.arange(T), (B, 1)).astype(np.int32)
+    return q, k_pool, v_pool, pos_pool, bt, q_pos
+
+
+def aliased_paged_inputs(B, T, H, Kv, ps, nb, hd, n_shared, n_private, *,
+                         seed=8):
+    """q, k/v pool, pos pool, block tables, q_pos for a paged read whose
+    rows share their first ``n_shared`` pages (the same page ids in every
+    row, as a radix prefix is aliased), then own ``n_private`` pages each,
+    the last filled to a random length; the other blocks are unmapped.
+    Each row's T queries are its last T written positions (a chunk read
+    causally, or the newest token). The pool holds exactly the mapped
+    pages plus the trash page 0."""
+    rng = np.random.default_rng(seed)
+    P = 1 + n_shared + B * n_private
+    mapped = n_shared + n_private
+    q = rng.standard_normal((B, T, H, hd), np.float32)
+    k_pool = rng.standard_normal((P, ps, Kv, hd), np.float32)
+    v_pool = rng.standard_normal((P, ps, Kv, hd), np.float32)
+    pages = rng.permutation(np.arange(1, P))
+    bt = np.full((B, nb), -1, np.int32)
+    bt[:, :n_shared] = pages[:n_shared]
+    bt[:, n_shared:mapped] = pages[n_shared:].reshape(B, n_private)
+    pos_pool = np.full((P, ps), -1, np.int32)
+    q_pos = np.zeros((B, T), np.int32)
+    for b in range(B):
+        for j in range(mapped):
+            fill = int(rng.integers(1, ps + 1)) if j == mapped - 1 else ps
+            pos_pool[bt[b, j], :fill] = j * ps + np.arange(fill)
+            last = j * ps + fill
+        q_pos[b] = last - T + np.arange(T)
     return q, k_pool, v_pool, pos_pool, bt, q_pos
 
 

@@ -18,8 +18,9 @@ Each cache type has one read path: the ``decode_gqa`` kernel for the dense
 cache, the ``paged_decode_gqa`` kernel for the paged one (their plain
 versions on the CPU). Full-sequence self-attention (the encoder, and the
 teacher-forced decoder of training) has one path too: the
-``flash_attention`` kernels, forward and backward. Cross-attention stays an
-einsum, as in the JAX package.
+``flash_attention`` kernels, forward and backward. Cross-attention and
+the single-pass multi-draft verification read (``multidraft_attention``)
+stay einsums, as in the JAX package, which has no kernel for them.
 
 Masks use -1e30, not -inf, as in the JAX package.
 """
@@ -336,3 +337,77 @@ def cached_attention(p: dict, cfg: ModelConfig, x, cache, positions, *,
                                    cache.pos.contiguous(), positions,
                                    window=window)
     return dense(p["wo"], out.reshape(B, T, -1)), cache
+
+
+def multidraft_attention(p: dict, cfg: ModelConfig, x, cache: KVCache,
+                         positions, local_mask, *, rope=None):
+    """Single-pass multi-draft verification attention over a dense cache.
+
+    One row per sequence feeds every draft: x is (B, T, d) with T = 1 +
+    N_d·DL (the last committed token, then the drafts back to back), and
+    ``local_mask`` (T, T) is the segment mask (token (j, i) sees token 0
+    and its own draft's prefix). The fed tokens attend with ONE softmax
+    over two parts: the committed cache, read once per sequence instead of
+    once per draft row, and the local K/V of their own segment. The two
+    parts share one max and one denominator and are never concatenated
+    (the JAX package's formulation, as plain torch: it has no kernel
+    there either). Nothing is written to the cache; ``commit_verified_kv``
+    writes the winning draft's accepted K/V afterwards.
+
+    Returns (out (B, T, d), (k_new, v_new)), the local K/V for the commit.
+    """
+    if isinstance(cache, PagedKVCache):
+        raise TypeError("multidraft_attention reads a dense KVCache (its "
+                        "k / v / pos buffers); a PagedKVCache is not "
+                        "supported")
+    B, T = x.shape[:2]
+    q, k_new, v_new = _project_qkv(p, cfg, x, x, cross=False)
+    positions = positions.to(torch.int32)
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, tables=rope)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta, tables=rope)
+    # the cache holds committed tokens only, all before the fed positions
+    kp = cache.pos[:, None, :]
+    qp = positions[:, :, None]
+    cache_mask = (kp >= 0) & (kp <= qp)
+    if cfg.sliding_window > 0:
+        cache_mask &= kp > qp - cfg.sliding_window
+    Kv, G, hd = cache.k.shape[2], cfg.q_per_kv, cfg.head_dim
+    qh = q.reshape(B, T, Kv, G, hd)
+    scale = 1.0 / math.sqrt(hd)
+    s_c = torch.einsum("btkgh,bskh->bkgts", qh, cache.k).float() * scale
+    s_l = torch.einsum("btkgh,bskh->bkgts", qh, k_new).float() * scale
+    s_c = s_c.masked_fill(~cache_mask[:, None, None], _NEG_INF)
+    s_l = s_l.masked_fill(~local_mask[None, None, None], _NEG_INF)
+    m = torch.maximum(s_c.amax(-1, keepdim=True), s_l.amax(-1, keepdim=True))
+    p_c = torch.exp(s_c - m)
+    p_l = torch.exp(s_l - m)
+    denom = p_c.sum(-1, keepdim=True) + p_l.sum(-1, keepdim=True)
+    p_c = (p_c / denom).to(cache.v.dtype)
+    p_l = (p_l / denom).to(v_new.dtype)
+    out = (torch.einsum("bkgts,bskh->btkgh", p_c, cache.v)
+           + torch.einsum("bkgts,bskh->btkgh", p_l, v_new)).reshape(B, T, -1)
+    return dense(p["wo"], out), (k_new, v_new)
+
+
+def commit_verified_kv(cache: KVCache, k_new, v_new, take_idx, positions,
+                       n_keep) -> KVCache:
+    """Write the winning draft's accepted K/V into a dense cache, in place.
+
+    take_idx: (B, W) local indices of [last token, winning draft tokens];
+    positions: (B, W) their absolute positions; n_keep: (B,) how many of
+    the W are committed. The rest are written with stored position -1
+    (invalid: the next commit rewrites their slots before any query can
+    see them). Slots are ``position % S``, the dense cache's convention."""
+    B, W = take_idx.shape
+    b = torch.arange(B, device=take_idx.device)[:, None]
+    idx = take_idx.long()
+    valid = (torch.arange(W, device=take_idx.device)[None, :]
+             < n_keep.to(take_idx.device)[:, None])
+    S = cache.k.shape[1]
+    positions = positions.to(torch.int32)
+    slots = (positions % S).long()
+    cache.k[b, slots] = k_new[b, idx].to(cache.k.dtype)
+    cache.v[b, slots] = v_new[b, idx].to(cache.v.dtype)
+    cache.pos[b, slots] = torch.where(valid, positions, -1).to(torch.int32)
+    return cache

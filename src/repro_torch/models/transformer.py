@@ -15,9 +15,11 @@ serve both.
 
 Serving needs no full-sequence attention: ``prefill`` writes the prompt
 into the cache through ``cached_attention``, as the JAX package's does.
-The full-sequence ``apply`` (training), the other layer patterns (MoE,
-Mamba, RWKV, cross-attention) and multi-draft verification are refused by
-name (ROADMAP.md Queue 1 item 6).
+``multidraft_verify_step`` / ``commit_multidraft`` verify every draft in
+one row per sequence over a dense cache (``repro_torch.core.multidraft``).
+The full-sequence ``apply`` (training) and the other layer patterns (MoE,
+Mamba, RWKV, cross-attention) are refused by name (ROADMAP.md Queue 1
+item 6).
 """
 
 from __future__ import annotations
@@ -215,7 +217,55 @@ def write_prompt(params, cfg: ModelConfig, cache, tokens, positions):
     return cache
 
 
-def multidraft_verify_step(*args, **kw):
-    raise NotImplementedError(
-        "multidraft_verify_step is not ported yet (ROADMAP.md Queue 1 "
-        "item 6.2)")
+def multidraft_verify_step(params, cfg: ModelConfig, cache, tokens,
+                           positions, local_mask):
+    """Single-pass verification of ALL drafts (``attention.
+    multidraft_attention``) over a dense cache. tokens: (B, 1 + N_d·DL) =
+    [last committed, draft 0 ..., draft N_d-1 ...]; positions: their
+    absolute positions; local_mask: the (T, T) segment mask.
+
+    Returns (logits (B, T, V), local_kv): local_kv holds, per pattern
+    position, the fed tokens' (k, v) stacked over repeats, for
+    ``commit_multidraft``. The cache is not modified."""
+    check_serves(cfg)
+    positions = positions.to(torch.int32).contiguous()
+    rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.pos == "rope" else None)
+    x = embed(params["tok"], tokens)
+    kvs = [([], []) for _ in cfg.layer_pattern]
+    for r in range(cfg.n_repeats):
+        for i in range(len(cfg.layer_pattern)):
+            p = params["blocks"][i][r]
+            a, (k, v) = attn_mod.multidraft_attention(
+                p["attn"], cfg, apply_norm(p["norm1"], x, cfg.norm),
+                _layer(cache[i], r), positions, local_mask, rope=rope)
+            x = x + a
+            x = x + ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm))
+            kvs[i][0].append(k)
+            kvs[i][1].append(v)
+    local_kv = tuple((torch.stack(k), torch.stack(v)) for k, v in kvs)
+    return _logits_out(params, cfg, x), local_kv
+
+
+def commit_multidraft(cfg: ModelConfig, cache, local_kv, best, n_acc,
+                      start_pos, *, draft_len: int):
+    """Write the winning draft's accepted K/V into the cache, in place.
+
+    best: (B,) winning draft index; n_acc: (B,) accepted draft tokens;
+    start_pos: (B,) position of the fed last committed token. Commits the
+    last token and the ``n_acc`` accepted draft tokens (``n_keep = 1 +
+    n_acc``), as the expanded-batch path keeps them."""
+    B, DL = best.shape[0], draft_len
+    dev = best.device
+    rel = torch.arange(DL + 1, dtype=torch.int32, device=dev)
+    # local indices: 0 (the last token), then the winner's segment
+    take_idx = torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                          1 + best.to(torch.int32)[:, None] * DL
+                          + rel[None, :-1]], dim=1)
+    positions = start_pos.to(torch.int32)[:, None] + rel[None, :]
+    n_keep = 1 + n_acc
+    for c, (k, v) in zip(cache, local_kv):
+        for r in range(cfg.n_repeats):
+            attn_mod.commit_verified_kv(_layer(c, r), k[r], v[r], take_idx,
+                                        positions, n_keep)
+    return cache

@@ -47,12 +47,21 @@ a slot's last chunk written activates the slot: its other rows adopt row
 
 ``EngineConfig(overload=OverloadPolicy(...))`` drives the scheduler's
 priority aging, deadline-aware preemption and load shedding.
-``EngineConfig(prefix_cache=True)`` keeps an LRU of encoder outputs keyed by
-the source tokens: a repeated source skips the encoder, and hit and miss
-admit alike (``Seq2SeqBackend.admit_cache_precomputed``), so reuse never
-changes a token. (The JAX package's radix page tree serves only its
-decoder-only backend.) ``submit_child`` / ``cancel_subtree`` serve a tree
-of requests, as a retrosynthesis planner expands and prunes one.
+``EngineConfig(prefix_cache=True)`` reuses shared prefixes. On the seq2seq
+backend it keeps an LRU of encoder outputs keyed by the source tokens: a
+repeated source skips the encoder, and hit and miss admit alike
+(``Seq2SeqBackend.admit_cache_precomputed``), so reuse never changes a
+token. On a paged decoder-only engine it keeps a radix tree over committed
+prompt pages (``RadixPageCache``): an admitted prompt is matched against
+the tree, the matched pages are aliased into the slot's block table and
+only the suffix is prefilled. The match is cut to whole multiples of
+lcm(page_size, prefill_chunk) tokens, so the suffix is written by the same
+chunk launches as in a cold run and the tokens are the cold run's.
+Retained pages stay allocated through index rows appended to the block
+table after the group rows; under pool pressure the least recently used
+are evicted before a resident is preempted. ``submit_child`` /
+``cancel_subtree`` serve a tree of requests, as a retrosynthesis planner
+expands and prunes one; pruning drops the subtree's cached pages.
 
 On the card the decoder's cached self-attention runs the ``decode_gqa``
 kernel (dense cache) or the ``paged_decode_gqa`` kernel (paged cache), and
@@ -63,6 +72,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 import warnings
 from typing import Sequence
@@ -76,11 +86,14 @@ from repro_torch.core import (batch_drafts, beam_search, extract_drafts,
                               speculative_beam_search,
                               speculative_greedy_decode)
 from repro_torch.core.session import (PageAllocator, PoolExhausted,
-                                      SessionSpec, apply_page_plan,
-                                      device_free_pages, device_page_plan,
-                                      grouped_init_state, grouped_step,
-                                      release_slot, reset_slot,
-                                      unmap_cache_rows)
+                                      RadixPageCache, SessionSpec,
+                                      alias_prefix_pages, apply_page_plan,
+                                      clear_index_cells, device_free_pages,
+                                      device_page_plan, grouped_init_state,
+                                      grouped_step, radix_cell_coords,
+                                      read_row_pages, release_slot,
+                                      reset_slot, unmap_cache_rows,
+                                      write_index_cells)
 from repro_torch.data.tokenizer import SmilesTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models import seq2seq as s2s
@@ -99,11 +112,9 @@ MODES = ("greedy", "speculative", "beam", "speculative_beam")
 class EngineConfig:
     """The fields of ``repro.serving.engine.EngineConfig`` the port serves:
     the one-shot decode knobs and the ``StreamingEngine``'s slots, mode
-    groups, paged cache, encoder-output reuse and overload policy. ``mesh``
-    exists so that a configuration asking for it is refused at engine
-    construction (not ported yet: ROADMAP Queue 1 item 9);
-    ``prefix_cache_pages`` sizes the decoder-only radix cache (item 6.1b)
-    and is only validated here."""
+    groups, paged cache, prefix reuse and overload policy. ``mesh`` exists
+    so that a configuration asking for it is refused at engine
+    construction (not ported yet: ROADMAP Queue 1 item 9)."""
 
     mode: str = "speculative"        # greedy|speculative|beam|speculative_beam
     draft_len: int = 10              # the paper's best DL
@@ -132,11 +143,13 @@ class EngineConfig:
     # from here when StreamingEngine is built with tokenizer=None
     eos_id: int | None = None
     pad_id: int = 0
-    # seq2seq: an LRU of encoder outputs (cross-attention K/V + mask) keyed
-    # by the source tokens, ``prefix_cache_entries`` of them; a paged
-    # decoder-only engine's radix page sharing is not ported yet (item 6.1b)
+    # prefix reuse. seq2seq: an LRU of encoder outputs (cross-attention
+    # K/V + mask) keyed by the source tokens, ``prefix_cache_entries`` of
+    # them; paged decoder-only: the radix tree over committed prompt pages,
+    # ``prefix_cache_pages`` retained pages (None = 2 x slots x a prompt's
+    # worst-case pages)
     prefix_cache: bool = False
-    prefix_cache_pages: int | None = None   # decoder-only radix cache
+    prefix_cache_pages: int | None = None
     prefix_cache_entries: int = 128
     # priority aging, deadline-aware preemption, load shedding; None = off
     overload: OverloadPolicy | None = None
@@ -349,18 +362,18 @@ class StreamingEngine:
         self.cfg = cfg
         self.tok = tokenizer
         self.backend = backend or make_backend(cfg, ecfg, tokenizer)
-        if self.backend.chunked and ecfg.prefix_cache and ecfg.paged:
-            raise NotImplementedError(
-                "prefix_cache on a paged decoder-only engine (the radix page "
-                "sharing) is not ported yet (ROADMAP.md Queue 1 item 6.1b)")
         eos_id = tokenizer.eos_id if tokenizer is not None else ecfg.eos_id
         pad_id = tokenizer.pad_id if tokenizer is not None else ecfg.pad_id
         if eos_id is None:
             raise ValueError(
                 "StreamingEngine built with tokenizer=None needs "
                 "EngineConfig.eos_id so sequences can terminate")
-        # seq2seq reuses encoder outputs; a dense decoder-only engine has
-        # nothing to reuse (the JAX package's flag is a no-op there too)
+        # prefix reuse: the radix page tree on a paged decoder-only engine
+        # (prompts live in pages), the encoder-output LRU on seq2seq (the
+        # source IS the prefix); a dense decoder-only engine has nothing to
+        # reuse (the JAX package's flag is a no-op there too)
+        self._prefix_sharing = bool(ecfg.prefix_cache and ecfg.paged
+                                    and self.backend.chunked)
         self._encode_reuse = bool(ecfg.prefix_cache
                                   and not self.backend.chunked)
         group_slots = (dict(ecfg.mode_groups) if ecfg.mode_groups
@@ -388,6 +401,25 @@ class StreamingEngine:
         self.n_rows, self.n_slots = rows, slots
         self.cache_len = max(self.backend.row_len(s)
                              for s in self._groups.values())
+        # retained radix pages stay allocated through reserved INDEX ROWS
+        # appended to the block table after the group rows: one (row,
+        # block) cell per radix node holds the node's page id, so both page
+        # planners see a live reference, and no decode lane reads the row
+        self._n_index_rows = self._n_cells = 0
+        if self._prefix_sharing:
+            ps = ecfg.page_size
+            # worst-case prompt pages of one slot (the alias / retain pad)
+            self._prefix_pad = self.backend.prefill_blocks(ps)
+            # matches are cut to whole multiples of lcm(page_size,
+            # prefill_chunk) tokens, so the suffix prefill falls on the cold
+            # run's chunk grid: the same chunk launches write the same K/V
+            chunk = max(1, int(ecfg.prefill_chunk))
+            self._align_pages = chunk // math.gcd(ps, chunk)
+            self._table_blocks = -(-self.cache_len // ps)
+            self._n_cells = (ecfg.prefix_cache_pages
+                             if ecfg.prefix_cache_pages is not None
+                             else 2 * self.n_slots * self._prefix_pad)
+            self._n_index_rows = -(-self._n_cells // self._table_blocks)
         # loop instrumentation: steps issued, per-iteration counts, and host
         # step gaps (seconds between consecutive bundle reads), bounded
         self.n_dispatches = 0
@@ -499,6 +531,13 @@ class StreamingEngine:
                 # orphan pages inside it, and the mirror must see them free
                 n_free_final=device_free_pages(gstate.cache, n_pages),
                 need=plan.need_by_group)
+            if self._prefix_sharing:
+                # every slot's leading row-0 blocks after the step: the
+                # host reads a finished prefill's committed prompt pages
+                # from here to insert them into the radix tree (no read of
+                # its own)
+                bundle["row0_pages"] = read_row_pages(
+                    gstate.cache, self._rows0, self._prefix_pad)
         return bundle
 
     @staticmethod
@@ -606,7 +645,9 @@ class StreamingEngine:
             return ecfg.n_pages, ps
         worst = sum(s.n_rows * (-(-self.backend.row_len(s) // ps))
                     for s in self._groups.values())
-        return worst + 1, ps
+        # prefix sharing retains up to n_cells pages beyond the rows' worst
+        # case, so the default pool grows by that many
+        return worst + self._n_cells + 1, ps
 
     def _finished_mask(self, gstate) -> np.ndarray:
         """(n_slots,) bool by global slot id. Mid-prefill slots are never
@@ -714,6 +755,10 @@ class StreamingEngine:
             self._finish(self.scheduler.state, mode,
                          slot - self._slot_base[mode], rec["req"])
             self.n_dispatches += 1
+            if self.radix is not None and rec["body"] is not None:
+                # the prompt is committed: publish its full pages so later
+                # requests can alias them
+                self._radix_insert(slot, rec, out)
             del self._prefilling[slot]
             if self.allocator is not None:
                 self.allocator.unpin_rows(self._slot_row_range(slot))
@@ -762,13 +807,22 @@ class StreamingEngine:
         if self._mirror_free - sum(b[-1] for b in self._booked) >= need:
             return True
         self._mirror_recount()
+        # still short: retained prefix pages are reclaimable capacity;
+        # evict LRU radix nodes (the tree only shrinks, so this ends) before
+        # refusing the admission
+        while (self._mirror_free - sum(b[-1] for b in self._booked) < need
+               and self._radix_reclaim()):
+            self._mirror_recount()
         return self._mirror_free - sum(b[-1] for b in self._booked) >= need
 
     def _new_scheduler(self) -> ContinuousScheduler:
         ecfg = self.ecfg
         paged = self._paged_geometry() if ecfg.paged else None
-        cache = self.backend.init_cache(self.n_rows, self.cache_len,
-                                        paged=paged, device=self.device)
+        # index rows ride after the group rows: block-table-only rows whose
+        # cells pin retained radix pages (decode lanes never touch them)
+        cache = self.backend.init_cache(self.n_rows + self._n_index_rows,
+                                        self.cache_len, paged=paged,
+                                        device=self.device)
         self._bundle = None
         self._stream_bundle = None
         # chunked prefill: global slot -> {mode, req, chunks, next chunk};
@@ -781,9 +835,17 @@ class StreamingEngine:
         self._booked: list[tuple] = []   # (dispatch stamp, pages)
         self._n_dispatched = 0
         self._last_sync_t = None
-        # the encoder-output LRU and its counters, the lineage behind the
+        # prefix reuse: the radix tree and each slot's acquired chain, the
+        # encoder-output LRU and its counters, the lineage behind the
         # tree-of-requests API (rid -> query / parent / children / priority
-        # / mode; bounded like _done), and the reuse counters
+        # / mode / radix nodes it inserted; bounded like _done)
+        self.radix = (RadixPageCache(ecfg.page_size, self._n_cells)
+                      if self._prefix_sharing else None)
+        self._slot_chains: dict[int, list] = {}
+        if self._prefix_sharing:
+            self._rows0 = torch.as_tensor(
+                [self._slot_row_range(s)[0] for s in range(self.n_slots)],
+                dtype=torch.long, device=self.device)
         self._encode_lru: collections.OrderedDict = collections.OrderedDict()
         self._lineage: collections.OrderedDict = collections.OrderedDict()
         self._prefix_counters = {"lookups": 0, "hit_tokens": 0,
@@ -808,8 +870,11 @@ class StreamingEngine:
             # sees its last chunk written
             self.backend.begin_cache(state.cache,
                                      self._slot_rows(mode, local))
-            self._prefilling[slot] = {"mode": mode, "req": req, "next": 0,
-                                      "chunks": req.chunks}
+            rec = {"mode": mode, "req": req, "next": 0, "chunks": req.chunks,
+                   "depth0": 0, "body": None}
+            if self.radix is not None and req.prompt is not None:
+                self._admit_match_prefix(state, slot, rec)
+            self._prefilling[slot] = rec
             if self.allocator is not None:
                 self.allocator.pin_rows(self._slot_row_range(slot))
             return state
@@ -817,6 +882,11 @@ class StreamingEngine:
         def release(state, slot):
             mode, local = self._slot_of(slot)
             self._prefilling.pop(slot, None)   # preempted mid-prefill
+            chain = self._slot_chains.pop(slot, None)
+            if chain:
+                # drop the slot's hold on its aliased prefix chain; the
+                # nodes stay in the tree (LRU-evictable once inactive)
+                self.radix.release(chain)
             if self.allocator is not None:
                 self.allocator.unpin_rows(self._slot_row_range(slot))
             self.n_dispatches += 1
@@ -847,9 +917,91 @@ class StreamingEngine:
                                 for m in self._groups})
             self._mirror_free = self.allocator.n_pages - 1
             hooks.update(admit_ok=self._mirror_admit_ok)
+            if self._prefix_sharing:
+                # the index rows' references must survive every reclaim
+                self.allocator.pin_rows(
+                    range(self.n_rows, self.n_rows + self._n_index_rows))
+                hooks.update(reclaim=self._radix_reclaim)
         state = grouped_init_state(tuple(self._groups.values()), cache)
         return ContinuousScheduler(self.spec, state, admit=admit, step=step,
                                    policy=ecfg.overload, **hooks)
+
+    # -- cross-request prefix sharing -----------------------------------------
+    def _admit_match_prefix(self, state, slot: int, rec: dict) -> None:
+        """Match an admitted prompt against the radix tree, alias the
+        matched pages into the slot's row-0 block table and cut the chunk
+        plan to the unmatched suffix. The match is cut to the chunk grid,
+        so the suffix prefill replays the cold run's chunks."""
+        ps = self.ecfg.page_size
+        body = self.backend.prompt_body(rec["req"])
+        rec["body"] = body
+        chain = self.radix.match(body)
+        depth = (len(chain) // self._align_pages) * self._align_pages
+        if depth < len(chain):
+            # the hit-rate stats count what was aliased, not what matched
+            self.radix.hit_tokens -= (len(chain) - depth) * ps
+            chain = chain[:depth]
+        if not chain:
+            return
+        alias_prefix_pages(state.cache, self._slot_row_range(slot)[0],
+                           [nd.page for nd in chain])
+        self.n_dispatches += 1
+        self.radix.acquire(chain)
+        self._slot_chains[slot] = chain
+        rec["depth0"] = depth
+        rec["chunks"] = self.backend.suffix_chunks(body, depth * ps)
+
+    def _radix_insert(self, slot: int, rec: dict, out: dict) -> None:
+        """A prompt has just been written: insert its full pages (the
+        bundle's post-step row-0 tables) into the radix tree and write the
+        new nodes' index cells, so the pages outlive the slot."""
+        body = rec["body"]
+        n_full = len(body) // self.ecfg.page_size
+        if n_full <= 0:
+            return
+        pages = np.asarray(out["row0_pages"][slot][:n_full])
+        if (pages <= 0).any():
+            return   # an unmapped or trash block is never shared
+        new = self.radix.insert(body[:n_full * self.ecfg.page_size], pages,
+                                rec["depth0"])
+        if not new:
+            return
+        sreq = self.scheduler._resident.get(slot)
+        if sreq is not None:
+            info = self._lineage.get(sreq.rid)
+            if info is not None:
+                info["nodes"].extend(new)
+        self._write_cells([nd.cell for nd in new], [nd.page for nd in new])
+
+    def _write_cells(self, cells: list, pages: list) -> None:
+        """Write (cell -> page) index references."""
+        rows, blocks = radix_cell_coords(self.n_rows, self._table_blocks,
+                                         cells)
+        write_index_cells(self.scheduler.state.cache, rows, blocks, pages)
+        self.n_dispatches += 1
+
+    def _clear_cells(self, pairs: list) -> None:
+        """Clear evicted nodes' (cell, page) index references, so the pages
+        fall out of the device refcount and return to the pool."""
+        if not pairs:
+            return
+        rows, blocks = radix_cell_coords(self.n_rows, self._table_blocks,
+                                         [c for c, _ in pairs])
+        clear_index_cells(self.scheduler.state.cache, rows, blocks)
+        self.n_dispatches += 1
+
+    def _radix_reclaim(self) -> bool:
+        """Pool-pressure hook (the scheduler's ``reclaim``): evict LRU
+        inactive radix nodes and clear their index cells. Tried before a
+        resident is preempted: cached prefixes are cheaper to lose than
+        live work."""
+        if self.radix is None or len(self.radix) == 0:
+            return False
+        pairs = self.radix.evict_lru(self._prefix_pad)
+        if not pairs:
+            return False
+        self._clear_cells(pairs)
+        return True
 
     # -- instrumentation -------------------------------------------------------
     def loop_stats(self) -> dict:
@@ -886,20 +1038,30 @@ class StreamingEngine:
                 "admit_imbalance": 1.0}
 
     def prefix_stats(self) -> dict:
-        """Prefix-reuse counters: lookups of the encoder-output LRU and the
-        source tokens they covered and hit, entries held, pages allocated
-        per admitted request. Cumulative over the session (``reset()``
-        starts them again)."""
-        c = self._prefix_counters
-        hit_t, look_t = c["hit_tokens"], c["lookup_tokens"]
+        """Prefix-reuse counters: lookups of the radix tree (paged
+        decoder-only) or the encoder-output LRU (seq2seq) and the prompt
+        tokens they covered and hit, nodes or entries held, radix nodes
+        inserted and evicted, pages allocated per admitted request.
+        Cumulative over the session (``reset()`` starts them again)."""
+        if self.radix is not None:
+            rx = self.radix
+            lookups, hit_t, look_t = (rx.lookups, rx.hit_tokens,
+                                      rx.lookup_tokens)
+            nodes, inserted, evicted = len(rx), rx.inserted, rx.evicted
+        else:
+            c = self._prefix_counters
+            lookups, hit_t, look_t = (c["lookups"], c["hit_tokens"],
+                                      c["lookup_tokens"])
+            nodes = len(self._encode_lru)
+            inserted = evicted = 0
         return {
-            "lookups": int(c["lookups"]),
+            "lookups": int(lookups),
             "hit_tokens": int(hit_t),
             "lookup_tokens": int(look_t),
             "prefix_hit_rate": (hit_t / look_t) if look_t else 0.0,
-            "nodes": len(self._encode_lru),
-            "inserted": 0,
-            "evicted": 0,
+            "nodes": int(nodes),
+            "inserted": int(inserted),
+            "evicted": int(evicted),
             "pages_allocated": int(self.pages_allocated),
             "requests_admitted": int(self.requests_admitted),
             "pages_per_request": (self.pages_allocated
@@ -908,10 +1070,15 @@ class StreamingEngine:
         }
 
     def clear_prefix_cache(self) -> int:
-        """Drop the whole encoder-output LRU. Returns the number of radix
-        nodes dropped, which is 0: the seq2seq backend keeps none."""
+        """Drop every inactive radix node (clearing its index cell) and the
+        whole encoder-output LRU. Returns the number of radix nodes
+        dropped (pages made reclaimable)."""
         self._encode_lru.clear()
-        return 0
+        if self.radix is None:
+            return 0
+        pairs = self.radix.evict_lru(len(self.radix))
+        self._clear_cells(pairs)
+        return len(pairs)
 
     def cache_footprint(self) -> dict:
         """Self-attention cache accounting: ``capacity_bytes`` reserved up
@@ -930,6 +1097,8 @@ class StreamingEngine:
                 "capacity_bytes": (n_pages - 1) * page_bytes,
                 "peak_bytes": (alloc.peak_pages if alloc else 0) * page_bytes,
                 "peak_pages": alloc.peak_pages if alloc else 0,
+                # pages the radix tree holds through its index cells
+                "retained_pages": len(self.radix) if self.radix else 0,
                 "contiguous_equiv_slots":
                     ((n_pages - 1) * page_bytes)
                     // (spec.rows_per_slot * row_bytes),
@@ -1008,7 +1177,8 @@ class StreamingEngine:
         q = rspec.query if isinstance(rspec.query, str) else \
             np.asarray(rspec.query, np.int32).reshape(-1).copy()
         self._lineage[rid] = {"query": q, "parent": None, "children": [],
-                              "priority": rspec.priority, "mode": mode}
+                              "priority": rspec.priority, "mode": mode,
+                              "nodes": []}
         while len(self._lineage) > self._DONE_CAP:
             self._lineage.popitem(last=False)
         return RequestHandle(rid, self, mode=mode, params=payload[1].params)
@@ -1038,7 +1208,8 @@ class StreamingEngine:
         """Submit a child whose query extends ``parent``'s (query +
         ``suffix``): the planning search's expansion step. Mode and
         priority default to the parent's (a subtree inherits its root's
-        urgency)."""
+        urgency). With prefix sharing on, the parent's committed prompt
+        pages are served from the radix tree."""
         prid = int(parent)
         info = self._lineage.get(prid)
         if info is None:
@@ -1065,7 +1236,10 @@ class StreamingEngine:
 
     def cancel_subtree(self, rid: int) -> int:
         """Cancel ``rid`` and every known descendant (a pruned search
-        subtree). Returns the number newly cancelled."""
+        subtree), then drop the radix nodes those requests inserted: the
+        cached page subtree returns to the pool, except nodes a live
+        request outside the subtree still aliases. Returns the number newly
+        cancelled."""
         order: list[int] = []
         stack, seen = [int(rid)], set()
         while stack:
@@ -1077,7 +1251,21 @@ class StreamingEngine:
             info = self._lineage.get(r)
             if info is not None:
                 stack.extend(info["children"])
-        return sum(1 for r in order if self._cancel(r))
+        n = sum(1 for r in order if self._cancel(r))
+        if self.radix is not None:
+            pairs: list = []
+            for r in order:
+                info = self._lineage.get(r)
+                if info is None:
+                    continue
+                for node in info["nodes"]:
+                    # skip nodes already dropped (LRU eviction, or an
+                    # ancestor handled earlier in ``order``)
+                    if self.radix._nodes_by_cell.get(node.cell) is node:
+                        pairs.extend(self.radix.drop_subtree(node))
+                info["nodes"] = []
+            self._clear_cells(pairs)
+        return n
 
     # -- step pump: one drive shared by serve()/result()/stream() -----------
     def serve_steps(self, *, realtime: bool = False):

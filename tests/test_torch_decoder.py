@@ -507,9 +507,5 @@ def test_unported_entry_points_refused_by_name(models):
     _, _, cfg, pt = models("smollm-135m")
     with pytest.raises(NotImplementedError, match="item 6.5"):
         tr.apply(pt, cfg, torch.zeros((1, 3), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="item 6.2"):
-        tr.multidraft_verify_step(pt, cfg, None, None, None, None)
-    with pytest.raises(NotImplementedError, match="item 6.1b"):
-        _engine(cfg, pt, paged=True, prefix_cache=True)
     with pytest.raises(NotImplementedError, match="sliding_window"):
         _engine(dataclasses.replace(cfg, sliding_window=8), pt, paged=True)

@@ -34,9 +34,10 @@ from repro_torch.kernels import (decode_gqa_attention, draft_verify,  # noqa: E4
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
     DECODE_CARD_ONLY, DECODE_LM, DECODE_SWEEP, FLASH_MASKS, FLASH_PLAIN_LOADS,
-    FLASH_SWEEP, PAGED_CARD_ONLY, PAGED_LM, PAGED_SWEEP, VERIFY_CARD_ONLY,
-    VERIFY_LM, VERIFY_SWEEP, decode_inputs, flash_inputs, paged_inputs,
-    ragged_lengths, ring_inputs, verify_inputs)
+    FLASH_SWEEP, PAGED_ALIASED, PAGED_CARD_ONLY, PAGED_LM, PAGED_SWEEP,
+    VERIFY_CARD_ONLY, VERIFY_LM, VERIFY_SWEEP, aliased_paged_inputs,
+    decode_inputs, flash_inputs, paged_inputs, ragged_lengths, ring_inputs,
+    verify_inputs)
 from repro_torch.kernels.decode_gqa import kernel as decode_kernel  # noqa: E402
 from repro_torch.kernels.draft_verify import kernel as verify_kernel  # noqa: E402
 from repro_torch.kernels.decode_gqa.ref import (  # noqa: E402
@@ -185,6 +186,22 @@ def test_paged_decode_gqa_matches_dense():
     paged = paged_decode_gqa_attention(t[0], t[5], t[6], t[7], t[8], t[4])
     np.testing.assert_allclose(paged.numpy(), dense.numpy(), atol=2e-5,
                                rtol=2e-5)
+
+
+def _aliased_inputs(cfg):
+    return aliased_paged_inputs(*(cfg[k] for k in (
+        "B", "T", "H", "Kv", "ps", "nb", "hd", "n_shared", "n_private")))
+
+
+@pytest.mark.parametrize("name", list(PAGED_ALIASED))
+def test_paged_decode_gqa_aliased_table_plain_matches_jax(jx, name):
+    """Rows whose leading blocks alias the same pages (a prefix served
+    from the radix page cache): the port's plain paged read against the
+    JAX oracle, at the prefix-sharing phase's shapes."""
+    jargs, targs = _both(jx, _aliased_inputs(PAGED_ALIASED[name]), "float32")
+    out = paged_decode_gqa_attention(*targs)
+    np.testing.assert_allclose(_f32(out), _f32(jx["paged_ref"](*jargs)),
+                               atol=2e-5, rtol=2e-5)
 
 
 def test_paged_decode_gqa_inactive_row_is_zero():
@@ -832,6 +849,20 @@ def test_paged_decode_gqa_kernel_lm_shapes(cuda, name):
         paged_inputs(*(cfg[k] for k in ("B", "T", "H", "Kv", "P", "ps", "nb",
                                         "hd")), n_mapped=cfg["n_mapped"]),
         "float32")]
+    out = paged_decode_gqa_attention(*tx)
+    ref = paged_decode_gqa_ref(*tx)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(PAGED_ALIASED))
+def test_paged_decode_gqa_kernel_aliased_table(cuda, name):
+    """Block tables whose rows share their leading 24 pages, then own
+    private ones: the kernel against its plain version."""
+    tx = [t.to(cuda) for t in _torch(_aliased_inputs(PAGED_ALIASED[name]),
+                                     "float32")]
     out = paged_decode_gqa_attention(*tx)
     ref = paged_decode_gqa_ref(*tx)
     torch.cuda.synchronize()
