@@ -23,10 +23,13 @@ In order:
      paged_decode_gqa: the verify pass of 8 slots, the greedy step, and
      where trained serving at B 1 launches them, and the decoder-only
      phase's shapes of ``kernels.cases.DECODE_LM`` / ``PAGED_LM`` at
-     SmolLM-135M's heads; draft_verify, bitwise:
+     SmolLM-135M's heads and the MoE phase's ``DECODE_MOE`` /
+     ``PAGED_MOE`` at Phi-3.5-MoE's (H 32 over 8 KV heads, hd 128);
+     draft_verify, bitwise:
      its sweep and card-only list in fp32 and bf16 with NaN / -inf / +inf
      rows, and every launch group of the main path, ``VERIFY_LM`` at
-     SmolLM's 49,152 vocab among them; flash_attention forward
+     SmolLM's 49,152, Phi-3.5-MoE's 32,064 and RWKV6's 65,536 vocabs
+     among them; flash_attention forward
      and backward: the serving encoder's B 16 x S 128 and the training
      batch's B 24 x S 96, H 8, hd 32; two calls of each kernel on the same
      inputs must agree bitwise), then time the kernel, the plain version
@@ -114,13 +117,35 @@ In order:
      drafts and again with drafts cut from the greedy output (drafts
      accepted whole: every sequence accepts, fewer calls than greedy);
      wall per query, calls and one verify call's device time in each form;
-  12. run a tiny model on the card and on the CPU with the same weights: the
+  12. the MoE phase (``serve_moe``): Phi-3.5-MoE at its published widths
+     (d_model 4096, 32 heads over 8 KV heads, hd 128, 16 experts top-2 of
+     d_ff 6400, vocab 32,064), 4 of its 32 layers, capacity factor 8.0
+     (E / top_k: dropless), weights drawn on the card from a CUDA
+     generator seeded 0; 16 prompts of 64-448 tokens (seed 1), max_src
+     512, max_new 32, chunks of 32, page 16, DL 10, 5 drafts: paged greedy
+     and speculative at 8 slots, beam and SBS at 2 x 2, speculative again
+     dense; speculative == greedy, SBS == beam, dense == paged, streaming
+     == one-shot on the first prompt; then one MoE layer at capacity
+     factor 1.25 on the first verify pass's layer-0 input, card vs CPU:
+     equal experts and keep mask, outputs within 1e-4, the dropped
+     fraction printed;
+  13. the recurrent phase (``serve_rwkv``): RWKV6-1.6B whole (24 layers,
+     d_model 2048, 32 WKV heads of 64, d_ff 7168, vocab 65,536) on the
+     dense cache (a paged engine must be refused); 8 prompts of 64-256
+     tokens (seed 6) at 4 slots, max_new 32, DL 10, 25 drafts, greedy and
+     speculative: speculative == greedy (the checkpoint rollback),
+     streaming == one-shot on the first prompt; prints the checkpoint
+     bytes a verify pass holds and the card's peak memory a pass;
+  14. reduced Jamba and Llama-4 (``serve_reduced_families``): greedy and
+     speculative on the paged cache, card == CPU tokens and calls;
+     Jamba's ``prefix_cache`` and multi-draft refusals;
+  15. run a tiny model on the card and on the CPU with the same weights: the
      card's tokens must match the CPU's plain path, one-shot and paged
      streaming, and a streaming speculative pass at draft_len 32 (T 33
      fed positions), and one train step's loss and gradients must match
      within 1e-4; then 50 train steps on both, printing the first step
      whose losses part by more than 1e-4;
-  13. print the ``kernels`` JSON line, the card line, and
+  16. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
 Every Molecular Transformer serving phase must launch flash_attention (the
@@ -133,6 +158,7 @@ fp32 throughout with TF32 off. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -357,7 +383,7 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
 
     from repro_torch.kernels import paged_decode_gqa_attention
     from repro_torch.kernels.cases import (PAGED_ALIASED, PAGED_CARD_ONLY,
-                                           PAGED_LM, PAGED_SWEEP,
+                                           PAGED_LM, PAGED_MOE, PAGED_SWEEP,
                                            aliased_paged_inputs, paged_inputs)
     from repro_torch.kernels.decode_gqa.kernel import (
         paged_decode_gqa_kernel, plan_splits)
@@ -365,7 +391,7 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
     from repro_torch.models.attention import PagedKVCache, paged_view
 
     keys = PAGED_KEYS
-    main = dict(paged_main_shapes(ecfg, n_queries), **PAGED_LM)
+    main = dict(paged_main_shapes(ecfg, n_queries), **PAGED_LM, **PAGED_MOE)
     err = 0.0
     cases = [(c, dt) for c in PAGED_SWEEP + PAGED_CARD_ONLY
              for dt in (torch.float32, torch.bfloat16)]
@@ -779,12 +805,13 @@ def check_kernels(torch, ecfg, n_queries: int, verify_main: dict,
                                                        plan_splits)
     from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
 
-    from repro_torch.kernels.cases import DECODE_LM
+    from repro_torch.kernels.cases import DECODE_LM, DECODE_MOE
 
     results = {}
     # -- decode_gqa ---------------------------------------------------------
     err = 0.0
-    main = dict(decode_main_shapes(ecfg, n_queries), **DECODE_LM)
+    main = dict(decode_main_shapes(ecfg, n_queries), **DECODE_LM,
+                **DECODE_MOE)
     cases = [(c, dt) for c in DECODE_SWEEP + DECODE_CARD_ONLY
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(c, torch.float32) for c in main.values()]
@@ -1677,31 +1704,34 @@ def same_lm_runs(a: dict, b: dict, label: str, *, calls: bool = True,
                                      f"{s} != {t}")
 
 
-def lm_one_shot(torch, cfg, params, prompt, mode: str, device="cuda"):
+def lm_one_shot(torch, cfg, params, prompt, mode: str, device="cuda",
+                **kw):
     """The port's one-shot path: ``transformer.prefill`` of the prompt
-    minus its last token into a 1-row cache, then the core greedy or
-    speculative decode."""
+    minus its last token into a 1-row cache (written in place, recurrent
+    state too), then the core greedy or speculative decode. ``kw``
+    overrides ``LM``'s max_new, draft_len and n_drafts."""
     from repro_torch.core import (greedy_decode, prompt_lookup_drafts,
                                   speculative_greedy_decode,
                                   transformer_handle)
     from repro_torch.models import transformer as tr
 
-    P, DL = len(prompt), LM["draft_len"]
+    c = {k: kw.get(k, LM[k]) for k in ("max_new", "draft_len", "n_drafts")}
+    P, DL = len(prompt), c["draft_len"]
     handle = transformer_handle(params, cfg)
-    cache = tr.init_cache(cfg, 1, P + LM["max_new"] + DL + 4, device=device)
+    cache = tr.init_cache(cfg, 1, P + c["max_new"] + DL + 4, device=device)
     tr.prefill(params, cfg, cache,
                torch.from_numpy(prompt[None, :-1]).to(device),
                logits_mode="last")
     last = torch.tensor([int(prompt[-1])], dtype=torch.int32, device=device)
     pos = torch.tensor([P - 1], dtype=torch.int32, device=device)
     if mode == "greedy":
-        r = greedy_decode(handle, cache, last, pos, max_new=LM["max_new"],
+        r = greedy_decode(handle, cache, last, pos, max_new=c["max_new"],
                           eos_id=LM["eos_id"])
     else:
-        d, m = prompt_lookup_drafts(prompt, DL, LM["n_drafts"])
+        d, m = prompt_lookup_drafts(prompt, DL, c["n_drafts"])
         r = speculative_greedy_decode(
             handle, cache, last, pos, torch.from_numpy(d[None]).to(device),
-            torch.from_numpy(m[None]).to(device), max_new=LM["max_new"],
+            torch.from_numpy(m[None]).to(device), max_new=c["max_new"],
             eos_id=LM["eos_id"])
     return r.tokens[0].cpu().numpy()
 
@@ -2271,6 +2301,314 @@ def serve_multidraft(torch, params) -> dict:
     return out
 
 
+# -- the MoE and recurrent families ------------------------------------------
+# Phi-3.5-MoE at its published widths (d_model 4096, 32 heads over 8 KV
+# heads, hd 128, 16 experts top-2 of d_ff 6400, vocab 32,064), 4 of its 32
+# layers, at the dropless capacity factor E / top_k = 8.0; 16 prompts of
+# 64-448 tokens (seed 1), max_src 512, max_new 32, chunks of 32, page 16,
+# DL 10 and 5 drafts; one MoE layer held card vs CPU at the default 1.25
+MOE = dict(arch="phi3.5-moe-42b-a6.6b", n_layers=4, capacity_factor=8.0,
+           n_prompts=16, len_lo=64, len_hi=448, max_new=32, n_drafts=5,
+           check_capacity_factor=1.25, check_tol=1e-4)
+MOE_PLAN = {"greedy": (8, 16), "speculative": (8, 16), "beam": (2, 2),
+            "speculative_beam": (2, 2)}
+# RWKV6-1.6B whole (24 layers, d_model 2048, 32 WKV heads of 64, d_ff
+# 7168, vocab 65,536) on the dense cache: 8 prompts of 64-256 tokens (seed
+# 6) at 4 slots, max_new 32, DL 10, 25 drafts
+RWKV = dict(arch="rwkv6-1.6b", n_prompts=8, len_lo=64, len_hi=256, seed=6,
+            max_new=32, n_drafts=25)
+RWKV_PLAN = {"greedy": (4, 8), "speculative": (4, 8)}
+REDUCED_FAMILIES = ("jamba-v0.1-52b", "llama4-maverick-400b-a17b")
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.nbytes
+
+
+def check_lm_launches(label: str, runs: dict, read: str | None) -> None:
+    """``read``: the attention kernel every pass must launch (None for an
+    attention-free model, which launches neither read); the other read
+    must not launch; greedy-family passes must launch draft_verify."""
+    for mode, r in runs.items():
+        lc = r["launches"]
+        reads = ("decode_gqa", "paged_decode_gqa")
+        ok = all((lc[k] > 0) == (k == read) for k in reads)
+        if not ok or (mode in ("greedy", "speculative")
+                      and lc["draft_verify"] == 0):
+            raise AssertionError(f"{label} {mode}: launches {lc}")
+
+
+def print_lm_runs(tag: str, label: str, runs: dict, plan: dict) -> None:
+    for mode, r in runs.items():
+        fp, n_p, fs = r["footprint"], len(r["tokens"]), r["first_s"]
+        pages = (f"peak pages {fp['peak_pages']} of {fp['n_pages'] - 1}"
+                 if label == "paged" else "dense rows")
+        print(f"{tag} [{label} {mode}] {plan[mode][0]} slots, {n_p} prompts: "
+              f"wall {r['wall_s']:.3f} s, {r['wall_s'] / n_p * 1e3:.2f} ms "
+              f"per request; scheduler iterations {r['steps']}, prefill "
+              f"chunks written {r['chunks']}, {pages}; time to first delta "
+              f"p50 {percentile(fs, 50) * 1e3:.2f} ms, p95 "
+              f"{percentile(fs, 95) * 1e3:.2f} ms; calls {sum(r['n_calls'])}"
+              f"; launches {r['launches']}", flush=True)
+
+
+def one_shot_check(torch, cfg, params, prompt, runs: dict, tag: str,
+                   **kw) -> None:
+    """Streaming == the one-shot prefill + decode, greedy and speculative,
+    on ``prompt`` (the passes' first)."""
+    for mode in ("greedy", "speculative"):
+        got = lm_one_shot(torch, cfg, params, prompt, mode, **kw)
+        if not np.array_equal(got, runs[mode]["tokens"][0][0]):
+            raise AssertionError(f"{tag} one-shot {mode}: {got} != "
+                                 f"streaming {runs[mode]['tokens'][0][0]}")
+
+
+def serve_moe(torch) -> dict:
+    """The MoE phase: Phi-3.5-MoE at full width (``MOE``; weights drawn on
+    the card from a CUDA generator seeded 0, no host copy), through the
+    decoder-only StreamingEngine. Paged greedy / speculative at 8 slots x
+    16 prompts and beam / SBS at 2 x 2 (5 beams), the speculative pass
+    again on the dense cache. Asserts speculative == greedy, SBS == beam,
+    dense == paged and streaming == one-shot on the first prompt; then one
+    MoE layer at capacity factor 1.25 on the first verify pass's layer-0
+    input, card against CPU: equal experts and keep mask, outputs within
+    ``check_tol`` x max(1, the largest |output|)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr
+
+    t_phase = time.perf_counter()
+    full = get_config(MOE["arch"])
+    cfg = dataclasses.replace(
+        full, n_layers=MOE["n_layers"], moe=dataclasses.replace(
+            full.moe, capacity_factor=MOE["capacity_factor"]))
+    t0 = time.perf_counter()
+    params = tr.init(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                     device="cuda")
+    torch.cuda.synchronize()
+    print(f"moe: {cfg.name}, {cfg.n_layers} of {full.n_layers} layers, "
+          f"capacity factor {cfg.moe.capacity_factor} (E / top_k: "
+          f"dropless); weights {tree_bytes(params) / 1e9:.2f} GB fp32 drawn "
+          f"on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = lm_prompts(cfg.vocab_size, MOE["n_prompts"], MOE["len_lo"],
+                         MOE["len_hi"])
+    kw = dict(max_new=MOE["max_new"], n_drafts=MOE["n_drafts"])
+    run_lm(torch, cfg, params, prompts[:1], {"speculative": (8, 1)},
+           paged=True, max_new=4, n_drafts=MOE["n_drafts"])    # warm-up
+    # the first verify pass's layer-0 MoE input, for the capacity check
+    n_rows = MOE_PLAN["speculative"][0] * MOE["n_drafts"]
+    seen: dict = {}
+    moe_ffn = moe_mod.moe_ffn
+
+    def capture(p, c, x):
+        if not seen and x.shape[:2] == (n_rows, LM["draft_len"] + 1):
+            seen.update(x=x.detach().clone(), p=p)
+        return moe_ffn(p, c, x)
+
+    moe_mod.moe_ffn = capture
+    try:
+        paged = run_lm(torch, cfg, params, prompts, MOE_PLAN, paged=True,
+                       **kw)
+    finally:
+        moe_mod.moe_ffn = moe_ffn
+    dense = run_lm(torch, cfg, params, prompts,
+                   {"speculative": MOE_PLAN["speculative"]}, paged=False,
+                   **kw)
+    for mode, ref in (("speculative", "greedy"),
+                      ("speculative_beam", "beam")):
+        same_lm_runs({mode: paged[mode]}, {mode: paged[ref]},
+                     f"moe {mode} vs {ref}", calls=False)
+    same_lm_runs(dense, {"speculative": paged["speculative"]},
+                 "moe dense vs paged")
+    check_lm_launches("moe paged", paged, "paged_decode_gqa")
+    check_lm_launches("moe dense", dense, "decode_gqa")
+    tag = "moe [phi3.5-moe full width, 4 layers]"
+    print_lm_runs(tag, "paged", paged, MOE_PLAN)
+    print_lm_runs(tag, "dense", dense, MOE_PLAN)
+    one_shot_check(torch, cfg, params, prompts[0], paged, "moe", **kw)
+    print("moe check: speculative == greedy, SBS == beam, dense == paged, "
+          "streaming == one-shot (first prompt, greedy and speculative)",
+          flush=True)
+    # one MoE layer at the default capacity factor: drops, card vs CPU
+    ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE["check_capacity_factor"]))
+    x, p = seen["x"], seen["p"]
+    res = {}
+    for dev, prm, xx in (("cuda", p, x), ("cpu", tree_to(p, "cpu"),
+                                          x.cpu())):
+        out, aux = moe_mod.moe_ffn(prm, ccfg, xx)
+        r = moe_mod.moe_route(prm, ccfg, xx.reshape(-1, cfg.d_model))
+        res[dev] = (out.cpu(), r["gate_idx"].cpu(), r["keep"].cpu(),
+                    float(aux["moe_dropped_frac"]), r["capacity"])
+    (oc, gc, kc, dc, cap), (oh, gh, kh, dh, _) = res["cuda"], res["cpu"]
+    scale = oh.abs().max().item()
+    err = (oc - oh).abs().max().item()
+    if not (torch.equal(gc, gh) and torch.equal(kc, kh)
+            and err <= MOE["check_tol"] * max(1.0, scale) and dc == dh):
+        raise AssertionError(f"moe layer at capacity factor "
+                             f"{ccfg.moe.capacity_factor}: card vs CPU "
+                             f"experts equal {torch.equal(gc, gh)}, keep "
+                             f"equal {torch.equal(kc, kh)}, max err {err} "
+                             f"(largest |out| {scale}), dropped {dc} / {dh}")
+    print(f"moe check: one layer at capacity factor "
+          f"{ccfg.moe.capacity_factor} on the first verify pass's "
+          f"{x.shape[0]} x {x.shape[1]} tokens (capacity {cap} a expert): "
+          f"card == CPU experts and keep mask, output max err {err:.3e} "
+          f"(largest |out| {scale:.3f}), moe_dropped_frac {dc:.4f}",
+          flush=True)
+    print(f"moe phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {f"moe {k} {m}": r for k, runs in (("paged", paged),
+                                               ("dense", dense))
+            for m, r in runs.items()}
+
+
+def rollback_bytes(cfg, n_rows: int, T: int) -> int:
+    """Bytes of the per-step recurrent checkpoints a verify pass of
+    ``n_rows`` rows x ``T`` fed tokens holds: (T + 1) states a row a
+    recurrent layer (RWKV: the WKV state and two token-shift rows; Mamba:
+    the conv window and the SSM state), fp32."""
+    from repro_torch.models import mamba, rwkv
+
+    per = 0
+    for kind in cfg.layer_pattern:
+        if kind == "rwkv":
+            H, hd = rwkv._heads(cfg)
+            per += H * hd * hd + 2 * cfg.d_model
+        elif kind == "mamba":
+            d_inner, d_state, d_conv, _ = mamba._dims(cfg)
+            per += (d_conv - 1) * d_inner + d_inner * d_state
+    return cfg.n_repeats * n_rows * (T + 1) * per * 4
+
+
+def serve_rwkv(torch) -> dict:
+    """The recurrent phase: RWKV6-1.6B whole (``RWKV``; weights drawn on
+    the card from a CUDA generator seeded 0) on the dense cache; a paged
+    engine is refused. Greedy and speculative at 4 slots x 8 prompts.
+    Asserts speculative == greedy (the rollback keeps each row's accepted
+    checkpoint) and streaming == one-shot on the first prompt; prints the
+    walls, the checkpoint bytes a verify pass holds and each pass's peak
+    card memory above what was allocated when it began."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import EngineConfig, StreamingEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(RWKV["arch"])
+    t0 = time.perf_counter()
+    params = tr.init(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                     device="cuda")
+    torch.cuda.synchronize()
+    print(f"recurrent: {cfg.name} whole ({cfg.n_layers} layers); weights "
+          f"{tree_bytes(params) / 1e9:.2f} GB fp32 drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    kw = dict(max_new=RWKV["max_new"], n_drafts=RWKV["n_drafts"])
+    try:
+        StreamingEngine(params, cfg, None, EngineConfig(
+            paged=True, **lm_engine_kw(**kw)))
+    except ValueError as e:
+        print(f"recurrent check: paged refused ({e})", flush=True)
+    else:
+        raise AssertionError("recurrent: a paged engine was not refused")
+    prompts = lm_prompts(cfg.vocab_size, RWKV["n_prompts"], RWKV["len_lo"],
+                         RWKV["len_hi"], seed=RWKV["seed"])
+    run_lm(torch, cfg, params, prompts[:1], {"speculative": (4, 1)},
+           paged=False, max_new=4, n_drafts=RWKV["n_drafts"])  # warm-up
+    runs, peak = {}, {}
+    for mode in RWKV_PLAN:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs.update(run_lm(torch, cfg, params, prompts,
+                           {mode: RWKV_PLAN[mode]}, paged=False, **kw))
+        peak[mode] = torch.cuda.max_memory_allocated() - base
+    same_lm_runs({"speculative": runs["speculative"]},
+                 {"speculative": runs["greedy"]},
+                 "recurrent speculative vs greedy", calls=False)
+    check_lm_launches("recurrent", runs, None)
+    print_lm_runs("recurrent [rwkv6-1.6b whole]", "dense", runs, RWKV_PLAN)
+    one_shot_check(torch, cfg, params, prompts[0], runs, "recurrent", **kw)
+    rows = RWKV_PLAN["speculative"][0] * RWKV["n_drafts"]
+    ck = rollback_bytes(cfg, rows, LM["draft_len"] + 1)
+    shapes = runs["speculative"]["shapes"]
+    print(f"recurrent check: speculative == greedy, streaming == one-shot "
+          f"(first prompt); a verify pass of {rows} rows x "
+          f"{LM['draft_len'] + 1} tokens holds {ck / 1e9:.2f} GB of "
+          f"checkpoints (12 states a row a layer); peak card memory "
+          f"above the pass's start (the weights, "
+          f"{tree_bytes(params) / 1e9:.2f} GB, held before it): greedy "
+          f"{peak['greedy'] / 1e9:.2f} GB, speculative "
+          f"{peak['speculative'] / 1e9:.2f} GB; draft_verify launches "
+          f"{shapes}", flush=True)
+    print(f"recurrent phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {f"recurrent {m}": r for m, r in runs.items()}
+
+
+def serve_reduced_families(torch) -> dict:
+    """Jamba (Mamba + attention + MoE) and Llama-4 (dense and MoE FFNs,
+    shared expert) reduced, weights from a CPU generator seeded 0: greedy
+    and speculative on the paged cache, card == CPU tokens and calls, and
+    speculative == greedy; Jamba's multi-draft and ``prefix_cache``
+    refusals."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import multidraft_speculative_decode
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import EngineConfig, StreamingEngine
+
+    t_phase = time.perf_counter()
+    plan = {"greedy": (2, 4), "speculative": (2, 4)}
+    kw = dict(max_src=128, max_new=24)
+    out = {}
+    for arch in REDUCED_FAMILIES:
+        cfg = get_config(arch, reduced=True)
+        params = tr.init(torch.Generator().manual_seed(SEED), cfg,
+                         device="cpu")
+        prompts = lm_prompts(cfg.vocab_size, 4, 16, 120, seed=3)
+        card = run_lm(torch, cfg, params, prompts, plan, paged=True, **kw)
+        cpu = run_lm(torch, cfg, params, prompts, plan, paged=True,
+                     device="cpu", **kw)
+        same_lm_runs(card, cpu, f"{arch} reduced card vs CPU")
+        same_lm_runs({"speculative": card["speculative"]},
+                     {"speculative": card["greedy"]},
+                     f"{arch} reduced speculative vs greedy", calls=False)
+        check_lm_launches(f"{arch} reduced", card, "paged_decode_gqa")
+        print_lm_runs(f"reduced [{arch}]", "paged", card, plan)
+        out.update({f"{arch} {m}": r for m, r in card.items()})
+        if not tr.recurrent(cfg):
+            continue
+        for what, fn, err in (
+                ("prefix_cache", lambda: StreamingEngine(
+                    params, cfg, None, EngineConfig(
+                        paged=True, prefix_cache=True, **lm_engine_kw(**kw)),
+                    device="cpu"), ValueError),
+                ("multi-draft", lambda: multidraft_speculative_decode(
+                    params, cfg, tr.init_cache(cfg, 1, 32, device="cpu"),
+                    torch.tensor([5]), torch.tensor([0]),
+                    torch.zeros((1, 2, 3), dtype=torch.int32),
+                    torch.ones((1, 2), dtype=torch.bool), max_new=4,
+                    eos_id=LM["eos_id"]), NotImplementedError)):
+            try:
+                fn()
+            except err as e:
+                if "recurrent" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{arch}: {what} was not refused")
+        print(f"reduced check: {arch} prefix_cache and multi-draft refused "
+              f"by name", flush=True)
+    print("reduced check: jamba and llama4 reduced, card == CPU (tokens, "
+          "calls), speculative == greedy, paged", flush=True)
+    print(f"reduced families phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def check_train_step(torch, ds, tcfg, cpu_params) -> None:
     """One train step of the tiny model on the card against the CPU's plain
     path, same weights and batch: loss, metrics and every gradient leaf
@@ -2730,6 +3068,30 @@ def main() -> int:
         for r in runs.values():
             if "launches" not in r:
                 continue
+            for k in names:
+                main_launches[k] += r["launches"][k]
+                counts[k] += r["launches"][k]
+            add_shapes(r)
+        if any(counts[k] == 0 for k in needed):
+            raise AssertionError(f"{phase} phase: launches {counts}")
+        print(f"{phase} phase launches: {counts}", flush=True)
+    # -- the MoE and recurrent families ---------------------------------------
+    # an engine's scheduler hooks close over it (a reference cycle), so a
+    # phase's weights are freed by the cycle collector, not on return
+    del lm_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for phase, serve, needed in (
+            ("MoE", serve_moe,
+             ("decode_gqa", "paged_decode_gqa", "draft_verify")),
+            ("recurrent", serve_rwkv, ("draft_verify",)),
+            ("reduced families", serve_reduced_families,
+             ("paged_decode_gqa", "draft_verify"))):
+        runs = serve(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts = dict.fromkeys(names, 0)
+        for r in runs.values():
             for k in names:
                 main_launches[k] += r["launches"][k]
                 counts[k] += r["launches"][k]

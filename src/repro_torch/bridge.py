@@ -14,6 +14,10 @@ no JAX.
   (``transformer_params_from_jax``).
 - Dense ``w`` stays ``(d_in, d_out)``: the port applies it as ``x @ w``, so
   nothing is transposed (``repro_torch.models.layers.dense``).
+- An MoE FFN's experts stay stacked on their leading ``(E, ...)`` axis
+  (the port runs them as one ``torch.bmm``); its router and shared
+  expert, and the Mamba (``mamba``) and RWKV (``rwkv``, ``cmix``)
+  blocks' leaves, carry over under their JAX names.
 - The embedding ``tok`` is shared by encoder and decoder in both packages.
 """
 

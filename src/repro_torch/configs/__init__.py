@@ -1,13 +1,16 @@
 """Configs the port serves: the Molecular Transformer (``mt``) and the
-dense decoder-only architectures, registered by arch id
-(``get_config(arch_id, reduced=...)`` / ``list_archs()``)."""
+decoder-only architectures (dense, MoE, Mamba hybrid, RWKV), registered by
+arch id (``get_config(arch_id, reduced=...)`` / ``list_archs()``)."""
 
 from repro_torch.configs import (  # noqa: F401  (registration)
-    command_r_35b, qwen3_8b, smollm_135m, starcoder2_15b)
-from repro_torch.configs.base import (ModelConfig, get_config, list_archs,
+    command_r_35b, jamba_v01_52b, llama4_maverick_400b, phi35_moe_42b,
+    qwen3_8b, rwkv6_1p6b, smollm_135m, starcoder2_15b)
+from repro_torch.configs.base import (MambaConfig, ModelConfig, MoEConfig,
+                                      RWKVConfig, get_config, list_archs,
                                       register)
 from repro_torch.configs.mt import (product_config, retro_config, tiny_config,
                                     with_vocab)
 
-__all__ = ["ModelConfig", "get_config", "list_archs", "register",
-           "product_config", "retro_config", "tiny_config", "with_vocab"]
+__all__ = ["MambaConfig", "ModelConfig", "MoEConfig", "RWKVConfig",
+           "get_config", "list_archs", "register", "product_config",
+           "retro_config", "tiny_config", "with_vocab"]

@@ -1,12 +1,14 @@
-"""Model configuration dataclass + registry: an own copy of
+"""Model configuration dataclasses + registry: an own copy of
 ``repro.configs.base`` restricted to the families the port serves (the
 port imports nothing of the JAX package).
 
-The Molecular Transformer (``configs/mt.py``) and the dense decoder-only
+The Molecular Transformer (``configs/mt.py``), the dense decoder-only
 architectures (``configs/{smollm_135m,qwen3_8b,starcoder2_15b,
-command_r_35b}.py``) use these fields. The JAX package's MoE, Mamba, RWKV
-and frontend (VLM / audio) fields come with those families (ROADMAP.md
-Queue 1 item 6.3 and 6.4).
+command_r_35b}.py``), the MoE ones (``phi35_moe_42b``,
+``llama4_maverick_400b``) and the recurrent ones (``jamba_v01_52b``:
+Mamba + attention + MoE; ``rwkv6_1p6b``) use these fields. The JAX
+package's frontend (VLM / audio) fields come with those families
+(ROADMAP.md Queue 1 item 6.4's cross-attention half).
 """
 
 from __future__ import annotations
@@ -16,9 +18,32 @@ from typing import Callable
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden width
+    capacity_factor: float = 1.25
+    shared_expert: bool = False    # Llama-4-style always-on shared expert
+    router_z_loss: float = 1e-3
+    aux_loss_weight: float = 1e-2
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2                # d_inner = expand * d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64             # RWKV6 head size
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "seq2seq" | "dense"
+    family: str                    # seq2seq | dense | moe | ssm | hybrid
     n_layers: int                  # decoder depth
     d_model: int
     n_heads: int
@@ -39,10 +64,16 @@ class ModelConfig:
     tie_embeddings: bool = False
     causal: bool = True
 
-    # repeating layer-block pattern, tiled to n_layers; the port serves
-    # "attn" (self-attention + FFN) with "dense" FFNs
+    # repeating layer-block pattern, tiled to n_layers: "attn"
+    # (self-attention + FFN), "mamba" (Mamba mixer + FFN), "rwkv" (RWKV6
+    # time-mix + channel-mix); "xattn" (cross-attention) is not ported
     layer_pattern: tuple[str, ...] = ("attn",)
+    # FFN kind per pattern position: "dense" | "moe"
     ffn_pattern: tuple[str, ...] = ("dense",)
+
+    moe: MoEConfig | None = None
+    mamba: MambaConfig | None = None
+    rwkv: RWKVConfig | None = None
 
     # 0 = full attention; > 0 = sliding-window length for decode
     sliding_window: int = 0

@@ -6,7 +6,9 @@ row re-reads the whole KV cache. Here all N_d drafts ride ONE row per
 sequence: T = 1 + N_d·DL fed tokens under a segment mask
 (``build_local_mask``), so the cache is read once per sequence. The output
 equals the expanded-batch speculative decoder's, and so plain greedy's.
-Attention-family models on a dense cache only.
+Attention-only patterns (dense or MoE FFNs) on a dense cache; a pattern
+with a recurrent (Mamba / RWKV) position is refused by name, since its
+mixer runs the fed tokens in order and drafts cannot share a row.
 
 The JAX package runs the loop as a ``lax.while_loop``; here it is a host
 loop with one device read per iteration for its exit test, as
@@ -48,6 +50,7 @@ def multidraft_speculative_decode(
     """``speculative_greedy_decode``'s contract with one decoder row per
     sequence. drafts: (B, N_d, DL); the dense cache (one row per sequence)
     must cover start_pos + max_new + DL + 1 and is written in place."""
+    tr.refuse_recurrent(cfg, "multi-draft verification")
     B, N_d, DL = drafts.shape
     dev = last_token.device
     local_mask = torch.from_numpy(build_local_mask(N_d, DL)).to(dev)

@@ -2,7 +2,9 @@
 ``repro.core.tree_batch``).
 
 Cache leaves store batch on axis 1 (axis 0 is the layer axis) in dicts
-(the seq2seq cache) or tuples (the decoder-only cache), so the
+(the seq2seq cache, and a recurrent position's state or per-step
+checkpoints, (R, B, ...) or (R, B, T+1, ...)) or tuples (the decoder-only
+cache), so the
 paper's effective-batch inflation (B -> B*N_d), the post-verification winner
 sync and the beam reorder are maps over axis 1 of every leaf. Each returns
 new tensors; the inputs are left as they were.

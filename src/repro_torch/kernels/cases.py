@@ -69,6 +69,22 @@ PAGED_LM = {name: dict(B=c["B"], T=c["T"], H=9, Kv=3, ps=16, nb=37, hd=64,
                        window=0, P=1 + c["B"] * mapped, n_mapped=mapped)
             for name, c in DECODE_LM.items()
             for mapped in [37 if name == "smollm_oneshot_prefill" else 18]}
+# the MoE phase's shapes at Phi-3.5-MoE's width (H 32 over Kv 8, hd 128: a
+# GQA group of 4; a row holds max_src 512 + max_new 32 + DL 10 + 2 = 556
+# slots): the prefill lane of 8 slots x a chunk of 32 (T*G 128, in query
+# groups over 3 splits), the verify pass of 8 slots x 5 drafts (T 11), the
+# greedy step of 8 slots, the beam step of 2 slots x 5 beams and the SBS
+# verify pass of 2 x 5 x 5 drafts
+MOE_ROW = 556
+DECODE_MOE = {
+    name: dict(B=B, T=T, H=32, Kv=8, S=MOE_ROW, hd=128, window=0)
+    for name, B, T in (("phi_prefill_lane", 8, 32), ("phi_verify", 40, 11),
+                       ("phi_greedy", 8, 1), ("phi_beam", 10, 1),
+                       ("phi_sbs_verify", 50, 11))}
+# their paged twins: 35 blocks of 16 a row, the first 17 mapped
+PAGED_MOE = {name: dict(B=c["B"], T=c["T"], H=32, Kv=8, ps=16, nb=35,
+                        hd=128, window=0, P=1 + c["B"] * 17, n_mapped=17)
+             for name, c in DECODE_MOE.items()}
 # the prefix-sharing phase's read at SmolLM-135M's heads: 8 rows whose
 # leading 24 blocks alias the same 24 pages (a 384-token prefix served from
 # the radix cache), then each row's own pages, the last one part filled;
@@ -97,10 +113,16 @@ VERIFY_CARD_ONLY = [(200, 11, 27), (400, 11, 27), (1, 1, 27), (24, 5, 28),
                     (200, 11, 320), (16, 1, 320), (24, 11, 49_152),
                     (1, 1, 151_936),
                     (6, 40, 27), (2, 3, 50_257), (4, 40, 320), (0, 11, 27)]
-# draft_verify on the decoder-only phase's main path: SmolLM's vocab at
-# the verify pass of 8 slots x 25 drafts and the greedy step of 8 slots
+# draft_verify on the decoder-only phases' main paths: SmolLM's vocab at
+# the verify pass of 8 slots x 25 drafts and the greedy step of 8 slots;
+# Phi-3.5-MoE's 32,064 at the verify pass of 8 slots x 5 drafts and the
+# greedy step of 8 slots; RWKV6's 65,536 at 40 x 11, and at its phase's
+# verify pass of 4 slots x 25 drafts and greedy step of 4 slots
 VERIFY_LM = {"smollm_verify": (200, 11, 49_152),
-             "smollm_greedy": (8, 1, 49_152)}
+             "smollm_greedy": (8, 1, 49_152),
+             "phi_verify": (40, 11, 32_064), "phi_greedy": (8, 1, 32_064),
+             "rwkv_40x11": (40, 11, 65_536),
+             "rwkv_verify": (100, 11, 65_536), "rwkv_greedy": (4, 1, 65_536)}
 # (B, H, S, hd) x (causal, window): the flash sweep of the JAX package's
 # kernel tests (shapes in its (B, H, S, hd) order), then the largest
 # head_dim (MAX_HD) at an S that is no multiple of 16, and a head_dim that

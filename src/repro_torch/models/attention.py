@@ -309,12 +309,15 @@ def cached_attention(p: dict, cfg: ModelConfig, x, cache, positions, *,
     ``paged_decode_gqa`` kernel (its plain version on the CPU), which
     returns 0 for a query with no visible key, as the JAX package's own
     kernel oracles do. The JAX model's einsum read returns the uniform mean
-    of V there instead. The two differ only on such rows, and such a row
-    never reaches committed state: the one-shot path never feeds one
-    (every slot is active, positions are >= 0 and a token's own key is
-    written before it is read), and the streaming engine feeds them only
-    for inactive slots (position -1), whose logits the session step
-    discards (no token is written, no row is moved).
+    of V over the row's view there instead (its softmax over all-masked
+    scores). A query sees no key exactly when its position is -1 (its own
+    key is written before it is read). Such a row's output reaches no
+    committed state through attention or a recurrent mixer, whose rows are
+    independent; but an MoE FFN sizes its expert buffers from the call's
+    whole token count, so pad and idle rows take capacity, and which
+    choices they take depends on their hidden state. So for a pattern
+    with MoE FFNs those rows get the JAX model's mean of V, and the port
+    drops what the JAX package drops.
     """
     B, T = x.shape[:2]
     q, k_new, v_new = _project_qkv(p, cfg, x, x, cross=False)
@@ -336,7 +339,25 @@ def cached_attention(p: dict, cfg: ModelConfig, x, cache, positions, *,
         out = decode_gqa_attention(q.contiguous(), cache.k, cache.v,
                                    cache.pos.contiguous(), positions,
                                    window=window)
+    if "moe" in cfg.ffn_pattern:
+        out = torch.where((positions < 0)[:, :, None, None],
+                          _row_mean_v(cache).repeat_interleave(
+                              cfg.q_per_kv, dim=1)[:, None].to(out.dtype),
+                          out)
     return dense(p["wo"], out.reshape(B, T, -1)), cache
+
+
+def _row_mean_v(cache) -> torch.Tensor:
+    """(B, n_kv, hd): the mean of V over each row's view (every slot of a
+    dense row; every block's page of a paged row, the trash page for an
+    unmapped block), as ``paged_view`` lays it out."""
+    if isinstance(cache, KVCache):
+        return cache.v.float().mean(1)
+    B, nb = cache.block_tables.shape
+    pages = torch.where(cache.block_tables >= 0, cache.block_tables,
+                        TRASH_PAGE).long()
+    page_sum = cache.v_pool.float().sum(1)                    # (P, n_kv, hd)
+    return page_sum[pages].sum(1) / (nb * cache.page_size)
 
 
 def multidraft_attention(p: dict, cfg: ModelConfig, x, cache: KVCache,

@@ -1,5 +1,5 @@
 """Parameter init and primitive layers of the Molecular Transformer and
-the dense decoder-only transformer.
+the decoder-only transformer.
 
 Params are nested dicts of tensors, with the JAX package's names and
 layouts: a dense ``w`` is ``(d_in, d_out)`` and is applied as ``x @ w``, so
@@ -15,12 +15,21 @@ import torch.nn.functional as F
 
 # ---------------------------------------------------------------------------
 # init helpers (explicit generator: same distributions as the JAX init,
-# different numbers from the same seed)
+# different numbers from the same seed). Draws happen on the generator's
+# own device, so a CUDA generator fills the card's weights with no host
+# copy; a CPU generator gives the same numbers whatever ``device`` is.
 
 
 def _normal(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, dtype=torch.float32) * scale
-            ).to(device)
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device).mul_(scale).to(device)
+
+
+def _uniform(gen: torch.Generator, shape, lo: float, hi: float,
+             device) -> torch.Tensor:
+    """U[lo, hi), drawn as ``_normal`` draws."""
+    return torch.rand(shape, generator=gen, dtype=torch.float32,
+                      device=gen.device).mul_(hi - lo).add_(lo).to(device)
 
 
 def dense_init(gen, d_in: int, d_out: int, *, use_bias: bool, device,

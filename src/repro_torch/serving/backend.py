@@ -22,6 +22,8 @@ when paged), interleaved with the decode step, so residents never stall
 behind a long admission. When the prompt is written the slot's other rows
 adopt row 0: dense rows by a copy, paged rows by aliasing its block table
 (the page planner then copy-on-writes the draft-boundary page).
+Recurrent state (Mamba, RWKV) rides through each chunk token by token and
+is committed at the chunk's valid length, as the JAX package's lane does.
 Drafts are prompt-lookup drafts: the paper's source-copy trick applied to
 a decoder-only LM.
 """
@@ -92,8 +94,8 @@ def _map_nodes(fn, cache):
 
 def _clean_rows(cache, rows):
     """Recycle cache ``rows`` for a fresh request, in place: dense KV rows
-    become unreadable (stored position -1), paged rows are unmapped, other
-    leaves reset to zero."""
+    become unreadable (stored position -1), paged rows are unmapped,
+    recurrent state resets to its zero initial state."""
     idx = torch.as_tensor(rows, dtype=torch.long)
 
     def one(x):
@@ -110,7 +112,8 @@ def _clean_rows(cache, rows):
 
 def _adopt_row0(cache, rows):
     """Give every row of a slot the first row's context, in place: dense
-    leaves copy row 0, paged leaves alias its block table."""
+    leaves (K/V, stored positions, recurrent state) copy row 0, paged
+    leaves alias its block table."""
     idx = torch.as_tensor(rows, dtype=torch.long)
 
     def copy_row0(t):
@@ -234,9 +237,10 @@ class Seq2SeqBackend:
 
 
 class DecoderOnlyBackend:
-    """Decoder-only LM backend (``repro_torch.models.transformer``, the
-    dense ``("attn",)`` pattern): chunked ragged prompt prefill with
-    prompt-lookup drafts."""
+    """Decoder-only LM backend (``repro_torch.models.transformer``: dense,
+    MoE, Mamba-hybrid and RWKV patterns): chunked ragged prompt prefill
+    with prompt-lookup drafts. Recurrent state rides dense beside a paged
+    attention cache; an attention-free pattern has nothing to page."""
 
     chunked = True
 
@@ -259,6 +263,11 @@ class DecoderOnlyBackend:
         return self.ecfg.max_src + spec.cache_len
 
     def init_cache(self, n_rows: int, row_len: int, paged=None, *, device):
+        if paged is not None and not self.pageable():
+            raise ValueError(
+                f"{self.cfg.name}: no attention positions to page "
+                f"(layer_pattern={self.cfg.layer_pattern}); recurrent state "
+                f"is O(1) per row — serve this architecture dense")
         return tr.init_cache(self.cfg, n_rows, row_len, paged=paged,
                              device=device)
 
@@ -336,17 +345,19 @@ class DecoderOnlyBackend:
         once, in place: ``rows0`` the group's slot-leading cache rows (a
         host list, evenly spaced), ``tokens`` (S_g, C), ``pos0`` /
         ``n_valid`` (S_g,) device tensors. Pad positions are -1: their
-        writes land in the throwaway slot or trash page, so an idle lane
-        (``n_valid == 0``) leaves its row as it was. The rows are views of
-        the cache (no take / put copies), and the logits, which nobody
-        reads, are never computed."""
+        writes land in the throwaway slot or trash page, and recurrent
+        state is kept after each lane's ``n_valid`` tokens (the chunk's
+        checkpoint at ``n_valid``, as the JAX package commits it), so an
+        idle lane (``n_valid == 0``) leaves its row bitwise as it was. The
+        rows are views of the cache (no take / put copies), and the
+        logits, which nobody reads, are never computed."""
         step = rows0[1] - rows0[0] if len(rows0) > 1 else 1
         sub = strided_rows(cache, rows0[0], step, len(rows0))
         C = tokens.shape[1]
         rel = torch.arange(C, dtype=torch.int32, device=tokens.device)
         positions = torch.where(rel[None, :] < n_valid[:, None],
                                 pos0[:, None] + rel[None, :], -1)
-        tr.write_prompt(params, self.cfg, sub, tokens, positions)
+        tr.write_prompt(params, self.cfg, sub, tokens, positions, n_valid)
         return cache
 
     def finish_cache(self, cache, rows):

@@ -61,7 +61,10 @@ Retained pages stay allocated through index rows appended to the block
 table after the group rows; under pool pressure the least recently used
 are evicted before a resident is preempted. ``submit_child`` /
 ``cancel_subtree`` serve a tree of requests, as a retrosynthesis planner
-expands and prunes one; pruning drops the subtree's cached pages.
+expands and prunes one; pruning drops the subtree's cached pages. A
+pattern with a recurrent (Mamba / RWKV) position refuses
+``prefix_cache``: the tree holds attention pages only, and a shared
+prefix would leave the recurrent state without it.
 
 On the card the decoder's cached self-attention runs the ``decode_gqa``
 kernel (dense cache) or the ``paged_decode_gqa`` kernel (paged cache), and
@@ -97,6 +100,7 @@ from repro_torch.core.session import (PageAllocator, PoolExhausted,
 from repro_torch.data.tokenizer import SmilesTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models import seq2seq as s2s
+from repro_torch.models import transformer as tr
 from repro_torch.serving.api import (MAX_STOP_IDS, GenerationParams,
                                      RequestCancelled, RequestHandle,
                                      RequestRejected, RequestSpec,
@@ -368,6 +372,15 @@ class StreamingEngine:
             raise ValueError(
                 "StreamingEngine built with tokenizer=None needs "
                 "EngineConfig.eos_id so sequences can terminate")
+        if ecfg.prefix_cache and self.backend.chunked and tr.recurrent(cfg):
+            # the radix tree keeps attention pages only: a shared child
+            # would skip the prefix's prefill and start its recurrent
+            # state from zero (ROADMAP.md Queue 3)
+            raise ValueError(
+                f"{cfg.name}: prefix_cache shares attention pages only, and "
+                f"layer_pattern {cfg.layer_pattern} holds recurrent "
+                f"positions whose state a shared prefix would skip; serve "
+                f"it with prefix_cache=False")
         # prefix reuse: the radix page tree on a paged decoder-only engine
         # (prompts live in pages), the encoder-output LRU on seq2seq (the
         # source IS the prefix); a dense decoder-only engine has nothing to
@@ -640,6 +653,9 @@ class StreamingEngine:
                 "paged serving sessions require sliding_window == 0: the "
                 "page allocator maps a linear block space, not the window's "
                 "block ring")
+        if not self.backend.pageable():
+            raise ValueError(
+                f"{self.cfg.name}: backend has nothing to page — serve dense")
         ps = ecfg.page_size
         if ecfg.n_pages is not None:
             return ecfg.n_pages, ps

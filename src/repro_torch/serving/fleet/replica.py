@@ -18,9 +18,10 @@ first replica would have produced.
 
 The model: ``--model synthetic``, the toy Molecular Transformer —
 ``SyntheticReactionDataset`` + the tiny seq2seq config; ``--model arch
---arch <name> [--reduced]``, a dense decoder-only architecture of
-``repro_torch.configs`` served token-in / token-out (``tokenizer=None``,
-EOS id 2). Weights are drawn from ``torch.Generator().manual_seed(0)``.
+--arch <name> [--reduced]``, a decoder-only architecture of
+``repro_torch.configs`` (dense, MoE, the Mamba hybrid or RWKV6; an
+attention-free one without ``--paged``) served token-in / token-out
+(``tokenizer=None``, EOS id 2). Weights are drawn from ``torch.Generator().manual_seed(0)``.
 ``--device`` follows the port's rule: the card unless ``cpu`` is asked
 for.
 
@@ -91,7 +92,9 @@ def main(argv=None) -> None:
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--model", default="synthetic",
                     choices=("synthetic", "arch"))
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="a registered arch id (repro_torch.configs."
+                         "list_archs()); --reduced on the CPU")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--mode", default="greedy")
     ap.add_argument("--slots", type=int, default=2)

@@ -33,8 +33,9 @@ from repro_torch.kernels import (decode_gqa_attention, draft_verify,  # noqa: E4
                                  paged_decode_gqa_attention)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
-    DECODE_CARD_ONLY, DECODE_LM, DECODE_SWEEP, FLASH_MASKS, FLASH_PLAIN_LOADS,
-    FLASH_SWEEP, PAGED_ALIASED, PAGED_CARD_ONLY, PAGED_LM, PAGED_SWEEP,
+    DECODE_CARD_ONLY, DECODE_LM, DECODE_MOE, DECODE_SWEEP, FLASH_MASKS,
+    FLASH_PLAIN_LOADS, FLASH_SWEEP, PAGED_ALIASED, PAGED_CARD_ONLY, PAGED_LM,
+    PAGED_MOE, PAGED_SWEEP,
     VERIFY_CARD_ONLY, VERIFY_LM, VERIFY_SWEEP, aliased_paged_inputs,
     decode_inputs, flash_inputs, paged_inputs, ragged_lengths, ring_inputs,
     verify_inputs)
@@ -491,7 +492,9 @@ def test_launch_counts_lose_no_update_across_threads(monkeypatch):
 VERIFY_PLAN_CASES = [(200, 11, 27), (1, 1, 27), (24, 11, 28), (400, 11, 27),
                      (6, 40, 27), (200, 11, 320), (4, 40, 320),
                      (24, 11, 49_152), (1, 1, 151_936), (1, 40, 151_936),
-                     (2, 3, 50_257), (0, 11, 27)]
+                     (2, 3, 50_257), (0, 11, 27), (40, 11, 32_064),
+                     (8, 1, 32_064), (40, 11, 65_536), (100, 11, 65_536),
+                     (4, 1, 65_536)]
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
@@ -548,6 +551,16 @@ def test_draft_verify_plan_choices():
     assert plan(1, 1, 151_936, 4) == (0, 0, 0, 38, 4_000)
     assert plan(1, 1, 151_936, 2) == (0, 0, 0, 19, 8_000)
     assert plan(1024, 1, 151_936, 4).n_split == 1
+    # Phi-3.5-MoE's 32,064 and RWKV6's 65,536 (the MoE and recurrent
+    # phases): two splits at 40 x 11, eight of 4,016 for the greedy step of
+    # 8 slots (four in bf16), one where 100 x 11 rows fill the card, 16 of
+    # 4,096 for the greedy step of 4 slots
+    assert plan(40, 11, 32_064, 4) == (0, 0, 0, 2, 16_032)
+    assert plan(8, 1, 32_064, 4) == (0, 0, 0, 8, 4_016)
+    assert plan(8, 1, 32_064, 2) == (0, 0, 0, 4, 8_016)
+    assert plan(40, 11, 65_536, 4) == (0, 0, 0, 2, 32_768)
+    assert plan(100, 11, 65_536, 4) == (0, 0, 0, 1, 65_536)
+    assert plan(4, 1, 65_536, 4) == (0, 0, 0, 16, 4_096)
 
 
 @pytest.mark.parametrize("ptr,itemsize,run,expected", [
@@ -792,7 +805,15 @@ GROUP_CASES = [((200, 8, 1, 11, 32, 4), (1, 11)),
                ((1, 4, 4, 22, 32, 4), (2, 16)),
                ((1, 3, 4, 1341, 64, 4), (21, 64)),
                ((1, 3, 4, 1341, 64, 2), (21, 64)),
-               ((600, 1, 1, 1341, 256, 4), (17, 80))]
+               ((600, 1, 1, 1341, 256, 4), (17, 80)),
+               # Phi-3.5-MoE at hd 128, G 4: the prefill lane of 8 slots
+               # (T*G 128 on 8 x 8 x 3 blocks) takes two groups; the verify
+               # passes (T*G 44), greedy and beam steps keep one
+               ((8, 8, 3, 128, 128, 4), (2, 64)),
+               ((40, 8, 1, 44, 128, 4), (1, 44)),
+               ((50, 8, 1, 44, 128, 4), (1, 44)),
+               ((8, 8, 3, 4, 128, 4), (1, 4)),
+               ((10, 8, 2, 4, 128, 4), (1, 4))]
 
 
 @pytest.mark.parametrize("args,expected", GROUP_CASES)
@@ -826,13 +847,14 @@ def test_decode_gqa_kernel_matches_plain(cuda, cfg, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", list(DECODE_LM))
+@pytest.mark.parametrize("name", list(DECODE_LM) + list(DECODE_MOE))
 def test_decode_gqa_kernel_lm_shapes(cuda, name):
     """The decoder-only phase's shapes: T*G 96 at hd 64 (the prefill
     lanes of 8 and 2 slots, in query groups over 4 splits), the verify
     passes at B 200 and 250, the greedy and beam steps, and a feed of 447
-    positions (1,341 query rows in 21 groups)."""
-    cfg = DECODE_LM[name]
+    positions (1,341 query rows in 21 groups); and the MoE phase's at
+    Phi-3.5-MoE's hd 128 and GQA group of 4."""
+    cfg = {**DECODE_LM, **DECODE_MOE}[name]
     tx = [t.to(cuda) for t in _torch(_decode_inputs(cfg), "float32")]
     out = decode_gqa_attention(*tx)
     ref = decode_gqa_ref(*tx)
@@ -842,9 +864,9 @@ def test_decode_gqa_kernel_lm_shapes(cuda, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", list(PAGED_LM))
+@pytest.mark.parametrize("name", list(PAGED_LM) + list(PAGED_MOE))
 def test_paged_decode_gqa_kernel_lm_shapes(cuda, name):
-    cfg = PAGED_LM[name]
+    cfg = {**PAGED_LM, **PAGED_MOE}[name]
     tx = [t.to(cuda) for t in _torch(
         paged_inputs(*(cfg[k] for k in ("B", "T", "H", "Kv", "P", "ps", "nb",
                                         "hd")), n_mapped=cfg["n_mapped"]),

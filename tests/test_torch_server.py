@@ -783,12 +783,13 @@ def _replica_args(**kw):
 
 
 def test_replica_entry_point_refuses_decoder_only_models():
-    """``--model arch`` builds the dense decoder-only families; one the port
-    does not serve yet is refused, naming the ones it does."""
+    """``--model arch`` builds the decoder-only families the port serves;
+    one it does not serve yet (the cross-attention VLM) is refused, naming
+    the ones it does."""
     from repro_torch.serving.fleet import replica
 
     with pytest.raises(KeyError, match="smollm-135m"):
-        replica.build_engine(_replica_args(arch="rwkv6-1.6b"))
+        replica.build_engine(_replica_args(arch="llama-3.2-vision-11b"))
 
 
 def test_replica_serves_a_decoder_only_arch():
