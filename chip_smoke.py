@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py            # everything (what the card's run uses)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
-    python3 chip_smoke.py --quick --baseline DIR   # also time the decode
-                                     # and verify kernels of another tree
-                                     # (DIR, e.g. a git archive of an
-                                     # earlier commit) in turns with these
+    python3 chip_smoke.py --quick --baseline DIR   # also time the decode,
+                                     # verify and MT flash kernels of
+                                     # another tree (DIR, e.g. a git
+                                     # archive of an earlier commit) in
+                                     # turns with these, and hold the flash
+                                     # outputs of the two bitwise equal
     python3 chip_smoke.py --plain-flash bwd   # train only, with the flash
                                      # backward's plain version (all: the
                                      # forward's too), for the loss curve
@@ -23,15 +25,23 @@ In order:
      paged_decode_gqa: the verify pass of 8 slots, the greedy step, and
      where trained serving at B 1 launches them, and the decoder-only
      phase's shapes of ``kernels.cases.DECODE_LM`` / ``PAGED_LM`` at
-     SmolLM-135M's heads and the MoE phase's ``DECODE_MOE`` /
-     ``PAGED_MOE`` at Phi-3.5-MoE's (H 32 over 8 KV heads, hd 128);
-     draft_verify, bitwise:
+     SmolLM-135M's heads, the MoE phase's ``DECODE_MOE`` /
+     ``PAGED_MOE`` at Phi-3.5-MoE's (H 32 over 8 KV heads, hd 128) and the
+     VLM phase's (``vlm_main_shapes``: its ragged prefill, verify pass and
+     greedy step, the apply check's prefill and decode step, at
+     Llama-3.2-Vision's H 32 over 8, hd 128); draft_verify, bitwise:
      its sweep and card-only list in fp32 and bf16 with NaN / -inf / +inf
      rows, and every launch group of the main path, ``VERIFY_LM`` at
-     SmolLM's 49,152, Phi-3.5-MoE's 32,064 and RWKV6's 65,536 vocabs
-     among them; flash_attention forward
+     SmolLM's 49,152, Phi-3.5-MoE's 32,064, RWKV6's 65,536 and
+     Llama-3.2-Vision's 128,256 vocabs among them; flash_attention forward
      and backward: the serving encoder's B 16 x S 128 and the training
-     batch's B 24 x S 96, H 8, hd 32; two calls of each kernel on the same
+     batch's B 24 x S 96, H 8, hd 32, the GQA sweep ``FLASH_GQA`` (9 / 3,
+     6 / 2, 8 / 2 heads at hd 64, 80, 128, each mask, ragged or not, with
+     positions that are not the indices or without), and the decoder-only
+     training shapes: SmolLM-135M's B 16 x S 191, 9 heads over 3, hd 64,
+     causal, and HuBERT-xlarge's B 4 x S 500, 16 heads of 80,
+     bidirectional, and the VLM's apply forward over its first prompt, 32
+     heads over 8, hd 128, causal; two calls of each kernel on the same
      inputs must agree bitwise), then time the kernel, the plain version
      and a PyTorch library call (a yardstick only) with CUDA events, median
      over launches with the L2 cache flushed before each, beside the least
@@ -62,9 +72,11 @@ In order:
      max_new 72, max_src 96), whose tokens must equal greedy's; wall per
      query, decoder calls, acceptance, top-1 exact match; then one
      speculative paged StreamingEngine pass over the same queries; then
-     draft_verify's launches by (N, T, V) over steps 4-7, each group's
-     times and its launch-weighted gap, launches x (time - max(bound,
-     floor)), with --baseline the other tree's beside;
+     (after the last phase) draft_verify's launches by (N, T, V) over the
+     main path, each group's times and its launch-weighted gap, launches
+     x (time - max(bound, floor)), with --baseline the other tree's
+     beside; a shape that is no launch group is held to its plain
+     version, bitwise, there;
   8. the serving surface on the trained weights: save them and the
      trainer's Adam state with ``repro_torch.checkpoint`` (the JAX package's
      file layout) under ``build/``, load them into fresh params on the card
@@ -139,13 +151,33 @@ In order:
   14. reduced Jamba and Llama-4 (``serve_reduced_families``): greedy and
      speculative on the paged cache, card == CPU tokens and calls;
      Jamba's ``prefix_cache`` and multi-draft refusals;
-  15. run a tiny model on the card and on the CPU with the same weights: the
+  15. decoder-only training (``train_lm``): SmolLM-135M whole (weights
+     from a CUDA generator seeded 0) on the 512 training reactions in
+     ``lm_batch`` layout, batch 16, max_len 192, ``make_lm_train_step``'s
+     defaults, 8 epochs = 256 steps: the flash kernels forward and
+     backward with GQA must launch, the last logged loss must be < 0.7x
+     the first; then the trained weights serve 32 held-out reactions
+     ([bos] + src + [sep] prompts) through the paged decoder-only
+     StreamingEngine, greedy and speculative (DL 10, 25 prompt-lookup
+     drafts): speculative == greedy; exact-match top-1, acceptance and
+     wall per request printed;
+  16. HuBERT-xlarge at full width (``train_hubert``): 4 train steps at B 4
+     x T 500 on seeded frames and codebook labels, bidirectional flash;
+     steps/s and the peak memory above the phase's start;
+  17. Llama-3.2-Vision-11B at full width cut to its first 5-layer block
+     (``serve_vlm``): 4 prompts of 64-256 tokens, 1,601 memory tokens with
+     a ragged memory mask; greedy == expanded speculative ==
+     ``multidraft_speculative_decode``, and ``apply``'s logits ==
+     ``prefill`` + ``decode_step``'s;
+  18. run a tiny model on the card and on the CPU with the same weights: the
      card's tokens must match the CPU's plain path, one-shot and paged
      streaming, and a streaming speculative pass at draft_len 32 (T 33
      fed positions), and one train step's loss and gradients must match
      within 1e-4; then 50 train steps on both, printing the first step
-     whose losses part by more than 1e-4;
-  16. print the ``kernels`` JSON line, the card line, and
+     whose losses part by more than 1e-4; then one ``make_lm_train_step``
+     step of every reduced decoder-only arch, the VLM and HuBERT, whose
+     loss, metrics and gradients must match within 1e-4;
+  19. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
 Every Molecular Transformer serving phase must launch flash_attention (the
@@ -208,8 +240,12 @@ def timed_ms(torch, fn, iters: int = 50, warm: int = 5) -> float:
 def report_ptxas(source: str, log: str) -> None:
     """Print registers and spills of every kernel instance from nvcc's
     ``-Xptxas=-v`` output (flash instances as ``name<type, head_dim
-    bucket>``); fail if a flash instance of the model's bucket, hd 32,
-    spills."""
+    bucket>``, ``, pos`` for the instances that mask by positions, ``,
+    gqa`` for the dK/dV instances that loop over a group of query heads);
+    fail if a flash instance the MT runs (its bucket, hd 32, index masks,
+    one query head a kv head) spills.
+    The others' spills are printed: the decoder-only models' hd 64 and
+    HuBERT's hd 80 (the 128 bucket), and the position-masked instances."""
     import re
 
     label, spills = None, None
@@ -218,13 +254,15 @@ def report_ptxas(source: str, log: str) -> None:
         if entry:
             mangled = entry.group(1)
             m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkdv)I"
-                          r"(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+                          r"(f|13__nv_bfloat16)?Li(\d+)ELb([01])E"
+                          r"(?:Lb([01])E)?", mangled)
             d = re.search(r"(decode_attention_kernel)I(f|13__nv_bfloat16)"
                           r"Li(\d+)ELi(\d+)E", mangled)
             dtypes = {"f": "float, ", "13__nv_bfloat16": "bf16, "}
             if m is not None:
                 label = (f"{m.group(1)}<{dtypes.get(m.group(2), '')}"
-                         f"{m.group(3)}>")
+                         f"{m.group(3)}{', pos' if m.group(4) == '1' else ''}"
+                         f"{', gqa' if m.group(5) == '1' else ''}>")
             elif d is not None:   # <type, head_dim bucket, rows a pass>
                 label = (f"{d.group(1)}<{dtypes[d.group(2)]}{d.group(3)}, "
                          f"{d.group(4)}>")
@@ -459,25 +497,27 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
 
 
 def flash_work(B, S, H, hd, *, causal: bool, lengths=None, itemsize=4,
-               backward: bool = False, with_lse: bool = True):
+               backward: bool = False, with_lse: bool = True, Kv=None):
     """Bytes and flops that full-sequence attention needs for these inputs:
     each input read once and each output written once, counting the K/V
-    reads of valid keys only; the forward's lse write only ``with_lse``
-    (training keeps it for the backward, inference needs none); flops per
-    visible (query, key) pair of each head: 4·hd forward (QK^T, PV), 10·hd
-    backward (QK^T and dO·V^T recomputed, then dV, dQ, dK)."""
+    reads of valid keys only (Kv kv heads, default H); the forward's lse
+    write only ``with_lse`` (training keeps it for the backward, inference
+    needs none); flops per visible (query, key) pair of each query head:
+    4·hd forward (QK^T, PV), 10·hd backward (QK^T and dO·V^T recomputed,
+    then dV, dQ, dK)."""
+    Kv = H if Kv is None else Kv
     lengths = np.full(B, S) if lengths is None else np.asarray(lengths)
     qi, ki = np.arange(S)[:, None], np.arange(S)[None, :]
     vis = (ki <= qi) if causal else np.ones((S, S), bool)
     pairs = H * sum(int((vis & (ki < n)).sum()) for n in lengths)
     rows = B * S * H * hd              # q (and out, dO, dQ) elements
-    keys = int(lengths.sum()) * H * hd  # K or V elements of valid keys
+    keys = int(lengths.sum()) * Kv * hd  # K or V elements of valid keys
     mask = 0 if lengths.min() == S else B * S
     if not backward:
         lse = B * H * S * 4 if with_lse else 0
         nbytes = (2 * rows + 2 * keys) * itemsize + lse + mask
         return int(nbytes), int(4 * hd * pairs)
-    nbytes = (4 * rows + 2 * keys + 2 * rows) * 4 + (
+    nbytes = (4 * rows + 2 * keys + 2 * B * S * Kv * hd) * 4 + (
         B * H * S * 4 + mask)          # q,o,dO,dq + k,v + dk,dv; lse, mask
     return int(nbytes), int(10 * hd * pairs)
 
@@ -486,22 +526,26 @@ def check_flash(torch, main: dict) -> dict:
     """flash_attention forward and backward against their plain versions on
     the card: the shared sweep (JAX test shapes x causal / bidirectional /
     window 24, fp32 and bf16 forward, fp32 backward, with and without a
-    ragged key mask), then the main shapes (``main``: name -> B, S, H, hd,
-    causal, lengths), timed beside their bound and the library yardstick
-    (``scaled_dot_product_attention`` with the key mask as a bool mask, or
+    ragged key mask), the GQA sweep (``FLASH_GQA``: q_per_kv 1, 3, 4 at hd
+    80, 64, 128, the same masks, also with positions that are not the
+    indices, fp32; bf16 forward without positions), then the main shapes
+    (``main``: name -> B, S, H, Kv, hd, causal, lengths), timed beside
+    their bound and the library yardstick (``scaled_dot_product_attention``
+    with ``enable_gqa`` where Kv < H and the key mask as a bool mask, or
     ``is_causal``; its autograd backward for the backward)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_bshd
-    from repro_torch.kernels.cases import (FLASH_MASKS, FLASH_PLAIN_LOADS,
-                                           FLASH_SWEEP, flash_inputs,
+    from repro_torch.kernels.cases import (FLASH_GQA, FLASH_MASKS,
+                                           FLASH_PLAIN_LOADS, FLASH_SWEEP,
+                                           flash_inputs, permuted_positions,
                                            ragged_lengths)
     from repro_torch.kernels.flash_attention.ops import _backward, _forward
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
 
-    def inputs(B, S, H, hd, lengths, dtype=torch.float32):
-        q, k, v, do, km = flash_inputs(B, S, H, hd, lengths=lengths)
+    def inputs(B, S, H, hd, lengths, dtype=torch.float32, Kv=None):
+        q, k, v, do, km = flash_inputs(B, S, H, hd, lengths=lengths, Kv=Kv)
         x = on_card(torch, (q, k, v, do), dtype)
         return x, None if km is None else torch.from_numpy(km).cuda()
 
@@ -512,64 +556,83 @@ def check_flash(torch, main: dict) -> dict:
         return e.max().item()
 
     err_f = err_b = 0.0
-    cases = [(c, cw, ragged) for c in FLASH_SWEEP + FLASH_PLAIN_LOADS
+    cases = [(c, cw, ragged, False) for c in FLASH_SWEEP + FLASH_PLAIN_LOADS
              for cw in FLASH_MASKS for ragged in (False, True)]
-    cases += [(dict(B=m["B"], S=m["S"], H=m["H"], hd=m["hd"]),
-               (m["causal"], 0), m["lengths"]) for m in main.values()]
-    for c, (causal, window), ragged in cases:
+    cases += [(c, cw, ragged, pos) for c in FLASH_GQA for cw in FLASH_MASKS
+              for ragged in (False, True) for pos in (False, True)]
+    cases += [(dict(B=m["B"], S=m["S"], H=m["H"], hd=m["hd"],
+                    Kv=m.get("Kv")), (m["causal"], 0), m["lengths"], False)
+              for m in main.values()]
+    for c, (causal, window), ragged, pos in cases:
         lengths = (ragged if not isinstance(ragged, bool) else
                    ragged_lengths(c["B"], c["S"]) if ragged else None)
+        positions = (torch.from_numpy(permuted_positions(c["B"], c["S"])
+                                      ).cuda() if pos else None)
         for dt in (torch.float32, torch.bfloat16):
+            if pos and dt != torch.float32:
+                continue   # the kernels take positions in fp32 only
             (q, k, v, do), km = inputs(c["B"], c["S"], c["H"], c["hd"],
-                                       lengths, dt)
-            kw = dict(causal=causal, window=window, key_mask=km)
-            out = flash_attention_bshd(q, k, v, **kw)
+                                       lengths, dt, c.get("Kv"))
+            kw = dict(causal=causal, window=window, key_mask=km,
+                      q_pos=positions, k_pos=positions)
+            kern_kw = dict(causal=causal, window=window, key_mask=km,
+                           positions=positions)
+            label = f"{c} {causal} {window} pos {pos}"
+            out = flash_attention_bshd(q, k, v, **kern_kw)
             ref, _ = flash_attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
             tol = 2e-5 if dt == torch.float32 else 2e-2
-            e = agree(f"flash_attention {c} {causal} {window} {dt}", out, ref,
-                      tol)
+            e = agree(f"flash_attention {label} {dt}", out, ref, tol)
             if dt != torch.float32:
                 continue
             err_f = max(err_f, e)
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            grads = torch.autograd.grad(flash_attention_bshd(*leaves, **kw),
+            grads = torch.autograd.grad(flash_attention_bshd(*leaves,
+                                                             **kern_kw),
                                         leaves, do)
             o, lse = flash_attention_ref(q, k, v, **kw)
             refs = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
             for g, r, n in zip(grads, refs, ("dq", "dk", "dv")):
-                err_b = max(err_b, agree(f"flash_attention_bwd {n} {c} "
-                                         f"{causal} {window}", g, r, 1e-4))
+                err_b = max(err_b, agree(f"flash_attention_bwd {n} {label}",
+                                         g, r, 1e-4))
 
-    # no atomics: two calls on the same inputs agree bitwise
-    m = main["train_encoder"]
-    (q, k, v, do), km = inputs(m["B"], m["S"], m["H"], m["hd"], m["lengths"])
-    fw = [_forward(q, k, v, km, m["causal"], 0, with_lse=True)
-          for _ in range(2)]
-    bw = [_backward(q, k, v, *fw[0], do, km, m["causal"], 0)
-          for _ in range(2)]
-    torch.cuda.synchronize()
-    for name, (a, b) in (("flash_attention", fw), ("flash_attention_bwd", bw)):
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"{name}: two calls on the same inputs "
-                                 f"differ")
+    # no atomics: two calls on the same inputs agree bitwise, at the MT's
+    # train encoder and at the GQA training shapes (dK/dV summed over the
+    # group in registers)
+    for name in ("train_encoder", "smollm_train", "hubert_train"):
+        m = main[name]
+        (q, k, v, do), km = inputs(m["B"], m["S"], m["H"], m["hd"],
+                                   m["lengths"], Kv=m.get("Kv"))
+        fw = [_forward(q, k, v, km, m["causal"], 0, with_lse=True)
+              for _ in range(2)]
+        bw = [_backward(q, k, v, *fw[0], do, km, m["causal"], 0)
+              for _ in range(2)]
+        torch.cuda.synchronize()
+        for kern, (a, b) in (("flash_attention", fw),
+                             ("flash_attention_bwd", bw)):
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"{kern} [{name}]: two calls on the "
+                                     f"same inputs differ")
 
     fwd, bwd = {}, {}
     for name, m in main.items():
         B, S, H, hd, causal = (m[k] for k in ("B", "S", "H", "hd", "causal"))
-        (q, k, v, do), km = inputs(B, S, H, hd, m["lengths"])
+        Kv = m.get("Kv", H)
+        (q, k, v, do), km = inputs(B, S, H, hd, m["lengths"], Kv=Kv)
         kw = dict(causal=causal, window=0, key_mask=km)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_kw = (dict(is_causal=True) if km is None and causal else
                   dict(attn_mask=None if km is None else km[:, None, None]))
+        if Kv != H:
+            lib_kw["enable_gqa"] = True
         if km is not None and causal:
             raise ValueError("no main shape is causal with a key mask")
-        shape = dict(B=B, S=S, H=H, hd=hd, causal=causal,
+        shape = dict(B=B, S=S, H=H, Kv=Kv, hd=hd, causal=causal,
                      ragged=m["lengths"] is not None)
         nbytes, flops = flash_work(B, S, H, hd, causal=causal,
                                    lengths=m["lengths"],
-                                   with_lse=m["backward"])
+                                   with_lse=m["backward"], Kv=Kv)
         bound_ms, bound_by = bound(nbytes, flops)
         fwd[name] = dict(
             shape=shape,
@@ -587,7 +650,8 @@ def check_flash(torch, main: dict) -> dict:
         lib_out = F.scaled_dot_product_attention(lq, lk, lv, **lib_kw)
         dot = do.transpose(1, 2)
         nbytes, flops = flash_work(B, S, H, hd, causal=causal,
-                                   lengths=m["lengths"], backward=True)
+                                   lengths=m["lengths"], backward=True,
+                                   Kv=Kv)
         bound_ms, bound_by = bound(nbytes, flops)
         bwd[name] = dict(
             shape=shape,
@@ -712,6 +776,27 @@ def verify_timing(torch, N: int, T: int, V: int) -> dict:
     return out
 
 
+def verify_agrees(torch, N: int, T: int, V: int, dt) -> None:
+    """draft_verify at (N, T, V) in ``dt`` on ``verify_inputs(special=
+    True)``: tokens and accepted lengths equal to the plain version's, in
+    one launch (none for no rows)."""
+    from repro_torch.kernels import _build, draft_verify
+    from repro_torch.kernels.cases import verify_inputs
+    from repro_torch.kernels.draft_verify.ref import draft_verify_ref
+
+    x = on_card(torch, verify_inputs(N, T, V, special=True), dt)
+    before = _build.launch_counts["draft_verify"]
+    tok, acc = draft_verify(*x)
+    launched = _build.launch_counts["draft_verify"] - before
+    rtok, racc = draft_verify_ref(*x)
+    torch.cuda.synchronize()
+    if not (torch.equal(tok, rtok) and torch.equal(acc, racc)):
+        raise AssertionError(f"draft_verify disagrees at {(N, T, V)} {dt}")
+    if launched != (1 if N else 0):
+        raise AssertionError(f"draft_verify at {(N, T, V)}: {launched} "
+                             f"launches")
+
+
 def check_verify(torch, main: dict) -> dict:
     """draft_verify against its plain version on the card, bitwise (tokens
     and accepted lengths): the shared sweep and the card-only list in fp32
@@ -719,28 +804,15 @@ def check_verify(torch, main: dict) -> dict:
     -inf / +inf row of ``verify_inputs(special=True)``; T 40 must launch the
     kernel. Then each launch group and ``VERIFY_TIMED_CARD_ONLY`` timed
     (``verify_timing``)."""
-    from repro_torch.kernels import _build, draft_verify
     from repro_torch.kernels.cases import (VERIFY_CARD_ONLY, VERIFY_LM,
-                                           VERIFY_SWEEP, verify_inputs)
-    from repro_torch.kernels.draft_verify.ref import draft_verify_ref
+                                           VERIFY_SWEEP)
 
     main = dict(main, **VERIFY_LM)
     cases = [(c, dt) for c in VERIFY_SWEEP + VERIFY_CARD_ONLY
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(c, torch.float32) for c in main.values()]
     for (N, T, V), dt in cases:
-        x = on_card(torch, verify_inputs(N, T, V, special=True), dt)
-        before = _build.launch_counts["draft_verify"]
-        tok, acc = draft_verify(*x)
-        launched = _build.launch_counts["draft_verify"] - before
-        rtok, racc = draft_verify_ref(*x)
-        torch.cuda.synchronize()
-        if not (torch.equal(tok, rtok) and torch.equal(acc, racc)):
-            raise AssertionError(f"draft_verify disagrees at {(N, T, V)} "
-                                 f"{dt}")
-        if launched != (1 if N else 0):
-            raise AssertionError(f"draft_verify at {(N, T, V)}: {launched} "
-                                 f"launches")
+        verify_agrees(torch, N, T, V, dt)
     shapes = {name: verify_timing(torch, *c)
               for name, c in dict(main, **VERIFY_TIMED_CARD_ONLY).items()}
     return dict(max_abs_err=0.0, shapes=shapes)
@@ -795,7 +867,7 @@ def verify_shapes() -> dict:
 
 
 def check_kernels(torch, ecfg, n_queries: int, verify_main: dict,
-                  flash_main: dict) -> dict:
+                  flash_main: dict, decode_extra: dict) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_gqa_attention
@@ -811,13 +883,13 @@ def check_kernels(torch, ecfg, n_queries: int, verify_main: dict,
     # -- decode_gqa ---------------------------------------------------------
     err = 0.0
     main = dict(decode_main_shapes(ecfg, n_queries), **DECODE_LM,
-                **DECODE_MOE)
+                **DECODE_MOE, **decode_extra)
     cases = [(c, dt) for c in DECODE_SWEEP + DECODE_CARD_ONLY
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(c, torch.float32) for c in main.values()]
     for c, dt in cases:
         shape = [c[k] for k in DECODE_KEYS]
-        x = on_card(torch, decode_inputs(*shape), dt)
+        x = on_card(torch, decode_inputs(*shape, prefix=c.get("prefix")), dt)
         out = decode_gqa_attention(*x, window=c["window"])
         ref = decode_gqa_ref(*x, window=c["window"])
         torch.cuda.synchronize()
@@ -840,7 +912,8 @@ def check_kernels(torch, ecfg, n_queries: int, verify_main: dict,
 
     shapes = {}
     for name, c in main.items():
-        arrays = decode_inputs(*(c[k] for k in DECODE_KEYS))
+        arrays = decode_inputs(*(c[k] for k in DECODE_KEYS),
+                               prefix=c.get("prefix"))
         x = on_card(torch, arrays)
         q, k, v, kp, qp = x
         visible = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None]))
@@ -850,7 +923,7 @@ def check_kernels(torch, ecfg, n_queries: int, verify_main: dict,
                                     arrays[4])
         bound_ms, bound_by = bound(nbytes, flops)
         shapes[name] = dict(
-            shape={d: c[d] for d in DECODE_KEYS},
+            shape={d: c[d] for d in DECODE_KEYS + ("prefix",) if d in c},
             n_split=plan_splits(c["B"], c["Kv"], c["S"],
                                 c["T"] * c["H"] // c["Kv"], c["hd"]),
             ms=timed_ms(torch, lambda: decode_gqa_attention(*x)),
@@ -1048,6 +1121,30 @@ def profile_streaming(torch, ds, cfg, params, ekw: dict, queries,
 # the train phase: benchmarks/common.py's set-up at mt-product width
 TRAIN = dict(n_train=512, n_test=64, batch=24, max_len=96, lr=1e-3,
              epochs=20, log_every=21)
+# the decoder-only train phase: SmolLM-135M whole on the same synthetic
+# forward reactions in ``lm_batch`` layout ([bos] + src + [sep] + tgt +
+# [eos], loss on the target), ``make_lm_train_step``'s defaults (lr 3e-4,
+# no label smoothing, clip 1.0); 32 steps an epoch; then greedy and
+# speculative serving of the trained weights on held-out reactions
+LM_TRAIN = dict(arch="smollm-135m", n_train=512, n_test=32, batch=16,
+                max_len=192, epochs=8, log_every=16, draft_len=10,
+                n_drafts=25, max_new=96, n_slots=8, page_size=16,
+                prefill_chunk=32)
+# HuBERT-xlarge at full width: a few train steps on seeded frame
+# embeddings, labels from the 504-entry codebook
+HUBERT = dict(arch="hubert-xlarge", batch=4, frames=500, steps=4)
+# the VLM at full width, cut to its first 5-layer block: 4 prompts of
+# 64-256 tokens (seed 7), a memory of 1,601 tokens masked to ragged lengths
+# (apply_tail: the apply check's decode_step feeds the first prompt's last
+# 8 tokens after a prefill of the rest)
+VLM = dict(arch="llama-3.2-vision-11b", n_prompts=4, len_lo=64, len_hi=256,
+           seed=7, memory_lengths=[1601, 1200, 800, 400], gate=0.5,
+           draft_len=10, n_drafts=5, max_new=32, eos_id=2, apply_tail=8)
+# the reduced configs held card == CPU for one LM train step
+LM_ARCHS = ("command-r-35b", "qwen3-8b", "llama-3.2-vision-11b",
+            "jamba-v0.1-52b", "llama4-maverick-400b-a17b", "starcoder2-15b",
+            "smollm-135m", "rwkv6-1.6b", "phi3.5-moe-42b-a6.6b",
+            "hubert-xlarge")
 # the trained-serving phase: the paper's Table 2 (B 1), as
 # benchmarks/table2_speculative_greedy.py runs it
 TABLE2 = dict(max_new=72, max_src=96, n_drafts=24, draft_lens=(4, 10))
@@ -2609,6 +2706,414 @@ def serve_reduced_families(torch) -> dict:
     return out
 
 
+# -- decoder-only training: SmolLM-135M whole, HuBERT-xlarge, the VLM -------
+
+
+def lm_prompt(tok, src: str) -> np.ndarray:
+    """``lm_batch``'s prompt: [bos] + src + [sep] (sep = eos)."""
+    return np.asarray([tok.bos_id] + tok.encode(src) + [tok.eos_id],
+                      np.int32)
+
+
+def train_lm(torch, train_ds, test_ds) -> dict:
+    """SmolLM-135M whole (``LM_TRAIN``; weights from a CUDA generator
+    seeded 0) trained by the port's ``Trainer`` with ``make_lm_train_step``'s
+    defaults on ``train_ds`` in ``lm_batch`` layout; launch counts set to 0
+    just before and read just after. Asserts a finite loss, the last
+    logged loss < 0.7x the first, and flash_attention forward and backward
+    launches. Then serves the trained weights on held-out reactions
+    through the decoder-only StreamingEngine (paged, prompt-lookup drafts),
+    greedy and speculative: speculative tokens must equal greedy's; prints
+    exact-match top-1, acceptance and wall per request (a check of the
+    path, not a claim)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import EngineConfig, StreamingEngine
+    from repro_torch.training import Trainer, make_lm_train_step
+
+    t_phase = time.perf_counter()
+    c = LM_TRAIN
+    cfg = get_config(c["arch"])
+    tok = train_ds.tokenizer
+    params = tr.init(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                     device="cuda")
+    trainer = Trainer(cfg, params, make_lm_train_step(cfg))
+    del params
+    pairs = list(train_ds.pairs())[:c["n_train"]]
+
+    def batches():
+        for _ in range(c["epochs"]):
+            for i in range(0, len(pairs) - c["batch"] + 1, c["batch"]):
+                yield lm_batch(tok, pairs[i:i + c["batch"]], c["max_len"])
+
+    n_steps = c["epochs"] * (len(pairs) // c["batch"])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = trainer.fit(batches(), log_every=c["log_every"], verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lm train: loss not finite {losses}")
+    if launches["flash_attention"] == 0 or launches["flash_attention_bwd"] == 0:
+        raise AssertionError(f"lm train: flash_attention launches {launches}")
+    if not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"lm train: last loss {losses[-1]} is not < 0.7 "
+                             f"x the first {losses[0]}")
+    print(f"lm train [{cfg.name} whole, {len(pairs)} reactions in lm_batch "
+          f"layout, batch {c['batch']}, max_len {c['max_len']}, "
+          f"{c['epochs']} epochs]: {n_steps} steps in {wall:.2f} s, "
+          f"{n_steps / wall:.3f} steps/s, launches {launches}", flush=True)
+    print("lm train loss curve (step, loss, token accuracy, grad norm): "
+          + ", ".join(f"({h['step']}, {h['loss']:.4f}, "
+                      f"{h['token_accuracy']:.4f}, {h['grad_norm']:.3f})"
+                      for h in hist), flush=True)
+    out = {"train": dict(steps=n_steps, wall_s=wall, losses=losses,
+                         launches=launches, shapes={})}
+
+    # serve the trained weights on held-out reactions
+    tests = list(test_ds.pairs())[:c["n_test"]]
+    prompts = [lm_prompt(tok, s) for s, _ in tests]
+    kw = dict(n_slots=c["n_slots"], paged=True, page_size=c["page_size"],
+              prefill_chunk=c["prefill_chunk"], draft_len=c["draft_len"],
+              n_drafts=c["n_drafts"], max_new=c["max_new"],
+              max_src=max(len(p) for p in prompts), eos_id=tok.eos_id)
+    params = trainer.params
+    runs = {}
+    for mode in ("greedy", "speculative"):
+        eng = StreamingEngine(params, cfg, None, EngineConfig(mode=mode,
+                                                              **kw))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        handles = [eng.submit(p) for p in prompts]
+        eng.serve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = [h.result() for h in handles]
+        toks = [np.asarray(r.tokens[0, :int(r.lengths[0])]) for r in res]
+        hits = sum(tok.decode([int(t) for t in x if t != tok.eos_id])
+                   == tgt for x, (_, tgt) in zip(toks, tests))
+        n_out = sum(int(r.lengths[0]) for r in res)
+        runs[mode] = dict(tokens=toks, wall_s=wall,
+                          n_calls=[r.n_calls for r in res],
+                          accepted=sum(r.accepted for r in res) / max(1,
+                                                                      n_out),
+                          top1=hits / len(tests), launches=dict(launch_counts),
+                          shapes=verify_shapes())
+        print(f"lm trained serving [{mode}, {c['n_slots']} slots, paged, "
+              f"{len(tests)} held-out reactions, DL {c['draft_len']}, "
+              f"{c['n_drafts']} drafts]: wall {wall:.3f} s, "
+              f"{wall / len(tests) * 1e3:.2f} ms/request, exact-match top-1 "
+              f"{hits}/{len(tests)}, calls {sum(runs[mode]['n_calls'])}, "
+              f"acceptance {runs[mode]['accepted']:.4f}, launches "
+              f"{runs[mode]['launches']}", flush=True)
+    g, s = runs["greedy"]["tokens"], runs["speculative"]["tokens"]
+    if not all(np.array_equal(a, b) for a, b in zip(g, s)):
+        raise AssertionError("lm trained serving: speculative tokens differ "
+                             "from greedy")
+    for mode in runs:
+        if runs[mode]["launches"]["paged_decode_gqa"] == 0:
+            raise AssertionError(f"lm trained serving {mode}: launches "
+                                 f"{runs[mode]['launches']}")
+    out.update({f"serve {m}": r for m, r in runs.items()})
+    print(f"lm train phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+def train_hubert(torch) -> dict:
+    """HuBERT-xlarge at full width (48 layers, d_model 1280, 16 heads of 80,
+    weights from a CUDA generator seeded 0): ``HUBERT['steps']`` steps of
+    ``make_lm_train_step`` on frame embeddings and codebook labels drawn on
+    the card from a seed, through the bidirectional flash_attention
+    kernels (hd 80 in the 128 bucket). Asserts finite losses and flash
+    forward and backward launches; prints steps/s (the steps after the
+    first) and the peak memory above the phase's start."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import Trainer, make_lm_train_step
+    from repro_torch.training.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    c = HUBERT
+    cfg = get_config(c["arch"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tr.init(gen, cfg, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    trainer = Trainer(cfg, params, make_lm_train_step(cfg))
+    del params
+    batches = [{"embeddings": torch.randn(
+                    (c["batch"], c["frames"], cfg.d_model), generator=gen,
+                    device="cuda"),
+                "labels": torch.randint(0, cfg.vocab_size,
+                                        (c["batch"], c["frames"]),
+                                        generator=gen, device="cuda")}
+               for _ in range(c["steps"])]
+    torch.cuda.synchronize()
+    reset_counts()
+    times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        trainer.fit([b], log_every=1, verbose=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [h["loss"] for h in trainer.history]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"hubert: loss not finite {losses}")
+    if launches["flash_attention"] == 0 or launches["flash_attention_bwd"] == 0:
+        raise AssertionError(f"hubert: flash_attention launches {launches}")
+    rate = (len(times) - 1) / sum(times[1:])
+    print(f"hubert train [{cfg.name} full width, {n_params / 1e9:.3f} B "
+          f"params, B {c['batch']} x T {c['frames']}, bidirectional]: "
+          f"{len(times)} steps, step times {[round(t, 3) for t in times]} s, "
+          f"{rate:.3f} steps/s after the first, losses "
+          f"{[round(x, 4) for x in losses]}, peak memory above the phase's "
+          f"start {peak / 1e9:.2f} GB, launches {launches}", flush=True)
+    del trainer, batches
+    print(f"hubert phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"train": dict(launches=launches, shapes={}, steps_per_s=rate,
+                          peak_bytes=peak, losses=losses)}
+
+
+def vlm_main_shapes(cfg) -> tuple[dict, dict]:
+    """The VLM phase's decode_gqa and flash_attention launch groups at the
+    config's heads (full width: H 32 over Kv 8, hd 128), from ``VLM`` and
+    its prompts' lengths (``lm_prompts`` draws them before the tokens):
+    the ragged prefill of the 4 prompts (T = the longest less 1, nothing
+    cached before it), the expanded verify pass (4 x N_d rows, T DL + 1)
+    and the greedy step, all over rows of the longest + max_new + DL + 2
+    slots; the apply check's prefill of the first prompt less its last
+    ``apply_tail`` tokens and its decode step over those, in a row of the
+    prompt's length; and apply's forward over the first prompt (causal, no
+    key mask). draft_verify's groups are ``cases.VERIFY_LM``'s ``vlm_*``."""
+    c = VLM
+    L = [len(p) for p in lm_prompts(cfg.vocab_size, c["n_prompts"],
+                                    c["len_lo"], c["len_hi"], seed=c["seed"])]
+    n, tail, T = L[0], c["apply_tail"], max(L)
+    size = T + c["max_new"] + c["draft_len"] + 2
+    head = dict(H=cfg.n_heads, Kv=cfg.n_kv_heads, hd=cfg.head_dim, window=0)
+    B = c["n_prompts"]
+    decode = {"vlm_prefill": dict(B=B, T=T - 1, S=size, prefix=0, **head),
+              "vlm_verify": dict(B=B * c["n_drafts"], T=c["draft_len"] + 1,
+                                 S=size, **head),
+              "vlm_greedy": dict(B=B, T=1, S=size, **head),
+              "vlm_apply_prefill": dict(B=1, T=n - tail, S=n, prefix=0,
+                                        **head),
+              "vlm_apply_decode": dict(B=1, T=tail, S=n, prefix=n - tail,
+                                       **head)}
+    flash = {"vlm_apply": dict(B=1, S=n, H=head["H"], Kv=head["Kv"],
+                               hd=head["hd"], causal=True, backward=False,
+                               lengths=None)}
+    return decode, flash
+
+
+def serve_vlm(torch) -> dict:
+    """Llama-3.2-Vision-11B at full width, cut to its first 5-layer block
+    (``VLM``: 4 self-attention layers, then 1 gated cross-attention layer
+    over 1,601 memory tokens of 4,096; weights from a CUDA generator seeded
+    0, the cross-attention gates set to ``VLM['gate']``, since init leaves
+    them 0 and tanh(0) would hide the memory). 4 prompts of 64-256 tokens
+    with a seeded memory and a ragged memory mask, prefilled together
+    (ragged lengths), then greedy, the expanded speculative decode and
+    ``multidraft_speculative_decode`` with prompt-lookup drafts: tokens
+    and the speculative calls must agree. ``apply``'s logits over the first
+    prompt must equal ``prefill`` + ``decode_step``'s within
+    ``LM_LOGIT_TOL`` of the largest |logit|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (greedy_decode,
+                                  multidraft_speculative_decode,
+                                  prompt_lookup_drafts,
+                                  speculative_greedy_decode,
+                                  transformer_handle)
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import transformer as tr
+
+    t_phase = time.perf_counter()
+    c = VLM
+    full = get_config(c["arch"])
+    cfg = dataclasses.replace(full, n_layers=len(full.layer_pattern))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = tr.init(gen, cfg, device="cuda")
+    for i, kind in enumerate(cfg.layer_pattern):
+        if kind == "xattn":
+            for p in params["blocks"][i]:
+                p["xattn_gate"].fill_(c["gate"])
+    torch.cuda.synchronize()
+    print(f"vlm: {cfg.name}, {cfg.n_layers} of {full.n_layers} layers "
+          f"({cfg.layer_pattern}), memory {cfg.memory_tokens} x "
+          f"{cfg.memory_dim}; weights {tree_bytes(params) / 1e9:.2f} GB fp32 "
+          f"drawn on the card in {time.perf_counter() - t0:.2f} s; each more "
+          f"5-layer block adds {tree_bytes(params['blocks']) / 1e9:.2f} GB",
+          flush=True)
+    prompts = lm_prompts(cfg.vocab_size, c["n_prompts"], c["len_lo"],
+                         c["len_hi"], seed=c["seed"])
+    B, M = len(prompts), cfg.memory_tokens
+    memory = 0.1 * torch.randn((B, M, cfg.memory_dim), generator=gen,
+                               device="cuda")
+    mm = (torch.arange(M, device="cuda")[None]
+          < torch.tensor(c["memory_lengths"], device="cuda")[:, None])
+    L = np.array([len(p) for p in prompts], np.int32)
+    T = int(L.max())
+    toks = np.zeros((B, T), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    DL, N_d, max_new = c["draft_len"], c["n_drafts"], c["max_new"]
+    size = T + max_new + DL + 2
+    last = torch.from_numpy(toks[np.arange(B), L - 1]).cuda()
+    pos = torch.from_numpy(L - 1).cuda()
+    drafts, dmask = zip(*(prompt_lookup_drafts(p, DL, N_d) for p in prompts))
+    drafts = torch.from_numpy(np.stack(drafts)).cuda()
+    dmask = torch.from_numpy(np.stack(dmask)).cuda()
+    handle = transformer_handle(params, cfg, memory_mask=mm)
+    kw = dict(max_new=max_new, eos_id=c["eos_id"])
+
+    def fresh():
+        cache = tr.init_cache(cfg, B, size, device="cuda")
+        _, cache = tr.prefill(params, cfg, cache,
+                              torch.from_numpy(toks[:, :T - 1]).cuda(),
+                              lengths=torch.from_numpy(L - 1).cuda(),
+                              memory=memory, memory_mask=mm)
+        return cache
+
+    runs = {}
+    for name, run in (
+            ("greedy", lambda cache: greedy_decode(handle, cache, last, pos,
+                                                   **kw)),
+            ("speculative", lambda cache: speculative_greedy_decode(
+                handle, cache, last, pos, drafts, dmask, **kw)),
+            ("multidraft", lambda cache: multidraft_speculative_decode(
+                params, cfg, cache, last, pos, drafts, dmask,
+                memory_mask=mm, **kw))):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = run(fresh())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = dict(tokens=r.tokens.cpu().numpy(),
+                          lengths=r.lengths.cpu().numpy(),
+                          n_calls=int(r.n_calls), wall_s=wall,
+                          launches=dict(launch_counts), shapes=verify_shapes())
+        print(f"vlm [{name}, B {B}, prompts {L.tolist()}, memory lengths "
+              f"{c['memory_lengths']}, DL {DL}, {N_d} drafts]: prefill + "
+              f"decode wall {wall:.3f} s, {wall / B * 1e3:.1f} ms/prompt, "
+              f"calls {int(r.n_calls)}, lengths {runs[name]['lengths']}, "
+              f"launches {runs[name]['launches']}", flush=True)
+    for name in ("speculative", "multidraft"):
+        if not np.array_equal(runs[name]["tokens"], runs["greedy"]["tokens"]):
+            raise AssertionError(f"vlm {name}: tokens differ from greedy")
+    if runs["multidraft"]["n_calls"] != runs["speculative"]["n_calls"]:
+        raise AssertionError(f"vlm: multidraft calls "
+                             f"{runs['multidraft']['n_calls']} != expanded "
+                             f"{runs['speculative']['n_calls']}")
+
+    # apply == prefill + decode_step on the first prompt, on the card
+    n, tail = int(L[0]), c["apply_tail"]
+    x = torch.from_numpy(prompts[0][None]).cuda()
+    kw1 = dict(memory=memory[:1], memory_mask=mm[:1])
+    reset_counts()
+    with torch.no_grad():
+        full_logits, _ = tr.apply(params, cfg, x, **kw1)
+        cache = tr.init_cache(cfg, 1, n, device="cuda")
+        pre, cache = tr.prefill(params, cfg, cache, x[:, :n - tail], **kw1)
+        dec, _ = tr.decode_step(params, cfg, cache, x[:, n - tail:],
+                                torch.arange(n - tail, n, device="cuda",
+                                             dtype=torch.int32)[None],
+                                memory_mask=mm[:1])
+    torch.cuda.synchronize()
+    apply_launches = dict(launch_counts)
+    if apply_launches["flash_attention"] == 0:
+        raise AssertionError(f"vlm apply: launches {apply_launches}")
+    got = torch.cat([pre, dec], 1)
+    scale = full_logits.abs().max().item()
+    err = (got - full_logits).abs().max().item()
+    if not err <= LM_LOGIT_TOL * scale:
+        raise AssertionError(f"vlm: apply logits differ from prefill + "
+                             f"decode_step by {err} (largest |logit| "
+                             f"{scale})")
+    print(f"vlm check: greedy == speculative == multidraft tokens, "
+          f"multidraft calls == expanded; apply == prefill + decode_step "
+          f"over {n} tokens, max err {err:.3g} of largest |logit| "
+          f"{scale:.3g}", flush=True)
+    runs["apply"] = dict(launches=apply_launches, shapes={})
+    print(f"vlm phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return runs
+
+
+def check_lm_train_steps(torch) -> None:
+    """One ``make_lm_train_step`` step of every reduced decoder-only arch,
+    the reduced VLM and the reduced HuBERT on the card against the CPU's
+    plain path with the same weights (a CPU generator) and batch: the
+    loss, every metric and every gradient leaf within 1e-4 (TF32 off)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticReactionDataset, lm_batch
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import lm_loss_and_grads, make_lm_train_step
+    from repro_torch.training.optimizer import (adam_init, tree_leaves,
+                                                tree_unflatten)
+
+    t_phase = time.perf_counter()
+    ds = SyntheticReactionDataset(4, seed=3)
+    worst = {}
+    for arch in LM_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        cpu_params = tr.init(torch.Generator().manual_seed(SEED + 3), cfg,
+                             device="cpu")
+        for i, kind in enumerate(cfg.layer_pattern):
+            if kind == "xattn":
+                for p in cpu_params["blocks"][i]:
+                    p["xattn_gate"].fill_(VLM["gate"])
+        rng = np.random.default_rng(4)
+        if cfg.family == "audio":
+            batch = {"embeddings": (0.1 * rng.standard_normal(
+                         (4, 24, cfg.d_model))).astype(np.float32),
+                     "labels": rng.integers(0, cfg.vocab_size, (4, 24))}
+        else:
+            batch = lm_batch(ds.tokenizer, list(ds.pairs()), 24)
+            if cfg.family == "vlm":
+                batch["memory"] = (0.1 * rng.standard_normal(
+                    (4, cfg.memory_tokens, cfg.memory_dim))).astype(
+                        np.float32)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_unflatten(cpu_params, [t.detach().to(dev, copy=True)
+                                            for t in tree_leaves(cpu_params)])
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            loss, metrics, grads = lm_loss_and_grads(p, cfg, b)
+            _, _, m1 = make_lm_train_step(cfg)(p, adam_init(p), b)
+            out[dev] = (loss, metrics, grads, m1)
+        (lg, mg, gg, sg), (lc, mc, gc, sc) = out["cuda"], out["cpu"]
+        pairs = [(lg, lc)] + [(mg[k], mc[k]) for k in mc] + [
+            (sg[k], sc[k]) for k in sc] + list(zip(tree_leaves(gg),
+                                                    tree_leaves(gc)))
+        for a, b in pairs:
+            if not np.allclose(a.detach().cpu().numpy(), b.detach().numpy(),
+                               atol=1e-4, rtol=1e-4):
+                raise AssertionError(f"lm train step {arch}: card {a} != "
+                                     f"cpu {b}")
+        worst[arch] = max((a.detach().cpu() - b.detach()).abs().max().item()
+                          for a, b in pairs)
+    print(f"reference check: one make_lm_train_step step of every reduced "
+          f"decoder-only arch, the VLM and HuBERT on the card == the CPU "
+          f"plain path (loss, metrics, every gradient leaf within 1e-4; max "
+          f"abs err {worst}) in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def check_train_step(torch, ds, tcfg, cpu_params) -> None:
     """One train step of the tiny model on the card against the CPU's plain
     path, same weights and batch: loss, metrics and every gradient leaf
@@ -2713,20 +3218,83 @@ def decode_times(torch, dense: dict, paged: dict, verify: dict) -> dict:
     return out
 
 
+def kernel_ms(torch, fn, names, iters: int = 50) -> dict:
+    """Device time per call of the kernels whose names hold each of
+    ``names`` (their times summed under torch.profiler), the L2 flushed
+    before each call as in ``timed_ms``: one time for each kernel of a
+    wrapper that launches several."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 * 2**20 // 4, device="cuda")
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = kernel_events(prof)
+    return {n: sum(t for k, t, _ in events if n in k) / iters / 1e3
+            for n in names}
+
+
+def flash_ab(torch, flash: dict) -> tuple[dict, dict]:
+    """flash_attention's forward and backward kernels at ``flash``'s shapes
+    (name -> B, S, H, hd, causal, backward, lengths: one query head a kv
+    head and no positions, the calls every tree of the port takes) on
+    ``cases.flash_inputs``: their times (``timed_ms``; the backward's two
+    kernels also each by ``kernel_ms``), and a SHA-256 of each output's
+    bytes (out, and lse, dq, dk, dv where ``backward``), so two trees'
+    kernels can be held to each other bitwise across processes."""
+    import hashlib
+
+    from repro_torch.kernels.cases import flash_inputs
+    from repro_torch.kernels.flash_attention.ops import _backward, _forward
+
+    times, bits = {}, {}
+    for name, m in flash.items():
+        q, k, v, do, km = flash_inputs(m["B"], m["S"], m["H"], m["hd"],
+                                       lengths=m["lengths"])
+        q, k, v, do = on_card(torch, (q, k, v, do))
+        km = None if km is None else torch.from_numpy(km).cuda()
+        causal, bw = m["causal"], m["backward"]
+        out, lse = _forward(q, k, v, km, causal, 0, with_lse=bw)
+        outs = dict(out=out)
+        times[f"flash_attention/{name}"] = timed_ms(
+            torch, lambda: _forward(q, k, v, km, causal, 0, with_lse=bw))
+        if bw:
+            dq, dk, dv = _backward(q, k, v, out, lse, do, km, causal, 0)
+            outs.update(lse=lse, dq=dq, dk=dk, dv=dv)
+            times[f"flash_attention_bwd/{name}"] = timed_ms(
+                torch, lambda: _backward(q, k, v, out, lse, do, km, causal,
+                                         0))
+            times.update({f"{kern}/{name}": ms for kern, ms in kernel_ms(
+                torch, lambda: _backward(q, k, v, out, lse, do, km, causal,
+                                         0),
+                ("flash_bwd_dq", "flash_bwd_dkdv")).items()})
+        torch.cuda.synchronize()
+        bits.update({f"{name}/{o}": hashlib.sha256(
+            t.cpu().numpy().tobytes()).hexdigest() for o, t in outs.items()})
+    return times, bits
+
+
 def compare_decode(baseline: Path, dense: dict, paged: dict,
-                   verify: dict) -> dict:
-    """The decode and verify kernels of another tree of the port
+                   verify: dict, flash: dict) -> tuple[dict, list]:
+    """The decode, verify and flash kernels of another tree of the port
     (``baseline``, e.g. a ``git archive`` of the parent commit) against
     this tree's, in turns: baseline, this, this, baseline, each run in a
     process of its own that imports that tree's ``repro_torch`` and builds
     its kernels (both sides alike: one tree's times moved by up to 5%
     between this process, after the kernel checks, and a fresh one).
     ``verify``: (N, T, V) by name, each T within what both trees' kernels
-    take."""
+    take; ``flash``: see ``flash_ab``. Returns the times by kernel and
+    shape, and the flash outputs whose bytes differ between any two of
+    the four runs (none: the trees compute bitwise alike there)."""
 
     def run(tree: Path) -> dict:
         spec = json.dumps(dict(src=str(tree.resolve() / "src"), dense=dense,
-                               paged=paged, verify=verify))
+                               paged=paged, verify=verify, flash=flash))
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                               "--decode-times", spec], capture_output=True,
                              text=True, timeout=600)
@@ -2737,9 +3305,12 @@ def compare_decode(baseline: Path, dense: dict, paged: dict,
 
     this = Path(__file__).resolve().parent
     runs = [run(baseline), run(this), run(this), run(baseline)]
-    return {name: dict(baseline_ms=(runs[0][name], runs[3][name]),
-                       ms=(runs[1][name], runs[2][name]))
-            for name in runs[0]}
+    differ = sorted(o for o in runs[0]["bits"]
+                    if len({r["bits"][o] for r in runs}) != 1)
+    t = [r["times"] for r in runs]
+    return {name: dict(baseline_ms=(t[0][name], t[3][name]),
+                       ms=(t[1][name], t[2][name]))
+            for name in t[0]}, differ
 
 
 def train_plain_flash(torch, train_ds, which: str) -> None:
@@ -2774,15 +3345,18 @@ def print_verify_gaps(torch, timed: dict, seen: dict, floor_ms: float,
                       ab: dict | None) -> None:
     """draft_verify where the main path launched it: each (N, T, V) of this
     run (``seen``: launches by shape) with its kernel, bound, plain and
-    ``torch.argmax`` times (``timed``, by name; a shape not timed yet is
-    timed now) and its launch-weighted gap, launches x (time - max(bound,
-    floor)), ``floor_ms`` being a one-element fill's time; with
+    ``torch.argmax`` times (``timed``, by name; a shape not checked and
+    timed yet is held to its plain version, bitwise, and timed now) and
+    its launch-weighted gap, launches x (time - max(bound, floor)),
+    ``floor_ms`` being a one-element fill's time; with
     ``--baseline`` (``ab``) also the gap of each tree's mean time in the
     turns."""
     by_shape = {tuple(m["shape"].values()): (name, m)
                 for name, m in timed.items()}
     total = {"this run": 0.0, "A/B baseline": 0.0, "A/B this": 0.0}
     for shape, n in sorted(seen.items(), key=lambda kv: -kv[1]):
+        if shape not in by_shape:   # held to its plain version here
+            verify_agrees(torch, *shape, torch.float32)
         name, m = by_shape.get(shape) or (None, verify_timing(torch, *shape))
         floor = max(m["bound_ms"], floor_ms)
         gap = n * (m["ms"] - floor)
@@ -2810,9 +3384,10 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
     ap.add_argument("--baseline", metavar="DIR", type=Path,
-                    help="also time the decode kernels of another tree of "
-                         "the port (DIR: its root) against this one's, in "
-                         "turns")
+                    help="also time the decode, verify and MT flash "
+                         "kernels of another tree of the port (DIR: its "
+                         "root) against this one's, in turns, and hold the "
+                         "flash outputs bitwise equal")
     ap.add_argument("--decode-times", metavar="JSON",
                     help=argparse.SUPPRESS)   # compare_decode's child
     ap.add_argument("--plain-flash", choices=("bwd", "all"),
@@ -2834,8 +3409,10 @@ def main() -> int:
     if args.decode_times:   # time one tree's decode and verify kernels, only
         spec = json.loads(args.decode_times)
         sys.path.insert(0, spec["src"])
-        print(json.dumps(decode_times(torch, spec["dense"], spec["paged"],
-                                      spec["verify"])))
+        times = decode_times(torch, spec["dense"], spec["paged"],
+                             spec["verify"])
+        flash_times, bits = flash_ab(torch, spec["flash"])
+        print(json.dumps(dict(times=dict(times, **flash_times), bits=bits)))
         return 0
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs.mt import product_config, tiny_config, with_vocab
@@ -2883,13 +3460,28 @@ def main() -> int:
                               backward=True,
                               lengths=(batch0["src"] != 0).sum(1)),
         "train_decoder": dict(B=B_t, S=S_t, H=8, hd=32, causal=True,
-                              backward=True, lengths=None)}
+                              backward=True, lengths=None),
+        # the decoder-only training phases' shapes: SmolLM-135M (9 query
+        # heads over 3 kv heads, hd 64) at its train batch, causal; and
+        # HuBERT-xlarge (16 heads of 80, the 128 bucket) at B 4 x T 500,
+        # bidirectional
+        "smollm_train": dict(B=LM_TRAIN["batch"], S=LM_TRAIN["max_len"] - 1,
+                             H=9, Kv=3, hd=64, causal=True, backward=True,
+                             lengths=None),
+        "hubert_train": dict(B=HUBERT["batch"], S=HUBERT["frames"], H=16,
+                             hd=80, causal=False, backward=True,
+                             lengths=None)}
+    # the VLM phase's decode and apply shapes (Llama-3.2-Vision's heads)
+    from repro_torch.configs import get_config
+    decode_vlm, flash_vlm = vlm_main_shapes(get_config(VLM["arch"]))
+    flash_main.update(flash_vlm)
     t0 = time.perf_counter()
     # the timed shapes are those of 8 slots (speculative: 8 x N_d rows)
     n_slots = STREAM_PLAN["speculative"][0]
     verify_main = verify_main_shapes(ecfg, n_slots, len(queries), vocab,
                                      train_ds.tokenizer.vocab_size)
-    kern = check_kernels(torch, ecfg, n_slots, verify_main, flash_main)
+    kern = check_kernels(torch, ecfg, n_slots, verify_main, flash_main,
+                         decode_vlm)
     print(f"kernel checks passed ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     for name, r in kern.items():
@@ -2909,15 +3501,27 @@ def main() -> int:
           f"event overhead in every kernel time)", flush=True)
     ab = None
     if args.baseline:
-        ab = compare_decode(
+        # the MT's flash shapes (no positions, one head a kv head)
+        mt_flash = {name: dict(m, lengths=None if m["lengths"] is None else
+                               [int(n) for n in m["lengths"]])
+                    for name, m in flash_main.items()
+                    if name in ("serving_encoder", "train_encoder",
+                                "train_decoder")}
+        ab, differ = compare_decode(
             args.baseline, decode_main_shapes(ecfg, n_slots),
             paged_main_shapes(ecfg, n_slots),
-            dict(verify_main, **VERIFY_TIMED_CARD_ONLY))
+            dict(verify_main, **VERIFY_TIMED_CARD_ONLY), mt_flash)
         for name, r in ab.items():
             print(f"  A/B {name}: baseline {r['baseline_ms'][0]:.4f} / "
                   f"{r['baseline_ms'][1]:.4f} ms, this tree {r['ms'][0]:.4f} "
                   f"/ {r['ms'][1]:.4f} ms (baseline, this, this, baseline)",
                   flush=True)
+        if differ:
+            raise AssertionError(f"A/B: flash outputs whose bytes differ "
+                                 f"between the trees or runs: {differ}")
+        print(f"  A/B flash_attention forward and backward outputs at "
+              f"{sorted(mt_flash)}: bitwise equal in all four runs",
+              flush=True)
     if args.quick:
         print(json.dumps({"kernels_checked": sorted(kern)}))
         return 0
@@ -3041,7 +3645,6 @@ def main() -> int:
             main_launches[k] += r["launches"][k]
         add_shapes(r)
     # -- decoder-only: SmolLM-135M at full width ------------------------------
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as tr
 
     lm_params = tr.init(torch.Generator().manual_seed(SEED),
@@ -3087,6 +3690,27 @@ def main() -> int:
             ("recurrent", serve_rwkv, ("draft_verify",)),
             ("reduced families", serve_reduced_families,
              ("paged_decode_gqa", "draft_verify"))):
+        runs = serve(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts = dict.fromkeys(names, 0)
+        for r in runs.values():
+            for k in names:
+                main_launches[k] += r["launches"][k]
+                counts[k] += r["launches"][k]
+            add_shapes(r)
+        if any(counts[k] == 0 for k in needed):
+            raise AssertionError(f"{phase} phase: launches {counts}")
+        print(f"{phase} phase launches: {counts}", flush=True)
+    # -- decoder-only training, the audio encoder and the VLM ----------------
+    for phase, serve, needed in (
+            ("lm train", lambda t: train_lm(t, train_ds, test_ds),
+             ("flash_attention", "flash_attention_bwd", "paged_decode_gqa",
+              "draft_verify")),
+            ("hubert", train_hubert,
+             ("flash_attention", "flash_attention_bwd")),
+            ("vlm", serve_vlm,
+             ("flash_attention", "decode_gqa", "draft_verify"))):
         runs = serve(torch)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3157,6 +3781,7 @@ def main() -> int:
           f"n_calls {a['n_calls']})", flush=True)
     check_train_step(torch, ds, tcfg, cpu_params)
     check_train_drift(torch, ds, tcfg, cpu_params)
+    check_lm_train_steps(torch)
 
     sources = {"decode_gqa": ("src/repro_torch/csrc/decode_gqa.cu",
                               "src/repro/kernels/decode_gqa/kernel.py:72"),
@@ -3170,7 +3795,7 @@ def main() -> int:
                                    "src/repro/kernels/flash_attention/"
                                    "kernel.py:69"),
                "flash_attention_bwd": (
-                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
                    "src/repro/kernels/flash_attention/kernel.py:69")}
     entries = []
     for name, (src, replaces) in sources.items():

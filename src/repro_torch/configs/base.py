@@ -1,14 +1,14 @@
 """Model configuration dataclasses + registry: an own copy of
-``repro.configs.base`` restricted to the families the port serves (the
-port imports nothing of the JAX package).
+``repro.configs.base`` (the port imports nothing of the JAX package).
 
 The Molecular Transformer (``configs/mt.py``), the dense decoder-only
 architectures (``configs/{smollm_135m,qwen3_8b,starcoder2_15b,
 command_r_35b}.py``), the MoE ones (``phi35_moe_42b``,
-``llama4_maverick_400b``) and the recurrent ones (``jamba_v01_52b``:
-Mamba + attention + MoE; ``rwkv6_1p6b``) use these fields. The JAX
-package's frontend (VLM / audio) fields come with those families
-(ROADMAP.md Queue 1 item 6.4's cross-attention half).
+``llama4_maverick_400b``), the recurrent ones (``jamba_v01_52b``: Mamba +
+attention + MoE; ``rwkv6_1p6b``), the VLM (``llama32_vision_11b``: gated
+cross-attention to a frontend memory) and the audio encoder
+(``hubert_xlarge``: bidirectional, frame embeddings in) use these
+fields.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ class RWKVConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # seq2seq | dense | moe | ssm | hybrid
+    family: str                    # dense|moe|ssm|hybrid|vlm|audio|seq2seq
     n_layers: int                  # decoder depth
     d_model: int
     n_heads: int
@@ -65,8 +65,9 @@ class ModelConfig:
     causal: bool = True
 
     # repeating layer-block pattern, tiled to n_layers: "attn"
-    # (self-attention + FFN), "mamba" (Mamba mixer + FFN), "rwkv" (RWKV6
-    # time-mix + channel-mix); "xattn" (cross-attention) is not ported
+    # (self-attention + FFN), "xattn" (gated cross-attention to the
+    # frontend memory + FFN), "mamba" (Mamba mixer + FFN), "rwkv" (RWKV6
+    # time-mix + channel-mix)
     layer_pattern: tuple[str, ...] = ("attn",)
     # FFN kind per pattern position: "dense" | "moe"
     ffn_pattern: tuple[str, ...] = ("dense",)
@@ -77,6 +78,10 @@ class ModelConfig:
 
     # 0 = full attention; > 0 = sliding-window length for decode
     sliding_window: int = 0
+
+    # VLM / audio frontend stub: memory tokens and their width
+    memory_tokens: int = 0
+    memory_dim: int = 0
 
     n_encoder_layers: int = 0      # seq2seq: encoder depth
     max_len: int = 1024            # positional table length
@@ -103,7 +108,7 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# registry: the decoder-only architectures the port serves
+# registry: every architecture of the JAX package's
 
 _REGISTRY: dict[str, tuple[Callable[[], ModelConfig],
                            Callable[[], ModelConfig]]] = {}
@@ -116,7 +121,7 @@ def register(arch_id: str, full: Callable[[], ModelConfig],
 
 def get_config(arch_id: str, *, reduced: bool = False) -> ModelConfig:
     if arch_id not in _REGISTRY:
-        raise KeyError(f"unknown arch {arch_id!r}; the port serves "
+        raise KeyError(f"unknown arch {arch_id!r}; have "
                        f"{sorted(_REGISTRY)}")
     full, red = _REGISTRY[arch_id]
     return red() if reduced else full()

@@ -10,7 +10,7 @@ actual tokenizer vocab via ``with_vocab``.
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, register
 
 
 def _mt(name: str, depth: int) -> ModelConfig:
@@ -47,3 +47,15 @@ def tiny_config(vocab_size: int = 64, *, depth: int = 2, d_model: int = 128,
         use_bias=True, norm="layernorm", gated_ffn=False,
         pos="sinusoidal", max_len=max_len,
     )
+
+
+def _reduced_product() -> ModelConfig:
+    return tiny_config()
+
+
+def _reduced_retro() -> ModelConfig:
+    return tiny_config(depth=2)
+
+
+register("mt-product", product_config, _reduced_product)
+register("mt-retro", retro_config, _reduced_retro)

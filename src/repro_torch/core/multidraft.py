@@ -6,9 +6,10 @@ row re-reads the whole KV cache. Here all N_d drafts ride ONE row per
 sequence: T = 1 + N_d·DL fed tokens under a segment mask
 (``build_local_mask``), so the cache is read once per sequence. The output
 equals the expanded-batch speculative decoder's, and so plain greedy's.
-Attention-only patterns (dense or MoE FFNs) on a dense cache; a pattern
-with a recurrent (Mamba / RWKV) position is refused by name, since its
-mixer runs the fed tokens in order and drafts cannot share a row.
+Attention-only patterns (dense or MoE FFNs, the VLM's cross-attention
+positions under ``memory_mask``) on a dense cache; a pattern with a
+recurrent (Mamba / RWKV) position is refused by name, since its mixer runs
+the fed tokens in order and drafts cannot share a row.
 
 The JAX package runs the loop as a ``lax.while_loop``; here it is a host
 loop with one device read per iteration for its exit test, as
@@ -46,16 +47,20 @@ def build_local_mask(n_drafts: int, draft_len: int) -> np.ndarray:
 def multidraft_speculative_decode(
     params, cfg: ModelConfig, cache, last_token, start_pos, drafts,
     draft_mask, *, max_new: int, eos_id: int, pad_id: int = 0,
+    memory_mask=None,
 ) -> SpeculativeResult:
     """``speculative_greedy_decode``'s contract with one decoder row per
     sequence. drafts: (B, N_d, DL); the dense cache (one row per sequence)
-    must cover start_pos + max_new + DL + 1 and is written in place."""
+    must cover start_pos + max_new + DL + 1 and is written in place;
+    ``memory_mask`` (B, M) masks the cross-attention memory."""
     tr.refuse_recurrent(cfg, "multi-draft verification")
     B, N_d, DL = drafts.shape
     dev = last_token.device
     local_mask = torch.from_numpy(build_local_mask(N_d, DL)).to(dev)
     drafts = drafts.to(device=dev, dtype=_I32)
     draft_mask = draft_mask.to(device=dev, dtype=torch.bool)
+    if memory_mask is not None:
+        memory_mask = memory_mask.to(device=dev, dtype=torch.bool)
     out = torch.full((B, max_new + 1), pad_id, dtype=_I32, device=dev)
     rel = torch.arange(DL + 1, dtype=_I32, device=dev)
     drafts_flat = drafts.reshape(B, N_d * DL)
@@ -76,7 +81,8 @@ def multidraft_speculative_decode(
         d_pos = (pos[:, None] + 1 + rel[None, :-1]).repeat(1, N_d)
         positions = torch.cat([pos[:, None], d_pos], dim=1)
         logits, local_kv = tr.multidraft_verify_step(
-            params, cfg, cache, toks, positions, local_mask)
+            params, cfg, cache, toks, positions, local_mask,
+            memory_mask=memory_mask)
         greedy_all = logits.argmax(-1).to(_I32)                    # (B, T)
         greedy_tok = greedy_all[:, idx]                    # (B, N_d, DL+1)
         n_acc = _accept_lengths(greedy_tok, drafts, draft_mask)

@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 KERNELS = ("decode_gqa", "draft_verify", "flash_attention",
-           "paged_decode_gqa")   # the sources, csrc/<name>.cu
+           "flash_attention_bwd", "paged_decode_gqa")   # csrc/<name>.cu
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.RLock()   # build_all and load (load calls build_all)
@@ -107,12 +107,13 @@ _ARGTYPES = {
                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                      + [ctypes.c_void_p]),
     "flash_attention": ("flash_attention", "flash_attention_fwd_launch",
-                        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                         + [ctypes.c_longlong] * 9
                         + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                            ctypes.c_int, ctypes.c_void_p]),
-    "flash_attention_bwd": ("flash_attention", "flash_attention_bwd_launch",
-                            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "flash_attention_bwd_launch",
+                            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 15
                             + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                ctypes.c_void_p]),

@@ -117,12 +117,15 @@ VERIFY_CARD_ONLY = [(200, 11, 27), (400, 11, 27), (1, 1, 27), (24, 5, 28),
 # the verify pass of 8 slots x 25 drafts and the greedy step of 8 slots;
 # Phi-3.5-MoE's 32,064 at the verify pass of 8 slots x 5 drafts and the
 # greedy step of 8 slots; RWKV6's 65,536 at 40 x 11, and at its phase's
-# verify pass of 4 slots x 25 drafts and greedy step of 4 slots
+# verify pass of 4 slots x 25 drafts and greedy step of 4 slots;
+# Llama-3.2-Vision's 128,256 at the expanded verify pass of 4 prompts x 5
+# drafts and the greedy step of 4 prompts
 VERIFY_LM = {"smollm_verify": (200, 11, 49_152),
              "smollm_greedy": (8, 1, 49_152),
              "phi_verify": (40, 11, 32_064), "phi_greedy": (8, 1, 32_064),
              "rwkv_40x11": (40, 11, 65_536),
-             "rwkv_verify": (100, 11, 65_536), "rwkv_greedy": (4, 1, 65_536)}
+             "rwkv_verify": (100, 11, 65_536), "rwkv_greedy": (4, 1, 65_536),
+             "vlm_verify": (20, 11, 128_256), "vlm_greedy": (4, 1, 128_256)}
 # (B, H, S, hd) x (causal, window): the flash sweep of the JAX package's
 # kernel tests (shapes in its (B, H, S, hd) order), then the largest
 # head_dim (MAX_HD) at an S that is no multiple of 16, and a head_dim that
@@ -134,21 +137,31 @@ FLASH_MASKS = [(True, 0), (False, 0), (True, 24)]
 # card-only: a head_dim whose rows are no whole 16-byte chunks, which the
 # kernels copy by plain loads instead of cp.async
 FLASH_PLAIN_LOADS = [dict(B=2, H=2, S=40, hd=6)]
+# (B, S, H, Kv, hd): grouped-query full-sequence attention, the
+# decoder-only families' training path: q_per_kv 1 at HuBERT's hd 80 (the
+# 128 bucket, zero-padded), 3 at SmolLM's hd 64 and 4 at the largest
+# bucket, each x FLASH_MASKS x (a ragged key mask or none) x (positions
+# from ``permuted_positions`` or none)
+FLASH_GQA = [dict(B=2, S=45, H=4, Kv=4, hd=80),
+             dict(B=2, S=70, H=6, Kv=2, hd=64),
+             dict(B=1, S=96, H=8, Kv=2, hd=128)]
 
 
-def decode_inputs(B, T, H, Kv, S, hd, *, seed=1):
+def decode_inputs(B, T, H, Kv, S, hd, *, seed=1, prefix=None):
     """q, k/v cache, k_pos, q_pos for one cached-attention call laid out as
-    the verify feed: a prefix of S // 2 positions, then the T fed tokens at
-    positions S // 2 .. S // 2 + T - 1, each token's own key already
-    written; the remaining slots are empty (position -1)."""
+    the verify feed: a prefix of ``prefix`` positions (default S // 2; 0
+    for a prefill), then the T fed tokens at positions prefix .. prefix +
+    T - 1, each token's own key already written; the remaining slots are
+    empty (position -1)."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, T, H, hd), np.float32)
     kc = rng.standard_normal((B, S, Kv, hd), np.float32)
     vc = rng.standard_normal((B, S, Kv, hd), np.float32)
-    filled = S // 2 + T
+    prefix = S // 2 if prefix is None else prefix
+    filled = prefix + T
     slots = np.arange(S)
     k_pos = np.where(slots < filled, slots, -1)[None].repeat(B, 0)
-    q_pos = (S // 2 + np.arange(T))[None].repeat(B, 0)
+    q_pos = (prefix + np.arange(T))[None].repeat(B, 0)
     return q, kc, vc, k_pos.astype(np.int32), q_pos.astype(np.int32)
 
 
@@ -257,14 +270,16 @@ def aliased_paged_inputs(B, T, H, Kv, ps, nb, hd, n_shared, n_private, *,
     return q, k_pool, v_pool, pos_pool, bt, q_pos
 
 
-def flash_inputs(B, S, H, hd, *, lengths=None, seed=4):
-    """q, k, v and an upstream gradient dO, each (B, S, H, hd) (the model's
-    layout), and a key mask (B, S) bool: None when ``lengths`` is None,
-    else True on the first ``lengths[b]`` keys of row ``b`` (trailing
-    padding, as ``src != pad`` and the decoder's ``lengths`` give it)."""
+def flash_inputs(B, S, H, hd, *, lengths=None, seed=4, Kv=None):
+    """q, k, v and an upstream gradient dO in the model's layout: q and dO
+    (B, S, H, hd), k and v (B, S, Kv, hd) (Kv defaults to H), and a key
+    mask (B, S) bool: None when ``lengths`` is None, else True on the first
+    ``lengths[b]`` keys of row ``b`` (trailing padding, as ``src != pad``
+    and the decoder's ``lengths`` give it)."""
     rng = np.random.default_rng(seed)
-    q, k, v, do = (rng.standard_normal((B, S, H, hd), np.float32)
-                   for _ in range(4))
+    Kv = H if Kv is None else Kv
+    q, k, v, do = (rng.standard_normal((B, S, h, hd), np.float32)
+                   for h in (H, Kv, Kv, H))
     key_mask = (None if lengths is None
                 else np.arange(S)[None] < np.asarray(lengths)[:, None])
     return q, k, v, do, key_mask
@@ -276,3 +291,12 @@ def ragged_lengths(B, S, *, seed=5):
     lengths = np.random.default_rng(seed).integers(1, S + 1, B)
     lengths[0] = S
     return lengths
+
+
+def permuted_positions(B, S, *, seed=9):
+    """(B, S) int32 positions that are not the indices: each row a shuffle
+    of ``offset + arange(S)`` (a random offset a row), so keys arrive in no
+    order of position and a causal row's visible keys are scattered."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, 50) + rng.permutation(S)
+                     for _ in range(B)]).astype(np.int32)

@@ -1,6 +1,7 @@
 """Grouped-query attention with a position-tagged KV cache, dense or paged:
 the port of ``repro.models.attention`` (the Molecular Transformer's and the
-dense decoder-only transformer's: RoPE, qk-norm, sliding window).
+decoder-only transformer's: RoPE, qk-norm, sliding window, cross-attention
+to a frontend memory of ``memory_dim``).
 
 Dense cache (as in the JAX package): ``(B, S, n_kv, head_dim)`` K/V buffers
 plus a ``(B, S)`` int32 ``pos`` array holding the absolute position stored in
@@ -16,11 +17,12 @@ Unlike the JAX package, the port writes either cache IN PLACE (no copy of
 the buffers per step); ``cached_attention`` returns the same cache object.
 Each cache type has one read path: the ``decode_gqa`` kernel for the dense
 cache, the ``paged_decode_gqa`` kernel for the paged one (their plain
-versions on the CPU). Full-sequence self-attention (the encoder, and the
-teacher-forced decoder of training) has one path too: the
-``flash_attention`` kernels, forward and backward. Cross-attention and
-the single-pass multi-draft verification read (``multidraft_attention``)
-stay einsums, as in the JAX package, which has no kernel for them.
+versions on the CPU). Full-sequence self-attention (the MT's encoder, the
+teacher-forced decoders of training, the decoder-only ``apply`` with its
+GQA heads and positions) has one path too: the ``flash_attention``
+kernels, forward and backward. Cross-attention and the single-pass
+multi-draft verification read (``multidraft_attention``) stay einsums, as
+in the JAX package, which has no kernel for them.
 
 Masks use -1e30, not -inf, as in the JAX package.
 """
@@ -36,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_gqa.ops import (decode_gqa_attention,
                                                paged_decode_gqa_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+from repro_torch.kernels.flash_attention.ref import visible_mask
 from repro_torch.models.layers import apply_norm, apply_rope, dense, dense_init
 
 _NEG_INF = -1e30
@@ -46,13 +49,16 @@ _NEG_INF = -1e30
 
 
 def attn_init(gen, cfg: ModelConfig, *, device, cross: bool = False) -> dict:
+    """Attention projections. ``cross=True`` reads K/V from ``memory_dim``
+    (the model width when it is 0) with one kv head per query head."""
     d, hd = cfg.d_model, cfg.head_dim
+    kv_src = cfg.memory_dim if (cross and cfg.memory_dim) else d
     n_kv = cfg.n_heads if cross else cfg.n_kv_heads  # cross-attn: MHA
     kw = dict(use_bias=cfg.use_bias, device=device)
     p = {
         "wq": dense_init(gen, d, cfg.n_heads * hd, **kw),
-        "wk": dense_init(gen, d, n_kv * hd, **kw),
-        "wv": dense_init(gen, d, n_kv * hd, **kw),
+        "wk": dense_init(gen, kv_src, n_kv * hd, **kw),
+        "wv": dense_init(gen, kv_src, n_kv * hd, **kw),
         "wo": dense_init(gen, cfg.n_heads * hd, d, **kw),
     }
     if cfg.qk_norm:
@@ -228,32 +234,54 @@ def _project_qkv(p: dict, cfg: ModelConfig, x, kv_input, *, cross: bool):
 # modes
 
 
-def attention(p: dict, cfg: ModelConfig, x, *, causal: bool = True,
-              padding_mask=None) -> torch.Tensor:
-    """Full-sequence self-attention (no cache): the encoder, and the
-    teacher-forced decoder of training. Runs ``flash_attention_bshd`` (the
-    kernels on the card, their plain versions on the CPU), differentiable.
+def attention(p: dict, cfg: ModelConfig, x, *, positions=None,
+              causal: bool = True, padding_mask=None,
+              rope=None) -> torch.Tensor:
+    """Full-sequence self-attention (no cache): the MT's encoder and
+    teacher-forced decoder, and the decoder-only ``transformer.apply``.
+    Runs ``flash_attention_bshd`` (the kernels on the card, their plain
+    versions on the CPU) over the GQA heads, differentiable.
 
-    x: (B, T, d); padding_mask: (B, T) True = valid key. The kernel masks by
-    index, so positions are always ``arange(T)`` (all the MT needs). GQA
-    (``q_per_kv > 1``) is refused: the flash kernels' kv-head mapping and
-    position masks come with ``transformer.apply`` and LM training (ROADMAP
-    Queue 1 item 6.5); decoder-only serving reads through
-    ``cached_attention``.
+    x: (B, T, d); positions: (B, T) absolute, or None for ``arange(T)``
+    (the kernels then mask by index and skip the key tiles a causal row
+    cannot see); padding_mask: (B, T) True = valid key. With ``cfg.pos ==
+    "rope"`` q and k are rotated at the positions (``rope``: their
+    ``rope_tables``, when the caller made them for every layer).
+    ``cfg.sliding_window`` applies when ``causal``.
+
+    A query row that sees no key (a row of length 0 under
+    ``padding_mask``) gets 0 from the kernels; the JAX model's einsum gives
+    it the mean of V over the row's keys. On a pattern with MoE FFNs that
+    row's hidden state takes expert capacity, so there it gets the JAX
+    model's mean of V, as ``cached_attention`` does.
     """
     B, T = x.shape[:2]
-    if cfg.q_per_kv != 1:
-        raise ValueError(f"attention: q_per_kv={cfg.q_per_kv}; full-sequence "
-                         f"GQA comes with transformer.apply and LM training "
-                         f"(ROADMAP Queue 1 item 6.5)")
     q, k, v = _project_qkv(p, cfg, x, x, cross=False)
-    out = flash_attention_bshd(q, k, v, causal=causal, key_mask=padding_mask)
+    if positions is not None:
+        positions = positions.to(torch.int32).contiguous()
+    if cfg.pos == "rope":
+        rp = (positions if positions is not None else
+              torch.arange(T, dtype=torch.int32, device=x.device)[None])
+        q = apply_rope(q, rp, cfg.rope_theta, tables=rope)
+        k = apply_rope(k, rp, cfg.rope_theta, tables=rope)
+    window = cfg.sliding_window
+    out = flash_attention_bshd(q, k, v, causal=causal, window=window,
+                               key_mask=padding_mask, positions=positions)
+    if "moe" in cfg.ffn_pattern and (padding_mask is not None
+                                     or positions is not None):
+        blind = ~visible_mask(T, causal=causal, window=window,
+                              key_mask=padding_mask, q_pos=positions,
+                              k_pos=positions, device=x.device).any(-1)[:, 0]
+        mean_v = v.float().mean(1).repeat_interleave(cfg.q_per_kv, dim=1)
+        out = torch.where(blind[:, :, None, None],
+                          mean_v[:, None].to(out.dtype), out)
     return dense(p["wo"], out.reshape(B, T, -1))
 
 
 def cross_attention(p: dict, cfg: ModelConfig, x, memory, *,
                     memory_mask=None) -> torch.Tensor:
-    """x: (B, T, d) queries; memory: (B, M, d)."""
+    """x: (B, T, d) queries; memory: (B, M, memory_dim or d);
+    memory_mask: (B, M) True = valid."""
     B, T = x.shape[:2]
     q, k, v = _project_qkv(p, cfg, x, memory, cross=True)
     mask = torch.ones((B, T, memory.shape[1]), dtype=torch.bool,
@@ -265,7 +293,8 @@ def cross_attention(p: dict, cfg: ModelConfig, x, memory, *,
 
 
 def memory_kv(p: dict, cfg: ModelConfig, memory) -> dict:
-    """Precompute cross-attention K/V from the encoder memory."""
+    """Precompute cross-attention K/V from the encoder's or the frontend's
+    memory (prefill time)."""
     B, M = memory.shape[:2]
     hd = cfg.head_dim
     k = dense(p["wk"], memory).reshape(B, M, cfg.n_heads, hd)

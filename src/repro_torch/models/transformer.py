@@ -1,10 +1,14 @@
-"""Decoder-only transformer, the port of ``repro.models.transformer``:
-a repeating layer-block pattern of self-attention (GQA with RoPE,
-optional qk-norm and sliding window), Mamba and RWKV6 blocks, each
+"""Decoder-only (and encoder-only) transformer, the port of
+``repro.models.transformer``: a repeating layer-block pattern of
+self-attention (GQA with RoPE, optional qk-norm and sliding window), gated
+cross-attention to a frontend memory, Mamba and RWKV6 blocks, each
 attention or Mamba block followed by a dense (SwiGLU or GELU) or MoE FFN;
-RMSNorm or LayerNorm; tied or separate output head. It serves the dense
+RMSNorm or LayerNorm; tied or separate output head. It covers the dense
 archs (SmolLM, Qwen3, StarCoder2, Command-R), MoE (Phi-3.5-MoE, Llama-4
-with dense and MoE FFNs interleaved), the Mamba hybrid (Jamba) and RWKV6.
+with dense and MoE FFNs interleaved), the Mamba hybrid (Jamba), RWKV6, the
+VLM (Llama-3.2-Vision: every fifth layer cross-attends to the image
+memory through a ``tanh(xattn_gate)`` gate) and the audio encoder (HuBERT:
+bidirectional, frame embeddings in, no token embedding).
 
 Params follow the JAX package's tree with its stacked repeat axis split
 into Python lists: ``params["blocks"]`` is a tuple with one entry per
@@ -16,7 +20,8 @@ seq2seq cache's are, so ``repro_torch.core.tree_batch``, the page plan
 and ``unmap_cache_rows`` serve both: a ``KVCache`` or ``PagedKVCache``
 for attention, a dict of state tensors for Mamba (``conv``, ``ssm``) and
 RWKV (``S``, ``x_tm``, ``x_cm``), which stays dense when the attention
-cache is paged.
+cache is paged, and the memory K/V (``mk``, ``mv`` (R, B, M, H, hd)) of a
+cross-attention position, written by ``prefill(memory=)``.
 
 Attention caches are written IN PLACE and need no rollback: stale slots
 (rejected drafts) are overwritten before any query can see them.
@@ -32,14 +37,18 @@ Serving needs no full-sequence attention: ``prefill`` writes the prompt
 into the cache through ``cached_attention``, as the JAX package's does.
 ``multidraft_verify_step`` / ``commit_multidraft`` verify every draft in
 one row per sequence over a dense cache (``repro_torch.core.multidraft``),
-attention patterns only. The full-sequence ``apply`` (training, ROADMAP.md
-Queue 1 item 6.5) and cross-attention layers (item 6.4) are refused by
-name.
+attention patterns only (cross-attention positions read their memory K/V).
+``apply`` is the full-sequence forward of training: self-attention
+through the ``flash_attention`` kernels (GQA, positions, padding,
+causal or not), the recurrent mixers over the whole sequence, MoE FFNs
+with their auxiliary losses; ``remat`` recomputes each repeat's
+activations in the backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -47,29 +56,37 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.attention import (KVCache, PagedKVCache,
-                                          cached_attention)
+from repro_torch.models.attention import (KVCache, PagedKVCache, attention,
+                                          cached_attention, cross_attention)
 from repro_torch.models.layers import (apply_norm, embed, embed_init, ffn,
                                        ffn_init, logits_init, norm_init,
                                        rope_tables, unembed)
 
 RECURRENT = ("mamba", "rwkv")
 _NEEDS = {"moe": "moe", "mamba": "mamba", "rwkv": "rwkv"}
+_AUX = ("moe_aux_loss", "moe_z_loss")   # the MoE losses apply() sums
 
 
-def check_serves(cfg: ModelConfig) -> None:
-    """Refuse, by name, a pattern the port does not serve yet."""
-    if cfg.family in ("seq2seq", "audio"):
-        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
-                         f"decoder-only language model")
+def check_pattern(cfg: ModelConfig) -> None:
+    """Refuse a config this model cannot build: the seq2seq family, an
+    unknown layer or FFN kind, a kind without its sub-config."""
+    if cfg.family == "seq2seq":
+        raise ValueError(f"{cfg.name}: family 'seq2seq' is the Molecular "
+                         f"Transformer (repro_torch.models.seq2seq)")
     for k in cfg.layer_pattern + cfg.ffn_pattern:
-        if k not in ("attn", "mamba", "rwkv", "dense", "moe"):
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {k!r} is not ported yet "
-                f"(ROADMAP.md Queue 1 item 6.4)")
+        if k not in ("attn", "xattn", "mamba", "rwkv", "dense", "moe"):
+            raise ValueError(f"{cfg.name}: unknown layer kind {k!r}")
         if k in _NEEDS and getattr(cfg, _NEEDS[k]) is None:
             raise ValueError(f"{cfg.name}: layer kind {k!r} needs "
                              f"ModelConfig.{_NEEDS[k]}")
+
+
+def check_serves(cfg: ModelConfig) -> None:
+    """``check_pattern``, and refuse the audio encoder (no decode step)."""
+    check_pattern(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: encoder-only architecture: no decode "
+                         f"step")
 
 
 def recurrent(cfg: ModelConfig) -> bool:
@@ -101,6 +118,9 @@ def _block_init(gen, cfg: ModelConfig, kind: str, ffn_kind: str, dev):
         return p
     if kind == "attn":
         p["attn"] = attn_mod.attn_init(gen, cfg, device=dev)
+    elif kind == "xattn":
+        p["attn"] = attn_mod.attn_init(gen, cfg, device=dev, cross=True)
+        p["xattn_gate"] = torch.zeros((1,), device=dev)  # gated cross-attn
     else:
         p["mamba"] = mamba_mod.mamba_init(gen, cfg, device=dev)
     p["norm2"] = norm_init(d, norm, dev)
@@ -115,15 +135,18 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
     placed on ``device``: the JAX init's distributions, not its numbers.
     A CPU generator gives the same weights whatever ``device`` is (the
     card's weights equal the CPU's); a CUDA generator draws on the card
-    with no host copy (full-width models), and its numbers are its own."""
-    check_serves(cfg)
+    with no host copy (full-width models), and its numbers are its own.
+    The audio encoder takes frame embeddings and has no token embedding."""
+    check_pattern(cfg)
     dev = resolve_device(device)
-    params = {"tok": embed_init(gen, cfg.vocab_size, cfg.d_model, dev),
-              "blocks": tuple([_block_init(gen, cfg, kind,
-                                           cfg.ffn_pattern[i], dev)
-                               for _ in range(cfg.n_repeats)]
-                              for i, kind in enumerate(cfg.layer_pattern)),
-              "final_norm": norm_init(cfg.d_model, cfg.norm, dev)}
+    params = {}
+    if cfg.family != "audio":
+        params["tok"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dev)
+    params["blocks"] = tuple([_block_init(gen, cfg, kind, cfg.ffn_pattern[i],
+                                          dev)
+                              for _ in range(cfg.n_repeats)]
+                             for i, kind in enumerate(cfg.layer_pattern))
+    params["final_norm"] = norm_init(cfg.d_model, cfg.norm, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = logits_init(gen, cfg.d_model, cfg.vocab_size, dev)
     return params
@@ -153,8 +176,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``paged``: ``(n_pages, page_size)`` allocates each attention position's
     cache as a ``PagedKVCache`` (one pool per layer, every layer's block
     table identical, one page-id space) whose pages the caller maps.
-    Recurrent state stays dense: it is O(1) in sequence length a row."""
-    check_serves(cfg)
+    Recurrent state stays dense: it is O(1) in sequence length a row; so
+    does a cross-attention position's memory K/V (zeros of
+    ``max(memory_tokens, 1)`` slots until ``prefill(memory=)`` writes it,
+    as in the JAX package)."""
+    check_pattern(cfg)
     dev = resolve_device(device)
     R = cfg.n_repeats
 
@@ -166,6 +192,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         if kind in RECURRENT:
             caches.append({k: stack(v) for k, v in
                            _state_init(cfg, kind, batch, dev, dtype).items()})
+        elif kind == "xattn":
+            shape = (R, batch, max(cfg.memory_tokens, 1), cfg.n_heads,
+                     cfg.head_dim)
+            caches.append({k: torch.zeros(shape, dtype=dtype, device=dev)
+                           for k in ("mk", "mv")})
         elif paged is not None:
             n_pages, page_size = paged
             one = attn_mod.init_paged_kv_cache(
@@ -185,7 +216,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def commit_cache(cfg: ModelConfig, cache: tuple, n_keep) -> tuple:
     """Keep each row's recurrent checkpoint at ``n_keep`` (B,) (fed tokens
     accepted, 0 = the state before the step): leaves (R, B, T+1, ...)
-    become (R, B, ...). Attention caches pass through."""
+    become (R, B, ...). Attention and memory caches pass through."""
     if not recurrent(cfg):
         return cache
     out = []
@@ -277,8 +308,23 @@ def _ffn(p, cfg: ModelConfig, kind: str, x):
     return ffn(p, x)
 
 
+def _xattn(p, cfg: ModelConfig, h, layer_cache, memory, memory_mask):
+    """A cross-attention position's gated output: prefill (``memory``
+    given) attends to the memory and writes its K/V into ``layer_cache``
+    (views of the stacked cache) in place; decode reads that K/V."""
+    if memory is None:
+        q = attn_mod.cached_cross_attention(p["attn"], cfg, h, layer_cache,
+                                            memory_mask=memory_mask)
+    else:
+        q = cross_attention(p["attn"], cfg, h, memory,
+                            memory_mask=memory_mask)
+        for k, v in attn_mod.memory_kv(p["attn"], cfg, memory).items():
+            layer_cache[k].copy_(v)
+    return torch.tanh(p["xattn_gate"]) * q
+
+
 def _run_stack(params, cfg: ModelConfig, x, cache, positions, *,
-               lengths=None):
+               lengths=None, memory=None, memory_mask=None):
     """Every layer in order (repeat-major, as the JAX scan runs them).
     Attention writes its K/V into the cache in place; the rotary tables of
     the positions are made once for all layers.
@@ -287,6 +333,8 @@ def _run_stack(params, cfg: ModelConfig, x, cache, positions, *,
     the whole prompt and writes its state at each row's end into the cache
     in place; without (decode), each runs token by token and the state
     after every fed token goes into fresh checkpoints (R, B, T+1, ...).
+    Cross-attention positions attend to ``memory`` (prefill) or to its K/V
+    in the cache (decode), under ``memory_mask``.
     Returns (x, cache with those checkpoints)."""
     positions = positions.to(torch.int32).contiguous()
     rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -312,6 +360,9 @@ def _run_stack(params, cfg: ModelConfig, x, cache, positions, *,
                 a, _ = cached_attention(p["attn"], cfg, h,
                                         _layer(cache[i], r), positions,
                                         rope=rope)
+            elif kind == "xattn":
+                a = _xattn(p, cfg, h, _layer(cache[i], r), memory,
+                           memory_mask)
             elif lengths is not None:
                 a, st = mamba_mod.mamba_mixer(p["mamba"], cfg, h,
                                               lengths=lengths,
@@ -339,33 +390,135 @@ def _logits_out(params, cfg: ModelConfig, x):
 # public API
 
 
-def apply(params, cfg: ModelConfig, tokens, **kw):
-    raise NotImplementedError(
-        "transformer.apply (the full-sequence forward of LM training) is "
-        "not ported yet (ROADMAP.md Queue 1 item 6.5)")
+def _embed_in(params, tokens, embeddings):
+    return embeddings if embeddings is not None else embed(params["tok"],
+                                                           tokens)
 
 
-def prefill(params, cfg: ModelConfig, cache, tokens, *, lengths=None,
+def _full_block(kind: str, ffn_kind: str, p, cfg: ModelConfig, x, *,
+                causal: bool, positions, pad, lengths, rope, memory,
+                memory_mask):
+    """One layer of the full-sequence forward. Returns (x, aux)."""
+    if kind == "rwkv":
+        # zero the pad positions so the state skips them
+        n1 = apply_norm(p["norm1"], x, cfg.norm)
+        if pad is not None:
+            n1 = n1 * pad[..., None].to(n1.dtype)
+        mix, _ = rwkv_mod.rwkv_mixer(p["rwkv"], cfg, n1, lengths=lengths)
+        x = x + mix
+        cm, _ = rwkv_mod.rwkv_channel_mix(p["cmix"],
+                                          apply_norm(p["norm2"], x, cfg.norm))
+        return x + cm, {}
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    if kind == "attn":
+        x = x + attention(p["attn"], cfg, h, positions=positions,
+                          causal=causal, padding_mask=pad, rope=rope)
+    elif kind == "xattn":
+        x = x + torch.tanh(p["xattn_gate"]) * cross_attention(
+            p["attn"], cfg, h, memory, memory_mask=memory_mask)
+    else:
+        x = x + mamba_mod.mamba_mixer(p["mamba"], cfg, h, lengths=lengths)
+    h2 = apply_norm(p["norm2"], x, cfg.norm)
+    if ffn_kind == "moe":
+        out, aux = moe_mod.moe_ffn(p["ffn"], cfg, h2)
+        return x + out, aux
+    return x + ffn(p["ffn"], h2), {}
+
+
+def apply(params, cfg: ModelConfig, tokens=None, *, embeddings=None,
+          memory=None, memory_mask=None, lengths=None, positions=None,
+          causal=None, remat: bool = False):
+    """Full-sequence forward (training). Returns (logits (B, T, V), aux).
+
+    tokens: (B, T), or ``embeddings`` (B, T, d) (the audio encoder's
+    frames); ``memory`` (B, M, memory_dim) and ``memory_mask`` (B, M) for
+    the cross-attention positions; ``lengths`` (B,) valid tokens a row (a
+    padding mask on the keys; recurrent mixers skip the pads);
+    ``positions`` (B, T) absolute, default ``arange(T)`` (left as None to
+    the attention kernels, which then mask by index); ``causal`` defaults
+    to ``cfg.causal``. ``aux`` holds ``moe_aux_loss`` and ``moe_z_loss``
+    summed over the layers on a pattern with MoE FFNs, else nothing.
+    ``remat`` recomputes each repeat's activations in the backward
+    (``torch.utils.checkpoint``): equal results, less memory."""
+    check_pattern(cfg)
+    x = _embed_in(params, tokens, embeddings)
+    B, T = x.shape[:2]
+    causal = cfg.causal if causal is None else causal
+    pad = None
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                  device=x.device)
+        pad = torch.arange(T, device=x.device)[None, :] < lengths[:, None]
+    if positions is not None:
+        positions = positions.to(device=x.device,
+                                 dtype=torch.int32).contiguous()
+    rope = None
+    if cfg.pos == "rope" and "attn" in cfg.layer_pattern:
+        rp = (positions if positions is not None else
+              torch.arange(T, dtype=torch.int32, device=x.device)[None])
+        rope = rope_tables(rp, cfg.head_dim, cfg.rope_theta)
+    kw = dict(causal=causal, positions=positions, pad=pad, lengths=lengths,
+              rope=rope, memory=memory, memory_mask=memory_mask)
+    keys = _AUX if "moe" in cfg.ffn_pattern else ()
+
+    def repeat(r: int, h):
+        """Repeat ``r`` of the pattern: (h, its summed aux losses)."""
+        sums = [h.new_zeros((), dtype=torch.float32) for _ in keys]
+        for i, kind in enumerate(cfg.layer_pattern):
+            h, aux = _full_block(kind, cfg.ffn_pattern[i],
+                                 params["blocks"][i][r], cfg, h, **kw)
+            sums = [a + aux[k] if k in aux else a
+                    for a, k in zip(sums, keys)]
+        return (h, *sums)
+
+    totals = [x.new_zeros((), dtype=torch.float32) for _ in keys]
+    for r in range(cfg.n_repeats):
+        out = (checkpoint(repeat, r, x, use_reentrant=False) if remat
+               else repeat(r, x))
+        x = out[0]
+        totals = [t + a for t, a in zip(totals, out[1:])]
+    return _logits_out(params, cfg, x), dict(zip(keys, totals))
+
+
+def _fit_memory(cfg: ModelConfig, cache, memory):
+    """The cache with each cross-attention position's memory K/V sized to
+    ``memory``'s M tokens (new zeros where the cache holds another M; the
+    JAX package's prefill replaces the entry whatever its size)."""
+    out = list(cache)
+    M = memory.shape[1]
+    for i, kind in enumerate(cfg.layer_pattern):
+        c = cache[i]
+        if kind == "xattn" and c["mk"].shape[2] != M:
+            shape = (*c["mk"].shape[:2], M, *c["mk"].shape[3:])
+            out[i] = {k: c[k].new_zeros(shape) for k in c}
+    return tuple(out)
+
+
+def prefill(params, cfg: ModelConfig, cache, tokens=None, *,
+            embeddings=None, memory=None, memory_mask=None, lengths=None,
             logits_mode: str = "all"):
     """Write the prompt into the cache, in place. Returns (logits, cache).
 
-    tokens: (B, T); ``lengths`` (B,) valid tokens per row (default T):
-    positions past a row's length are -1, so their K/V land in the
-    throwaway slot, and recurrent state stops at each row's length.
-    ``logits_mode="last"`` gives (B, V) at each row's last valid position
-    instead of (B, T, V)."""
+    tokens: (B, T) (or ``embeddings`` (B, T, d)); ``lengths`` (B,) valid
+    tokens per row (default T): positions past a row's length are -1, so
+    their K/V land in the throwaway slot, and recurrent state stops at each
+    row's length. ``memory`` (B, M, memory_dim): the cross-attention
+    positions attend to it and keep its K/V in the cache (``memory_mask``
+    (B, M) masks it). ``logits_mode="last"`` gives (B, V) at each row's
+    last valid position instead of (B, T, V)."""
     if logits_mode not in ("all", "last"):
         raise ValueError(f"logits_mode {logits_mode!r}")
-    B, T = tokens.shape
+    x = _embed_in(params, tokens, embeddings)
+    B, T = x.shape[:2]
     if lengths is None:
-        lengths = torch.full((B,), T, dtype=torch.int32,
-                             device=tokens.device)
-    lengths = torch.as_tensor(lengths, dtype=torch.int32,
-                              device=tokens.device)
-    pos = torch.arange(T, dtype=torch.int32, device=tokens.device)[None, :]
+        lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
+    pos = torch.arange(T, dtype=torch.int32, device=x.device)[None, :]
     positions = torch.where(pos < lengths[:, None], pos, -1)
-    x, cache = _run_stack(params, cfg, embed(params["tok"], tokens), cache,
-                          positions, lengths=lengths)
+    if memory is not None:
+        cache = _fit_memory(cfg, cache, memory)
+    x, cache = _run_stack(params, cfg, x, cache, positions, lengths=lengths,
+                          memory=memory, memory_mask=memory_mask)
     if logits_mode == "last":
         last = (lengths - 1).clamp(0, T - 1).long()
         x = x[torch.arange(B, device=x.device), last]
@@ -377,13 +530,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions, *,
     """Feed T new tokens per row (T = 1 for greedy, DL+1 to verify) at
     ``positions`` (B, T) (rows may differ; -1 = a pad token). Returns
     (logits (B, T, V), cache): attention K/V written in place, recurrent
-    positions as per-step checkpoints for ``commit_cache``."""
-    if memory_mask is not None:
-        raise NotImplementedError("memory_mask: cross-attention layers are "
-                                  "not ported yet (ROADMAP.md Queue 1 item "
-                                  "6.4)")
+    positions as per-step checkpoints for ``commit_cache``; cross-attention
+    positions read the memory K/V ``prefill`` kept, under ``memory_mask``
+    (B, M)."""
     x, cache = _run_stack(params, cfg, embed(params["tok"], tokens), cache,
-                          positions)
+                          positions, memory_mask=memory_mask)
     return _logits_out(params, cfg, x), cache
 
 
@@ -406,19 +557,21 @@ def write_prompt(params, cfg: ModelConfig, cache, tokens, positions,
 
 
 def multidraft_verify_step(params, cfg: ModelConfig, cache, tokens,
-                           positions, local_mask):
+                           positions, local_mask, *, memory_mask=None):
     """Single-pass verification of ALL drafts (``attention.
     multidraft_attention``) over a dense cache. tokens: (B, 1 + N_d·DL) =
     [last committed, draft 0 ..., draft N_d-1 ...]; positions: their
     absolute positions; local_mask: the (T, T) segment mask.
 
-    Attention patterns only (dense or MoE FFNs): a recurrent mixer runs
+    Attention patterns only (dense or MoE FFNs; cross-attention positions
+    read their memory K/V under ``memory_mask``): a recurrent mixer runs
     its tokens in order, so drafts cannot share its row; those patterns
     use the expanded-batch verify path, as in the JAX package.
 
     Returns (logits (B, T, V), local_kv): local_kv holds, per pattern
     position, the fed tokens' (k, v) stacked over repeats, for
-    ``commit_multidraft``. The cache is not modified."""
+    ``commit_multidraft`` (empty at a cross-attention position). The cache
+    is not modified."""
     check_serves(cfg)
     refuse_recurrent(cfg, "multi-draft verification")
     positions = positions.to(torch.int32).contiguous()
@@ -427,12 +580,18 @@ def multidraft_verify_step(params, cfg: ModelConfig, cache, tokens,
     x = embed(params["tok"], tokens)
     kvs = [([], []) for _ in cfg.layer_pattern]
     for r in range(cfg.n_repeats):
-        for i in range(len(cfg.layer_pattern)):
+        for i, kind in enumerate(cfg.layer_pattern):
             p = params["blocks"][i][r]
-            a, (k, v) = attn_mod.multidraft_attention(
-                p["attn"], cfg, apply_norm(p["norm1"], x, cfg.norm),
-                _layer(cache[i], r), positions, local_mask, rope=rope)
-            x = x + a
+            h = apply_norm(p["norm1"], x, cfg.norm)
+            if kind == "xattn":
+                x = x + _xattn(p, cfg, h, _layer(cache[i], r), None,
+                               memory_mask)
+                k = v = x.new_zeros((0,))
+            else:
+                a, (k, v) = attn_mod.multidraft_attention(
+                    p["attn"], cfg, h, _layer(cache[i], r), positions,
+                    local_mask, rope=rope)
+                x = x + a
             x = x + _ffn(p["ffn"], cfg, cfg.ffn_pattern[i],
                          apply_norm(p["norm2"], x, cfg.norm))
             kvs[i][0].append(k)
@@ -458,7 +617,9 @@ def commit_multidraft(cfg: ModelConfig, cache, local_kv, best, n_acc,
                           + rel[None, :-1]], dim=1)
     positions = start_pos.to(torch.int32)[:, None] + rel[None, :]
     n_keep = 1 + n_acc
-    for c, (k, v) in zip(cache, local_kv):
+    for kind, c, (k, v) in zip(cfg.layer_pattern, cache, local_kv):
+        if kind != "attn":
+            continue   # the memory K/V stays as prefill wrote it
         for r in range(cfg.n_repeats):
             attn_mod.commit_verified_kv(_layer(c, r), k[r], v[r], take_idx,
                                         positions, n_keep)

@@ -238,9 +238,13 @@ class Seq2SeqBackend:
 
 class DecoderOnlyBackend:
     """Decoder-only LM backend (``repro_torch.models.transformer``: dense,
-    MoE, Mamba-hybrid and RWKV patterns): chunked ragged prompt prefill
-    with prompt-lookup drafts. Recurrent state rides dense beside a paged
-    attention cache; an attention-free pattern has nothing to page."""
+    MoE, Mamba-hybrid, RWKV and VLM patterns): chunked ragged prompt
+    prefill with prompt-lookup drafts. Recurrent state and the VLM's memory
+    K/V ride dense beside a paged attention cache; an attention-free
+    pattern has nothing to page. As in the JAX package, the engine has no
+    memory path: a VLM's cross-attention positions read the zero memory
+    K/V of ``init_cache``. The audio encoder has no decode step and is
+    refused."""
 
     chunked = True
 

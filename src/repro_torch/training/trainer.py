@@ -1,15 +1,15 @@
-"""The seq2seq train step and a host-side Trainer loop: the port of
-``repro.training.trainer`` for the Molecular Transformer
-(``make_lm_train_step``, the decoder-only step, comes with ROADMAP Queue 1
-item 6).
+"""Train steps and a host-side Trainer loop: the port of
+``repro.training.trainer``.
 
-``make_seq2seq_train_step`` returns ``(params, opt_state, batch) ->
-(params, opt_state, metrics)`` like the JAX package's, eager: autograd
-through ``seq2seq.apply`` (its full-sequence attention runs the
-``flash_attention`` kernels forward and backward on the card), clipping and
-Adam with ``torch._foreach_*`` ops. Where JAX donates the buffers, the port
-updates params and moments in place; the metrics stay on the device until
-the ``Trainer`` reads them on a logging step.
+``make_seq2seq_train_step`` (the Molecular Transformer) and
+``make_lm_train_step`` (the decoder-only and audio architectures) return
+``(params, opt_state, batch) -> (params, opt_state, metrics)`` like the JAX
+package's, eager: autograd through ``seq2seq.apply`` / ``transformer.apply``
+(their full-sequence self-attention runs the ``flash_attention`` kernels
+forward and backward on the card), clipping and Adam with
+``torch._foreach_*`` ops. Where JAX donates the buffers, the port updates
+params and moments in place; the metrics stay on the device until the
+``Trainer`` reads them on a logging step.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import seq2seq as s2s
+from repro_torch.models import transformer as tr
 from repro_torch.training.loss import cross_entropy_loss
 from repro_torch.training.optimizer import (AdamState, adam_init,
                                             adam_update, clip_by_global_norm,
@@ -55,6 +56,57 @@ def make_seq2seq_train_step(cfg: ModelConfig, *,
     def train_step(params, opt_state: AdamState, batch):
         _, metrics, grads = seq2seq_loss_and_grads(
             params, cfg, batch, label_smoothing=label_smoothing)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        params, opt_state = adam_update(grads, opt_state, params, lr=lr)
+        metrics["grad_norm"] = gnorm
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def lm_loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
+                      label_smoothing: float = 0.0, remat: bool = False):
+    """The decoder-only loss on ``batch`` and its gradient. Tokens (batch
+    ``tokens``, ``loss_mask``; the VLM also ``memory``): ``tokens[:, :-1]``
+    in, ``tokens[:, 1:]`` the labels under ``loss_mask[:, 1:]``. Audio
+    (``embeddings``, ``labels``): frames in, every label counted. The
+    model's auxiliary losses (MoE) are added to the loss and reported in
+    the metrics. Returns (loss, metrics, grads shaped like ``params``); the
+    param leaves are set to require grad."""
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        if cfg.family == "audio":
+            logits, aux = tr.apply(params, cfg,
+                                   embeddings=batch["embeddings"],
+                                   remat=remat)
+            labels, mask = batch["labels"], None
+        else:
+            tokens = batch["tokens"]
+            logits, aux = tr.apply(params, cfg, tokens[:, :-1],
+                                   memory=batch.get("memory"), remat=remat)
+            labels = tokens[:, 1:]
+            mask = batch["loss_mask"][:, 1:]
+        loss, metrics = cross_entropy_loss(logits, labels, mask=mask,
+                                           label_smoothing=label_smoothing)
+        for k, v in aux.items():
+            loss = loss + v
+            metrics[k] = v.detach()
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), metrics, tree_unflatten(params, list(grads))
+
+
+def make_lm_train_step(cfg: ModelConfig, *, label_smoothing: float = 0.0,
+                       lr=3e-4, max_grad_norm: float = 1.0,
+                       remat: bool = False) -> Callable:
+    """Decoder-only LM step (every decoder-only arch and the audio
+    encoder). Batch keys: tokens (B, T) and loss_mask (B, T), the VLM's
+    memory (B, M, memory_dim); audio: embeddings and labels."""
+
+    def train_step(params, opt_state: AdamState, batch):
+        _, metrics, grads = lm_loss_and_grads(
+            params, cfg, batch, label_smoothing=label_smoothing, remat=remat)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         params, opt_state = adam_update(grads, opt_state, params, lr=lr)
         metrics["grad_norm"] = gnorm

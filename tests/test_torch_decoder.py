@@ -15,10 +15,11 @@ with the JAX params carried across by ``repro_torch.bridge``.
   one-shot prefill + decode; the chunk size is invisible; pool exhaustion
   preempts a mid-prefill slot and replays identical tokens; the minimum
   pool admits and completes;
-- routing: ``make_backend`` keys off the family, and what the port does
-  not serve yet (cross-attention, ``apply``) is refused by name; the
-  param bridge round-trips every arch's tree, MoE and recurrent ones
-  too.
+- routing: ``make_backend`` keys off the family; a cross-attention
+  pattern builds, serves and runs ``apply``; the sliding-window paged
+  engine is refused by name; the param bridge round-trips every arch's
+  tree, MoE, recurrent, VLM and audio ones too; the registry equals the
+  JAX package's twelve archs.
 
 The JAX engines are built once per module; the port runs on the CPU
 (``device="cpu"``) with one torch thread.
@@ -122,14 +123,20 @@ def _engine(cfg, pt, **kw):
 
 
 # the MoE and recurrent archs the port also serves (tests/test_torch_moe.py,
-# tests/test_torch_recurrent.py)
+# tests/test_torch_recurrent.py), the VLM and the audio encoder
+# (tests/test_torch_vlm.py, tests/test_torch_apply.py)
 MORE_ARCHS = ["phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b",
-              "jamba-v0.1-52b", "rwkv6-1.6b"]
+              "jamba-v0.1-52b", "rwkv6-1.6b", "llama-3.2-vision-11b",
+              "hubert-xlarge"]
+MT_ARCHS = ["mt-product", "mt-retro"]
 
 
 def test_config_registry_matches_jax():
-    assert list_archs() == sorted(ARCHS + MORE_ARCHS)
-    for arch in ARCHS + MORE_ARCHS:
+    from repro.configs import list_archs as jax_list_archs
+
+    assert list_archs() == sorted(ARCHS + MORE_ARCHS + MT_ARCHS)
+    assert list_archs() == jax_list_archs()
+    for arch in ARCHS + MORE_ARCHS + MT_ARCHS:
         for reduced in (False, True):
             a = jax_get_config(arch, reduced=reduced)
             b = get_config(arch, reduced=reduced)
@@ -504,17 +511,38 @@ def test_make_backend_routes_on_family():
 @pytest.mark.parametrize("pattern,ffn,item", [
     (("attn", "xattn"), ("dense", "dense"), "6.4")], ids=["xattn"])
 def test_unported_patterns_refused_by_name(pattern, ffn, item):
+    """Item 6.4 is ported: a cross-attention pattern (here on SmolLM's
+    reduced widths, memory of 4 tokens of 48) routes to the decoder-only
+    backend, builds (``xattn_gate``, K/V from ``memory_dim``, a zero
+    memory cache) and serves one request; no refusal names the item."""
     cfg = dataclasses.replace(get_config("smollm-135m", reduced=True),
-                              layer_pattern=pattern, ffn_pattern=ffn)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        make_backend(cfg, EngineConfig())
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tr.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+                              layer_pattern=pattern, ffn_pattern=ffn,
+                              memory_tokens=4, memory_dim=48)
+    assert isinstance(make_backend(cfg, EngineConfig()), DecoderOnlyBackend)
+    params = tr.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    xp = params["blocks"][1][0]
+    assert not xp["xattn_gate"].any()
+    assert xp["attn"]["wk"]["w"].shape == (48, cfg.n_heads * cfg.head_dim)
+    cache = tr.init_cache(cfg, 2, 16, device="cpu")
+    assert cache[1]["mk"].shape == (cfg.n_repeats, 2, 4, cfg.n_heads,
+                                    cfg.head_dim)
+    eng = _engine(cfg, params, mode="speculative")
+    rid = eng.submit(np.arange(4, 13, dtype=np.int32))
+    assert eng.serve()[int(rid)].lengths[0] > 0
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        tr.init(torch.Generator().manual_seed(0), dataclasses.replace(
+            cfg, layer_pattern=("attn", "conv")), device="cpu")
 
 
 def test_unported_entry_points_refused_by_name(models):
+    """Item 6.5 is ported: ``transformer.apply`` runs and its logits equal
+    ``prefill``'s; the sliding-window engine refusal stays."""
     _, _, cfg, pt = models("smollm-135m")
-    with pytest.raises(NotImplementedError, match="item 6.5"):
-        tr.apply(pt, cfg, torch.zeros((1, 3), dtype=torch.long))
+    toks = torch.arange(4, 10).reshape(2, 3)
+    logits, aux = tr.apply(pt, cfg, toks)
+    pre, _ = tr.prefill(pt, cfg, tr.init_cache(cfg, 2, 8, device="cpu"),
+                        toks)
+    assert aux == {} and logits.shape == (2, 3, cfg.vocab_size)
+    torch.testing.assert_close(logits, pre, atol=1e-5, rtol=1e-5)
     with pytest.raises(NotImplementedError, match="sliding_window"):
         _engine(dataclasses.replace(cfg, sliding_window=8), pt, paged=True)

@@ -33,19 +33,19 @@ from repro_torch.kernels import (decode_gqa_attention, draft_verify,  # noqa: E4
                                  paged_decode_gqa_attention)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
-    DECODE_CARD_ONLY, DECODE_LM, DECODE_MOE, DECODE_SWEEP, FLASH_MASKS,
-    FLASH_PLAIN_LOADS, FLASH_SWEEP, PAGED_ALIASED, PAGED_CARD_ONLY, PAGED_LM,
-    PAGED_MOE, PAGED_SWEEP,
+    DECODE_CARD_ONLY, DECODE_LM, DECODE_MOE, DECODE_SWEEP, FLASH_GQA,
+    FLASH_MASKS, FLASH_PLAIN_LOADS, FLASH_SWEEP, PAGED_ALIASED,
+    PAGED_CARD_ONLY, PAGED_LM, PAGED_MOE, PAGED_SWEEP,
     VERIFY_CARD_ONLY, VERIFY_LM, VERIFY_SWEEP, aliased_paged_inputs,
-    decode_inputs, flash_inputs, paged_inputs, ragged_lengths, ring_inputs,
-    verify_inputs)
+    decode_inputs, flash_inputs, paged_inputs, permuted_positions,
+    ragged_lengths, ring_inputs, verify_inputs)
 from repro_torch.kernels.decode_gqa import kernel as decode_kernel  # noqa: E402
 from repro_torch.kernels.draft_verify import kernel as verify_kernel  # noqa: E402
 from repro_torch.kernels.decode_gqa.ref import (  # noqa: E402
     decode_gqa_ref, paged_decode_gqa_ref)
 from repro_torch.kernels.draft_verify.ref import draft_verify_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    flash_attention_bwd_ref, flash_attention_ref)
+    flash_attention_bwd_ref, flash_attention_ref, visible_mask)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -725,6 +725,109 @@ def test_flash_fully_masked_row_is_zero_with_zero_gradient():
     assert torch.equal(o[0], o0[0])
 
 
+GQA_IDS = [f"H{c['H']}_Kv{c['Kv']}_hd{c['hd']}" for c in FLASH_GQA]
+
+
+def _gqa(cfg, ragged, pos, seed=4):
+    """numpy q, dO (B, S, H, hd), k, v (B, S, Kv, hd), a key mask (ragged
+    rows or None) and positions (``permuted_positions`` or None) for a
+    GQA sweep case."""
+    lengths = ragged_lengths(cfg["B"], cfg["S"]) if ragged else None
+    q, k, v, do, km = flash_inputs(cfg["B"], cfg["S"], cfg["H"], cfg["hd"],
+                                   lengths=lengths, seed=seed, Kv=cfg["Kv"])
+    positions = permuted_positions(cfg["B"], cfg["S"]) if pos else None
+    return q, k, v, do, km, positions
+
+
+def _jax_masked_attend(jnp, q, k, v, km, positions, causal, window):
+    """The JAX model's full-sequence attention core (``_masked_attend``:
+    GQA einsum, masks on positions) on (B, S, H, hd) / (B, S, Kv, hd)."""
+    from repro.models.attention import _masked_attend
+
+    B, S, H = q.shape[:3]
+    pos = (np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+           if positions is None else positions)
+    valid = np.ones((B, S), bool) if km is None else km
+    return _masked_attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          jnp.asarray(pos), jnp.asarray(valid),
+                          jnp.asarray(pos), causal=causal, window=window,
+                          q_per_kv=H // k.shape[2])
+
+
+def _seen(B, S, km, positions, causal, window):
+    """(B, S) bool: rows with a visible key (JAX gives a row without one
+    the mean of V, the port 0; those rows are left out)."""
+    t = None if positions is None else torch.from_numpy(positions)
+    vis = visible_mask(S, causal=causal, window=window,
+                       key_mask=None if km is None else torch.from_numpy(km),
+                       q_pos=t, k_pos=t)
+    return np.broadcast_to(vis.any(-1)[:, 0].numpy(), (B, S))
+
+
+@pytest.mark.parametrize("cfg", FLASH_GQA, ids=GQA_IDS)
+@pytest.mark.parametrize("causal,window", FLASH_MASKS, ids=MASK_IDS)
+@pytest.mark.parametrize("ragged,pos", [(False, False), (True, False),
+                                        (False, True), (True, True)],
+                         ids=["plain", "ragged", "positions",
+                              "ragged_positions"])
+def test_flash_gqa_plain_matches_jax_attention(jx, cfg, causal, window,
+                                               ragged, pos):
+    """Grouped K/V heads and position masks: the plain forward against the
+    JAX model's ``_masked_attend`` (1e-5), and the explicit backward (dK,
+    dV summed over each kv head's query heads) against ``jax.grad`` of it
+    (1e-4), at every row that sees a key (dO is 0 on the others)."""
+    jax, jnp = jx["jax"], jx["jnp"]
+    q, k, v, do, km, positions = _gqa(cfg, ragged, pos)
+    seen = _seen(cfg["B"], cfg["S"], km, positions, causal, window)
+    do = do * seen[:, :, None, None]
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    kw = dict(causal=causal, window=window,
+              key_mask=None if km is None else torch.from_numpy(km),
+              q_pos=None if positions is None else torch.from_numpy(positions),
+              k_pos=None if positions is None else torch.from_numpy(positions))
+    out, lse = flash_attention_ref(*t[:3], **kw)
+    ref = _jax_masked_attend(jnp, q, k, v, km, positions, causal, window)
+    np.testing.assert_allclose(out.numpy()[seen], np.asarray(ref)[seen],
+                               atol=1e-5, rtol=1e-5)
+    grads = flash_attention_bwd_ref(*t[:3], out, lse, t[3], **kw)
+
+    def f(jq, jk, jv):
+        o = _jax_masked_attend(jnp, jq, jk, jv, km, positions, causal,
+                               window)
+        return jnp.sum(o * jnp.asarray(do))
+
+    jgrads = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                              for a in (q, k, v)))
+    for g, jg in zip(grads, jgrads):
+        assert g.shape == jg.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_flash_gqa_autograd_matches_explicit_backward():
+    """The autograd Function over GQA heads and positions (what the model
+    differentiates) equals the explicit backward, and autograd through the
+    plain forward within 1e-4."""
+    q, k, v, do, km, positions = _gqa(FLASH_GQA[1], True, True)
+    tp = torch.from_numpy(positions)
+    kw = dict(causal=True, window=0, key_mask=torch.from_numpy(km),
+              q_pos=tp, k_pos=tp)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    o, lse = flash_attention_ref(*leaves, **kw)
+    auto = torch.autograd.grad(o, leaves, tdo)
+    grads = flash_attention_bwd_ref(tq, tk, tv, o.detach(), lse.detach(),
+                                    tdo, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    fn = torch.autograd.grad(flash_attention_bshd(
+        *leaves, causal=True, window=0, key_mask=kw["key_mask"],
+        positions=tp), leaves, tdo)
+    for a, g, f in zip(auto, grads, fn):
+        np.testing.assert_allclose(g.numpy(), a.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        assert torch.equal(f, g)
+
+
 def test_flash_lse_asked_for_only_when_a_gradient_is_needed(monkeypatch):
     """Inference (no grad, or no input that requires one) asks the forward
     for no lse, so the kernel writes none; the autograd path asks for it.
@@ -734,9 +837,9 @@ def test_flash_lse_asked_for_only_when_a_gradient_is_needed(monkeypatch):
 
     asked = []
 
-    def recording(*args, with_lse):
+    def recording(*args, with_lse, **positions):
         asked.append(with_lse)
-        return forward(*args, with_lse=with_lse)
+        return forward(*args, with_lse=with_lse, **positions)
 
     forward = ops._forward
     monkeypatch.setattr(ops, "_forward", recording)
@@ -757,10 +860,13 @@ def test_flash_lse_asked_for_only_when_a_gradient_is_needed(monkeypatch):
 
 
 def test_flash_wrappers_refuse_other_devices_bad_shapes_and_gqa():
-    """A tensor neither on the CPU nor on the card, mismatched shapes, a
-    bad key mask or window raise; ``attention()`` refuses GQA (it comes
-    with the decoder-only families) and takes no positions: the kernel
-    masks by index."""
+    """A tensor neither on the CPU nor on the card, mismatched shapes (k
+    and v apart, another B or S or head_dim than q, query heads no
+    multiple of the kv heads), a bad key mask, positions or window raise.
+    Grouped K/V heads are taken: the wrapper, and ``attention()`` with a
+    GQA config and positions (the decoder-only families' training path),
+    run; ``attention()`` with positions equal to the indices computes
+    exactly what it computes without them."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.configs.mt import tiny_config
     from repro_torch.models.attention import attention
@@ -772,19 +878,34 @@ def test_flash_wrappers_refuse_other_devices_bad_shapes_and_gqa():
     with pytest.raises(ValueError):
         flash_attention_bshd(q, k[:, :-1], v, causal=True)
     with pytest.raises(ValueError):
+        flash_attention_bshd(q, k, v[:, :, :1], causal=True)
+    with pytest.raises(ValueError):
+        flash_attention_bshd(q, k[:, :, :2], v[:, :, :2], causal=True)
+    with pytest.raises(ValueError):
+        flash_attention_bshd(q, k[..., :-1], v[..., :-1], causal=True)
+    with pytest.raises(ValueError):
         flash_attention_bshd(q, k, v, causal=False, key_mask=km[:, :-1])
     with pytest.raises(ValueError):
+        flash_attention_bshd(q, k, v, causal=True,
+                             positions=torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError):
         flash_attention_bshd(q, k, v, causal=True, window=-1)
-    gqa = ModelConfig(name="gqa", family="seq2seq", n_layers=1, d_model=32,
+    out = flash_attention_bshd(q, k[:, :, :1], v[:, :, :1], causal=True)
+    assert out.shape == q.shape
+    gqa = ModelConfig(name="gqa", family="dense", n_layers=1, d_model=32,
                       n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=16)
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        attention({}, gqa, torch.zeros((1, 3, 32)))
+    rng = np.random.default_rng(1)
+    p = {n: {"w": torch.from_numpy(rng.standard_normal(
+             (32, w)).astype(np.float32) / 6)}
+         for n, w in (("wq", 32), ("wk", 16), ("wv", 16), ("wo", 32))}
+    x = torch.from_numpy(rng.standard_normal((2, 5, 32)).astype(np.float32))
+    idx = torch.arange(5, dtype=torch.int32).expand(2, 5)
+    assert torch.equal(attention(p, gqa, x), attention(p, gqa, x,
+                                                       positions=idx))
+    assert attention(p, gqa, x, positions=idx + 3).shape == x.shape
     cfg = tiny_config(16, d_model=32)
     p = {n: {"w": torch.zeros((32, 32))} for n in ("wq", "wk", "wv", "wo")}
-    x = torch.zeros((2, 3, 32))
     assert attention(p, cfg, x).shape == x.shape
-    with pytest.raises(TypeError):
-        attention(p, cfg, x, positions=torch.arange(3).expand(2, 3) + 1)
 
 
 # (B, Kv, n_split, TG, hd, itemsize) -> (q_groups, group_rows): the main
@@ -1017,6 +1138,57 @@ def test_flash_kernels_are_deterministic(cuda):
     for _ in range(2):
         leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
         out = flash_attention_bshd(*leaves, **kw)
+        runs.append((out.detach(), *torch.autograd.grad(out, leaves, tdo)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", FLASH_GQA, ids=GQA_IDS)
+@pytest.mark.parametrize("causal,window", FLASH_MASKS, ids=MASK_IDS)
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("pos", [False, True])
+def test_flash_gqa_kernels_match_plain(cuda, cfg, causal, window, ragged,
+                                       pos):
+    """The kv-head mapping and the position masks, forward (fp32, and bf16
+    without positions) and both backward kernels, against the plain
+    versions on the card."""
+    q, k, v, do, km, positions = _gqa(cfg, ragged, pos)
+    on = (lambda a: None if a is None
+          else torch.from_numpy(a).to(cuda))
+    kw = dict(causal=causal, window=window, key_mask=on(km),
+              q_pos=on(positions), k_pos=on(positions))
+    kern_kw = dict(causal=causal, window=window, key_mask=on(km),
+                   positions=on(positions))
+    for dtype in ("float32",) if pos else ("float32", "bfloat16"):
+        tx = [t.to(cuda) for t in _torch((q, k, v), dtype)]
+        out = flash_attention_bshd(*tx, **kern_kw)
+        ref, _ = flash_attention_ref(*tx, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    tq, tk, tv, tdo = (on(a) for a in (q, k, v, do))
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    grads = torch.autograd.grad(flash_attention_bshd(*leaves, **kern_kw),
+                                leaves, tdo)
+    o, lse = flash_attention_ref(tq, tk, tv, **kw)
+    ref = flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_gqa_kernels_are_deterministic(cuda):
+    """dK/dV summed over the group in registers, no atomics: two calls at
+    SmolLM's training heads (9 over 3, hd 64), causal, are bitwise equal."""
+    q, k, v, do, _ = flash_inputs(4, 191, 9, 64, Kv=3)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(cuda) for a in (q, k, v, do))
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+        out = flash_attention_bshd(*leaves, causal=True)
         runs.append((out.detach(), *torch.autograd.grad(out, leaves, tdo)))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))

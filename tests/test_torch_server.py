@@ -783,13 +783,18 @@ def _replica_args(**kw):
 
 
 def test_replica_entry_point_refuses_decoder_only_models():
-    """``--model arch`` builds the decoder-only families the port serves;
-    one it does not serve yet (the cross-attention VLM) is refused, naming
-    the ones it does."""
+    """``--model arch`` builds every decoder-only family, the cross-attention
+    VLM among them since it is ported; what it cannot serve is refused: an
+    arch with no decode step (the audio encoder) by family, an unknown one
+    naming the registered archs."""
     from repro_torch.serving.fleet import replica
 
+    eng = replica.build_engine(_replica_args(arch="llama-3.2-vision-11b"))
+    assert eng.cfg.layer_pattern[-1] == "xattn"
+    with pytest.raises(ValueError, match="encoder-only"):
+        replica.build_engine(_replica_args(arch="hubert-xlarge"))
     with pytest.raises(KeyError, match="smollm-135m"):
-        replica.build_engine(_replica_args(arch="llama-3.2-vision-11b"))
+        replica.build_engine(_replica_args(arch="llama-3.2-vision-90b"))
 
 
 def test_replica_serves_a_decoder_only_arch():

@@ -698,10 +698,12 @@ def test_cancel_frees_the_slot_and_its_pages(toy):
 
 def test_refusals_name_the_roadmap_item(toy):
     """What the port does not serve yet is refused at construction, naming
-    the queue item that will port it (item 5's prefix cache and overload
-    policy are ported and build, and so are the dense, MoE, Mamba and RWKV
-    decoder-only patterns: cross-attention is what is refused); the paged
-    cache adds no parameter."""
+    the queue item that will port it: the mesh (item 9). Item 5's prefix
+    cache and overload policy are ported and build, and so do the
+    decoder-only patterns, cross-attention among them since item 6.4 is
+    ported; the paged cache adds no parameter."""
+    from repro_torch.models import transformer as ttr
+
     cfg_t, pt, tok = toy["cfg_t"], toy["pt"], toy["tok"]
     with pytest.raises(NotImplementedError, match="item 9"):
         StreamingEngine(pt, cfg_t, tok, EngineConfig(mesh=object()),
@@ -709,11 +711,11 @@ def test_refusals_name_the_roadmap_item(toy):
     for kw in (dict(prefix_cache=True), dict(overload=OverloadPolicy())):
         StreamingEngine(pt, cfg_t, tok, EngineConfig(**kw), device="cpu")
     decoder = dataclasses.replace(cfg_t, family="dense",
-                                  layer_pattern=("xattn",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6.4"):
-        make_backend(decoder, EngineConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6.4"):
-        StreamingEngine(pt, decoder, tok, EngineConfig(), device="cpu")
+                                  layer_pattern=("xattn",), pos="rope")
+    assert make_backend(decoder, EngineConfig()).cfg is decoder
+    StreamingEngine(ttr.init(torch.Generator().manual_seed(0), decoder,
+                             device="cpu"), decoder, tok, EngineConfig(),
+                    device="cpu")
     eng = StreamingEngine(pt, cfg_t, tok, EngineConfig(paged=True),
                           device="cpu")
     assert (len(jax.tree_util.tree_leaves(eng.params))
