@@ -143,7 +143,7 @@ In order:
      fraction printed;
   13. the recurrent phase (``serve_rwkv``): RWKV6-1.6B whole (24 layers,
      d_model 2048, 32 WKV heads of 64, d_ff 7168, vocab 65,536) on the
-     dense cache (a paged engine must be refused); 8 prompts of 64-256
+     dense cache (a paged engine must be refused); 4 prompts of 64-256
      tokens (seed 6) at 4 slots, max_new 32, DL 10, 25 drafts, greedy and
      speculative: speculative == greedy (the checkpoint rollback),
      streaming == one-shot on the first prompt; prints the checkpoint
@@ -177,7 +177,33 @@ In order:
      whose losses part by more than 1e-4; then one ``make_lm_train_step``
      step of every reduced decoder-only arch, the VLM and HuBERT, whose
      loss, metrics and gradients must match within 1e-4;
-  19. print the ``kernels`` JSON line, the card line, and
+  19. the mesh phase (``serve_mesh``): a ``(data 2, model 2)`` world of 4
+     ranks sharing the one card over gloo (the backend rule: NCCL refuses
+     two ranks on one card). First ``repro_torch.launch.serve --mesh 2 2
+     --paged`` under torchrun: SmolLM-135M whole, 8 requests of 128
+     tokens, max_new 48, every check of that script. Then one world
+     serves SmolLM-135M (8 prompts of 24-64 tokens, max_new 12, 2 slots a
+     mode, the four modes, paged and dense) and mt-product (16 queries in
+     the four modes, max_new 32, paged; and tests/test_sharded.py's pool
+     of 52 pages of 8 at 4
+     speculative slots, where a segment runs dry: preemptions > 0, each
+     naming its shard), each against the same engine unsharded on the
+     card in this process: tokens equal on every rank, log-probs within
+     1e-4. Prints walls a request sharded and unsharded (tagged: the 4
+     ranks share one card, so no time here is a multi-card figure),
+     ``shard_stats()``, peak pages by shard, collectives an iteration and
+     each rank's launches; a rank that launched no decode_gqa,
+     paged_decode_gqa, draft_verify or flash_attention fails. Every
+     launch of a rank (and of the unsharded engine) is recorded by kernel
+     and input shape (``mesh_runs.LaunchGroups``): the first launch of
+     each group is held against the kernel's plain version on the same
+     inputs (fp32 within 2e-5 absolute and relative, draft_verify
+     bitwise), the groups must cover every launch counted, and the
+     ranks' draft_verify groups join the main path's shape accounting
+     (timed and held to plain there); these shapes, a rank's local heads
+     (mt-product's H = Kv = 4), rows and segment, no other phase
+     launches;
+  20. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
 Every Molecular Transformer serving phase must launch flash_attention (the
@@ -192,6 +218,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2410,11 +2437,12 @@ MOE = dict(arch="phi3.5-moe-42b-a6.6b", n_layers=4, capacity_factor=8.0,
 MOE_PLAN = {"greedy": (8, 16), "speculative": (8, 16), "beam": (2, 2),
             "speculative_beam": (2, 2)}
 # RWKV6-1.6B whole (24 layers, d_model 2048, 32 WKV heads of 64, d_ff
-# 7168, vocab 65,536) on the dense cache: 8 prompts of 64-256 tokens (seed
-# 6) at 4 slots, max_new 32, DL 10, 25 drafts
-RWKV = dict(arch="rwkv6-1.6b", n_prompts=8, len_lo=64, len_hi=256, seed=6,
+# 7168, vocab 65,536) on the dense cache: 4 prompts of 64-256 tokens (seed
+# 6), one wave of 4 slots (cut from 8 prompts to make room in the script's
+# time for the mesh phase), max_new 32, DL 10, 25 drafts
+RWKV = dict(arch="rwkv6-1.6b", n_prompts=4, len_lo=64, len_hi=256, seed=6,
             max_new=32, n_drafts=25)
-RWKV_PLAN = {"greedy": (4, 8), "speculative": (4, 8)}
+RWKV_PLAN = {"greedy": (4, 4), "speculative": (4, 4)}
 REDUCED_FAMILIES = ("jamba-v0.1-52b", "llama4-maverick-400b-a17b")
 
 
@@ -2586,7 +2614,7 @@ def rollback_bytes(cfg, n_rows: int, T: int) -> int:
 def serve_rwkv(torch) -> dict:
     """The recurrent phase: RWKV6-1.6B whole (``RWKV``; weights drawn on
     the card from a CUDA generator seeded 0) on the dense cache; a paged
-    engine is refused. Greedy and speculative at 4 slots x 8 prompts.
+    engine is refused. Greedy and speculative at 4 slots x 4 prompts.
     Asserts speculative == greedy (the rollback keeps each row's accepted
     checkpoint) and streaming == one-shot on the first prompt; prints the
     walls, the checkpoint bytes a verify pass holds and each pass's peak
@@ -2645,6 +2673,224 @@ def serve_rwkv(torch) -> dict:
     print(f"recurrent phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return {f"recurrent {m}": r for m, r in runs.items()}
+
+
+# the mesh phase: (data 2, model 2) on 4 ranks of the one card, gloo
+MESH = dict(
+    shape=(2, 2), lm_arch="smollm-135m", reduced=False,
+    # the CLI: 8 requests of 128 tokens, max_new 48, all 8 resident (4
+    # slots a shard: a model-axis collective costs ~4-8 ms with 4 ranks on
+    # one card, so fewer iterations of more rows cost least)
+    cli=["--requests", "8", "--prompt-len", "128", "--max-new", "48",
+         "--slots", "8", "--prefill-chunk", "32"],
+    lm_prompts=8, lm_len=(24, 64), lm_kw=dict(
+        max_new=12, max_src=64, draft_len=4, n_drafts=4, n_beams=2,
+        prefill_chunk=32, page_size=16, eos_id=2),
+    mt_queries=16, mt_kw=dict(max_new=32, max_src=128, draft_len=4,
+                              n_drafts=8, n_beams=2, page_size=16),
+    # tests/test_sharded.py's shard-local exhaustion pool
+    exhaust=dict(mode="speculative", draft_len=4, n_drafts=6, max_new=24,
+                 max_src=96, n_slots=4),
+    exhaust_pool=dict(paged=True, page_size=8, n_pages=52))
+MESH_TAG = "4 ranks share one card"
+MESH_KERNELS = ("decode_gqa", "paged_decode_gqa", "draft_verify",
+                "flash_attention")
+
+
+def mesh_cli(torch, device: str) -> dict:
+    """``repro_torch.launch.serve --mesh 2 2 --paged`` under torchrun: 4
+    ranks, the continuous pass sharded, every check of the script."""
+    src = Path(__file__).resolve().parent / "src"
+    data, model = MESH["shape"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(data * model), "-m",
+           "repro_torch.launch.serve", "--arch", MESH["lm_arch"],
+           *(["--reduced"] if MESH["reduced"] else []), "--device", device,
+           "--paged", "--mesh", str(data), str(model), *MESH["cli"]]
+    env = dict(os.environ, PYTHONPATH=str(src),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0 or \
+            "continuous == one-shot speculative: True" not in res.stdout:
+        raise AssertionError(f"mesh CLI failed ({res.returncode}):\n"
+                             f"{res.stdout}\n{res.stderr[-4000:]}")
+    for line in res.stdout.splitlines():
+        print(f"  mesh CLI | {line}", flush=True)
+    print(f"mesh CLI: {' '.join(cmd[1:])}: {wall:.1f} s with the world's "
+          f"start ({MESH_TAG})", flush=True)
+    return {"wall_s": wall}
+
+
+def mesh_compare(label: str, ref: dict, got: list, n_req: int) -> dict:
+    """Every rank's tokens == the unsharded engine's on the card; the
+    largest |d logprob|; walls, shard_stats, collectives and launches a
+    rank printed. A rank with no launch of a kernel on its path fails."""
+    worst = 0.0
+    for r in got:
+        for a, b in zip(ref["results"], r["results"]):
+            if "smiles" in a:
+                if a["smiles"] != b["smiles"]:
+                    raise AssertionError(f"mesh {label} rank {r['rank']}: "
+                                         f"{b['smiles']} != {a['smiles']}")
+                continue
+            if not np.array_equal(a["tokens"], b["tokens"]):
+                raise AssertionError(f"mesh {label} rank {r['rank']}: tokens "
+                                     f"{b['tokens']} != {a['tokens']}")
+            d = float(np.max(np.abs(np.asarray(a["logprobs"], np.float64)
+                                    - np.asarray(b["logprobs"]))))
+            worst = max(worst, d)
+        if r["shard_stats"] != got[0]["shard_stats"]:
+            raise AssertionError(f"mesh {label}: ranks disagree on "
+                                 f"shard_stats")
+    if worst > 1e-4:
+        raise AssertionError(f"mesh {label}: |d logprob| {worst} > 1e-4")
+    ls = got[0]["loop_stats"]
+    it = max(1, ls["n_iterations"])
+    print(f"mesh [{label}]: wall {got[0]['wall_s'] / n_req * 1e3:.2f} ms a "
+          f"request sharded, {ref['wall_s'] / n_req * 1e3:.2f} unsharded "
+          f"({MESH_TAG}); {n_req} requests, {ls['n_iterations']} "
+          f"iterations, tokens == unsharded on every rank, largest |d "
+          f"logprob| {worst:.3e}", flush=True)
+    print(f"  shard_stats {got[0]['shard_stats']}; collectives an "
+          f"iteration: {ls['model_collectives'] / it:.1f} model-axis, "
+          f"{ls['host_collectives'] / it:.2f} host ({ls['bundle_gathers']} "
+          f"bundle gathers); dispatches an iteration "
+          f"{ls['dispatches_per_iteration']:.2f} (unsharded "
+          f"{ref['loop_stats']['dispatches_per_iteration']:.2f}); "
+          f"preemptions {got[0]['preemptions']} shards "
+          f"{got[0]['preempt_shards']}", flush=True)
+    for r in got:
+        print(f"  rank {r['rank']} launches "
+              f"{ {k: r['launches'][k] for k in MESH_KERNELS} }", flush=True)
+    return {"worst": worst, "launches": [r["launches"] for r in got]}
+
+
+def check_mesh_groups(label: str, ref: dict, got: list, seen: dict,
+                      verify: dict) -> None:
+    """Every launch group of a mesh run, each rank's and the unsharded
+    engine's: its first live launch (``mesh_runs.LaunchGroups``) agreed
+    with the kernel's plain version on the same inputs, and the groups
+    cover every launch the run counted. ``seen`` gathers the ranks'
+    (kernel, shape) -> [launches, largest |kernel - plain|, rank runs
+    that held it on a live launch, rank runs that launched it];
+    ``verify`` their draft_verify launches by (N, T, V)."""
+    import math
+
+    for r in (ref, *got):
+        who = "unsharded" if r is ref else f"rank {r['rank']}"
+        covered = dict.fromkeys(MESH_KERNELS, 0)
+        for g in r["groups"]:
+            if not math.isfinite(g["err"]):
+                raise AssertionError(f"mesh {label} {who}: {g['kernel']} at "
+                                     f"{g['shape']} disagrees with its "
+                                     f"plain version on the same inputs")
+            covered[g["kernel"]] += g["launches"]
+        if any(covered[k] != r["launches"][k] for k in MESH_KERNELS):
+            raise AssertionError(f"mesh {label} {who}: launch groups cover "
+                                 f"{covered} of {r['launches']}")
+    for r in got:
+        for g in r["groups"]:
+            key = (g["kernel"], tuple(g["shape"]))
+            acc = seen.setdefault(key, [0, 0.0, 0, 0])
+            acc[0] += g["launches"]
+            acc[1] = max(acc[1], g["err"])
+            acc[2] += int(g["live"])
+            acc[3] += 1
+            if g["kernel"] == "draft_verify":
+                verify[key[1]] = verify.get(key[1], 0) + g["launches"]
+
+
+MESH_GROUP_DIMS = {"decode_gqa": "B T H Kv S hd",
+                   "paged_decode_gqa": "B T H Kv P ps nb hd",
+                   "flash_attention": "B S H Kv hd",
+                   "draft_verify": "N T V"}
+
+
+def serve_mesh(torch, device: str = "cuda") -> dict:
+    """The mesh phase: the CLI under torchrun, then a world of 4 ranks on
+    the card serving SmolLM-135M (mixed modes, paged and dense) and
+    mt-product (four modes, paged; the shard-local exhaustion pool), each
+    against the same engine unsharded in this process."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.mt import product_config, with_vocab
+    from repro_torch.data import SyntheticReactionDataset
+    from repro_torch.launch import mesh_runs
+    from repro_torch.launch.world import World
+
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    out = {"cli": mesh_cli(torch, device)}
+    modes = ("greedy", "speculative", "beam", "speculative_beam")
+    groups = {m: 2 for m in modes}
+    cfg = get_config(MESH["lm_arch"], reduced=MESH["reduced"])
+    lm = dict(family="lm", cfg=cfg, seed=SEED)
+    prompts = lm_prompts(cfg.vocab_size, MESH["lm_prompts"],
+                         *MESH["lm_len"], seed=2)
+    lm_jobs = [(p.tolist(), modes[i % 4]) for i, p in enumerate(prompts)]
+    ds = SyntheticReactionDataset(16, seed=SEED + 1)
+    mt = dict(family="mt", cfg=with_vocab(product_config(),
+                                          ds.tokenizer.vocab_size),
+              seed=SEED, tokenizer=ds.tokenizer.to_dict())
+    mt_jobs = [(ds.pair(i % 16)[0], modes[i % 4])
+               for i in range(MESH["mt_queries"])]
+    ex_jobs = [(ds.pair(i % 8)[0], "speculative") for i in range(8)]
+    runs = [
+        ("SmolLM paged", lm, dict(MESH["lm_kw"], paged=True,
+                                  mode_groups=groups), lm_jobs, {}, None),
+        ("SmolLM dense", lm, dict(MESH["lm_kw"], mode_groups=groups,
+                                  page_size=16), lm_jobs, {}, None),
+        ("mt-product paged", mt, dict(MESH["mt_kw"], paged=True,
+                                      mode_groups=groups), mt_jobs, {},
+         None),
+        ("mt-product exhaustion", mt, MESH["exhaust"], ex_jobs,
+         {"predict": True}, MESH["exhaust_pool"])]
+    per_rank = [dict.fromkeys(MESH_KERNELS, 0) for _ in range(4)]
+    seen: dict = {}
+    verify: dict = {}
+    with World(4, device=device) as world:
+        print(f"mesh world: 4 ranks, backend {world.backend} ({MESH_TAG})",
+              flush=True)
+        for label, model, kw, jobs, extra, pool in runs:
+            ref = mesh_runs.serve(model, kw, jobs, mesh=None, on_card=on_card,
+                                  **extra)
+            got = world.run("repro_torch.launch.mesh_runs:serve",
+                            model=model, engine=dict(kw, **(pool or {})),
+                            jobs=jobs, mesh=MESH["shape"], on_card=on_card,
+                            **extra)
+            out[label] = mesh_compare(label, ref, got, len(jobs))
+            check_mesh_groups(label, ref, got, seen, verify)
+            if pool is not None:
+                r0 = got[0]
+                if r0["preemptions"] == 0 or None in r0["preempt_shards"]:
+                    raise AssertionError(
+                        f"mesh {label}: preemptions {r0['preemptions']}, "
+                        f"shards named {r0['preempt_shards']}")
+                print(f"  peak pages by shard "
+                      f"{r0['shard_stats']['peak_pages_by_shard']} of "
+                      f"{r0['shard_stats']['shard_capacity']}", flush=True)
+            for acc, r in zip(per_rank, got):
+                for k in MESH_KERNELS:
+                    acc[k] += r["launches"][k]
+    for rank, acc in enumerate(per_rank):
+        if any(n == 0 for n in acc.values()):
+            raise AssertionError(f"mesh phase: rank {rank} launched no "
+                                 f"kernel of its path: {acc}")
+    print("mesh launch groups over the 4 ranks (on every rank the first "
+          "launch of each with a live query row, held against the plain "
+          "version on the same inputs):", flush=True)
+    for (k, shape), (n, err, live, runs) in sorted(seen.items()):
+        dims = dict(zip(MESH_GROUP_DIMS[k].split(), shape))
+        print(f"  {k} {dims}: {n} launches, largest |kernel - plain| "
+              f"{err:.3e}, held on a live launch in {live} of the {runs} "
+              f"rank runs that launched it", flush=True)
+    print(f"mesh phase: every rank launched {list(MESH_KERNELS)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out["per_rank"] = per_rank
+    out["verify_shapes"] = verify
+    return out
 
 
 def serve_reduced_families(torch) -> dict:
@@ -3723,13 +3969,6 @@ def main() -> int:
         if any(counts[k] == 0 for k in needed):
             raise AssertionError(f"{phase} phase: launches {counts}")
         print(f"{phase} phase launches: {counts}", flush=True)
-    if sum(main_shapes.values()) != main_launches["draft_verify"]:
-        raise AssertionError(f"draft_verify shapes {main_shapes} do not add "
-                             f"up to its {main_launches['draft_verify']} "
-                             f"launches")
-    print_verify_gaps(torch, kern["draft_verify"]["shapes"], main_shapes,
-                      floor_ms, ab)
-
     # -- reference: the card against the CPU's plain path, tiny model ----------
     tcfg = tiny_config(vocab, depth=2, d_model=64)
     cpu_params = s2s.init(torch.Generator().manual_seed(SEED + 2), tcfg,
@@ -3782,6 +4021,20 @@ def main() -> int:
     check_train_step(torch, ds, tcfg, cpu_params)
     check_train_drift(torch, ds, tcfg, cpu_params)
     check_lm_train_steps(torch)
+
+    # -- the mesh: 4 ranks of a (data 2, model 2) world on the one card -----
+    mesh = serve_mesh(torch)
+    for acc in mesh["per_rank"]:
+        for k, n in acc.items():
+            main_launches[k] += n
+    add_shapes({"shapes": mesh["verify_shapes"]})
+    if sum(main_shapes.values()) != main_launches["draft_verify"]:
+        raise AssertionError(f"draft_verify shapes {main_shapes} do not add "
+                             f"up to its {main_launches['draft_verify']} "
+                             f"launches")
+    print_verify_gaps(torch, kern["draft_verify"]["shapes"], main_shapes,
+                      floor_ms, ab)
+
 
     sources = {"decode_gqa": ("src/repro_torch/csrc/decode_gqa.cu",
                               "src/repro/kernels/decode_gqa/kernel.py:72"),

@@ -278,7 +278,8 @@ class PoolExhausted(RuntimeError):
     by deferring admission or preempting the youngest resident request:
     exhaustion is a scheduling event, never a crash. ``group`` names the
     slot group whose row could not be mapped (None outside grouped
-    sessions); ``shard`` is always None here (no sharded sessions yet)."""
+    sessions); ``shard`` names the data shard whose page-pool segment ran
+    short (None on an unsharded pool)."""
 
     def __init__(self, msg: str, group=None, shard=None):
         super().__init__(msg)
@@ -572,6 +573,63 @@ class PageAllocator:
             "page leaked"
 
 
+class ShardedPageAllocator(PageAllocator):
+    """Per-shard view over ONE page pool split across a mesh's data axis,
+    the port of ``repro.core.session.ShardedPageAllocator``: shard ``s``
+    owns the contiguous page segment ``[s * pages_per_shard, (s + 1) *
+    pages_per_shard)``; the reserved trash page 0 sits inside shard 0's
+    segment and is never allocated.
+
+    Host accounting stays global (admission sizing and pinning; the device
+    page plan allocates, segment-locally when given the shard map). The
+    subclass adds the shard geometry the engine's placement, admission and
+    preemption key on: which shard owns a page, each shard's usable
+    capacity, per-shard peaks, and the check that EVERY shard's segment
+    covers one slot's worst case (what makes per-shard deferral plus
+    shard-local preemption deadlock-free, as the global bound does for one
+    pool)."""
+
+    def __init__(self, spec, *, n_pages: int, page_size: int, n_shards: int,
+                 row_lens: dict | None = None,
+                 prefill_blocks: dict | None = None):
+        super().__init__(spec, n_pages=n_pages, page_size=page_size,
+                         row_lens=row_lens, prefill_blocks=prefill_blocks)
+        self.n_shards = int(n_shards)
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards={n_shards} must be >= 1")
+        if self.n_pages % self.n_shards:
+            raise ValueError(
+                f"n_pages={n_pages} must divide evenly across "
+                f"{self.n_shards} data shards (contiguous equal page "
+                f"segments let the device plan allocate shard-locally)")
+        self.pages_per_shard = self.n_pages // self.n_shards
+        need_one_slot = max(self._slot_worst.values())
+        if self.shard_capacity(0) < need_one_slot:
+            raise ValueError(
+                f"n_pages={n_pages} over {self.n_shards} shards leaves "
+                f"{self.shard_capacity(0)} usable pages in shard 0, below "
+                f"one slot's worst case ({need_one_slot}); shard-local "
+                f"preemption could not make progress")
+        self.peak_pages_by_shard = [0] * self.n_shards
+
+    def shard_of_page(self, page: int) -> int:
+        """The shard owning a page id."""
+        return int(page) // self.pages_per_shard
+
+    def shard_capacity(self, shard: int) -> int:
+        """Allocatable pages in a shard's segment (shard 0 gives one to the
+        trash)."""
+        return self.pages_per_shard - (1 if shard == 0 else 0)
+
+    def note_peak(self, free_by_shard) -> None:
+        """Fold one bundle's per-shard free counts into the per-shard
+        page high-water marks."""
+        for s, free in enumerate(free_by_shard):
+            used = self.shard_capacity(s) - int(free)
+            if used > self.peak_pages_by_shard[s]:
+                self.peak_pages_by_shard[s] = used
+
+
 # ---------------------------------------------------------------------------
 # cross-request prefix page sharing: radix tree over committed pages
 
@@ -715,14 +773,17 @@ class RadixPageCache:
         self.evicted += 1
         return node.cell
 
-    def evict_lru(self, n: int) -> list[tuple[int, int]]:
+    def evict_lru(self, n: int, where=None) -> list[tuple[int, int]]:
         """Evict up to ``n`` least-recently-used inactive LEAF nodes (leaf
         first keeps the tree prefix-closed). Returns the ``(cell, page)``
-        pairs whose index cells the engine must clear."""
+        pairs whose index cells the engine must clear. ``where`` narrows
+        the victims (a sharded engine reclaims from the short page-pool
+        shard: another shard's pages would not help it)."""
         out: list[tuple[int, int]] = []
         while len(out) < n:
             victims = [nd for nd in self._nodes_by_cell.values()
-                       if not nd.children and nd.active == 0]
+                       if not nd.children and nd.active == 0
+                       and (where is None or where(nd))]
             if not victims:
                 break
             victims.sort(key=lambda nd: nd.last_used)
@@ -838,6 +899,11 @@ class DevicePagePlan(NamedTuple):
     copy: torch.Tensor           # (L,) bool draft-boundary copy-on-write
     cur: torch.Tensor            # (L,) int32 current page (-1 = unmapped)
     new: torch.Tensor            # (L,) int32 allocated page (if ``need``)
+    # sharded sessions only (None on one pool): per-data-shard accounting
+    # over the contiguous page segments
+    need_by_shard: torch.Tensor | None = None       # (n_shards,) int32
+    n_free_by_shard: torch.Tensor | None = None     # (n_shards,) int32
+    exhausted_by_shard: torch.Tensor | None = None  # (n_shards,) bool
 
 
 def _page_refs(bt: torch.Tensor, n_pages: int) -> torch.Tensor:
@@ -861,8 +927,20 @@ def device_free_pages(cache, n_pages: int) -> torch.Tensor:
     return free.sum(dtype=_I32)
 
 
+def device_free_pages_by_shard(cache, n_pages: int,
+                               n_shards: int) -> torch.Tensor:
+    """(n_shards,) int32: free pages in each contiguous shard segment (shard
+    ``s`` owns pages ``[s * pps, (s + 1) * pps)``, the trash page inside
+    shard 0's): the per-shard mirrored-counter feed."""
+    refs = _page_refs(_block_table(cache), n_pages)
+    free = (refs == 0) & (torch.arange(n_pages, device=refs.device)
+                          != TRASH_PAGE)
+    return free.reshape(n_shards, -1).sum(1, dtype=_I32)
+
+
 def device_page_plan(specs, blocks, page_size: int, n_pages: int,
-                     gstate: GroupedState, prefill=None) -> DevicePagePlan:
+                     gstate: GroupedState, prefill=None,
+                     shards=None) -> DevicePagePlan:
     """Plan this iteration's page maintenance on the device.
 
     ``specs``/``blocks`` are the groups' specs and logical block counts.
@@ -877,7 +955,15 @@ def device_page_plan(specs, blocks, page_size: int, n_pages: int,
     (the host walk visits rows in ascending order, so its LAST visitor sees
     refs == 1 and keeps the page). Fresh pages come off an ascending free
     stack; page identity never affects tokens (attention masks on stored
-    positions), only the count matters for accounting."""
+    positions), only the count matters for accounting.
+
+    ``shards`` is None (one free stack) or ``(n_shards, row_shard)`` with
+    ``row_shard`` a host array giving each table row's data shard.
+    Allocation is then SEGMENT-LOCAL: shard ``s`` owns pages ``[s * pps,
+    (s + 1) * pps)`` and a lane draws from its row's shard stack only, so
+    one shard's burst never takes another shard's pages. Exhaustion stays
+    all-or-nothing and global (any short segment replays the whole step);
+    ``exhausted_by_shard`` says which segments are short."""
     ps, P = int(page_size), int(n_pages)
     bt = _block_table(gstate.cache)
     dev = bt.device
@@ -958,11 +1044,41 @@ def device_page_plan(specs, blocks, page_size: int, n_pages: int,
     need_i = need.to(_I32)
     need_by_group = torch.zeros((len(specs),), dtype=_I32, device=dev)
     need_by_group.index_add_(0, gsel, need_i)
-    ni = torch.cumsum(need_i, 0) - 1
-    new = stack[torch.where(need, ni, 0).clamp(0, P - 1).long()]
-    return DevicePagePlan(exhausted=need_i.sum() > n_free, n_free=n_free,
+    if shards is None:
+        ni = torch.cumsum(need_i, 0) - 1
+        new = stack[torch.where(need, ni, 0).clamp(0, P - 1).long()]
+        return DevicePagePlan(exhausted=need_i.sum() > n_free, n_free=n_free,
+                              need_by_group=need_by_group, rows=r, blocks=jb,
+                              need=need, copy=copy, cur=cur, new=new)
+    # segment-local allocation: per-shard ascending free stacks, each
+    # needing lane ranked WITHIN its row's shard (a lane x shard one-hot
+    # cumsum: L and n_shards are both small)
+    n_sh, row_shard = int(shards[0]), shards[1]
+    if P % n_sh:
+        raise ValueError(f"n_pages={P} must divide across {n_sh} shards")
+    pps = P // n_sh
+    free_sh = free.reshape(n_sh, pps)
+    n_free_sh = free_sh.sum(1, dtype=_I32)
+    rank_sh = torch.cumsum(free_sh.to(_I32), 1) - 1
+    srow = torch.arange(n_sh, device=dev)[:, None].expand(n_sh, pps)
+    stack_sh = torch.full((n_sh, pps + 1), P, dtype=_I32, device=dev)
+    stack_sh[srow, torch.where(free_sh, rank_sh, pps).long()] = ar.reshape(
+        n_sh, pps)
+    stack_sh = stack_sh[:, :pps]
+    lane_sh = torch.as_tensor(np.asarray(row_shard), dtype=torch.long,
+                              device=dev)[r.long()]
+    onehot = ((lane_sh[:, None] == torch.arange(n_sh, device=dev)[None, :])
+              & need[:, None]).to(_I32)                   # (L, n_shards)
+    ni = (torch.cumsum(onehot, 0) - 1).gather(1, lane_sh[:, None])[:, 0]
+    new = stack_sh[lane_sh, torch.where(need, ni, 0).clamp(0, pps - 1).long()]
+    need_by_shard = onehot.sum(0, dtype=_I32)
+    exhausted_by_shard = need_by_shard > n_free_sh
+    return DevicePagePlan(exhausted=exhausted_by_shard.any(), n_free=n_free,
                           need_by_group=need_by_group, rows=r, blocks=jb,
-                          need=need, copy=copy, cur=cur, new=new)
+                          need=need, copy=copy, cur=cur, new=new,
+                          need_by_shard=need_by_shard,
+                          n_free_by_shard=n_free_sh,
+                          exhausted_by_shard=exhausted_by_shard)
 
 
 def apply_page_plan(cache, plan: DevicePagePlan, n_copy: int | None = None):
@@ -1000,6 +1116,57 @@ def apply_page_plan(cache, plan: DevicePagePlan, n_copy: int | None = None):
         node.pos[:, fresh] = -1
         node.block_tables.copy_(bt_new.expand_as(node.block_tables))
     return cache
+
+
+def segment_pages(pages: torch.Tensor, shard: int, pps: int) -> torch.Tensor:
+    """Global page ids -> ids in shard ``shard``'s own pool: its segment
+    ``[shard * pps, (shard + 1) * pps)`` at 1 .. pps, with local page 0 the
+    rank's own trash page; -1 for unmapped entries and another shard's
+    pages (they read the trash page, masked)."""
+    lo = shard * pps
+    mine = (pages >= lo) & (pages < lo + pps)
+    return torch.where(mine, pages - lo + 1, -1).to(_I32)
+
+
+def global_pages(local: torch.Tensor, shard: int, pps: int) -> torch.Tensor:
+    """``segment_pages``'s inverse on its own entries (trash and unmapped
+    entries -> -1)."""
+    return torch.where(local > 0, local - 1 + shard * pps, -1).to(_I32)
+
+
+def apply_page_plan_segment(tables, pools, plan: DevicePagePlan, shard: int,
+                            pps: int, n_copy: int):
+    """Apply a non-exhausted sharded plan, in place, on one rank of data
+    shard ``shard``: every table entry the plan maps goes into the
+    replicated global tables (``tables``: paged nodes holding them), and
+    the page copies and fresh-page marks of the shard's own segment into
+    its pools (``pools``: the rank's paged nodes, ``segment_pages`` ids).
+    ``n_copy``: the plan's copy lanes inside the segment, as the host read
+    them. Lanes of other shards touch the local trash page only."""
+    nodes = paged_cache_entries(tables)
+    bt = nodes[0].block_tables[0]
+    n_rows, nb = bt.shape
+    cell = torch.where(plan.need, plan.rows.long() * nb + plan.blocks.long(),
+                       n_rows * nb)
+    flat = torch.cat([bt.reshape(-1), bt.new_zeros(1)])
+    flat[cell] = plan.new
+    bt_new = flat[:-1].view(n_rows, nb)
+    for node in nodes:
+        node.block_tables.copy_(bt_new.expand_as(node.block_tables))
+    new_l = segment_pages(plan.new, shard, pps)
+    mine = plan.need & (new_l > 0)
+    fresh = torch.where(mine & ~plan.copy, new_l, TRASH_PAGE).long()
+    copying = mine & plan.copy
+    lanes = torch.argsort((~copying).to(torch.int8), stable=True)[:n_copy]
+    copy_dst = new_l[lanes].long()
+    copy_src = segment_pages(plan.cur[lanes], shard, pps).long()
+    for node in paged_cache_entries(pools):
+        if n_copy:
+            node.k_pool[:, copy_dst] = node.k_pool[:, copy_src]
+            node.v_pool[:, copy_dst] = node.v_pool[:, copy_src]
+            node.pos[:, copy_dst] = node.pos[:, copy_src]
+        node.pos[:, fresh] = -1
+    return tables
 
 
 def _is_stop_token(spec: SessionSpec, tok: torch.Tensor,

@@ -39,7 +39,9 @@ from repro_torch.kernels.decode_gqa.ops import (decode_gqa_attention,
                                                paged_decode_gqa_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.kernels.flash_attention.ref import visible_mask
-from repro_torch.models.layers import apply_norm, apply_rope, dense, dense_init
+from repro_torch.models.layers import (apply_norm, apply_rope, dense,
+                                       dense_init, dense_row)
+from repro_torch.sharding import ctx
 
 _NEG_INF = -1e30
 
@@ -218,12 +220,19 @@ def _gqa_attend(q, k, v, mask, *, q_per_kv: int):
 
 
 def _project_qkv(p: dict, cfg: ModelConfig, x, kv_input, *, cross: bool):
+    """q, k, v with the heads the weights hold: every head, or this rank's
+    under a tensor-parallel mesh (a whole ``wk`` / ``wv`` beside a split
+    ``wq`` is cut to the kv heads the rank's query heads read)."""
     B, T = x.shape[:2]
     hd = cfg.head_dim
     n_kv = cfg.n_heads if cross else cfg.n_kv_heads
-    q = dense(p["wq"], x).reshape(B, T, cfg.n_heads, hd)
-    k = dense(p["wk"], kv_input).reshape(B, kv_input.shape[1], n_kv, hd)
-    v = dense(p["wv"], kv_input).reshape(B, kv_input.shape[1], n_kv, hd)
+    q = dense(p["wq"], x).reshape(B, T, -1, hd)
+    k = dense(p["wk"], kv_input).reshape(B, kv_input.shape[1], -1, hd)
+    v = dense(p["wv"], kv_input).reshape(B, kv_input.shape[1], -1, hd)
+    tp = ctx.current()
+    if tp is not None and q.shape[2] < cfg.n_heads and k.shape[2] == n_kv:
+        lo, hi = ctx.kv_heads_for(tp.rank, q.shape[2], cfg.n_heads, n_kv)
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm")
         k = apply_norm(p["k_norm"], k, "rmsnorm")
@@ -275,7 +284,7 @@ def attention(p: dict, cfg: ModelConfig, x, *, positions=None,
         mean_v = v.float().mean(1).repeat_interleave(cfg.q_per_kv, dim=1)
         out = torch.where(blind[:, :, None, None],
                           mean_v[:, None].to(out.dtype), out)
-    return dense(p["wo"], out.reshape(B, T, -1))
+    return dense_row(p["wo"], out.reshape(B, T, -1))
 
 
 def cross_attention(p: dict, cfg: ModelConfig, x, memory, *,
@@ -289,7 +298,7 @@ def cross_attention(p: dict, cfg: ModelConfig, x, memory, *,
     if memory_mask is not None:
         mask = mask & memory_mask[:, None, :]
     out = _gqa_attend(q, k, v, mask[:, None, None], q_per_kv=1)
-    return dense(p["wo"], out.reshape(B, T, -1))
+    return dense_row(p["wo"], out.reshape(B, T, -1))
 
 
 def memory_kv(p: dict, cfg: ModelConfig, memory) -> dict:
@@ -297,8 +306,8 @@ def memory_kv(p: dict, cfg: ModelConfig, memory) -> dict:
     memory (prefill time)."""
     B, M = memory.shape[:2]
     hd = cfg.head_dim
-    k = dense(p["wk"], memory).reshape(B, M, cfg.n_heads, hd)
-    v = dense(p["wv"], memory).reshape(B, M, cfg.n_heads, hd)
+    k = dense(p["wk"], memory).reshape(B, M, -1, hd)
+    v = dense(p["wv"], memory).reshape(B, M, -1, hd)
     if cfg.qk_norm:
         k = apply_norm(p["k_norm"], k, "rmsnorm")
     return {"mk": k, "mv": v}
@@ -308,7 +317,7 @@ def cached_cross_attention(p: dict, cfg: ModelConfig, x, cache: dict, *,
                            memory_mask=None) -> torch.Tensor:
     """Cross-attention against precomputed memory K/V (decode time)."""
     B, T = x.shape[:2]
-    q = dense(p["wq"], x).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    q = dense(p["wq"], x).reshape(B, T, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm")
     mask = torch.ones((B, T, cache["mk"].shape[1]), dtype=torch.bool,
@@ -317,7 +326,7 @@ def cached_cross_attention(p: dict, cfg: ModelConfig, x, cache: dict, *,
         mask = mask & memory_mask[:, None, :]
     out = _gqa_attend(q, cache["mk"], cache["mv"], mask[:, None, None],
                       q_per_kv=1)
-    return dense(p["wo"], out.reshape(B, T, -1))
+    return dense_row(p["wo"], out.reshape(B, T, -1))
 
 
 def cached_attention(p: dict, cfg: ModelConfig, x, cache, positions, *,
@@ -373,7 +382,7 @@ def cached_attention(p: dict, cfg: ModelConfig, x, cache, positions, *,
                           _row_mean_v(cache).repeat_interleave(
                               cfg.q_per_kv, dim=1)[:, None].to(out.dtype),
                           out)
-    return dense(p["wo"], out.reshape(B, T, -1)), cache
+    return dense_row(p["wo"], out.reshape(B, T, -1)), cache
 
 
 def _row_mean_v(cache) -> torch.Tensor:

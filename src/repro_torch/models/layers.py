@@ -4,6 +4,11 @@ the decoder-only transformer.
 Params are nested dicts of tensors, with the JAX package's names and
 layouts: a dense ``w`` is ``(d_in, d_out)`` and is applied as ``x @ w``, so
 ``repro_torch.bridge`` carries JAX params across without transposes.
+
+Under a serving mesh's tensor-parallel context (``repro_torch.sharding.
+ctx``) the row-parallel projections (``dense_row``), the embedding and the
+output heads reduce or gather over the model axis; outside it they are
+the plain ops.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import ctx
 
 # ---------------------------------------------------------------------------
 # init helpers (explicit generator: same distributions as the JAX init,
@@ -43,6 +50,17 @@ def dense_init(gen, d_in: int, d_out: int, *, use_bias: bool, device,
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def dense_row(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``dense`` for a projection whose input dim may be split over the
+    model axis (``wo``, ``w_out``): the partial products are summed over
+    the axis before the (whole) bias."""
+    w = p["w"]
+    y = ctx.row_reduce(w, ctx.row_input(w, x) @ w)
     if "b" in p:
         y = y + p["b"]
     return y
@@ -155,7 +173,7 @@ def ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(dense(p["w_gate"], x)) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return dense(p["w_out"], h)
+    return dense_row(p["w_out"], h)
 
 
 # ---------------------------------------------------------------------------
@@ -167,12 +185,17 @@ def embed_init(gen, vocab: int, d_model: int, device) -> dict:
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens.long()]
+    return ctx.embed_lookup(p["embed"], tokens)
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied output projection: ``x @ embed.T``."""
-    return x @ p["embed"].T
+    return ctx.gather_last(p["embed"], x @ p["embed"].T)
+
+
+def vocab_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The output head ``x @ w_vocab``, whole over the vocabulary."""
+    return ctx.gather_last(p["w_vocab"], x @ p["w_vocab"])
 
 
 def logits_init(gen, d_model: int, vocab: int, device) -> dict:

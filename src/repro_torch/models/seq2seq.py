@@ -25,7 +25,7 @@ from repro_torch.models.attention import (KVCache, PagedKVCache, attention,
                                           cached_attention, cross_attention)
 from repro_torch.models.layers import (apply_norm, embed, embed_init, ffn,
                                        ffn_init, logits_init, norm_init,
-                                       sinusoidal_positions)
+                                       sinusoidal_positions, vocab_logits)
 
 # ---------------------------------------------------------------------------
 # init
@@ -212,7 +212,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions, *,
             memory_mask=memory_mask)
         x = x + ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm))
     x = apply_norm(params["dec_norm"], x, cfg.norm)
-    return x @ params["lm_head"]["w_vocab"], cache
+    return vocab_logits(params["lm_head"], x), cache
 
 
 def commit_cache(cfg: ModelConfig, cache, n_keep):

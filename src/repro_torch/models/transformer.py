@@ -60,7 +60,7 @@ from repro_torch.models.attention import (KVCache, PagedKVCache, attention,
                                           cached_attention, cross_attention)
 from repro_torch.models.layers import (apply_norm, embed, embed_init, ffn,
                                        ffn_init, logits_init, norm_init,
-                                       rope_tables, unembed)
+                                       rope_tables, unembed, vocab_logits)
 
 RECURRENT = ("mamba", "rwkv")
 _NEEDS = {"moe": "moe", "mamba": "mamba", "rwkv": "rwkv"}
@@ -383,7 +383,7 @@ def _logits_out(params, cfg: ModelConfig, x):
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if cfg.tie_embeddings:
         return unembed(params["tok"], x)
-    return x @ params["lm_head"]["w_vocab"]
+    return vocab_logits(params["lm_head"], x)
 
 
 # ---------------------------------------------------------------------------

@@ -154,9 +154,12 @@ class Seq2SeqBackend:
     def row_len(self, spec: SessionSpec) -> int:
         return spec.cache_len
 
-    def init_cache(self, n_rows: int, row_len: int, paged=None, *, device):
+    def init_cache(self, n_rows: int, row_len: int, paged=None, *, device,
+                   cfg=None):
+        """``cfg``: the config whose head counts the cache holds (a mesh
+        rank's own heads), default the model's."""
         return s2s.init_cache(
-            self.cfg, n_rows, row_len, memory_len=self.ecfg.max_src,
+            cfg or self.cfg, n_rows, row_len, memory_len=self.ecfg.max_src,
             memory_mask=np.zeros((n_rows, self.ecfg.max_src), bool),
             paged=paged, device=device)
 
@@ -266,13 +269,16 @@ class DecoderOnlyBackend:
         # the prompt shares the row with the generated tokens
         return self.ecfg.max_src + spec.cache_len
 
-    def init_cache(self, n_rows: int, row_len: int, paged=None, *, device):
+    def init_cache(self, n_rows: int, row_len: int, paged=None, *, device,
+                   cfg=None):
+        """``cfg``: the config whose head counts the cache holds (a mesh
+        rank's own heads), default the model's."""
         if paged is not None and not self.pageable():
             raise ValueError(
                 f"{self.cfg.name}: no attention positions to page "
                 f"(layer_pattern={self.cfg.layer_pattern}); recurrent state "
                 f"is O(1) per row — serve this architecture dense")
-        return tr.init_cache(self.cfg, n_rows, row_len, paged=paged,
+        return tr.init_cache(cfg or self.cfg, n_rows, row_len, paged=paged,
                              device=device)
 
     def pageable(self) -> bool:

@@ -33,8 +33,32 @@ JAX's one donated jitted megastep becomes an eager PyTorch function over
 tensors the engine updates in place. A steady-state iteration of a paged
 session reads the card twice: the plan's exhaustion flag (and copy count)
 before the plan is applied, and the iteration's small output bundle after
-the step; a dense session reads once. Mesh sharding is not ported yet
-and is refused at construction.
+the step; a dense session reads once.
+
+``EngineConfig(mesh=make_serving_mesh((data, model)))`` shards the session
+over a world of ranks (``repro_torch.launch``), as the JAX package's
+sharded engine shards it over devices: rank ``(d, m)`` holds data shard
+``d``'s slots (each group's local slots ``[d * per, (d + 1) * per)``),
+their cache rows and the page pool's segment ``d`` (global pages ``[d *
+pps, (d + 1) * pps)``, plus a trash page of its own), and model shard
+``m`` of the weights (``serving_param_shardings``: the layers reduce over
+the model axis, ``repro_torch.sharding.ctx``). Every rank runs the same
+host scheduler and the same device page plan over replicated block
+tables (index rows pin pages of every shard); a rank runs the step over
+its own rows only, through a view of the tables in its segment's local
+page ids. After the step the small per-slot bundle and the rank's rows'
+tables are gathered over the data axis on the host, once an iteration,
+so every rank's scheduler sees every slot. Admissions write on the ranks
+of the owning shard; every rank edits the replicated tables. A finished
+slot is read on its owner and broadcast. The realtime clock is rank 0's,
+broadcast at each read. Tokens equal the unsharded engine's. Refused on a
+mesh, by name (ROADMAP.md Queue 1 item 9b): MoE, Mamba, RWKV or
+cross-attention positions, the audio family, and ``FrontDoorServer`` /
+the fleet over a mesh engine. Unlike the JAX package's, a radix prefix
+match is cut at its first page from another shard (a rank reads only
+its own segment): the cut suffix is prefilled, and the tokens are the
+cold run's; and the seq2seq encoder-output LRU is a rank's own (a rank
+encodes its shard's admissions only), so are its ``prefix_stats()``.
 
 The decoder-only backend (``DecoderOnlyBackend``, a dense GQA language
 model served with ``tokenizer=None`` and ``EngineConfig.eos_id``) admits by
@@ -78,7 +102,7 @@ import dataclasses
 import math
 import time
 import warnings
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -88,19 +112,25 @@ from repro_torch.core import (batch_drafts, beam_search, extract_drafts,
                               greedy_decode, seq2seq_handle,
                               speculative_beam_search,
                               speculative_greedy_decode)
-from repro_torch.core.session import (PageAllocator, PoolExhausted,
-                                      RadixPageCache, SessionSpec,
+from repro_torch.core.session import (GroupedState, PageAllocator,
+                                      PoolExhausted, RadixPageCache,
+                                      SessionSpec, ShardedPageAllocator,
                                       alias_prefix_pages, apply_page_plan,
+                                      apply_page_plan_segment,
                                       clear_index_cells, device_free_pages,
-                                      device_page_plan, grouped_init_state,
-                                      grouped_step, radix_cell_coords,
-                                      read_row_pages, release_slot,
-                                      reset_slot, unmap_cache_rows,
+                                      device_free_pages_by_shard,
+                                      device_page_plan, global_pages,
+                                      grouped_init_state, grouped_step,
+                                      paged_cache_entries,
+                                      radix_cell_coords, read_row_pages,
+                                      release_slot, reset_slot,
+                                      segment_pages, unmap_cache_rows,
                                       write_index_cells)
 from repro_torch.data.tokenizer import SmilesTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models import seq2seq as s2s
 from repro_torch.models import transformer as tr
+from repro_torch.models.attention import PagedKVCache
 from repro_torch.serving.api import (MAX_STOP_IDS, GenerationParams,
                                      RequestCancelled, RequestHandle,
                                      RequestRejected, RequestSpec,
@@ -108,6 +138,7 @@ from repro_torch.serving.api import (MAX_STOP_IDS, GenerationParams,
 from repro_torch.serving.backend import make_backend
 from repro_torch.serving.scheduler import (ContinuousScheduler,
                                            OverloadPolicy, SlotResult)
+from repro_torch.sharding import ctx as shard_ctx
 
 MODES = ("greedy", "speculative", "beam", "speculative_beam")
 
@@ -116,9 +147,7 @@ MODES = ("greedy", "speculative", "beam", "speculative_beam")
 class EngineConfig:
     """The fields of ``repro.serving.engine.EngineConfig`` the port serves:
     the one-shot decode knobs and the ``StreamingEngine``'s slots, mode
-    groups, paged cache, prefix reuse and overload policy. ``mesh`` exists
-    so that a configuration asking for it is refused at engine
-    construction (not ported yet: ROADMAP Queue 1 item 9)."""
+    groups, paged cache, prefix reuse, overload policy and mesh."""
 
     mode: str = "speculative"        # greedy|speculative|beam|speculative_beam
     draft_len: int = 10              # the paper's best DL
@@ -157,7 +186,11 @@ class EngineConfig:
     prefix_cache_entries: int = 128
     # priority aging, deadline-aware preemption, load shedding; None = off
     overload: OverloadPolicy | None = None
-    mesh: object | None = None       # refused by StreamingEngine
+    # sharded serving (StreamingEngine): a ("data", "model") DeviceMesh
+    # (repro_torch.launch.mesh.make_serving_mesh) over the world this rank
+    # belongs to. Slots and page-pool segments split over "data", params
+    # over "model"; tokens equal the unsharded engine's. None = one device.
+    mesh: object | None = None
 
     def __post_init__(self):
         for name, lo in (("max_new", 1), ("max_src", 1), ("draft_len", 0),
@@ -335,6 +368,12 @@ class ReactionEngine:
 _I32 = torch.int32
 
 
+class _PlanInputs(NamedTuple):
+    """A group's page-plan inputs for every slot (a mesh rank's view)."""
+    pos: torch.Tensor      # (S, K)
+    active: torch.Tensor   # (S,)
+
+
 class StreamingEngine:
     """Continuous-batching engine: S decode slots in per-mode slot groups
     over one model cache (dense rows or a paged pool), one step per
@@ -357,12 +396,16 @@ class StreamingEngine:
                  engine_cfg: EngineConfig | None = None, *,
                  backend=None, device=None):
         self.ecfg = ecfg = engine_cfg or EngineConfig()
-        if ecfg.mesh is not None:
-            raise NotImplementedError(
-                "EngineConfig.mesh is not ported yet (ROADMAP.md Queue 1 "
-                "item 9)")
+        # sharded serving: n_shards data shards each own a contiguous local
+        # slot range of every group and a contiguous page-pool segment;
+        # params shard over the mesh's model axis
+        self.mesh = ecfg.mesh
+        self.n_shards, self._shard, self._tp = 1, 0, None
+        if self.mesh is not None:
+            self._join_mesh(cfg)
         self.device = resolve_device(device)
-        self.params = _to(params, self.device)
+        self.params = (_to(params, self.device) if self.mesh is None
+                       else self._lay_out_params(params, cfg))
         self.cfg = cfg
         self.tok = tokenizer
         self.backend = backend or make_backend(cfg, ecfg, tokenizer)
@@ -433,9 +476,34 @@ class StreamingEngine:
                              if ecfg.prefix_cache_pages is not None
                              else 2 * self.n_slots * self._prefix_pad)
             self._n_index_rows = -(-self._n_cells // self._table_blocks)
+        # shard maps: global slot -> data shard, table row -> data shard
+        # (index rows stay on shard 0: their cells only pin pages, the page
+        # plan never allocates for them). Shard s owns local slots [s*per,
+        # (s+1)*per) of each group.
+        self._shard_of_slot: dict[int, int] = {}
+        self._row_shard: np.ndarray | None = None
+        if self.n_shards > 1:
+            rs = np.zeros((self.n_rows + self._n_index_rows,), np.int32)
+            for mode, spec in self._groups.items():
+                if spec.n_slots % self.n_shards:
+                    raise ValueError(
+                        f"mode group {mode!r}: n_slots={spec.n_slots} must "
+                        f"divide evenly over the mesh's {self.n_shards} "
+                        f"data shards")
+                per = spec.n_slots // self.n_shards
+                base, lo = self._slot_base[mode], self._row_lo[mode]
+                for i in range(spec.n_slots):
+                    sh = i // per
+                    self._shard_of_slot[base + i] = sh
+                    r0 = lo + i * spec.rows_per_slot
+                    rs[r0:r0 + spec.rows_per_slot] = sh
+            self._row_shard = rs
+        if self.mesh is not None:
+            self._local_geometry()
         # loop instrumentation: steps issued, per-iteration counts, and host
         # step gaps (seconds between consecutive bundle reads), bounded
         self.n_dispatches = 0
+        self.n_host_reads = 0   # blocking device reads of the step path
         self._disp_mark = 0
         self._dispatch_samples: list[int] = []
         self._step_gaps: list[float] = []
@@ -450,6 +518,325 @@ class StreamingEngine:
         self._pump_realtime = False
         self.scheduler = self._new_scheduler()
 
+    # -- the mesh --------------------------------------------------------------
+    def _join_mesh(self, cfg: ModelConfig) -> None:
+        """Refuse what a mesh does not serve yet (by name), then take this
+        rank's place: its data shard, its model rank, and the groups it
+        talks over (the model axis's for the layers' collectives, gloo
+        groups for the host's)."""
+        kinds = sorted({k for k in cfg.layer_pattern if k != "attn"}
+                       | {k for k in cfg.ffn_pattern if k != "dense"})
+        if cfg.family == "audio" or kinds:
+            what = ("the audio family" if cfg.family == "audio" else
+                    f"{'/'.join(kinds)} positions")
+            raise NotImplementedError(
+                f"{cfg.name}: a serving mesh runs dense attention patterns; "
+                f"{what} on a mesh are not ported yet (ROADMAP.md Queue 1 "
+                f"item 9b)")
+        names = tuple(getattr(self.mesh, "mesh_dim_names", None) or ())
+        if names != ("data", "model") or not hasattr(self.mesh, "get_group"):
+            raise TypeError(
+                "EngineConfig.mesh must be a ('data', 'model') DeviceMesh "
+                "over the initialised world "
+                "(repro_torch.launch.mesh.make_serving_mesh)")
+        import torch.distributed as dist
+
+        from repro_torch.launch.world import host_group
+
+        self.n_shards, n_model = (int(x) for x in tuple(self.mesh.shape))
+        self._shard, model_rank = (int(x) for x in
+                                   self.mesh.get_coordinate())
+        self._data_host = host_group(self.mesh.get_group("data"))
+        self._data_ranks = dist.get_process_group_ranks(
+            self.mesh.get_group("data"))
+        self._world_host = host_group(None)
+        self._tp = shard_ctx.TensorParallel(
+            group=self.mesh.get_group("model"), rank=model_rank,
+            size=n_model, row_split=frozenset(), vocab_split=frozenset())
+        self.n_bundle_gathers = 0
+        self.n_host_collectives = 0
+
+    def _lay_out_params(self, params, cfg: ModelConfig) -> dict:
+        """This rank's shard of every weight (``serving_param_shardings``)
+        on the device, the split weights recorded for the layers' reduces
+        (``wo`` / ``w_out``: input dim split; ``embed`` / ``w_vocab``:
+        vocabulary split), and the head counts this rank's cache holds."""
+        from repro_torch.launch.shardings import serving_param_shardings
+        from repro_torch.sharding import rules
+
+        tp = self._tp
+        specs = serving_param_shardings(params, cfg, self.mesh)
+        row, vocab = set(), set()
+
+        def one(path, t):
+            spec = specs
+            for k in path:
+                spec = spec[k]
+            local = rules.shard_tensor(t, spec, rules.MODEL, tp.rank,
+                                       tp.size).to(self.device).contiguous()
+            names = rules.path_names(path)
+            if rules.split_dims(spec, rules.MODEL):
+                if names[-1] == "w" and names[-2] in ("wo", "w_out"):
+                    row.add(id(local))
+                if names[-1] in ("embed", "w_vocab"):
+                    vocab.add(id(local))
+            return local
+
+        out = rules.tree_map_with_path(one, params)
+        tp.row_split, tp.vocab_split = frozenset(row), frozenset(vocab)
+        H, Kv = cfg.n_heads, cfg.n_kv_heads
+        Hl = H // tp.size if H % tp.size == 0 else H
+        if Kv % tp.size == 0:
+            Kvl = Kv // tp.size
+        else:
+            lo, hi = shard_ctx.kv_heads_for(tp.rank, Hl, H, Kv)
+            Kvl = hi - lo
+        # the cache holds this rank's heads only
+        self._local_cfg = dataclasses.replace(cfg, n_heads=Hl,
+                                              n_kv_heads=Kvl)
+        return out
+
+    def _local_geometry(self) -> None:
+        """This rank's slots and rows: each group's local slots ``[d * per,
+        (d + 1) * per)`` (state indices ``0 .. per``), their cache rows
+        (the rank's cache holds only these, group by group), and those
+        rows' places in the replicated block tables."""
+        d = self._shard
+        self._local_specs: dict[str, SessionSpec] = {}
+        self._local_row_lo: dict[str, int] = {}
+        rows, mine = 0, []
+        for mode, spec in self._groups.items():
+            per = spec.n_slots // self.n_shards
+            self._local_specs[mode] = spec._replace(n_slots=per)
+            self._local_row_lo[mode] = rows
+            n = per * spec.rows_per_slot
+            g0 = self._row_lo[mode] + d * n
+            mine += range(g0, g0 + n)
+            rows += n
+        self._n_rows_local = rows
+        self._my_rows = torch.as_tensor(mine, dtype=torch.long,
+                                        device=self.device)
+
+    def _here(self, mode: str, local: int):
+        """``(state index, cache rows)`` of a group's local slot on this
+        rank, or None when another data shard owns it."""
+        if self.mesh is None:
+            return local, self._slot_rows(mode, local)
+        per = self._local_specs[mode].n_slots
+        if local // per != self._shard:
+            return None
+        i = local % per
+        rps = self._groups[mode].rows_per_slot
+        lo = self._local_row_lo[mode] + i * rps
+        return i, torch.arange(lo, lo + rps, device=self.device)
+
+    def _state_spec(self, mode: str) -> SessionSpec:
+        return (self._groups if self.mesh is None
+                else self._local_specs)[mode]
+
+    def _tables(self, state=None):
+        """The cache whose paged nodes hold the block tables the page plan
+        and the host edits read: the session's own (``state``'s, default
+        the scheduler's), or on a mesh the replicated global tables."""
+        if self.mesh is not None:
+            return self._gtables
+        return (self.scheduler.state if state is None else state).cache
+
+    def _init_mesh_cache(self, paged):
+        """This rank's cache: its rows only, its heads only, and (paged)
+        its pool segment plus a trash page of its own; beside it the
+        replicated global block tables and every slot's plan inputs."""
+        lp = None if paged is None else (paged[0] // self.n_shards + 1,
+                                         paged[1])
+        cache = self.backend.init_cache(self._n_rows_local, self.cache_len,
+                                        paged=lp, device=self.device,
+                                        cfg=self._local_cfg)
+        self._gtables = None
+        if paged is not None:
+            nb = paged_cache_entries(cache)[0].block_tables.shape[-1]
+            self._pps = paged[0] // self.n_shards
+            self._gtables = PagedKVCache(
+                k_pool=None, v_pool=None, pos=None,
+                block_tables=torch.full(
+                    (1, self.n_rows + self._n_index_rows, nb), -1,
+                    dtype=_I32, device=self.device))
+            self._gpos = [torch.zeros((s.n_slots, s.n_beams), dtype=_I32,
+                                      device=self.device)
+                          for s in self._groups.values()]
+            self._gact = [torch.zeros((s.n_slots,), dtype=torch.bool,
+                                      device=self.device)
+                          for s in self._groups.values()]
+        return cache
+
+    def _mirror_slot(self, mode: str, local: int, pos0=None) -> None:
+        """Keep every slot's page-plan inputs on every rank: a slot goes
+        live at ``pos0`` (None: it is released)."""
+        if self.mesh is None or self._gtables is None:
+            return
+        gi = self.mode_names.index(mode)
+        if pos0 is None:
+            self._gact[gi][local] = False
+        else:
+            self._gpos[gi][local] = int(pos0)
+            self._gact[gi][local] = True
+
+    def _refresh_view(self, cache) -> None:
+        """Point this rank's paged nodes at its rows of the global tables,
+        in its segment's local page ids."""
+        view = segment_pages(self._gtables.block_tables[0][self._my_rows],
+                             self._shard, self._pps)
+        for node in paged_cache_entries(cache):
+            node.block_tables.copy_(view.expand_as(node.block_tables))
+
+    def _host_all_gather(self, flat: np.ndarray) -> list[np.ndarray]:
+        """One host all-gather of an int32 vector over the data axis."""
+        import torch.distributed as dist
+
+        t = torch.from_numpy(np.ascontiguousarray(flat, np.int32))
+        out = [torch.empty_like(t) for _ in range(self.n_shards)]
+        dist.all_gather(out, t, group=self._data_host)
+        self.n_host_collectives += 1
+        return [o.numpy() for o in out]
+
+    def _owner_broadcast(self, slot: int, value):
+        """``value`` as the rank of ``slot``'s data shard computed it (the
+        ranks of other shards pass None)."""
+        import torch.distributed as dist
+
+        obj = [value]
+        dist.broadcast_object_list(
+            obj, src=self._data_ranks[self._shard_of_slot.get(slot, 0)],
+            group=self._data_host)
+        self.n_host_collectives += 1
+        return obj[0]
+
+    def _sync_clock(self, t: float) -> float:
+        """Rank 0's serving clock on every rank (realtime drives)."""
+        import torch.distributed as dist
+
+        x = torch.tensor([t], dtype=torch.float64)
+        dist.broadcast(x, src=0, group=self._world_host)
+        self.n_host_collectives += 1
+        return float(x[0])
+
+    def _megastep_mesh(self, gstate, prefill=None):
+        """``_megastep`` on a mesh rank: the page plan over the replicated
+        tables and every slot's inputs (the same on every rank), applied to
+        the global tables and this rank's segment; the chunk writes and
+        the step over this rank's rows; then the bundle, read in one go
+        and gathered over the data axis (``_gather_bundle``). The plan's
+        counts are read with its flag: the rank's cache cannot count the
+        other shards' pages after the step. Returns ``(gstate, host
+        bundle)``."""
+        n_out0 = self._slot_counts(gstate)
+        plan = None
+        if self.ecfg.paged:
+            view = GroupedState(
+                groups=tuple(_PlanInputs(p, a)
+                             for p, a in zip(self._gpos, self._gact)),
+                cache=self._gtables)
+            shards = ((self.n_shards, self._row_shard)
+                      if self.n_shards > 1 else None)
+            dplan, flags = self._plan_pages(view, prefill, shards)
+            G, n_sh = len(self._groups), self.n_shards
+            plan = dict(n_free=int(flags[2]), need=flags[3:3 + G])
+            if shards is not None:
+                at = 3 + G
+                plan.update(need_sh=flags[at:at + n_sh],
+                            n_free_sh=flags[at + n_sh:at + 2 * n_sh],
+                            exhausted_sh=flags[at + 2 * n_sh:].astype(bool))
+            if flags[0]:
+                return gstate, dict(
+                    exhausted=True, n_free_alloc=plan["n_free"],
+                    need=plan["need"],
+                    **({"exhausted_sh": plan["exhausted_sh"]}
+                       if shards is not None else {}))
+            apply_page_plan_segment(self._gtables, gstate.cache, dplan,
+                                    self._shard, self._pps, int(flags[1]))
+            self._refresh_view(gstate.cache)
+        self._write_chunks(gstate, prefill)
+        handle = self.backend.step_handle(self.params)
+        gstate = grouped_step(tuple(self._local_specs.values()), handle,
+                              gstate)
+        return gstate, self._gather_bundle(gstate, n_out0, plan)
+
+    def _gather_bundle(self, gstate, n_out0, plan) -> dict:
+        """The step's bundle on the host, every slot's: this rank's slots'
+        counters (and, paged, their positions and rows' tables) read in one
+        go, gathered over the data axis in one host collective, and laid
+        out in global slot and row order. Paged: the gathered rows go back
+        into the replicated tables (and positions into the plan inputs),
+        and the free counts and prompt pages are counted from them on the
+        host: a rank's cache holds only its own rows, so
+        ``_make_bundle``'s device counts would miss the other shards'."""
+        lspecs = list(self._local_specs.values())
+        b = self._make_bundle(gstate, n_out0, None, specs=lspecs)
+        del b["exhausted"]
+        keys = ["finished", "n_out", "n_new", "delta"]
+        units = {"finished": [1] * len(lspecs), "n_out": [1] * len(lspecs),
+                 "n_new": [1] * len(lspecs),
+                 "delta": [b["delta"].shape[1]] * len(lspecs)}
+        if plan is not None:
+            nb = self._gtables.block_tables.shape[-1]
+            b["pos"] = torch.cat([gs.pos.reshape(-1) for gs in gstate.groups])
+            node = paged_cache_entries(gstate.cache)[0]
+            b["tables"] = global_pages(node.block_tables[0], self._shard,
+                                       self._pps)
+            b["index_rows"] = self._gtables.block_tables[0, self.n_rows:]
+            keys += ["pos", "tables"]
+            units.update(pos=[s.n_beams for s in lspecs],
+                         tables=[s.rows_per_slot * nb for s in lspecs])
+        local = self._read_bundle(b)
+        flat = np.concatenate([np.asarray(local[k], np.int32).reshape(-1)
+                               for k in keys])
+        parts = self._host_all_gather(flat)
+        self.n_bundle_gathers += 1
+        out = {}
+        at = 0
+        for k in keys:
+            n = int(np.asarray(local[k]).size)
+            pieces = [p[at:at + n] for p in parts]
+            at += n
+            whole, lo = [], 0
+            for spec, u in zip(lspecs, units[k]):
+                m = spec.n_slots * u
+                whole += [p[lo:lo + m] for p in pieces]
+                lo += m
+            out[k] = np.concatenate(whole)
+        S = self.n_slots
+        out["finished"] = out["finished"].astype(bool)
+        out["delta"] = out["delta"].reshape(S, -1)
+        out["exhausted"] = False
+        if plan is None:
+            return out
+        n_pages, _ = self._paged_geometry()
+        full = np.concatenate([out.pop("tables").reshape(self.n_rows, -1),
+                               np.asarray(local["index_rows"], np.int32)])
+        self._gtables.block_tables[0].copy_(torch.from_numpy(full))
+        pos, lo = out.pop("pos"), 0
+        for g, spec in enumerate(self._groups.values()):
+            n = spec.n_slots * spec.n_beams
+            self._gpos[g].copy_(torch.from_numpy(
+                pos[lo:lo + n].reshape(spec.n_slots, spec.n_beams)))
+            lo += n
+        refs = np.bincount(full[full >= 0].ravel(), minlength=n_pages)
+        free = refs == 0
+        free[0] = False
+        spent = plan["need"].sum()
+        out.update(n_free_alloc=plan["n_free"] - int(spent),
+                   n_free_final=int(free.sum()), need=plan["need"])
+        if "need_sh" in plan:
+            out.update(
+                need_sh=plan["need_sh"],
+                n_free_alloc_sh=plan["n_free_sh"] - plan["need_sh"],
+                n_free_final_sh=free.reshape(self.n_shards, -1).sum(1),
+                exhausted_sh=plan["exhausted_sh"])
+        if self._prefix_sharing:
+            out["row0_pages"] = full[np.asarray(
+                [self._slot_row_range(s)[0] for s in range(self.n_slots)]),
+                :self._prefix_pad]
+        return out
+
     # -- the step ----------------------------------------------------------
     def _megastep(self, gstate, prefill=None):
         """One scheduler iteration on the card: (paged) plan the page
@@ -460,32 +847,51 @@ class StreamingEngine:
         ``(tokens, pos0, n_valid)``, or None) and run the grouped decode
         step. Returns ``(gstate, bundle)``: the bundle holds everything the
         host reads afterwards."""
-        specs = tuple(self._groups.values())
         n_out0 = self._slot_counts(gstate)
         plan = None
         if self.ecfg.paged:
-            n_pages, ps = self._paged_geometry()
-            blocks = tuple(self.allocator._blocks[m] for m in self.mode_names)
-            plan_prefill = None
-            if prefill is not None:
-                C = max(1, int(self.ecfg.prefill_chunk))
-                plan_prefill = tuple(
-                    (self._chunk_rows0(m), pos0, n_valid, C)
-                    for m, (_, pos0, n_valid) in zip(self.mode_names,
-                                                     prefill))
-            plan = device_page_plan(specs, blocks, ps, n_pages, gstate,
-                                    prefill=plan_prefill)
-            exhausted, n_copy = torch.stack(
-                [plan.exhausted.to(_I32), plan.copy.sum(dtype=_I32)]).tolist()
-            if exhausted:
+            plan, flags = self._plan_pages(gstate, prefill)
+            if flags[0]:
                 return gstate, dict(exhausted=plan.exhausted,
                                     n_free_alloc=plan.n_free,
                                     need=plan.need_by_group)
-            apply_page_plan(gstate.cache, plan, n_copy)
+            apply_page_plan(gstate.cache, plan, int(flags[1]))
         self._write_chunks(gstate, prefill)
         handle = self.backend.step_handle(self.params)
-        gstate = grouped_step(specs, handle, gstate)
+        gstate = grouped_step(tuple(self._groups.values()), handle, gstate)
         return gstate, self._make_bundle(gstate, n_out0, plan)
+
+    def _plan_pages(self, view, prefill, shards=None):
+        """This iteration's device page plan over ``view`` (the session's
+        state; on a mesh the replicated tables and every slot's inputs, so
+        every rank plans the same), then ONE device read of its exhaustion
+        flag and the number of pages to copy (on a mesh rank: into its
+        own segment, followed by the plan's free and needed counts, and
+        per shard with ``shards``). Returns ``(plan, host int32 vector)``."""
+        n_pages, ps = self._paged_geometry()
+        blocks = tuple(self.allocator._blocks[m] for m in self.mode_names)
+        plan_prefill = None
+        if prefill is not None:
+            C = max(1, int(self.ecfg.prefill_chunk))
+            plan_prefill = tuple(
+                (self._chunk_rows0(m), pos0, n_valid, C)
+                for m, (_, pos0, n_valid) in zip(self.mode_names, prefill))
+        plan = device_page_plan(tuple(self._groups.values()), blocks, ps,
+                                n_pages, view, prefill=plan_prefill,
+                                shards=shards)
+        if self.mesh is None:
+            head = [plan.exhausted.to(_I32), plan.copy.sum(dtype=_I32)]
+        else:
+            mine = (plan.need & plan.copy
+                    & (segment_pages(plan.new, self._shard, self._pps) > 0))
+            head = [plan.exhausted.to(_I32), mine.sum(dtype=_I32),
+                    plan.n_free.to(_I32), plan.need_by_group.to(_I32)]
+            if shards is not None:
+                head += [plan.need_by_shard, plan.n_free_by_shard,
+                         plan.exhausted_by_shard.to(_I32)]
+        flags = torch.cat([t.reshape(-1) for t in head]).cpu().numpy()
+        self.n_host_reads += 1
+        return plan, flags
 
     def _chunk_rows0(self, mode: str) -> list[int]:
         """Slot-leading cache rows of ``mode``'s group (row 0 of each slot,
@@ -494,25 +900,38 @@ class StreamingEngine:
         lo = self._row_lo[mode]
         return [lo + i * spec.rows_per_slot for i in range(spec.n_slots)]
 
+    def _lane_rows(self, mode: str) -> tuple[list[int], slice]:
+        """The chunk lanes of ``mode``'s group this engine writes: their
+        slots' row-0 cache rows and the lanes' slice of the group (on a
+        mesh rank, its own slots, into its own rows)."""
+        if self.mesh is None:
+            return self._chunk_rows0(mode), slice(None)
+        spec = self._local_specs[mode]
+        per, lo = spec.n_slots, self._local_row_lo[mode]
+        return ([lo + i * spec.rows_per_slot for i in range(per)],
+                slice(self._shard * per, (self._shard + 1) * per))
+
     def _write_chunks(self, gstate, prefill) -> None:
         """Write the staged prefill chunk lanes of every group, in place
         (idle lanes are ``n_valid == 0`` and write nothing readable)."""
         if prefill is None:
             return
         for mode, (tokens, pos0, n_valid) in zip(self.mode_names, prefill):
+            rows, mine = self._lane_rows(mode)
             self.backend.prefill_chunks_cache(
-                self.params, gstate.cache, self._chunk_rows0(mode), tokens,
-                pos0, n_valid)
+                self.params, gstate.cache, rows, tokens[mine], pos0[mine],
+                n_valid[mine])
 
     def _slot_counts(self, gstate) -> torch.Tensor:
         """(n_slots,) committed-token counts on each slot's row 0, global
         slot order (groups are slot-contiguous in declaration order)."""
         return torch.cat([gs.n_out[:, 0] for gs in gstate.groups])
 
-    def _make_bundle(self, gstate, n_out0, plan) -> dict:
+    def _make_bundle(self, gstate, n_out0, plan, specs=None) -> dict:
         """The step's host bundle: small fixed-shape tensors (the readback
-        is O(n_slots), never the session state)."""
-        specs = list(self._groups.values())
+        is O(n_slots), never the session state). ``specs``: the groups of
+        ``gstate`` (a mesh rank's own slots), default the engine's."""
+        specs = list(self._groups.values()) if specs is None else specs
         maxW = max([s.draft_len + 1 for s in specs if s.kind == "greedy"],
                    default=1)
         finished = torch.cat([gs.finished.all(dim=1) for gs in gstate.groups])
@@ -553,10 +972,10 @@ class StreamingEngine:
                     gstate.cache, self._rows0, self._prefix_pad)
         return bundle
 
-    @staticmethod
-    def _read_bundle(bundle: dict) -> dict:
+    def _read_bundle(self, bundle: dict) -> dict:
         """The bundle on the host in ONE device read: every tensor is
         packed into one int32 vector and split again here."""
+        self.n_host_reads += 1
         keys = list(bundle)
         flat = torch.cat([bundle[k].reshape(-1).to(_I32) for k in keys])
         host = flat.cpu().numpy()
@@ -579,12 +998,19 @@ class StreamingEngine:
         """Admit ``req`` into local slot ``local`` of ``mode``'s group, in
         place: encode the query, scatter its cross-attn K/V + memory mask
         into the slot's rows (recycling their self-attn rows), and reset the
-        slot's decode state."""
-        spec = self._groups[mode]
-        gi = self.mode_names.index(mode)
+        slot's decode state. On a mesh every rank unmaps the slot's rows in
+        the replicated tables and marks the slot live for the page plan;
+        only the owning shard's ranks encode and write."""
         be = self.backend
+        if self.mesh is not None and self.ecfg.paged:
+            unmap_cache_rows(self._gtables, self._slot_rows(mode, local))
+        self._mirror_slot(mode, local, pos0=0)
+        here = self._here(mode, local)
+        if here is None:
+            return gstate
+        i, rows = here
+        gi = self.mode_names.index(mode)
         args = tuple(a.to(self.device) for a in req.args)
-        rows = self._slot_rows(mode, local)
         if self._encode_reuse:   # seq2seq: the whole source is the prefix
             mkv, mask = self._encode_cached(req.prompt, args[0])
             be.admit_cache_precomputed(self.params, gstate.cache, rows, mkv,
@@ -593,9 +1019,9 @@ class StreamingEngine:
             be.admit_cache(self.params, gstate.cache, rows, *args)
         last, pos0, drafts, dmask = be.reset_args(*args)
         max_out, stop_ids, eff_dl, eff_beams = req.gen
-        reset_slot(spec, gstate.groups[gi], local, last, pos0, drafts, dmask,
-                   max_out=max_out, stop_ids=stop_ids, eff_dl=eff_dl,
-                   eff_beams=eff_beams)
+        reset_slot(self._state_spec(mode), gstate.groups[gi], i, last, pos0,
+                   drafts, dmask, max_out=max_out, stop_ids=stop_ids,
+                   eff_dl=eff_dl, eff_beams=eff_beams)
         return gstate
 
     def _encode_cached(self, prompt: np.ndarray, src: torch.Tensor):
@@ -619,23 +1045,34 @@ class StreamingEngine:
     def _finish(self, gstate, mode: str, local: int, req):
         """A slot's prompt is written: its other rows adopt row 0's context
         (dense: a copy; paged: the block table) and the slot goes live."""
-        spec = self._groups[mode]
-        gi = self.mode_names.index(mode)
         be = self.backend
-        be.finish_cache(gstate.cache, self._slot_rows(mode, local))
         last, pos0, drafts, dmask = be.reset_args(*req.args)
+        if self.mesh is not None and self.ecfg.paged:
+            be.finish_cache(self._gtables, self._slot_rows(mode, local))
+        self._mirror_slot(mode, local, pos0=pos0)
+        here = self._here(mode, local)
+        if here is None:
+            return gstate
+        i, rows = here
+        gi = self.mode_names.index(mode)
+        be.finish_cache(gstate.cache, rows)
         max_out, stop_ids, eff_dl, eff_beams = req.gen
-        reset_slot(spec, gstate.groups[gi], local, last, pos0, drafts, dmask,
-                   max_out=max_out, stop_ids=stop_ids, eff_dl=eff_dl,
-                   eff_beams=eff_beams)
+        reset_slot(self._state_spec(mode), gstate.groups[gi], i, last, pos0,
+                   drafts, dmask, max_out=max_out, stop_ids=stop_ids,
+                   eff_dl=eff_dl, eff_beams=eff_beams)
         return gstate
 
     def _release(self, gstate, mode: str, local: int):
         """Evict a local slot of ``mode``'s group, in place, and (paged)
         unmap its rows so the page planners see its pages free."""
-        release_slot(gstate.groups[self.mode_names.index(mode)], local)
         if self.ecfg.paged:
-            unmap_cache_rows(gstate.cache, self._slot_rows(mode, local))
+            unmap_cache_rows(gstate.cache if self.mesh is None
+                             else self._gtables,
+                             self._slot_rows(mode, local))
+        self._mirror_slot(mode, local)
+        here = self._here(mode, local)
+        if here is not None:
+            release_slot(gstate.groups[self.mode_names.index(mode)], here[0])
         return gstate
 
     def _slot_of(self, slot: int) -> tuple[str, int]:
@@ -658,16 +1095,27 @@ class StreamingEngine:
                 f"{self.cfg.name}: backend has nothing to page — serve dense")
         ps = ecfg.page_size
         if ecfg.n_pages is not None:
+            if ecfg.n_pages % self.n_shards:
+                raise ValueError(
+                    f"EngineConfig.n_pages={ecfg.n_pages} must divide into "
+                    f"{self.n_shards} equal per-shard pool segments")
             return ecfg.n_pages, ps
         worst = sum(s.n_rows * (-(-self.backend.row_len(s) // ps))
                     for s in self._groups.values())
         # prefix sharing retains up to n_cells pages beyond the rows' worst
-        # case, so the default pool grows by that many
-        return worst + self._n_cells + 1, ps
+        # case, so the default pool grows by that many; sharded, it rounds
+        # up to equal segments (the trash page sits in shard 0's)
+        n_pages = worst + self._n_cells + 1
+        return self.n_shards * (-(-n_pages // self.n_shards)), ps
 
     def _finished_mask(self, gstate) -> np.ndarray:
         """(n_slots,) bool by global slot id. Mid-prefill slots are never
-        finished: their state is still the released one."""
+        finished: their state is still the released one. (The scheduler
+        reads the bundle's mask instead; on a mesh only that one holds
+        every slot.)"""
+        if self.mesh is not None:
+            raise RuntimeError("a mesh engine's finished mask comes from "
+                               "its gathered bundle")
         mask = torch.cat([gs.finished.all(dim=1)
                           for gs in gstate.groups]).cpu().numpy()
         for slot in self._prefilling:
@@ -721,7 +1169,11 @@ class StreamingEngine:
         self._dispatch_rids = {s: r.rid
                                for s, r in self.scheduler._resident.items()}
         self._dispatch_prefilling = set(self._prefilling)
-        state, bundle = self._megastep(state, prefill)
+        if self.mesh is None:
+            state, bundle = self._megastep(state, prefill)
+        else:
+            with shard_ctx.tensor_parallel(self._tp):
+                state, bundle = self._megastep_mesh(state, prefill)
         self._n_dispatched += 1
         self.n_dispatches += 1
         self._bundle = bundle
@@ -733,8 +1185,10 @@ class StreamingEngine:
         cursors and activate the slots whose prompt is now written, refresh
         the mirrored page counters, stash the stream deltas, and build the
         eviction mask (guarded by the dispatch-time rid snapshot, so a slot
-        recycled since the dispatch is never evicted by a stale mask)."""
-        out = self._read_bundle(self._bundle)
+        recycled since the dispatch is never evicted by a stale mask). On a
+        mesh the bundle was read and gathered in the dispatch already."""
+        out = (self._bundle if self.mesh is not None
+               else self._read_bundle(self._bundle))
         t = time.perf_counter()
         if self._last_sync_t is not None:
             self._step_gaps.append(t - self._last_sync_t)
@@ -750,7 +1204,13 @@ class StreamingEngine:
                 if run > n_free:
                     prefer = m
                     break
-            return {"exhausted": True, "group": prefer, "shard": None}
+            # sharded: the first shard that is actually short, so the
+            # preemption and the replay stay inside it
+            shard = None
+            if "exhausted_sh" in out:
+                ex = np.asarray(out["exhausted_sh"], bool)
+                shard = int(np.argmax(ex)) if ex.any() else None
+            return {"exhausted": True, "group": prefer, "shard": shard}
         self._dispatch_samples.append(self.n_dispatches - self._disp_mark)
         if len(self._dispatch_samples) > 4096:
             del self._dispatch_samples[:2048]
@@ -784,6 +1244,10 @@ class StreamingEngine:
                 (self.allocator.n_pages - 1) - int(out["n_free_alloc"]))
             self.pages_allocated += int(out["need"].sum())
             self._mirror_free = int(out["n_free_final"])
+            if "n_free_final_sh" in out:
+                self._mirror_free_sh = [int(x)
+                                        for x in out["n_free_final_sh"]]
+                self.allocator.note_peak(out["n_free_alloc_sh"])
             # bookings made before this bundle's dispatch are now visible
             # in the device counter; keep only the ones it cannot see yet
             self._booked = [b for b in self._booked
@@ -808,8 +1272,13 @@ class StreamingEngine:
         """Refresh the mirrored free counter straight from the device's
         block tables (a blocking read)."""
         n_pages, _ = self._paged_geometry()
-        self._mirror_free = int(device_free_pages(
-            self.scheduler.state.cache, n_pages))
+        self.n_host_reads += 1
+        self._mirror_free = int(device_free_pages(self._tables(), n_pages))
+        if self.n_shards > 1:
+            self.n_host_reads += 1
+            self._mirror_free_sh = [
+                int(x) for x in device_free_pages_by_shard(
+                    self._tables(), n_pages, self.n_shards)]
         self._booked = [b for b in self._booked
                         if b[0] >= self._n_dispatched]
 
@@ -836,9 +1305,12 @@ class StreamingEngine:
         paged = self._paged_geometry() if ecfg.paged else None
         # index rows ride after the group rows: block-table-only rows whose
         # cells pin retained radix pages (decode lanes never touch them)
-        cache = self.backend.init_cache(self.n_rows + self._n_index_rows,
-                                        self.cache_len, paged=paged,
-                                        device=self.device)
+        if self.mesh is None:
+            cache = self.backend.init_cache(self.n_rows + self._n_index_rows,
+                                            self.cache_len, paged=paged,
+                                            device=self.device)
+        else:
+            cache = self._init_mesh_cache(paged)
         self._bundle = None
         self._stream_bundle = None
         # chunked prefill: global slot -> {mode, req, chunks, next chunk};
@@ -848,9 +1320,11 @@ class StreamingEngine:
         self._dispatch_prefilling: set[int] = set()
         self.prefill_chunks_written = 0
         self._dispatch_rids: dict[int, int] = {}
-        self._booked: list[tuple] = []   # (dispatch stamp, pages)
+        self._booked: list[tuple] = []   # (dispatch stamp, shard, pages)
         self._n_dispatched = 0
         self._last_sync_t = None
+        self._mirror_free_sh: list[int] = []
+        self._admits_by_shard = [0] * self.n_shards
         # prefix reuse: the radix tree and each slot's acquired chain, the
         # encoder-output LRU and its counters, the lineage behind the
         # tree-of-requests API (rid -> query / parent / children / priority
@@ -872,20 +1346,33 @@ class StreamingEngine:
         def admit(state, slot, payload):
             mode, req = payload
             local = slot - self._slot_base[mode]
+            shard = self._shard_of_slot.get(slot)
             self.requests_admitted += 1
             if self.allocator is not None:
                 # book the admission's worst-case first-step pages against
-                # the mirror until a later bundle's free count reflects it
-                self._booked.append((self._n_dispatched,
+                # the mirror (and its shard's) until a later bundle's free
+                # count reflects it
+                self._booked.append((self._n_dispatched, shard,
                                      self.allocator.admit_pages_for(mode)))
+            if shard is not None:   # sharded slots only, as JAX counts
+                self._admits_by_shard[shard] += 1
             self.n_dispatches += 1
             if not self.backend.chunked:
-                return self._admit(state, mode, local, req)
+                with shard_ctx.tensor_parallel(self._tp):
+                    return self._admit(state, mode, local, req)
             # chunked: recycle the rows now; the prompt streams into the
             # step's chunk lanes and the slot activates at the sync that
             # sees its last chunk written
-            self.backend.begin_cache(state.cache,
-                                     self._slot_rows(mode, local))
+            if self.mesh is None:
+                self.backend.begin_cache(state.cache,
+                                         self._slot_rows(mode, local))
+            else:
+                if self.ecfg.paged:
+                    self.backend.begin_cache(self._gtables,
+                                             self._slot_rows(mode, local))
+                here = self._here(mode, local)
+                if here is not None:
+                    self.backend.begin_cache(state.cache, here[1])
             rec = {"mode": mode, "req": req, "next": 0, "chunks": req.chunks,
                    "depth0": 0, "body": None}
             if self.radix is not None and req.prompt is not None:
@@ -915,7 +1402,8 @@ class StreamingEngine:
             out = self._sync_step()
             if out.get("exhausted"):
                 raise PoolExhausted("page pool exhausted",
-                                    group=out.get("group"))
+                                    group=out.get("group"),
+                                    shard=out.get("shard"))
             return state
 
         groups = {mode: list(range(base, base + self._groups[mode].n_slots))
@@ -924,13 +1412,30 @@ class StreamingEngine:
                        "finished": self._finished_mask,
                        "dispatch": self._dispatch_step,
                        "sync": self._sync_step}
+        if self.n_shards > 1:
+            # sharded: the engine picks the SLOT (and thereby the shard)
+            # for every admission (prefix affinity first, least-loaded shard
+            # otherwise) and pool-pressure preemption stays in the
+            # exhausted shard
+            hooks.update(place=self._place_slot,
+                         shards=dict(self._shard_of_slot))
+        if self.mesh is not None:
+            hooks.update(sync_clock=self._sync_clock)
         if ecfg.paged:
-            self.allocator = PageAllocator(
-                self._groups, n_pages=paged[0], page_size=paged[1],
+            alloc_kw = dict(
+                n_pages=paged[0], page_size=paged[1],
                 row_lens={m: self.backend.row_len(s)
                           for m, s in self._groups.items()},
                 prefill_blocks={m: self.backend.prefill_blocks(paged[1])
                                 for m in self._groups})
+            if self.n_shards > 1:
+                self.allocator = ShardedPageAllocator(
+                    self._groups, n_shards=self.n_shards, **alloc_kw)
+                self._mirror_free_sh = [
+                    self.allocator.shard_capacity(s)
+                    for s in range(self.n_shards)]
+            else:
+                self.allocator = PageAllocator(self._groups, **alloc_kw)
             self._mirror_free = self.allocator.n_pages - 1
             hooks.update(admit_ok=self._mirror_admit_ok)
             if self._prefix_sharing:
@@ -938,7 +1443,9 @@ class StreamingEngine:
                 self.allocator.pin_rows(
                     range(self.n_rows, self.n_rows + self._n_index_rows))
                 hooks.update(reclaim=self._radix_reclaim)
-        state = grouped_init_state(tuple(self._groups.values()), cache)
+        state = grouped_init_state(
+            tuple((self._groups if self.mesh is None
+                   else self._local_specs).values()), cache)
         return ContinuousScheduler(self.spec, state, admit=admit, step=step,
                                    policy=ecfg.overload, **hooks)
 
@@ -952,6 +1459,16 @@ class StreamingEngine:
         body = self.backend.prompt_body(rec["req"])
         rec["body"] = body
         chain = self.radix.match(body)
+        if self.mesh is not None and self.n_shards > 1:
+            # a rank reads only its own segment: cut the chain at its first
+            # page from another shard (the rest is prefilled, as cold)
+            sh = self._shard_of_slot[slot]
+            cut = next((i for i, nd in enumerate(chain)
+                        if self.allocator.shard_of_page(nd.page) != sh),
+                       len(chain))
+            chain_len = len(chain)
+            chain = chain[:cut]
+            self.radix.hit_tokens -= (chain_len - cut) * ps
         depth = (len(chain) // self._align_pages) * self._align_pages
         if depth < len(chain):
             # the hit-rate stats count what was aliased, not what matched
@@ -959,7 +1476,7 @@ class StreamingEngine:
             chain = chain[:depth]
         if not chain:
             return
-        alias_prefix_pages(state.cache, self._slot_row_range(slot)[0],
+        alias_prefix_pages(self._tables(state), self._slot_row_range(slot)[0],
                            [nd.page for nd in chain])
         self.n_dispatches += 1
         self.radix.acquire(chain)
@@ -993,7 +1510,7 @@ class StreamingEngine:
         """Write (cell -> page) index references."""
         rows, blocks = radix_cell_coords(self.n_rows, self._table_blocks,
                                          cells)
-        write_index_cells(self.scheduler.state.cache, rows, blocks, pages)
+        write_index_cells(self._tables(), rows, blocks, pages)
         self.n_dispatches += 1
 
     def _clear_cells(self, pairs: list) -> None:
@@ -1003,17 +1520,20 @@ class StreamingEngine:
             return
         rows, blocks = radix_cell_coords(self.n_rows, self._table_blocks,
                                          [c for c, _ in pairs])
-        clear_index_cells(self.scheduler.state.cache, rows, blocks)
+        clear_index_cells(self._tables(), rows, blocks)
         self.n_dispatches += 1
 
-    def _radix_reclaim(self) -> bool:
+    def _radix_reclaim(self, shard: int | None = None) -> bool:
         """Pool-pressure hook (the scheduler's ``reclaim``): evict LRU
         inactive radix nodes and clear their index cells. Tried before a
         resident is preempted: cached prefixes are cheaper to lose than
-        live work."""
+        live work. ``shard`` aims the eviction at one page-pool segment
+        (the per-shard admission gate's relief valve)."""
         if self.radix is None or len(self.radix) == 0:
             return False
-        pairs = self.radix.evict_lru(self._prefix_pad)
+        where = (None if shard is None else
+                 (lambda nd: self.allocator.shard_of_page(nd.page) == shard))
+        pairs = self.radix.evict_lru(self._prefix_pad, where=where)
         if not pairs:
             return False
         self._clear_cells(pairs)
@@ -1023,8 +1543,13 @@ class StreamingEngine:
     def loop_stats(self) -> dict:
         """Host-loop instrumentation: total steps and admission/eviction
         calls issued (``n_dispatches``), calls per scheduler iteration
-        (steady state == 1.0: the megastep alone), and the host step gap
-        (seconds between consecutive bundle reads) p50/p95."""
+        (steady state == 1.0: the megastep alone), the step path's
+        blocking device reads (``host_reads``: a paged iteration's plan
+        flag and bundle, a dense one's bundle, a mirror recount), and the
+        host step gap
+        (seconds between consecutive bundle reads) p50/p95. On a mesh also
+        this rank's bundle gathers, host collectives (gathers, owner
+        broadcasts, clock broadcasts) and model-axis collectives."""
         gaps = sorted(self._step_gaps)
 
         def pct(q):
@@ -1035,6 +1560,7 @@ class StreamingEngine:
         samples = self._dispatch_samples
         return {
             "n_dispatches": self.n_dispatches,
+            "host_reads": self.n_host_reads,
             "n_iterations": len(samples),
             "dispatches_per_iteration": (sum(samples) / len(samples)
                                          if samples else 0.0),
@@ -1042,16 +1568,84 @@ class StreamingEngine:
                                                   if s == 1),
             "step_gap_p50_s": pct(0.50),
             "step_gap_p95_s": pct(0.95),
+            **({} if self.mesh is None else {
+                "bundle_gathers": self.n_bundle_gathers,
+                "host_collectives": self.n_host_collectives,
+                "model_collectives": self._tp.n_collectives}),
         }
 
+    # -- sharded placement ---------------------------------------------------
+    def _shard_headroom(self, shard: int) -> int:
+        """How much room shard ``shard`` has for new work: mirrored free
+        pages net of unseen bookings (paged), or minus its resident count
+        (dense: fewer residents, more room)."""
+        if self.allocator is not None:
+            booked = sum(b[-1] for b in self._booked if b[1] == shard)
+            return self._mirror_free_sh[shard] - booked
+        return -sum(1 for s in self.scheduler._resident
+                    if self._shard_of_slot.get(s) == shard)
+
+    def _shard_admit_ok(self, mode: str, shard: int) -> bool:
+        """Per-shard ``_mirror_admit_ok``: can ``shard``'s segment cover one
+        ``mode`` admission's worst-case first step? A refusal recounts from
+        the device, then reclaims cached prefix pages FROM THIS SHARD
+        before giving up."""
+        need = self.allocator.admit_pages_for(mode)
+        if self._shard_headroom(shard) >= need:
+            return True
+        self._mirror_recount()
+        while (self._shard_headroom(shard) < need
+               and self._radix_reclaim(shard)):
+            self._mirror_recount()
+        return self._shard_headroom(shard) >= need
+
+    def _shard_order(self, mode: str, payload, avail: set) -> list[int]:
+        """Shard preference for one admission: the shard holding the
+        request's cached prefix pages first (the child decodes beside its
+        parent's pages), then the rest by descending headroom
+        (least-loaded), ties to the lowest shard id."""
+        pref: list[int] = []
+        req = payload[1]
+        if self.radix is not None and req.prompt is not None:
+            # a probe that moves neither the LRU clock nor the hit stats
+            chain = self.radix.peek(self.backend.prompt_body(req))
+            depth = (len(chain) // self._align_pages) * self._align_pages
+            if depth > 0:
+                sh = self.allocator.shard_of_page(chain[depth - 1].page)
+                if sh in avail:
+                    pref.append(sh)
+        rest = sorted((s for s in avail if s not in pref),
+                      key=lambda s: (-self._shard_headroom(s), s))
+        return pref + rest
+
+    def _place_slot(self, mode: str, free: list[int], payload):
+        """Scheduler ``place`` hook (sharded engines): the slot, and so the
+        data shard, for the group head's admission, or None to defer when
+        no shard can cover it this iteration."""
+        by_shard: dict[int, list[int]] = {}
+        for s in free:
+            by_shard.setdefault(self._shard_of_slot[s], []).append(s)
+        for sh in self._shard_order(mode, payload, set(by_shard)):
+            if self.allocator is None or self._shard_admit_ok(mode, sh):
+                return min(by_shard[sh])
+        return None
+
     def shard_stats(self) -> dict:
-        """Per-shard balance counters (``GET /v1/stats`` reads them): the
-        port's engine is one shard until mesh sharding is ported (ROADMAP
-        Queue 1 item 9), so its one shard holds every admission. (The JAX
-        package's unsharded engine counts no shard admissions and reports
-        ``[0]`` here.)"""
-        return {"n_shards": 1, "admitted_by_shard": [self.requests_admitted],
-                "admit_imbalance": 1.0}
+        """Per-shard balance counters (``GET /v1/stats`` reads them):
+        admissions into each data shard's slots (an unsharded engine has no
+        sharded slots and reports ``[0]``, as the JAX package's does), and
+        on a sharded paged pool each segment's page peak and capacity."""
+        out = {"n_shards": self.n_shards,
+               "admitted_by_shard": list(self._admits_by_shard)}
+        admits = self._admits_by_shard
+        mean = sum(admits) / max(1, len(admits))
+        out["admit_imbalance"] = (max(admits) / mean) if mean else 1.0
+        if isinstance(self.allocator, ShardedPageAllocator):
+            alloc = self.allocator
+            out["peak_pages_by_shard"] = list(alloc.peak_pages_by_shard)
+            out["shard_capacity"] = [alloc.shard_capacity(s)
+                                     for s in range(self.n_shards)]
+        return out
 
     def prefix_stats(self) -> dict:
         """Prefix-reuse counters: lookups of the radix tree (paged
@@ -1131,7 +1725,18 @@ class StreamingEngine:
         return (mode, self.backend.make_request(query, spec, rp))
 
     def _read_slot(self, state, slot: int) -> dict:
+        """A finished slot's output on the host; on a mesh, read by its
+        owning shard's ranks and broadcast over the data axis."""
         mode, local = self._slot_of(slot)
+        here = self._here(mode, local)
+        if self.mesh is None:
+            return self._read_slot_here(state, slot, here[0])
+        return self._owner_broadcast(
+            slot, None if here is None else
+            self._read_slot_here(state, slot, here[0]))
+
+    def _read_slot_here(self, state, slot: int, local: int) -> dict:
+        mode, _ = self._slot_of(slot)
         spec = self._groups[mode]
         gs = state.groups[self.mode_names.index(mode)]
         logp = gs.logp[local].cpu().numpy()
@@ -1370,14 +1975,24 @@ class StreamingEngine:
                 st["buf"].append(np.asarray(sb["delta"][slot, lo:n_new]))
                 st["n"] = n_after
             elif not st.get("caught_up"):
-                gs = self.scheduler.state.groups[
-                    self.mode_names.index(mode)]
-                n = int(gs.n_out[local, 0])
-                if n > st["n"]:
-                    st["buf"].append(
-                        gs.tokens[local, 0, st["n"]:n].cpu().numpy())
-                    st["n"] = n
+                toks = self._row0_tokens(slot)
+                if len(toks) > st["n"]:
+                    st["buf"].append(toks[st["n"]:])
+                    st["n"] = len(toks)
                 st["caught_up"] = True
+
+    def _row0_tokens(self, slot: int) -> np.ndarray:
+        """A resident slot's committed row-0 tokens (a late stream
+        subscriber's catch-up), read where the slot lives."""
+        mode, local = self._slot_of(slot)
+        here = self._here(mode, local)
+        toks = None
+        if here is not None:
+            gs = self.scheduler.state.groups[self.mode_names.index(mode)]
+            n = int(gs.n_out[here[0], 0])
+            toks = gs.tokens[here[0], 0, :n].cpu().numpy()
+        return toks if self.mesh is None else self._owner_broadcast(slot,
+                                                                    toks)
 
     # -- request-level control (the RequestHandle surface) -------------------
     def request_status(self, rid: int) -> RequestStatus:

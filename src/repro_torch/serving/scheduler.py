@@ -246,6 +246,9 @@ class ContinuousScheduler:
     shards: {global slot: shard id}  lets pool-pressure preemption pick
                                      its victim from the exhausted shard
                                      (replay stays shard-local)
+    sync_clock(t) -> t               the realtime serving clock as every
+                                     rank of a mesh must see it (rank 0's,
+                                     broadcast)
     """
 
     def __init__(self, spec: SessionSpec, state, *,
@@ -260,6 +263,7 @@ class ContinuousScheduler:
                  reclaim: Callable | None = None,
                  place: Callable | None = None,
                  shards: dict[int, int] | None = None,
+                 sync_clock: Callable | None = None,
                  policy: OverloadPolicy | None = None):
         self.spec = spec
         self.state = state
@@ -274,6 +278,7 @@ class ContinuousScheduler:
         self._reclaim = reclaim
         self._place = place
         self._slot_shard = shards or {}
+        self._sync_clock = sync_clock
         self._finished = finished or _default_finished
         if groups is None:
             groups = {None: list(range(spec.n_slots))}
@@ -730,6 +735,12 @@ class ContinuousScheduler:
                 admitted=admitted, completed=now, **fields))
         return results
 
+    def _wall_clock(self, t0: float):
+        """Seconds since ``t0``; through ``sync_clock`` when there is one."""
+        if self._sync_clock is None:
+            return lambda: time.perf_counter() - t0
+        return lambda: self._sync_clock(time.perf_counter() - t0)
+
     def _rewind_clock(self) -> None:
         """Each drive restarts the serving clock at 0, but submissions made
         between drives were staged against the PREVIOUS drive's final
@@ -777,7 +788,7 @@ class ContinuousScheduler:
     def _steps_legacy(self, read_slot: Callable, *, realtime: bool = False):
         t0 = time.perf_counter()
         step0, skip0 = self.n_steps, self._skipped   # drive-relative clock
-        clock = ((lambda: time.perf_counter() - t0) if realtime
+        clock = (self._wall_clock(t0) if realtime
                  else (lambda: float(self.n_steps - step0)
                        + (self._skipped - skip0)))
         self._rewind_clock()
@@ -832,7 +843,7 @@ class ContinuousScheduler:
         only advances at syncs), completion stamps shift uniformly."""
         t0 = time.perf_counter()
         step0, skip0 = self.n_steps, self._skipped
-        clock = ((lambda: time.perf_counter() - t0) if realtime
+        clock = (self._wall_clock(t0) if realtime
                  else (lambda: float(self.n_steps - step0)
                        + (self._skipped - skip0)))
         self._rewind_clock()

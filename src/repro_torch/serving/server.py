@@ -259,9 +259,16 @@ class FrontDoorServer:
     path: refuse new work, shed the queue with retry hints, finish
     residents, then stop both threads. The server owns the engine's pump
     for its lifetime — don't drive the same engine elsewhere while the
-    server runs."""
+    server runs. A mesh engine is refused: its ranks must see the same
+    submissions in the same order, which one socket front door on one
+    rank does not give them (nor the fleet, whose replicas are front
+    doors)."""
 
     def __init__(self, engine, config: ServerConfig | None = None):
+        if getattr(engine, "mesh", None) is not None:
+            raise NotImplementedError(
+                "FrontDoorServer (and the fleet) over a mesh engine is not "
+                "ported yet (ROADMAP.md Queue 1 item 9b)")
         self.engine = engine
         self.cfg = config or ServerConfig()
         self.port: int | None = None

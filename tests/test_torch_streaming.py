@@ -698,20 +698,25 @@ def test_cancel_frees_the_slot_and_its_pages(toy):
 
 def test_refusals_name_the_roadmap_item(toy):
     """What the port does not serve yet is refused at construction, naming
-    the queue item that will port it: the mesh (item 9). Item 5's prefix
-    cache and overload policy are ported and build, and so do the
-    decoder-only patterns, cross-attention among them since item 6.4 is
-    ported; the paged cache adds no parameter."""
+    the queue item that will port it: a mesh over a cross-attention
+    pattern (item 9b). A mesh that is not a ('data', 'model') DeviceMesh is
+    a TypeError. Item 5's prefix cache and overload policy are ported and
+    build, and so do the decoder-only patterns, cross-attention among them
+    since item 6.4 is ported; the paged cache adds no parameter."""
+    from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import transformer as ttr
 
     cfg_t, pt, tok = toy["cfg_t"], toy["pt"], toy["tok"]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         StreamingEngine(pt, cfg_t, tok, EngineConfig(mesh=object()),
                         device="cpu")
     for kw in (dict(prefix_cache=True), dict(overload=OverloadPolicy())):
         StreamingEngine(pt, cfg_t, tok, EngineConfig(**kw), device="cpu")
     decoder = dataclasses.replace(cfg_t, family="dense",
                                   layer_pattern=("xattn",), pos="rope")
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        StreamingEngine({}, decoder, tok, EngineConfig(
+            mesh=MeshShape(("data", "model"), (2, 2))), device="cpu")
     assert make_backend(decoder, EngineConfig()).cfg is decoder
     StreamingEngine(ttr.init(torch.Generator().manual_seed(0), decoder,
                              device="cpu"), decoder, tok, EngineConfig(),
