@@ -202,7 +202,19 @@ In order:
      ranks' draft_verify groups join the main path's shape accounting
      (timed and held to plain there); these shapes, a rank's local heads
      (mt-product's H = Kv = 4), rows and segment, no other phase
-     launches;
+     launches. Then every decoder-only family on the same world
+     (``family_runs``): Phi-3.5-MoE at full width cut to 2 of 32 layers
+     (capacity factor 8.0, dropless; weights drawn on the card, the ranks
+     one at a time), four modes at 2 slots a mode, paged; Llama-4, Jamba,
+     RWKV6 (dense) and the VLM reduced, greedy and speculative, paged;
+     8 prompts of 24-64 tokens, max_new 12; each against the unsharded
+     engine as above, printing the MoE dropped fraction, the data-axis
+     collectives (the router's global counts) and each rank's local
+     widths; a rank of a family run that launched no draft_verify, or on
+     an attention family no paged_decode_gqa, fails. Then the CLI on
+     Jamba reduced (``--mesh 2 2 --paged``); last, each decode read's
+     launch group of the family runs timed alone against its plain
+     version and bound on seeded inputs at its shape;
   20. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
@@ -2691,22 +2703,43 @@ MESH = dict(
     # tests/test_sharded.py's shard-local exhaustion pool
     exhaust=dict(mode="speculative", draft_len=4, n_drafts=6, max_new=24,
                  max_src=96, n_slots=4),
-    exhaust_pool=dict(paged=True, page_size=8, n_pages=52))
+    exhaust_pool=dict(paged=True, page_size=8, n_pages=52),
+    # every decoder-only family on the mesh: Phi-3.5-MoE at full width cut
+    # to 2 of 32 layers at capacity factor 8.0 (dropless, as serve_moe
+    # runs it; weights drawn on the card, the ranks one at a time), four
+    # modes at 2 slots a mode; the reduced Llama-4, Jamba, RWKV6 (dense:
+    # no attention to page) and VLM greedy and speculative; 8 prompts of
+    # 24-64 tokens, max_new 12
+    families=(
+        ("Phi-3.5-MoE full width paged", "phi3.5-moe-42b-a6.6b",
+         dict(n_layers=2, capacity_factor=8.0), 4, True),
+        ("Llama-4 reduced paged", "llama4-maverick-400b-a17b", None, 2,
+         True),
+        ("Jamba reduced paged", "jamba-v0.1-52b", None, 2, True),
+        ("RWKV6 reduced dense", "rwkv6-1.6b", None, 2, False),
+        ("VLM reduced paged", "llama-3.2-vision-11b", None, 2, True)),
+    fam_prompts=8, fam_len=(24, 64),
+    # the CLI once more: Jamba alone has Mamba, attention and MoE; 4
+    # requests resident at once
+    cli_families=["--arch", "jamba-v0.1-52b", "--reduced", "--requests",
+                  "4", "--prompt-len", "32", "--max-new", "16", "--slots",
+                  "4", "--draft-len", "4", "--n-drafts", "4",
+                  "--page-size", "8"])
 MESH_TAG = "4 ranks share one card"
 MESH_KERNELS = ("decode_gqa", "paged_decode_gqa", "draft_verify",
                 "flash_attention")
 
 
-def mesh_cli(torch, device: str) -> dict:
-    """``repro_torch.launch.serve --mesh 2 2 --paged`` under torchrun: 4
-    ranks, the continuous pass sharded, every check of the script."""
+def mesh_cli(torch, device: str, args: list) -> dict:
+    """``repro_torch.launch.serve --mesh 2 2 --paged`` with ``args`` under
+    torchrun: 4 ranks, the continuous pass sharded, every check of the
+    script."""
     src = Path(__file__).resolve().parent / "src"
     data, model = MESH["shape"]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(data * model), "-m",
-           "repro_torch.launch.serve", "--arch", MESH["lm_arch"],
-           *(["--reduced"] if MESH["reduced"] else []), "--device", device,
-           "--paged", "--mesh", str(data), str(model), *MESH["cli"]]
+           "repro_torch.launch.serve", "--device", device, "--paged",
+           "--mesh", str(data), str(model), *args]
     env = dict(os.environ, PYTHONPATH=str(src),
                OMP_NUM_THREADS="1")
     t0 = time.perf_counter()
@@ -2756,15 +2789,24 @@ def mesh_compare(label: str, ref: dict, got: list, n_req: int) -> dict:
           f"logprob| {worst:.3e}", flush=True)
     print(f"  shard_stats {got[0]['shard_stats']}; collectives an "
           f"iteration: {ls['model_collectives'] / it:.1f} model-axis, "
+          f"{ls['data_collectives'] / it:.1f} data-axis, "
           f"{ls['host_collectives'] / it:.2f} host ({ls['bundle_gathers']} "
           f"bundle gathers); dispatches an iteration "
           f"{ls['dispatches_per_iteration']:.2f} (unsharded "
           f"{ref['loop_stats']['dispatches_per_iteration']:.2f}); "
           f"preemptions {got[0]['preemptions']} shards "
           f"{got[0]['preempt_shards']}", flush=True)
+    if ref["dropped_frac"] is not None:
+        if any(r["dropped_frac"] != got[0]["dropped_frac"] for r in got):
+            raise AssertionError(f"mesh {label}: ranks disagree on the "
+                                 f"dropped fraction")
+        print(f"  MoE dropped fraction {got[0]['dropped_frac']:.4f} "
+              f"sharded, {ref['dropped_frac']:.4f} unsharded", flush=True)
     for r in got:
         print(f"  rank {r['rank']} launches "
-              f"{ {k: r['launches'][k] for k in MESH_KERNELS} }", flush=True)
+              f"{ {k: r['launches'][k] for k in MESH_KERNELS} }; local "
+              f"widths {r['widths']} (unsharded {ref['widths']})",
+              flush=True)
     return {"worst": worst, "launches": [r["launches"] for r in got]}
 
 
@@ -2809,11 +2851,86 @@ MESH_GROUP_DIMS = {"decode_gqa": "B T H Kv S hd",
                    "draft_verify": "N T V"}
 
 
+def family_runs() -> list:
+    """The mesh phase's runs of the decoder-only families (``MESH
+    ["families"]``): (label, model, engine kw, jobs, extra, pool)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    modes = ("greedy", "speculative", "beam", "speculative_beam")
+    runs = []
+    for label, arch, cut, n_modes, paged in MESH["families"]:
+        cfg = get_config(arch, reduced=cut is None)
+        model = dict(family="lm", cfg=cfg, seed=SEED)
+        if cut is not None:
+            model.update(draw="card", capacity_factor=cut["capacity_factor"],
+                         cfg=dataclasses.replace(cfg,
+                                                 n_layers=cut["n_layers"]))
+        prompts = lm_prompts(cfg.vocab_size, MESH["fam_prompts"],
+                             *MESH["fam_len"], seed=2)
+        jobs = [(p.tolist(), modes[i % n_modes])
+                for i, p in enumerate(prompts)]
+        kw = dict(MESH["lm_kw"], paged=paged,
+                  mode_groups={m: 2 for m in modes[:n_modes]})
+        runs.append((label, model, kw, jobs, {}, None))
+    return runs
+
+
+def check_family_launches(label: str, model: dict, paged: bool,
+                          got: list) -> None:
+    """Every rank of a family run launched draft_verify and, on an
+    attention family, its cache's decode read."""
+    need = ["draft_verify"]
+    if "attn" in model["cfg"].layer_pattern:
+        need.append("paged_decode_gqa" if paged else "decode_gqa")
+    for r in got:
+        if any(r["launches"][k] == 0 for k in need):
+            raise AssertionError(f"mesh {label}: rank {r['rank']} launched "
+                                 f"{r['launches']}, none of {need}")
+
+
+def time_mesh_groups(torch, seen: dict) -> None:
+    """Kernel, plain and bound times of the decode reads at the family
+    runs' launch groups (a rank's local heads and rows), each on the
+    seeded inputs of ``kernels.cases`` at its shape, timed here alone
+    (``timed_ms``); draft_verify's groups are timed in the main path's
+    shape accounting."""
+    from repro_torch.kernels import (decode_gqa_attention,
+                                     paged_decode_gqa_attention)
+    from repro_torch.kernels.cases import decode_inputs, paged_inputs
+    from repro_torch.kernels.decode_gqa.ref import (decode_gqa_ref,
+                                                    paged_decode_gqa_ref)
+
+    print("mesh family launch groups, timed alone on this card "
+          f"({card_line()}):", flush=True)
+    for (k, shape), (n, err, live, runs) in sorted(seen.items()):
+        if k == "decode_gqa":
+            x = decode_inputs(*shape)
+            work = decode_work(x[0], x[1], x[3], x[4])
+            fn, ref = decode_gqa_attention, decode_gqa_ref
+        elif k == "paged_decode_gqa":
+            x = paged_inputs(*shape)
+            work = paged_work(x[0], x[1], x[3], x[4], x[5])
+            fn, ref = paged_decode_gqa_attention, paged_decode_gqa_ref
+        else:
+            continue
+        xs = on_card(torch, x)
+        ms = timed_ms(torch, lambda: fn(*xs))
+        plain = timed_ms(torch, lambda: ref(*xs))
+        b_ms, by = bound(*work)
+        dims = dict(zip(MESH_GROUP_DIMS[k].split(), shape))
+        print(f"  {k} {dims}: {n} launches over the ranks, kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms "
+              f"({by})", flush=True)
+
+
 def serve_mesh(torch, device: str = "cuda") -> dict:
     """The mesh phase: the CLI under torchrun, then a world of 4 ranks on
-    the card serving SmolLM-135M (mixed modes, paged and dense) and
-    mt-product (four modes, paged; the shard-local exhaustion pool), each
-    against the same engine unsharded in this process."""
+    the card serving SmolLM-135M (mixed modes, paged and dense),
+    mt-product (four modes, paged; the shard-local exhaustion pool) and
+    every decoder-only family (``family_runs``), each against the same
+    engine unsharded in this process; then the CLI on Jamba."""
     from repro_torch.configs import get_config
     from repro_torch.configs.mt import product_config, with_vocab
     from repro_torch.data import SyntheticReactionDataset
@@ -2822,7 +2939,9 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
 
     t0 = time.perf_counter()
     on_card = device == "cuda"
-    out = {"cli": mesh_cli(torch, device)}
+    out = {"cli": mesh_cli(torch, device, [
+        "--arch", MESH["lm_arch"], *(["--reduced"] if MESH["reduced"]
+                                     else []), *MESH["cli"]])}
     modes = ("greedy", "speculative", "beam", "speculative_beam")
     groups = {m: 2 for m in modes}
     cfg = get_config(MESH["lm_arch"], reduced=MESH["reduced"])
@@ -2847,21 +2966,34 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
          None),
         ("mt-product exhaustion", mt, MESH["exhaust"], ex_jobs,
          {"predict": True}, MESH["exhaust_pool"])]
+    families = family_runs()
     per_rank = [dict.fromkeys(MESH_KERNELS, 0) for _ in range(4)]
     seen: dict = {}
+    fam_keys: set = set()
     verify: dict = {}
     with World(4, device=device) as world:
         print(f"mesh world: 4 ranks, backend {world.backend} ({MESH_TAG})",
               flush=True)
-        for label, model, kw, jobs, extra, pool in runs:
+        for label, model, kw, jobs, extra, pool in runs + families:
+            t_run = time.perf_counter()
             ref = mesh_runs.serve(model, kw, jobs, mesh=None, on_card=on_card,
                                   **extra)
+            gc.collect()       # the unsharded engine's weights, before
+            if on_card:        # the ranks draw theirs
+                torch.cuda.empty_cache()
             got = world.run("repro_torch.launch.mesh_runs:serve",
                             model=model, engine=dict(kw, **(pool or {})),
                             jobs=jobs, mesh=MESH["shape"], on_card=on_card,
                             **extra)
             out[label] = mesh_compare(label, ref, got, len(jobs))
             check_mesh_groups(label, ref, got, seen, verify)
+            if any(label == f[0] for f in families):
+                fam_keys |= {(g["kernel"], tuple(g["shape"]))
+                             for r in got for g in r["groups"]}
+                check_family_launches(label, model, kw.get("paged", False),
+                                      got)
+                print(f"  mesh {label}: {time.perf_counter() - t_run:.1f} s "
+                      f"with its unsharded run", flush=True)
             if pool is not None:
                 r0 = got[0]
                 if r0["preemptions"] == 0 or None in r0["preempt_shards"]:
@@ -2874,6 +3006,7 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
             for acc, r in zip(per_rank, got):
                 for k in MESH_KERNELS:
                     acc[k] += r["launches"][k]
+    out["cli families"] = mesh_cli(torch, device, MESH["cli_families"])
     for rank, acc in enumerate(per_rank):
         if any(n == 0 for n in acc.values()):
             raise AssertionError(f"mesh phase: rank {rank} launched no "
@@ -2886,6 +3019,8 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
         print(f"  {k} {dims}: {n} launches, largest |kernel - plain| "
               f"{err:.3e}, held on a live launch in {live} of the {runs} "
               f"rank runs that launched it", flush=True)
+    if on_card:
+        time_mesh_groups(torch, {k: seen[k] for k in fam_keys})
     print(f"mesh phase: every rank launched {list(MESH_KERNELS)}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     out["per_rank"] = per_rank

@@ -87,3 +87,18 @@ def make_serving_mesh(shape: tuple[int, int] = (2, 2), *, device=None):
         device = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(str(device), shape,
                             mesh_dim_names=("data", "model"))
+
+
+def mesh_tensor_parallel(mesh):
+    """This rank's ``repro_torch.sharding.ctx.TensorParallel`` on a serving
+    mesh: its model-axis group and rank, and its data-axis group and
+    shard (the MoE router's global counts); no weight recorded as split
+    yet (``launch.shardings.lay_out_params`` records them)."""
+    from repro_torch.sharding.ctx import TensorParallel
+
+    data, model = (int(x) for x in tuple(mesh.shape))
+    shard, rank = (int(x) for x in mesh.get_coordinate())
+    return TensorParallel(
+        group=mesh.get_group("model"), rank=rank, size=model,
+        row_split=frozenset(), vocab_split=frozenset(),
+        data_group=mesh.get_group("data"), data_rank=shard, data_size=data)

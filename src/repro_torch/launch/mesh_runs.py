@@ -3,13 +3,19 @@ report what it did: the jobs a ``repro_torch.launch.world.World`` runs on
 every rank (the mesh tests and ``chip_smoke.py`` start one world and run
 many engines through it).
 
-``serve`` builds the model (seeded weights, or a saved state), the engine
+``layer`` runs one layer function of a model on a mesh rank, under the
+rank's tensor-parallel context, on given inputs: the per-layer checks of
+the sharded MoE, Mamba, RWKV and cross-attention layers.
+
+``serve`` builds the model (seeded weights, or a saved state; any
+decoder-only family, with an MoE capacity factor of its own), the engine
 (sharded over a ``(data, model)`` mesh, or unsharded in the rank), submits
 the jobs, serves them and returns each job's tokens, log-probs and calls
 with the engine's counters (``shard_stats()``, ``loop_stats()``,
 ``prefix_stats()``, preemptions and the shards they named, the shard of
-each admission, kernel launches and their launch groups, walls, this
-rank's slots, rows and weight shapes). ``probe`` calls engine methods
+each admission, the MoE dropped fraction, kernel launches and their
+launch groups, walls, this rank's slots, rows, weight shapes and local
+widths). ``probe`` calls engine methods
 with engine attributes set first (placement checks). Every rank returns
 its own report; the ranks' reports must agree.
 
@@ -21,6 +27,7 @@ and segment give shapes that no unsharded path launches.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -49,12 +56,16 @@ def _device(on_card: bool):
                        "cuda" if on_card else "cpu")
 
 
-def _model(model: dict):
+def _model(model: dict, device=None):
     """(cfg, params, tokenizer) from a model description: ``family`` "mt"
     (``cfg``, and a ``tokenizer`` dict or a ``SyntheticReactionDataset(n,
-    seed)``'s, ``dataset``) or "lm" (``cfg``); weights from ``params`` (a
-    ``torch.save`` file) or drawn from ``seed`` by a CPU generator (the
-    same on every rank)."""
+    seed)``'s, ``dataset``) or "lm" (``cfg``, and ``capacity_factor`` to
+    override its MoE's); weights from ``params`` (a ``torch.save`` file)
+    or drawn from ``seed`` by a CPU generator (the same on every rank), or
+    with ``draw="card"`` by a generator on ``device``'s card (the same on
+    every rank of one card; full-width models, with no host copy)."""
+    import dataclasses
+
     from repro_torch.data import SyntheticReactionDataset
     from repro_torch.models import seq2seq as s2s
     from repro_torch.models import transformer as tr
@@ -62,6 +73,9 @@ def _model(model: dict):
     from repro_torch.data.tokenizer import SmilesTokenizer
 
     cfg = model["cfg"]
+    if model.get("capacity_factor") is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(model["capacity_factor"])))
     tok = None
     if "tokenizer" in model:
         tok = SmilesTokenizer.from_dict(model["tokenizer"])
@@ -73,18 +87,69 @@ def _model(model: dict):
                             weights_only=False)
     else:
         init = s2s.init if model["family"] == "mt" else tr.init
-        params = init(torch.Generator().manual_seed(model["seed"]), cfg,
-                      device="cpu")
+        on = (device if model.get("draw") == "card" and device is not None
+              and device.type == "cuda" else "cpu")
+        params = init(torch.Generator(on).manual_seed(model["seed"]), cfg,
+                      device=on)
     return cfg, params, tok
 
 
 def _engine(model: dict, engine: dict, mesh, device):
+    """The engine; with ``draw="card"`` the ranks of a world draw their
+    weights and take their shards one at a time (each holds the whole
+    model only while it lays its shard out)."""
+    import torch.distributed as dist
+
     from repro_torch.serving import EngineConfig, StreamingEngine
 
-    cfg, params, tok = _model(model)
-    return StreamingEngine(params, cfg, tok, EngineConfig(
-        **engine, mesh=None if mesh is None else _mesh(mesh)),
-        device=device)
+    dm = None if mesh is None else _mesh(mesh)   # made by every rank
+
+    def build():
+        cfg, params, tok = _model(model, device)
+        return StreamingEngine(params, cfg, tok,
+                               EngineConfig(**engine, mesh=dm),
+                               device=device)
+
+    if model.get("draw") != "card" or mesh is None:
+        return build()
+    from repro_torch.launch.world import host_group
+
+    eng = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            eng = build()
+            _free(device)
+        dist.barrier(group=host_group(None))
+    return eng
+
+
+def _free(device) -> None:
+    """Collect dropped engines (their scheduler hooks form reference
+    cycles) and hand their card memory back."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def engine_widths(eng) -> dict:
+    """The widths an engine's weights and cache hold: attention and kv
+    heads a rank's cache holds, experts, Mamba's ``d_inner``, RWKV's and
+    the cross-attention heads (a mesh rank's own; the model's
+    unsharded)."""
+    from repro_torch.models import transformer as tr
+
+    cfg = getattr(eng, "_local_cfg", None) or eng.cfg
+    out = {}
+    if "attn" in getattr(cfg, "layer_pattern", ("attn",)):
+        out.update(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads)
+    if "blocks" not in eng.params:
+        return out
+    out.update(tr.local_widths(eng.params, eng.cfg))
+    for blocks in eng.params["blocks"]:
+        ffn = blocks[0].get("ffn", {})
+        if "experts" in ffn:
+            out["experts"] = int(ffn["experts"]["w_in"]["w"].shape[0])
+    return out
 
 
 # the decode tolerance of the kernel checks: |kernel - plain| <= TOL + TOL *
@@ -199,8 +264,10 @@ def serve(model: dict, engine: dict, jobs: list, *, mesh=(2, 2),
     import torch.distributed as dist
 
     from repro_torch.kernels import _build
+    from repro_torch.models import moe
 
     device = _device(on_card)
+    _free(device)         # the engines of earlier calls
     eng = _engine(model, engine, mesh, device)
     for q, m in serve_first or ():
         eng.submit(np.asarray(q, np.int32), mode=m)
@@ -222,8 +289,9 @@ def serve(model: dict, engine: dict, jobs: list, *, mesh=(2, 2),
     _build.reset_launch_counts()
     groups = LaunchGroups()
     try:
-        out, wall = _drive(eng, jobs, device, realtime=realtime,
-                           predict=predict, arrivals=arrivals)
+        with moe.count_drops() as drops:
+            out, wall = _drive(eng, jobs, device, realtime=realtime,
+                               predict=predict, arrivals=arrivals)
     finally:
         groups.close()
     if eng.allocator is not None:
@@ -239,7 +307,8 @@ def serve(model: dict, engine: dict, jobs: list, *, mesh=(2, 2),
         local_slots=[int(gs.active.shape[0]) for gs in state.groups],
         global_slots=[s.n_slots for s in eng._groups.values()],
         param_elems=sum(int(t.numel()) for t in _leaves(eng.params)),
-        footprint=eng.cache_footprint())
+        footprint=eng.cache_footprint(), widths=engine_widths(eng),
+        dropped_frac=drops.fraction())
 
 
 def _drive(eng, jobs: list, device, *, realtime: bool, predict: bool,
@@ -296,14 +365,91 @@ def probe(model: dict, engine: dict, calls: list, *, mesh=(2, 2),
     return out
 
 
-def refusals(model: dict, engine: dict, *, mesh=(2, 2)) -> str:
-    """The error a mesh engine (or a front door over one) raises, by type
-    and message; "" when it builds."""
+def layer(model: dict, kind: str, args: dict, *, mesh=(1, 4),
+          block: int = 0, split_rows: bool = False) -> dict:
+    """Run layer ``kind`` of pattern position ``block`` (repeat 0) of the model on
+    this rank, with the rank's shard of the weights
+    (``lay_out_params``) under its ``TensorParallel``, on ``args`` (numpy
+    arrays; ``split_rows``: the rank's data shard takes its equal part of
+    every array's rows). A state argument is cut to the rank's channels
+    or heads. Returns numpy arrays, per-channel ones (states, memory K/V)
+    the rank's own:
+
+    - ``moe``: ``moe_ffn(x)`` (``out``, ``dropped``, ``top1``) and
+      ``moe_route`` of its rows (``gate_idx``, ``pos``, ``keep``,
+      ``capacity``);
+    - ``mamba``: ``mamba_mixer(x, lengths)`` with its state, then
+      ``mamba_step(x_step)`` from the state ``conv`` / ``ssm``;
+    - ``rwkv``: ``rwkv_mixer(x, state=S, x_last=x_tm)`` and
+      ``rwkv_channel_mix(x, x_last=x_cm)``;
+    - ``xattn``: ``memory_kv(memory)``, then ``cached_cross_attention(x)``
+      over it and ``cross_attention(x, memory)``, under ``memory_mask``."""
+    from repro_torch.launch.mesh import mesh_tensor_parallel
+    from repro_torch.launch.shardings import lay_out_params
+    from repro_torch.models import attention, mamba, moe, rwkv
+    from repro_torch.sharding import ctx
+
+    cfg, params, _ = _model(model)
+    dm = _mesh(mesh)
+    tp = mesh_tensor_parallel(dm)
+    p = lay_out_params(params, cfg, dm, tp, "cpu")["blocks"][block][0]
+    a = {k: torch.from_numpy(np.asarray(v)) for k, v in args.items()}
+    if split_rows:
+        a = {k: v.chunk(tp.data_size)[tp.data_rank] for k, v in a.items()}
+
+    def own(t, dim, n):
+        """``t``'s ``n`` channels of this rank on ``dim``."""
+        return t if t.shape[dim] == n else t.narrow(dim, tp.rank * n, n)
+
+    out = {}
+    with torch.no_grad(), ctx.tensor_parallel(tp):
+        if kind == "moe":
+            y, aux = moe.moe_ffn(p["ffn"], cfg, a["x"])
+            r = moe.moe_route(p["ffn"], cfg, a["x"].reshape(-1, cfg.d_model))
+            out.update(out=y, dropped=aux["moe_dropped_frac"],
+                       top1=aux["moe_top1_frac"], gate_idx=r["gate_idx"],
+                       pos=r["pos"], keep=r["keep"],
+                       capacity=torch.tensor(r["capacity"]))
+        elif kind == "mamba":
+            pm = p["mamba"]
+            y, st = mamba.mamba_mixer(pm, cfg, a["x"], lengths=a["lengths"],
+                                      return_state=True)
+            n = pm["conv_b"].shape[0]
+            cache = {"conv": own(a["conv"], 2, n), "ssm": own(a["ssm"], 1, n)}
+            ys, after = mamba.mamba_step(pm, cfg, cache, a["x_step"])
+            out.update(out=y, conv=st["conv"], ssm=st["ssm"], step=ys,
+                       step_conv=after["conv"], step_ssm=after["ssm"])
+        elif kind == "rwkv":
+            H = p["rwkv"]["u"].shape[0]
+            y, (S, _) = rwkv.rwkv_mixer(p["rwkv"], cfg, a["x"],
+                                        state=own(a["S"], 1, H),
+                                        x_last=a["x_tm"])
+            cm, _ = rwkv.rwkv_channel_mix(p["cmix"], a["x"],
+                                          x_last=a["x_cm"])
+            out.update(out=y, S=S, cmix=cm)
+        elif kind == "xattn":
+            pa, mask = p["attn"], a["memory_mask"]
+            kv = attention.memory_kv(pa, cfg, a["memory"])
+            out.update(mk=kv["mk"], mv=kv["mv"],
+                       out=attention.cached_cross_attention(
+                           pa, cfg, a["x"], kv, memory_mask=mask),
+                       full=attention.cross_attention(
+                           pa, cfg, a["x"], a["memory"], memory_mask=mask))
+        else:
+            raise ValueError(f"unknown layer {kind!r}")
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def refusals(model: dict, engine: dict, *, mesh=(2, 2),
+             front_door: bool = True) -> str:
+    """The error a mesh engine (or, with ``front_door``, a front door over
+    one) raises, by type and message; "" when it builds."""
     from repro_torch.serving import FrontDoorServer
 
     try:
         eng = _engine(model, engine, mesh, _device(False))
-        FrontDoorServer(eng)
+        if front_door:
+            FrontDoorServer(eng)
     except (NotImplementedError, ValueError, TypeError) as e:
         return f"{type(e).__name__}: {e}"
     return ""

@@ -18,8 +18,12 @@ Weights and prompts come from seeded generators, so the checks are
 internal. ``--no-continuous`` skips the serving pass.
 
 ``--mesh DATA MODEL`` serves the continuous pass on a ``(data, model)``
-mesh: slots and page-pool segments split over DATA, params over MODEL.
-Run it inside a world of DATA x MODEL ranks started by torchrun:
+mesh: slots and page-pool segments split over DATA, params over MODEL
+(attention and cross-attention by head, MoE by expert, Mamba by channel,
+RWKV by head), for every decoder-only architecture. Rank 0 prints each
+rank's local widths and, for an MoE architecture, the continuous pass's
+dropped fraction. Run it inside a world of DATA x MODEL ranks started by
+torchrun:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \\
         --nproc-per-node 4 -m repro_torch.launch.serve --arch smollm-135m \\
@@ -49,6 +53,8 @@ def continuous_demo(params, cfg, prompts: np.ndarray, args, *, device, mesh,
     """Decoder-only continuous batching through the StreamingEngine: each
     prompt streams into a freed slot by chunked prefill, interleaved with
     the resident slots' decode steps."""
+    from repro_torch.launch.mesh_runs import engine_widths
+    from repro_torch.models import moe
     from repro_torch.serving import (EngineConfig, GenerationParams,
                                      RequestCancelled, StreamingEngine)
 
@@ -75,10 +81,11 @@ def continuous_demo(params, cfg, prompts: np.ndarray, args, *, device, mesh,
     doomed = eng.submit(prompts[0], arrival=float(3 * B))
     assert doomed.cancel() and doomed.status == "cancelled"
     t0 = time.time()
-    # request 0 read incrementally: each delta is the tokens one scheduler
-    # iteration committed (the other slots decode in between)
-    deltas = list(handles[0].stream())
-    results = eng.serve()      # drain the rest of the queue
+    with moe.count_drops() as drops:
+        # request 0 read incrementally: each delta is the tokens one
+        # scheduler iteration committed (the other slots decode in between)
+        deltas = list(handles[0].stream())
+        results = eng.serve()      # drain the rest of the queue
     dt = time.time() - t0
     ok = [r for r in results.values() if r.status == "finished"]
     acc = sum(r.accepted for r in ok)
@@ -90,9 +97,18 @@ def continuous_demo(params, cfg, prompts: np.ndarray, args, *, device, mesh,
         f"chunk={ecfg.prefill_chunk}{mesh_txt}), {eng.scheduler.n_steps} "
         f"steps, {dt:.2f}s, acceptance={acc / max(gen, 1):.2f}, "
         f"{len(deltas)} stream deltas for request 0")
+    if drops.fraction() is not None:
+        say(f"moe         : dropped fraction {drops.fraction():.4f} at "
+            f"capacity factor {cfg.moe.capacity_factor}")
     if mesh is not None:
+        import torch.distributed as dist
+
         say(f"mesh        : shard_stats {eng.shard_stats()}, loop_stats "
             f"{eng.loop_stats()}")
+        widths = [None] * dist.get_world_size()
+        dist.all_gather_object(widths, engine_widths(eng))
+        for r, w in enumerate(widths):
+            say(f"mesh widths : rank {r} {w}")
     r0 = handles[0].result()
     np.testing.assert_array_equal(
         np.concatenate(deltas) if deltas else np.zeros((0,), np.int32),

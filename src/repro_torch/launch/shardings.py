@@ -47,24 +47,100 @@ def param_shardings(params, mesh, *, fsdp: bool = True):
 
 
 def serving_param_shardings(params, cfg, mesh):
-    """Tensor-parallel specs that execute exactly: the rules, except that
-    Q/K/V projections whose head count does not divide the model axis stay
-    whole (a split that cuts inside ``head_dim`` would split RoPE's
-    rotation pairs)."""
+    """Tensor-parallel specs that execute exactly on a serving mesh: the
+    JAX package's serving specs (``repro.launch.shardings``), which are
+    the rules' specs (``repro_torch.sharding.rules``) with one departure,
+    plus one of the port's own:
+
+    - Q/K/V projections whose head count does not divide the model axis
+      stay whole (a split that cuts inside ``head_dim`` would split RoPE's
+      rotation pairs). The count is ``n_heads`` for ``wq``, ``n_kv_heads``
+      for ``wk`` / ``wv``, by name, wherever they sit: a cross-attention
+      position's whole ``wk`` / ``wv`` beside a split ``wq`` are cut to the
+      rank's heads when used, and RWKV's ``wr`` / ``wg``, split inside its
+      heads where ``wk`` / ``wv`` stay whole, are gathered whole
+      (``models.rwkv``);
+    - every Mamba leaf stays whole where ``d_inner`` does not divide the
+      model axis (the rules would still split the fused ``w_in``, whose
+      width is twice ``d_inner``, and nothing else).
+
+    The rules' layouts the layers rely on: Mamba's fused ``w_in``
+    (``(d, 2 * d_inner)``) keeps its spec ``(None, MODEL)`` but is not cut
+    contiguously: ``serving_shard`` gives each rank its x-columns AND its
+    z-columns, where a contiguous cut would hand rank 0 all of x and rank
+    1 all of z; ``wo`` / ``w_out`` / ``w_xdbc`` are row-parallel;
+    ``w_dt``, ``conv_*``, ``A_log``, ``D`` and RWKV's ``u`` split by
+    channel or head; the stacked experts split on their expert dim where
+    ``n_experts`` divides the model axis (else every rank holds every
+    expert and the MoE output needs no sum); the router, ``w_base``, the
+    LoRA, ``ln_x`` and the gates stay whole; the vocabulary splits."""
     model = rules.axis_sizes(mesh).get(_MODEL, 1)
     heads = {"wq": int(getattr(cfg, "n_heads", 1) or 1),
              "wk": int(getattr(cfg, "n_kv_heads", 0)
                        or getattr(cfg, "n_heads", 1) or 1)}
     heads["wv"] = heads["wk"]
+    mamba_whole = getattr(cfg, "mamba", None) is not None and bool(
+        (cfg.mamba.expand * cfg.d_model) % model)
 
     def one(path, leaf):
         names = rules.path_names(path)
         parent = names[-2] if len(names) >= 2 else ""
         if parent in heads and heads[parent] % model:
             return _repl(len(leaf.shape))
+        if mamba_whole and "mamba" in names:
+            return _repl(len(leaf.shape))
         return rules.leaf_pspec(path, leaf.shape, mesh)
 
     return rules.tree_map_with_path(one, params)
+
+
+def serving_shard(path, t, spec: tuple, index: int, size: int):
+    """Shard ``index`` of ``size`` of the leaf ``t`` at ``path`` under its
+    ``serving_param_shardings`` spec: contiguous chunks of every dim the
+    spec splits over the model axis (``rules.shard_tensor``), except
+    Mamba's fused ``w_in``, whose x- and z-halves are each cut and put
+    side by side (a view only where the spec keeps it whole)."""
+    names = rules.path_names(path)
+    if (rules.split_dims(spec, _MODEL) and "mamba" in names
+            and names[-2:] == ["w_in", "w"]):
+        halves = t.reshape(t.shape[0], 2, t.shape[1] // 2)
+        return rules.shard_tensor(halves, (None, None, _MODEL), _MODEL,
+                                  index, size).reshape(t.shape[0], -1)
+    return rules.shard_tensor(t, spec, _MODEL, index, size)
+
+
+def lay_out_params(params, cfg, mesh, tp, device):
+    """This rank's shard of every weight (``serving_param_shardings``, cut
+    by ``serving_shard``) on ``device``, with the split weights recorded
+    in ``tp`` (a ``repro_torch.sharding.ctx.TensorParallel``) for the
+    layers' collectives: ``wo`` / ``w_out`` / ``w_xdbc`` input dim split
+    (``row_split``), ``embed`` / ``w_vocab`` vocabulary split
+    (``vocab_split``), the stacked experts expert dim split
+    (``expert_split``). A shard that is a view of a weight on ``device``
+    is copied, so the whole weight can be freed."""
+    specs = serving_param_shardings(params, cfg, mesh)
+    row, vocab, expert = set(), set(), set()
+
+    def one(path, t):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        local = serving_shard(path, t, spec, tp.rank, tp.size).to(device)
+        local = local.contiguous() if local._base is None else local.clone()
+        names = rules.path_names(path)
+        if rules.split_dims(spec, _MODEL):
+            if "experts" in names:
+                expert.add(id(local))
+            elif names[-1] == "w" and names[-2] in ("wo", "w_out", "w_xdbc"):
+                row.add(id(local))
+            if names[-1] in ("embed", "w_vocab"):
+                vocab.add(id(local))
+        return local
+
+    out = rules.tree_map_with_path(one, params)
+    tp.row_split, tp.vocab_split = frozenset(row), frozenset(vocab)
+    tp.expert_split = frozenset(expert)
+    return out
 
 
 def opt_shardings(opt_state, params, mesh):

@@ -219,20 +219,28 @@ def _gqa_attend(q, k, v, mask, *, q_per_kv: int):
     return out.reshape(B, T, Hq, hd)
 
 
+def _own_kv_heads(cfg: ModelConfig, n_q: int, k, v, *, cross: bool):
+    """``k`` / ``v`` (B, S, heads, hd) cut to the kv heads a mesh rank's
+    ``n_q`` query heads read, where ``wk`` / ``wv`` stay whole beside a
+    split ``wq``; as they are otherwise."""
+    tp = ctx.current()
+    n_kv = cfg.n_heads if cross else cfg.n_kv_heads
+    if tp is not None and n_q < cfg.n_heads and k.shape[2] == n_kv:
+        lo, hi = ctx.kv_heads_for(tp.rank, n_q, cfg.n_heads, n_kv)
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    return k, v
+
+
 def _project_qkv(p: dict, cfg: ModelConfig, x, kv_input, *, cross: bool):
     """q, k, v with the heads the weights hold: every head, or this rank's
     under a tensor-parallel mesh (a whole ``wk`` / ``wv`` beside a split
     ``wq`` is cut to the kv heads the rank's query heads read)."""
     B, T = x.shape[:2]
     hd = cfg.head_dim
-    n_kv = cfg.n_heads if cross else cfg.n_kv_heads
     q = dense(p["wq"], x).reshape(B, T, -1, hd)
     k = dense(p["wk"], kv_input).reshape(B, kv_input.shape[1], -1, hd)
     v = dense(p["wv"], kv_input).reshape(B, kv_input.shape[1], -1, hd)
-    tp = ctx.current()
-    if tp is not None and q.shape[2] < cfg.n_heads and k.shape[2] == n_kv:
-        lo, hi = ctx.kv_heads_for(tp.rank, q.shape[2], cfg.n_heads, n_kv)
-        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    k, v = _own_kv_heads(cfg, q.shape[2], k, v, cross=cross)
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm")
         k = apply_norm(p["k_norm"], k, "rmsnorm")
@@ -281,7 +289,8 @@ def attention(p: dict, cfg: ModelConfig, x, *, positions=None,
         blind = ~visible_mask(T, causal=causal, window=window,
                               key_mask=padding_mask, q_pos=positions,
                               k_pos=positions, device=x.device).any(-1)[:, 0]
-        mean_v = v.float().mean(1).repeat_interleave(cfg.q_per_kv, dim=1)
+        mean_v = v.float().mean(1).repeat_interleave(
+            q.shape[2] // v.shape[2], dim=1)
         out = torch.where(blind[:, :, None, None],
                           mean_v[:, None].to(out.dtype), out)
     return dense_row(p["wo"], out.reshape(B, T, -1))
@@ -303,11 +312,14 @@ def cross_attention(p: dict, cfg: ModelConfig, x, memory, *,
 
 def memory_kv(p: dict, cfg: ModelConfig, memory) -> dict:
     """Precompute cross-attention K/V from the encoder's or the frontend's
-    memory (prefill time)."""
+    memory (prefill time): every head, or on a mesh rank the heads of its
+    share of ``wq`` (``cached_cross_attention`` reads them with those
+    query heads and reduces ``wo``)."""
     B, M = memory.shape[:2]
     hd = cfg.head_dim
     k = dense(p["wk"], memory).reshape(B, M, -1, hd)
     v = dense(p["wv"], memory).reshape(B, M, -1, hd)
+    k, v = _own_kv_heads(cfg, p["wq"]["w"].shape[1] // hd, k, v, cross=True)
     if cfg.qk_norm:
         k = apply_norm(p["k_norm"], k, "rmsnorm")
     return {"mk": k, "mv": v}
@@ -378,10 +390,12 @@ def cached_attention(p: dict, cfg: ModelConfig, x, cache, positions, *,
                                    cache.pos.contiguous(), positions,
                                    window=window)
     if "moe" in cfg.ffn_pattern:
+        # per kv head the cache holds (a mesh rank's own), over its group
+        mean_v = _row_mean_v(cache)
         out = torch.where((positions < 0)[:, :, None, None],
-                          _row_mean_v(cache).repeat_interleave(
-                              cfg.q_per_kv, dim=1)[:, None].to(out.dtype),
-                          out)
+                          mean_v.repeat_interleave(
+                              out.shape[2] // mean_v.shape[1],
+                              dim=1)[:, None].to(out.dtype), out)
     return dense_row(p["wo"], out.reshape(B, T, -1)), cache
 
 
@@ -431,7 +445,8 @@ def multidraft_attention(p: dict, cfg: ModelConfig, x, cache: KVCache,
     cache_mask = (kp >= 0) & (kp <= qp)
     if cfg.sliding_window > 0:
         cache_mask &= kp > qp - cfg.sliding_window
-    Kv, G, hd = cache.k.shape[2], cfg.q_per_kv, cfg.head_dim
+    Kv, hd = cache.k.shape[2], cfg.head_dim
+    G = q.shape[2] // Kv
     qh = q.reshape(B, T, Kv, G, hd)
     scale = 1.0 / math.sqrt(hd)
     s_c = torch.einsum("btkgh,bskh->bkgts", qh, cache.k).float() * scale

@@ -11,7 +11,17 @@ The JAX package evaluates the full-sequence recurrence with
 ``lax.associative_scan``; here ``_scan_ssm`` is a plain loop over time
 that computes the same recurrence (its sums round in another order, so
 the two agree to fp32 rounding, not bitwise). Decoding (``mamba_step``)
-is the same sequential update as the JAX package's.
+is the same sequential update as the JAX package's, with the conv and the
+selective projections of its T tokens computed at once (they read the
+inputs and the conv window, never the SSM state); only the state update
+loops over time.
+
+On a serving mesh a rank holds its model shard's ``d_inner`` channels:
+its x- and z-columns of ``w_in`` (``launch.shardings``), the conv, ``A``,
+``D`` and ``w_dt``'s columns of them; ``w_xdbc`` is row-parallel, so its
+``dt / B / C`` projection is summed over the model axis before the split
+(``dt_rank`` and ``d_state`` stay whole), and ``w_out`` is reduced. The
+conv and the scan are per channel and need no collective.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _normal, dense, dense_init
+from repro_torch.models.layers import _normal, dense, dense_init, dense_row
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
@@ -69,10 +79,11 @@ def _conv_full(p, x):
 
 def _ssm_inputs(p, xc):
     """xc (B, T, d_inner) post-conv activations -> dt (B, T, d_inner) and
-    the selective B, C (B, T, d_state)."""
+    the selective B, C (B, T, d_state) (a row-split ``w_xdbc``'s partial
+    products summed over the model axis first)."""
     d_state = p["A_log"].shape[1]
     dt_rank = p["w_xdbc"]["w"].shape[1] - 2 * d_state
-    dt, Bsel, Csel = torch.split(dense(p["w_xdbc"], xc),
+    dt, Bsel, Csel = torch.split(dense_row(p["w_xdbc"], xc),
                                  [dt_rank, d_state, d_state], dim=-1)
     return _softplus(dense(p["w_dt"], dt)), Bsel, Csel
 
@@ -114,7 +125,7 @@ def mamba_mixer(p: dict, cfg: ModelConfig, x, *, lengths=None,
                  < lengths[:, None])
     xc = F.silu(_conv_full(p, xi))
     y, h_final = _scan_ssm(p, xc, valid)
-    out = dense(p["w_out"], y * F.silu(z))
+    out = dense_row(p["w_out"], y * F.silu(z))
     if not return_state:
         return out
     # conv state: the last d_conv-1 real inputs of each (right-padded) row
@@ -132,34 +143,44 @@ def mamba_mixer(p: dict, cfg: ModelConfig, x, *, lengths=None,
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, *, device,
-                     dtype=torch.float32) -> dict:
-    d_inner, d_state, d_conv, _ = _dims(cfg)
+                     dtype=torch.float32, d_inner: int | None = None
+                     ) -> dict:
+    """``d_inner``: the channels the cache holds (a mesh rank's own),
+    default the model's."""
+    d_whole, d_state, d_conv, _ = _dims(cfg)
+    d_inner = d_inner or d_whole
     return {"conv": torch.zeros((batch, d_conv - 1, d_inner), dtype=dtype,
                                 device=device),
             "ssm": torch.zeros((batch, d_inner, d_state),
                                dtype=torch.float32, device=device)}
 
 
-def mamba_step(p: dict, cfg: ModelConfig, cache: dict, x
-               ) -> tuple[torch.Tensor, dict]:
-    """Decode T new tokens in order. x: (B, T, d_model)."""
+def mamba_step(p: dict, cfg: ModelConfig, cache: dict, x, *,
+               states_out: dict | None = None) -> tuple[torch.Tensor, dict]:
+    """Decode T new tokens in order. x: (B, T, d_model). Returns (out, the
+    cache after the T tokens); ``states_out`` (leaves (B, T, ...)) also
+    receives the cache after each token."""
     d_inner = p["conv_b"].shape[0]
+    d_conv = p["conv_w"].shape[0]
+    T = x.shape[1]
     xi, z = torch.split(dense(p["w_in"], x), [d_inner, d_inner], dim=-1)
     A = -torch.exp(p["A_log"].float())
-    conv, h = cache["conv"], cache["ssm"]
-    ys = []
-    for t in range(x.shape[1]):
-        window = torch.cat([conv, xi[:, t:t + 1, :]], dim=1)  # (B, d_conv, d)
-        xc = torch.einsum("bcd,cd->bd", window, p["conv_w"]) + p["conv_b"]
-        xc = F.silu(xc)
-        dt, Bsel, Csel = _ssm_inputs(p, xc[:, None, :])
-        dt, Bsel, Csel = dt[:, 0], Bsel[:, 0], Csel[:, 0]
-        a = torch.exp(dt.float()[..., None] * A)              # (B, d, s)
-        b = (dt * xc).float()[..., None] * Bsel.float()[:, None, :]
-        h = a * h + b
-        y = torch.einsum("bds,bs->bd", h, Csel.float())
-        ys.append((y + xc.float() * p["D"].float()).to(x.dtype))
-        conv = window[:, 1:, :]
-    y = torch.stack(ys, dim=1)
-    out = dense(p["w_out"], y * F.silu(z))
-    return out, {"conv": conv, "ssm": h}
+    # every token's conv window: the carried d_conv-1 inputs, then the new
+    window = torch.cat([cache["conv"], xi], dim=1)      # (B, d_conv-1+T, d)
+    wins = window.unfold(1, d_conv, 1)                  # (B, T, d, d_conv)
+    xc = F.silu(torch.einsum("btdc,cd->btd", wins, p["conv_w"])
+                + p["conv_b"])
+    dt, Bsel, Csel = _ssm_inputs(p, xc)
+    a = torch.exp(dt.float()[..., None] * A)                  # (B, T, d, s)
+    b = (dt * xc).float()[..., None] * Bsel.float()[:, :, None, :]
+    Cf = Csel.float()
+    h, ys = cache["ssm"], []
+    for t in range(T):
+        h = a[:, t] * h + b[:, t]
+        ys.append(torch.einsum("bds,bs->bd", h, Cf[:, t]))
+        if states_out is not None:
+            states_out["conv"][:, t] = window[:, t + 1:t + d_conv]
+            states_out["ssm"][:, t] = h
+    y = (torch.stack(ys, dim=1) + xc.float() * p["D"].float()).to(x.dtype)
+    out = dense_row(p["w_out"], y * F.silu(z))
+    return out, {"conv": window[:, T:], "ssm": h}

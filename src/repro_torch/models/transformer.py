@@ -156,11 +156,32 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
 # caches
 
 
-def _state_init(cfg: ModelConfig, kind: str, batch: int, dev, dtype) -> dict:
-    """One layer's zero recurrent state, (B, ...) leaves."""
+def local_widths(params, cfg: ModelConfig) -> dict:
+    """The per-channel widths a params tree holds (a mesh rank's shard, or
+    the whole model): Mamba's ``d_inner``, RWKV's heads and the
+    cross-attention positions' heads, for ``init_cache(widths=)``.
+    ``d_model`` is never cut: the token shift's inputs stay whole."""
+    out = {}
+    for kind, blocks in zip(cfg.layer_pattern, params["blocks"]):
+        p = blocks[0]
+        if kind == "mamba":
+            out["d_inner"] = int(p["mamba"]["conv_b"].shape[0])
+        elif kind == "rwkv":
+            out["rwkv_heads"] = int(p["rwkv"]["u"].shape[0])
+        elif kind == "xattn":
+            out["xattn_heads"] = int(p["attn"]["wq"]["w"].shape[1]
+                                     // cfg.head_dim)
+    return out
+
+
+def _state_init(cfg: ModelConfig, kind: str, batch: int, dev, dtype,
+                widths: dict) -> dict:
+    """One layer's zero recurrent state, (B, ...) leaves, at ``widths``."""
     if kind == "mamba":
-        return mamba_mod.init_mamba_cache(cfg, batch, device=dev, dtype=dtype)
+        return mamba_mod.init_mamba_cache(cfg, batch, device=dev, dtype=dtype,
+                                          d_inner=widths.get("d_inner"))
     H, hd = rwkv_mod._heads(cfg)
+    H = widths.get("rwkv_heads", H)
     return {"S": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
                              device=dev),
             "x_tm": torch.zeros((batch, cfg.d_model), dtype=dtype,
@@ -170,7 +191,8 @@ def _state_init(cfg: ModelConfig, kind: str, batch: int, dev, dtype) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.float32, paged=None, device=None) -> tuple:
+               dtype=torch.float32, paged=None, device=None,
+               widths: dict | None = None) -> tuple:
     """One cache per pattern position, stacked over repeats (leading axis).
 
     ``paged``: ``(n_pages, page_size)`` allocates each attention position's
@@ -179,10 +201,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     Recurrent state stays dense: it is O(1) in sequence length a row; so
     does a cross-attention position's memory K/V (zeros of
     ``max(memory_tokens, 1)`` slots until ``prefill(memory=)`` writes it,
-    as in the JAX package)."""
+    as in the JAX package). ``widths``: the channels a mesh rank holds
+    (``local_widths``: ``d_inner``, ``rwkv_heads``, ``xattn_heads``),
+    default the model's; attention heads come from ``cfg``."""
     check_pattern(cfg)
     dev = resolve_device(device)
     R = cfg.n_repeats
+    widths = widths or {}
 
     def stack(a):
         return a.expand(R, *a.shape).contiguous()
@@ -191,10 +216,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     for kind in cfg.layer_pattern:
         if kind in RECURRENT:
             caches.append({k: stack(v) for k, v in
-                           _state_init(cfg, kind, batch, dev, dtype).items()})
+                           _state_init(cfg, kind, batch, dev, dtype,
+                                       widths).items()})
         elif kind == "xattn":
-            shape = (R, batch, max(cfg.memory_tokens, 1), cfg.n_heads,
-                     cfg.head_dim)
+            shape = (R, batch, max(cfg.memory_tokens, 1),
+                     widths.get("xattn_heads", cfg.n_heads), cfg.head_dim)
             caches.append({k: torch.zeros(shape, dtype=dtype, device=dev)
                            for k in ("mk", "mv")})
         elif paged is not None:
@@ -245,25 +271,23 @@ def _layer(c, r: int):
 
 
 def _rwkv_decode_ckpt(p, cfg: ModelConfig, state: dict, x, ckpt: dict):
-    """A whole RWKV block over T fed tokens, one token at a time, writing
-    the state after each into ``ckpt`` (leaves (B, T+1, ...), index 0 the
-    state before the step)."""
-    S, x_tm, x_cm = state["S"], state["x_tm"], state["x_cm"]
+    """A whole RWKV block over T fed tokens, writing the state after each
+    into ``ckpt`` (leaves (B, T+1, ...), index 0 the state before the
+    step). Within a block token t reads only the inputs and the WKV state,
+    so the projections run over the T tokens at once and only the state
+    update loops (``rwkv_mixer``)."""
     for k, v in state.items():
         ckpt[k][:, 0] = v
-    outs = []
-    for t in range(x.shape[1]):
-        xt = x[:, t:t + 1, :]
-        n1 = apply_norm(p["norm1"], xt, cfg.norm)
-        mix, (S, x_tm) = rwkv_mod.rwkv_mixer(p["rwkv"], cfg, n1, state=S,
-                                             x_last=x_tm)
-        xt = xt + mix
-        n2 = apply_norm(p["norm2"], xt, cfg.norm)
-        cm, x_cm = rwkv_mod.rwkv_channel_mix(p["cmix"], n2, x_last=x_cm)
-        outs.append(xt + cm)
-        for k, v in (("S", S), ("x_tm", x_tm), ("x_cm", x_cm)):
-            ckpt[k][:, t + 1] = v
-    return torch.cat(outs, dim=1)
+    n1 = apply_norm(p["norm1"], x, cfg.norm)
+    mix, _ = rwkv_mod.rwkv_mixer(p["rwkv"], cfg, n1, state=state["S"],
+                                 x_last=state["x_tm"],
+                                 states_out=ckpt["S"][:, 1:])
+    x = x + mix
+    n2 = apply_norm(p["norm2"], x, cfg.norm)
+    cm, _ = rwkv_mod.rwkv_channel_mix(p["cmix"], n2, x_last=state["x_cm"])
+    ckpt["x_tm"][:, 1:] = n1
+    ckpt["x_cm"][:, 1:] = n2
+    return x + cm
 
 
 def _rwkv_prefill(p, cfg: ModelConfig, state: dict, x, lengths):
@@ -285,17 +309,14 @@ def _rwkv_prefill(p, cfg: ModelConfig, state: dict, x, lengths):
 
 
 def _mamba_decode_ckpt(p, cfg: ModelConfig, state: dict, h, ckpt: dict):
-    """Mamba over T fed tokens one at a time (``mamba_step`` each),
-    writing the state after each into ``ckpt``."""
+    """Mamba over T fed tokens in order (``mamba_step``), writing the
+    state after each into ``ckpt``."""
     for k, v in state.items():
         ckpt[k][:, 0] = v
-    c, ys = state, []
-    for t in range(h.shape[1]):
-        y, c = mamba_mod.mamba_step(p, cfg, c, h[:, t:t + 1, :])
-        ys.append(y)
-        for k, v in c.items():
-            ckpt[k][:, t + 1] = v
-    return torch.cat(ys, dim=1)
+    y, _ = mamba_mod.mamba_step(p, cfg, state, h,
+                                states_out={k: v[:, 1:]
+                                            for k, v in ckpt.items()})
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -331,8 +352,8 @@ def _run_stack(params, cfg: ModelConfig, x, cache, positions, *,
 
     Recurrent positions: with ``lengths`` (B,) (prefill) each runs over
     the whole prompt and writes its state at each row's end into the cache
-    in place; without (decode), each runs token by token and the state
-    after every fed token goes into fresh checkpoints (R, B, T+1, ...).
+    in place; without (decode), each runs over the fed tokens in order and
+    the state after every one goes into fresh checkpoints (R, B, T+1, ...).
     Cross-attention positions attend to ``memory`` (prefill) or to its K/V
     in the cache (decode), under ``memory_mask``.
     Returns (x, cache with those checkpoints)."""

@@ -155,9 +155,10 @@ class Seq2SeqBackend:
         return spec.cache_len
 
     def init_cache(self, n_rows: int, row_len: int, paged=None, *, device,
-                   cfg=None):
+                   cfg=None, widths=None):
         """``cfg``: the config whose head counts the cache holds (a mesh
-        rank's own heads), default the model's."""
+        rank's own heads), default the model's; the MT has attention
+        positions only, so ``widths`` is unused."""
         return s2s.init_cache(
             cfg or self.cfg, n_rows, row_len, memory_len=self.ecfg.max_src,
             memory_mask=np.zeros((n_rows, self.ecfg.max_src), bool),
@@ -270,16 +271,18 @@ class DecoderOnlyBackend:
         return self.ecfg.max_src + spec.cache_len
 
     def init_cache(self, n_rows: int, row_len: int, paged=None, *, device,
-                   cfg=None):
+                   cfg=None, widths=None):
         """``cfg``: the config whose head counts the cache holds (a mesh
-        rank's own heads), default the model's."""
+        rank's own heads), default the model's; ``widths``: the recurrent
+        and cross-attention widths it holds (``transformer.
+        local_widths``), default the model's."""
         if paged is not None and not self.pageable():
             raise ValueError(
                 f"{self.cfg.name}: no attention positions to page "
                 f"(layer_pattern={self.cfg.layer_pattern}); recurrent state "
                 f"is O(1) per row — serve this architecture dense")
         return tr.init_cache(cfg or self.cfg, n_rows, row_len, paged=paged,
-                             device=device)
+                             device=device, widths=widths)
 
     def pageable(self) -> bool:
         return "attn" in self.cfg.layer_pattern

@@ -51,10 +51,17 @@ tables are gathered over the data axis on the host, once an iteration,
 so every rank's scheduler sees every slot. Admissions write on the ranks
 of the owning shard; every rank edits the replicated tables. A finished
 slot is read on its owner and broadcast. The realtime clock is rank 0's,
-broadcast at each read. Tokens equal the unsharded engine's. Refused on a
-mesh, by name (ROADMAP.md Queue 1 item 9b): MoE, Mamba, RWKV or
-cross-attention positions, the audio family, and ``FrontDoorServer`` /
-the fleet over a mesh engine. Unlike the JAX package's, a radix prefix
+broadcast at each read. Tokens equal the unsharded engine's, except
+where an MoE FFN drops choices: there a row's output depends on the other
+rows of its call, and a mesh places requests on the least-loaded shard,
+so the tokens are those of the JAX package's sharded engine (the MoE
+router keeps the global call's places and capacity,
+``repro_torch.models.moe``). Every decoder-only family serves on a mesh:
+MoE by expert shard, Mamba by ``d_inner`` channel, RWKV and
+cross-attention by head (``launch.shardings.serving_param_shardings``);
+the cache holds a rank's own heads and channels. Refused on a mesh, by
+name (ROADMAP.md Queue 1 item 9c): ``FrontDoorServer`` / the fleet over a
+mesh engine. Unlike the JAX package's, a radix prefix
 match is cut at its first page from another shard (a rank reads only
 its own segment): the cut suffix is prefilled, and the tokens are the
 cold run's; and the seq2seq encoder-output LRU is a rank's own (a rank
@@ -520,19 +527,12 @@ class StreamingEngine:
 
     # -- the mesh --------------------------------------------------------------
     def _join_mesh(self, cfg: ModelConfig) -> None:
-        """Refuse what a mesh does not serve yet (by name), then take this
-        rank's place: its data shard, its model rank, and the groups it
-        talks over (the model axis's for the layers' collectives, gloo
-        groups for the host's)."""
-        kinds = sorted({k for k in cfg.layer_pattern if k != "attn"}
-                       | {k for k in cfg.ffn_pattern if k != "dense"})
-        if cfg.family == "audio" or kinds:
-            what = ("the audio family" if cfg.family == "audio" else
-                    f"{'/'.join(kinds)} positions")
-            raise NotImplementedError(
-                f"{cfg.name}: a serving mesh runs dense attention patterns; "
-                f"{what} on a mesh are not ported yet (ROADMAP.md Queue 1 "
-                f"item 9b)")
+        """Take this rank's place: its data shard, its model rank, and the
+        groups it talks over (the model axis's for the layers'
+        collectives, the data axis's for the MoE router's global counts,
+        gloo groups for the host's). A mesh serves every family the
+        unsharded engine serves; what that refuses, the backend refuses
+        here too."""
         names = tuple(getattr(self.mesh, "mesh_dim_names", None) or ())
         if names != ("data", "model") or not hasattr(self.mesh, "get_group"):
             raise TypeError(
@@ -541,49 +541,29 @@ class StreamingEngine:
                 "(repro_torch.launch.mesh.make_serving_mesh)")
         import torch.distributed as dist
 
+        from repro_torch.launch.mesh import mesh_tensor_parallel
         from repro_torch.launch.world import host_group
 
-        self.n_shards, n_model = (int(x) for x in tuple(self.mesh.shape))
-        self._shard, model_rank = (int(x) for x in
-                                   self.mesh.get_coordinate())
+        self._tp = mesh_tensor_parallel(self.mesh)
+        self.n_shards, self._shard = self._tp.data_size, self._tp.data_rank
         self._data_host = host_group(self.mesh.get_group("data"))
         self._data_ranks = dist.get_process_group_ranks(
             self.mesh.get_group("data"))
         self._world_host = host_group(None)
-        self._tp = shard_ctx.TensorParallel(
-            group=self.mesh.get_group("model"), rank=model_rank,
-            size=n_model, row_split=frozenset(), vocab_split=frozenset())
         self.n_bundle_gathers = 0
         self.n_host_collectives = 0
 
     def _lay_out_params(self, params, cfg: ModelConfig) -> dict:
-        """This rank's shard of every weight (``serving_param_shardings``)
-        on the device, the split weights recorded for the layers' reduces
-        (``wo`` / ``w_out``: input dim split; ``embed`` / ``w_vocab``:
-        vocabulary split), and the head counts this rank's cache holds."""
-        from repro_torch.launch.shardings import serving_param_shardings
-        from repro_torch.sharding import rules
+        """This rank's shard of every weight on the device, the split
+        weights recorded in its ``TensorParallel``
+        (``launch.shardings.lay_out_params``), and the widths this rank's
+        cache holds (attention heads in ``_local_cfg``; Mamba's
+        ``d_inner``, RWKV's and the cross-attention positions' heads in
+        ``_local_widths``)."""
+        from repro_torch.launch.shardings import lay_out_params
 
         tp = self._tp
-        specs = serving_param_shardings(params, cfg, self.mesh)
-        row, vocab = set(), set()
-
-        def one(path, t):
-            spec = specs
-            for k in path:
-                spec = spec[k]
-            local = rules.shard_tensor(t, spec, rules.MODEL, tp.rank,
-                                       tp.size).to(self.device).contiguous()
-            names = rules.path_names(path)
-            if rules.split_dims(spec, rules.MODEL):
-                if names[-1] == "w" and names[-2] in ("wo", "w_out"):
-                    row.add(id(local))
-                if names[-1] in ("embed", "w_vocab"):
-                    vocab.add(id(local))
-            return local
-
-        out = rules.tree_map_with_path(one, params)
-        tp.row_split, tp.vocab_split = frozenset(row), frozenset(vocab)
+        out = lay_out_params(params, cfg, self.mesh, tp, self.device)
         H, Kv = cfg.n_heads, cfg.n_kv_heads
         Hl = H // tp.size if H % tp.size == 0 else H
         if Kv % tp.size == 0:
@@ -591,9 +571,11 @@ class StreamingEngine:
         else:
             lo, hi = shard_ctx.kv_heads_for(tp.rank, Hl, H, Kv)
             Kvl = hi - lo
-        # the cache holds this rank's heads only
+        # the cache holds this rank's heads and channels only
         self._local_cfg = dataclasses.replace(cfg, n_heads=Hl,
                                               n_kv_heads=Kvl)
+        self._local_widths = (tr.local_widths(out, cfg)
+                              if "blocks" in out else None)
         return out
 
     def _local_geometry(self) -> None:
@@ -650,7 +632,8 @@ class StreamingEngine:
                                          paged[1])
         cache = self.backend.init_cache(self._n_rows_local, self.cache_len,
                                         paged=lp, device=self.device,
-                                        cfg=self._local_cfg)
+                                        cfg=self._local_cfg,
+                                        widths=self._local_widths)
         self._gtables = None
         if paged is not None:
             nb = paged_cache_entries(cache)[0].block_tables.shape[-1]
@@ -1549,7 +1532,8 @@ class StreamingEngine:
         host step gap
         (seconds between consecutive bundle reads) p50/p95. On a mesh also
         this rank's bundle gathers, host collectives (gathers, owner
-        broadcasts, clock broadcasts) and model-axis collectives."""
+        broadcasts, clock broadcasts), model-axis collectives and
+        data-axis ones (the MoE router's global counts)."""
         gaps = sorted(self._step_gaps)
 
         def pct(q):
@@ -1571,7 +1555,8 @@ class StreamingEngine:
             **({} if self.mesh is None else {
                 "bundle_gathers": self.n_bundle_gathers,
                 "host_collectives": self.n_host_collectives,
-                "model_collectives": self._tp.n_collectives}),
+                "model_collectives": self._tp.n_collectives,
+                "data_collectives": self._tp.n_data_collectives}),
         }
 
     # -- sharded placement ---------------------------------------------------

@@ -268,7 +268,7 @@ class FrontDoorServer:
         if getattr(engine, "mesh", None) is not None:
             raise NotImplementedError(
                 "FrontDoorServer (and the fleet) over a mesh engine is not "
-                "ported yet (ROADMAP.md Queue 1 item 9b)")
+                "ported yet (ROADMAP.md Queue 1 item 9c)")
         self.engine = engine
         self.cfg = config or ServerConfig()
         self.port: int | None = None

@@ -16,14 +16,29 @@ exactly as it does unsharded. Inside it:
 - a vocab-parallel embedding looks up its own rows and sums the rows of
   every rank (``embed_lookup``);
 - vocab-split logits are gathered whole (``gather_last``) before anything
-  reads them (``draft_verify``, the beam step's log-softmax).
+  reads them (``draft_verify``, the beam step's log-softmax);
+- a per-channel slice is gathered whole on its last dim (``model_gather``:
+  RWKV's ``ln_x``, a LayerNorm over the whole width) and a whole tensor
+  cut to this rank's channels (``model_slice``);
+- an expert-parallel MoE FFN (its experts split on their expert dim,
+  ``TensorParallel.expert_split``) sums its output over the model axis
+  (``model_sum``, ``expert_reduce``): each choice's expert lives on one
+  rank, so the sum adds zeros to each term, exact for top-1 and top-2;
+- the MoE router places its choices in the global call's order: the
+  per-expert counts of the lower data shards and the global token count
+  come from one ``all_reduce`` over the data axis
+  (``data_prefix_counts``).
 
 Which weights are split is recorded by identity when the engine lays the
-params out (``TensorParallel.row_split`` / ``vocab_split``), so a layer
-never guesses from shapes. The gather is an ``all_reduce`` of a zeroed
-buffer into which each rank writes its slice: exact (x + 0 = x), and one
-collective that gloo also takes for CUDA tensors, where it takes no
-``all_gather``. ``n_collectives`` counts the collectives issued.
+params out (``TensorParallel.row_split`` / ``vocab_split`` /
+``expert_split``), so a layer never guesses from shapes. A gather is an
+``all_reduce`` of a zeroed buffer into which each rank writes its slice:
+exact (x + 0 = x), and one collective that gloo also takes for CUDA
+tensors, where it takes no ``all_gather``. Every other collective here is
+a sum that reorders the fp32 additions of the unsharded op (a row-split
+projection's partial products), except where it says exact.
+``n_collectives`` counts the model-axis collectives issued,
+``n_data_collectives`` the data-axis ones.
 """
 
 from __future__ import annotations
@@ -71,7 +86,12 @@ class TensorParallel:
     size: int                # the model axis's size
     row_split: frozenset     # id() of weights whose input dim is split
     vocab_split: frozenset   # id() of embeddings / heads split over vocab
+    expert_split: frozenset = frozenset()  # id() of experts split on dim 0
+    data_group: object = None  # the data axis's process group
+    data_rank: int = 0       # this rank's data shard
+    data_size: int = 1       # the data axis's size
     n_collectives: int = 0
+    n_data_collectives: int = 0
 
 
 def current() -> TensorParallel | None:
@@ -105,6 +125,79 @@ def row_reduce(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if tp is None or id(w) not in tp.row_split:
         return y
     return _all_reduce(tp, y)
+
+
+def model_sum(y: torch.Tensor) -> torch.Tensor:
+    """``y`` summed over the model axis (unsharded: ``y``)."""
+    tp = current()
+    return y if tp is None or tp.size == 1 else _all_reduce(tp, y)
+
+
+def model_slice(x: torch.Tensor, n: int) -> torch.Tensor:
+    """This rank's ``n`` channels of ``x``'s last dim: ``x`` as it is when
+    it holds ``n`` already (unsharded, or a whole weight beside it)."""
+    tp = current()
+    if tp is None or x.shape[-1] == n:
+        return x
+    return x[..., tp.rank * n:(tp.rank + 1) * n]
+
+
+def model_gather(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x``'s last dim whole (``n`` wide) from each rank's equal slice:
+    ``x`` as it is when it holds ``n`` already. Exact (a zeroed buffer
+    summed)."""
+    tp = current()
+    if tp is None or x.shape[-1] == n:
+        return x
+    w = x.shape[-1]
+    full = x.new_zeros((*x.shape[:-1], n))
+    full[..., tp.rank * w:(tp.rank + 1) * w] = x
+    return _all_reduce(tp, full)
+
+
+def expert_offset(w: torch.Tensor) -> int:
+    """The global index of the first expert of a stacked ``(E_local, ...)``
+    expert weight ``w`` on this rank (0 when the experts are whole)."""
+    tp = current()
+    if tp is None or id(w) not in tp.expert_split:
+        return 0
+    return tp.rank * w.shape[0]
+
+
+def expert_split(w: torch.Tensor) -> bool:
+    """True when ``w`` is a stacked expert weight split over the model
+    axis (the FFN's output is then summed there)."""
+    tp = current()
+    return tp is not None and id(w) in tp.expert_split
+
+
+def row_split(w: torch.Tensor) -> bool:
+    """True when ``w``'s input dim is split over the model axis."""
+    tp = current()
+    return tp is not None and id(w) in tp.row_split
+
+
+def data_prefix_counts(counts: torch.Tensor, n: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """``(prefix, total, n_total)`` of an integer vector ``counts`` and a
+    count ``n`` over the data shards: the sum of the lower shards'
+    vectors, of every shard's, and every shard's ``n``, by one
+    ``all_reduce`` of an ``(n_shards, len + 1)`` buffer over the data
+    axis, each rank writing its own row (exact: integers; ``n_total`` is
+    read on the host). Unsharded: ``(0, counts, n)``, no collective and no
+    read."""
+    tp = current()
+    if tp is None or tp.data_size == 1:
+        return torch.zeros_like(counts), counts, n
+    import torch.distributed as dist
+
+    buf = counts.new_zeros((tp.data_size, counts.shape[0] + 1))
+    buf[tp.data_rank, :-1] = counts
+    buf[tp.data_rank, -1] = n
+    dist.all_reduce(buf, group=tp.data_group)
+    tp.n_data_collectives += 1
+    return (buf[:tp.data_rank, :-1].sum(0), buf[:, :-1].sum(0),
+            int(buf[:, -1].sum()))
 
 
 def row_input(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -20,8 +20,10 @@ on the same toys (the MT ``tiny_config`` at depth 2 / d_model 64; SmolLM
 4. placement: the least-loaded shard, and prefix affinity; a prefix
    match cut at the first page of another shard gives the unsharded
    engine's tokens;
-5. the indivisible-slots and indivisible-pages errors, and the refusals
-   that name ROADMAP item 9b;
+5. the indivisible-slots and indivisible-pages errors; the MoE,
+   recurrent and VLM families build on a mesh, the audio encoder gets the
+   unsharded backend's refusal, and a front door over a mesh engine names
+   ROADMAP item 9c;
 6. the CLI under torchrun, and its one-rank run.
 """
 
@@ -353,6 +355,10 @@ def test_prefix_match_cut_at_foreign_shard_matches_unsharded(world, toys):
 
 
 def test_mesh_rejects_indivisible_slots_and_pages_and_refuses(world, toys):
+    """The indivisible-slots and indivisible-pages errors; every
+    decoder-only family builds on a mesh (ROADMAP item 9b is ported); the
+    audio encoder gets the unsharded backend's refusal; a front door over
+    a mesh engine is refused, naming item 9c."""
     lm, mt = toys["lm"], toys["mt"]
     base = dict(mode="greedy", max_new=8, max_src=28, prefill_chunk=8,
                 eos_id=2)
@@ -363,27 +369,24 @@ def test_mesh_rejects_indivisible_slots_and_pages_and_refuses(world, toys):
         (lm, dict(base, n_slots=3), "ValueError", "divide"),
         (lm, dict(base, n_slots=4, paged=True, page_size=8, n_pages=31),
          "ValueError", "divide"),
-        (red["phi3.5-moe-42b-a6.6b"], dict(base, n_slots=2),
-         "NotImplementedError", "moe positions"),
-        (red["rwkv6-1.6b"], dict(base, n_slots=2), "NotImplementedError",
-         "rwkv positions"),
-        (red["llama-3.2-vision-11b"], dict(base, n_slots=2),
-         "NotImplementedError", "xattn positions"),
-        (red["jamba-v0.1-52b"], dict(base, n_slots=2),
-         "NotImplementedError", "mamba/moe positions"),
+        *((model, dict(base, n_slots=2), "", "") for model in red.values()),
         (dict(family="lm", cfg=get_config("hubert-xlarge", reduced=True),
-              seed=0), dict(base, n_slots=2), "NotImplementedError",
-         "the audio family"),
+              seed=0), dict(base, n_slots=2), "ValueError",
+         "encoder-only architecture: no decode step"),
         (mt, dict(mode="greedy", max_new=8, max_src=96, n_slots=2),
          "NotImplementedError", "FrontDoorServer"),
     ]
     for model, kw, kind, text in cases:
         got = world.run("repro_torch.launch.mesh_runs:refusals",
-                        model=model, engine=kw)
+                        model=model, engine=kw,
+                        front_door=kind == "NotImplementedError")
         for msg in got:
+            if not kind:                  # the engine builds
+                assert msg == "", msg
+                continue
             assert msg.startswith(kind) and text in msg, msg
             if kind == "NotImplementedError":
-                assert "item 9b" in msg, msg
+                assert "item 9c" in msg, msg
 
 
 # ---------------------------------------------------------------------------

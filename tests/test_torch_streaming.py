@@ -696,15 +696,19 @@ def test_cancel_frees_the_slot_and_its_pages(toy):
     assert te.allocator.used_pages == 0
 
 
-def test_refusals_name_the_roadmap_item(toy):
+def test_refusals_name_the_roadmap_item(toy, tmp_path):
     """What the port does not serve yet is refused at construction, naming
-    the queue item that will port it: a mesh over a cross-attention
-    pattern (item 9b). A mesh that is not a ('data', 'model') DeviceMesh is
-    a TypeError. Item 5's prefix cache and overload policy are ported and
+    the queue item that will port it: a front door over a mesh engine
+    (item 9c). A mesh that is not a ('data', 'model') DeviceMesh is a
+    TypeError. Item 5's prefix cache and overload policy are ported and
     build, and so do the decoder-only patterns, cross-attention among them
-    since item 6.4 is ported; the paged cache adds no parameter."""
-    from repro_torch.launch.mesh import MeshShape
+    since item 6.4 is ported, and on a mesh since item 9b is (a one-rank
+    world here); the paged cache adds no parameter."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import MeshShape, make_serving_mesh
     from repro_torch.models import transformer as ttr
+    from repro_torch.serving import FrontDoorServer
 
     cfg_t, pt, tok = toy["cfg_t"], toy["pt"], toy["tok"]
     with pytest.raises(TypeError, match="DeviceMesh"):
@@ -714,13 +718,22 @@ def test_refusals_name_the_roadmap_item(toy):
         StreamingEngine(pt, cfg_t, tok, EngineConfig(**kw), device="cpu")
     decoder = dataclasses.replace(cfg_t, family="dense",
                                   layer_pattern=("xattn",), pos="rope")
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         StreamingEngine({}, decoder, tok, EngineConfig(
             mesh=MeshShape(("data", "model"), (2, 2))), device="cpu")
     assert make_backend(decoder, EngineConfig()).cfg is decoder
-    StreamingEngine(ttr.init(torch.Generator().manual_seed(0), decoder,
-                             device="cpu"), decoder, tok, EngineConfig(),
-                    device="cpu")
+    dparams = ttr.init(torch.Generator().manual_seed(0), decoder,
+                       device="cpu")
+    StreamingEngine(dparams, decoder, tok, EngineConfig(), device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        meng = StreamingEngine(dparams, decoder, tok, EngineConfig(
+            mesh=make_serving_mesh((1, 1))), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 9c"):
+            FrontDoorServer(meng)
+    finally:
+        dist.destroy_process_group()
     eng = StreamingEngine(pt, cfg_t, tok, EngineConfig(paged=True),
                           device="cpu")
     assert (len(jax.tree_util.tree_leaves(eng.params))
