@@ -213,9 +213,30 @@ In order:
      widths; a rank of a family run that launched no draft_verify, or on
      an attention family no paged_decode_gqa, fails. Then the CLI on
      Jamba reduced (``--mesh 2 2 --paged``); last, each decode read's
-     launch group of the family runs timed alone against its plain
-     version and bound on seeded inputs at its shape;
-  20. print the ``kernels`` JSON line, the card line, and
+     and flash's launch group of the mesh runs timed alone against its
+     plain version, ``scaled_dot_product_attention`` and its bound on
+     seeded inputs at its shape;
+  20. the launch phase (``serve_launch``): the dry-run CLIs
+     (``repro_torch.launch.dryrun`` on SmolLM-135M's four shapes and on
+     Phi-3.5-MoE's decode_32k verify pass) as subprocesses on the card's
+     host, started first and collected last; ``launch.train.main`` in
+     this process on SmolLM-135M whole (30 steps, B 16 x 256),
+     HuBERT-xlarge whole (3 steps, B 2 x 500) and the VLM reduced (5
+     steps): finite losses, flash forward and backward launches == the
+     attention layers x steps each; every ``launch.steps.build_step`` kind
+     (SmolLM-135M's decode_32k, its verify 11 and multi-draft 5 variants,
+     prefill_32k, long_500k and train_4k; mt-product's mt_verify and
+     mt_train) on one rank at the shape's full batch and sequence with the
+     arch's ``reduced()`` config (the MT's positional table widened to
+     256), fp32: outputs equal in shape to the meta run's and finite, the
+     expected kernels launched, the decode reads' launch groups held
+     against the plain version (not at the prefill's 32,768 rows), a
+     second call timed and traced and set beside the meta count
+     (``hlo_analysis.trace_roofline``); a kind that does not fit the card
+     halves its batch, and says so; ``examples/speculative_lm_torch.py``
+     on SmolLM and RWKV6 reduced must print ``outputs identical : True``
+     and launch draft_verify;
+  21. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
 Every Molecular Transformer serving phase must launch flash_attention (the
@@ -341,52 +362,10 @@ def sdpa_gqa(F, q, k, v, mask):
         q, k, v, attn_mask=mask, enable_gqa=k.shape[1] != q.shape[1])
 
 
-def decode_work(q, kc, k_pos, q_pos):
-    """Bytes and flops that cached attention needs for these inputs: each
-    input read once and the output written once, counting only the K/V of
-    slots that some query of the row can see (the output does not depend
-    on the rest), and 4·hd flops (QK^T and PV) per visible (query head,
-    key) pair."""
-    B, T, H, hd = q.shape
-    Kv = kc.shape[2]
-    qmax = q_pos.max(1, keepdims=True)
-    visible = ((k_pos >= 0) & (k_pos <= qmax)).sum()
-    pairs = ((k_pos[:, None, :] >= 0)
-             & (k_pos[:, None, :] <= q_pos[:, :, None])).sum()
-    nbytes = (2 * visible * Kv * hd * kc.itemsize + 2 * q.nbytes
-              + k_pos.nbytes + q_pos.nbytes)
-    return int(nbytes), int(4 * hd * H * pairs)
-
-
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, (
         "bytes" if t_bytes >= t_ops else "operations")
-
-
-def paged_work(q, k_pool, pos_pool, bt, q_pos):
-    """Bytes and flops that one paged read needs for these inputs, from the
-    visible keys only: a key counts when its block is mapped, its stored
-    position is >= 0 and <= the newest query of a row that maps it, and a
-    page several rows alias (a shared prefix) counts once. Bytes: those
-    keys' K and V, the stored positions of the mapped pages, the block
-    table, q, the output and q_pos; flops: 4·hd per visible (query head,
-    key) pair of each row."""
-    B, T, H, hd = q.shape
-    ps, Kv = k_pool.shape[1], k_pool.shape[2]
-    mapped = bt >= 0
-    kpos = np.where(mapped[..., None], pos_pool[np.where(mapped, bt, 0)], -1
-                    ).reshape(B, -1)
-    qmax = q_pos.max(1, keepdims=True)
-    key_id = (np.where(mapped, bt, 0)[..., None] * ps
-              + np.arange(ps)).reshape(B, -1)
-    visible = np.unique(key_id[(kpos >= 0) & (kpos <= qmax)]).size
-    pairs = ((kpos[:, None, :] >= 0)
-             & (kpos[:, None, :] <= q_pos[:, :, None])).sum()
-    nbytes = (2 * visible * Kv * hd * k_pool.itemsize + 2 * q.nbytes
-              + np.unique(bt[mapped]).size * ps * pos_pool.itemsize
-              + bt.nbytes + q_pos.nbytes)
-    return int(nbytes), int(4 * hd * H * pairs)
 
 
 PAGED_KEYS = ("B", "T", "H", "Kv", "P", "ps", "nb", "hd")
@@ -464,6 +443,7 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
                                            aliased_paged_inputs, paged_inputs)
     from repro_torch.kernels.decode_gqa.kernel import (
         paged_decode_gqa_kernel, plan_splits)
+    from repro_torch.kernels.decode_gqa.ops import paged_work
     from repro_torch.kernels.decode_gqa.ref import paged_decode_gqa_ref
     from repro_torch.models.attention import PagedKVCache, paged_view
 
@@ -517,8 +497,9 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
             return sdpa_gqa(F, qt, k.transpose(1, 2), v.transpose(1, 2),
                             mask)
 
-        nbytes, flops = paged_work(arrays[0], arrays[1], arrays[3],
-                                   arrays[4], arrays[5])
+        nbytes, flops = paged_work(arrays[0].shape, arrays[1].shape,
+                                   arrays[4].shape[1], arrays[1].itemsize,
+                                   arrays[3], arrays[4], arrays[5])
         bound_ms, bound_by = bound(nbytes, flops)
         n_split = plan_splits(c["B"], c["Kv"], c["nb"] * c["ps"],
                               c["T"] * c["H"] // c["Kv"], c["hd"])
@@ -533,32 +514,6 @@ def check_paged(torch, ecfg, n_queries: int) -> dict:
                 torch, lambda: paged_decode_gqa_kernel(*x, n_split=n))
                 for n in SPLIT_SWEEP}
     return dict(max_abs_err=err, shapes=shapes)
-
-
-def flash_work(B, S, H, hd, *, causal: bool, lengths=None, itemsize=4,
-               backward: bool = False, with_lse: bool = True, Kv=None):
-    """Bytes and flops that full-sequence attention needs for these inputs:
-    each input read once and each output written once, counting the K/V
-    reads of valid keys only (Kv kv heads, default H); the forward's lse
-    write only ``with_lse`` (training keeps it for the backward, inference
-    needs none); flops per visible (query, key) pair of each query head:
-    4·hd forward (QK^T, PV), 10·hd backward (QK^T and dO·V^T recomputed,
-    then dV, dQ, dK)."""
-    Kv = H if Kv is None else Kv
-    lengths = np.full(B, S) if lengths is None else np.asarray(lengths)
-    qi, ki = np.arange(S)[:, None], np.arange(S)[None, :]
-    vis = (ki <= qi) if causal else np.ones((S, S), bool)
-    pairs = H * sum(int((vis & (ki < n)).sum()) for n in lengths)
-    rows = B * S * H * hd              # q (and out, dO, dQ) elements
-    keys = int(lengths.sum()) * Kv * hd  # K or V elements of valid keys
-    mask = 0 if lengths.min() == S else B * S
-    if not backward:
-        lse = B * H * S * 4 if with_lse else 0
-        nbytes = (2 * rows + 2 * keys) * itemsize + lse + mask
-        return int(nbytes), int(4 * hd * pairs)
-    nbytes = (4 * rows + 2 * keys + 2 * B * S * Kv * hd) * 4 + (
-        B * H * S * 4 + mask)          # q,o,dO,dq + k,v + dk,dv; lse, mask
-    return int(nbytes), int(10 * hd * pairs)
 
 
 def check_flash(torch, main: dict) -> dict:
@@ -579,7 +534,8 @@ def check_flash(torch, main: dict) -> dict:
                                            FLASH_PLAIN_LOADS, FLASH_SWEEP,
                                            flash_inputs, permuted_positions,
                                            ragged_lengths)
-    from repro_torch.kernels.flash_attention.ops import _backward, _forward
+    from repro_torch.kernels.flash_attention.ops import (_backward, _forward,
+                                                         flash_work)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
 
@@ -788,19 +744,20 @@ def verify_timing(torch, N: int, T: int, V: int) -> dict:
     from repro_torch.kernels.cases import verify_inputs
     from repro_torch.kernels.draft_verify.kernel import (draft_verify_kernel,
                                                          plan)
+    from repro_torch.kernels.draft_verify.ops import verify_work
     from repro_torch.kernels.draft_verify.ref import draft_verify_ref
 
     x = on_card(torch, verify_inputs(N, T, V))
     logits = x[0]
-    nbytes = sum(t.nbytes for t in x) + (N * T + N) * 4
-    bound_ms, bound_by = bound(nbytes, N * T * V)
+    nbytes, flops = verify_work(N, T, V, logits.element_size())
+    bound_ms, bound_by = bound(nbytes, flops)
     p = plan(N, T, V, 4)
     out = dict(shape=dict(N=N, T=T, V=V),
                ms=timed_ms(torch, lambda: draft_verify(*x)),
                plain_ms=timed_ms(torch, lambda: draft_verify_ref(*x)),
                library_ms=timed_ms(torch, lambda: torch.argmax(logits,
                                                                dim=-1)),
-               bytes=nbytes, flops=N * T * V, bound_ms=bound_ms,
+               bytes=nbytes, flops=flops, bound_ms=bound_ms,
                bound_by=bound_by)
     if p.rows and not p.lanes:
         out["path"] = f"greedy kernel: {p.rows} row(s) a block, a warp each"
@@ -910,6 +867,7 @@ def check_kernels(torch, ecfg, n_queries: int, verify_main: dict,
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_gqa_attention
+    from repro_torch.kernels.decode_gqa.ops import decode_work
     from repro_torch.kernels.cases import (DECODE_CARD_ONLY, DECODE_SWEEP,
                                            decode_inputs, ring_inputs)
     from repro_torch.kernels.decode_gqa.kernel import (decode_gqa_kernel,
@@ -958,8 +916,8 @@ def check_kernels(torch, ecfg, n_queries: int, verify_main: dict,
         visible = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None]))
         mask = visible[:, None]                            # (B, 1, T, S)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        nbytes, flops = decode_work(arrays[0], arrays[1], arrays[3],
-                                    arrays[4])
+        nbytes, flops = decode_work(arrays[0].shape, arrays[1].shape,
+                                    arrays[1].itemsize, arrays[3], arrays[4])
         bound_ms, bound_by = bound(nbytes, flops)
         shapes[name] = dict(
             shape={d: c[d] for d in DECODE_KEYS + ("prefix",) if d in c},
@@ -2891,38 +2849,86 @@ def check_family_launches(label: str, model: dict, paged: bool,
 
 
 def time_mesh_groups(torch, seen: dict) -> None:
-    """Kernel, plain and bound times of the decode reads at the family
-    runs' launch groups (a rank's local heads and rows), each on the
-    seeded inputs of ``kernels.cases`` at its shape, timed here alone
-    (``timed_ms``); draft_verify's groups are timed in the main path's
-    shape accounting."""
+    """Kernel, plain, library-call and bound times of the decode reads and
+    the flash forward at every launch group of the mesh runs (a rank's
+    local heads and rows), each on the seeded inputs of ``kernels.cases``
+    at its shape, timed here alone (``timed_ms``): the library call is
+    ``scaled_dot_product_attention`` (a bool mask of the visible keys; the
+    paged read's after its ``paged_view`` gather), the bound the group's
+    own bytes or flops (``decode_work``, ``paged_work``, ``flash_work``).
+    The flash groups are the MT encoder's, timed with every key valid
+    (the ranks' rows carry their own padding). draft_verify's groups are
+    timed in the main path's shape accounting, ``torch.argmax`` beside."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels import (decode_gqa_attention,
                                      paged_decode_gqa_attention)
-    from repro_torch.kernels.cases import decode_inputs, paged_inputs
+    from repro_torch.kernels.cases import (decode_inputs, flash_inputs,
+                                           paged_inputs)
+    from repro_torch.kernels.decode_gqa.ops import decode_work, paged_work
     from repro_torch.kernels.decode_gqa.ref import (decode_gqa_ref,
                                                     paged_decode_gqa_ref)
+    from repro_torch.kernels.flash_attention.ops import _forward, flash_work
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.attention import PagedKVCache, paged_view
 
-    print("mesh family launch groups, timed alone on this card "
+    print("mesh launch groups, timed alone on this card "
           f"({card_line()}):", flush=True)
     for (k, shape), (n, err, live, runs) in sorted(seen.items()):
         if k == "decode_gqa":
             x = decode_inputs(*shape)
-            work = decode_work(x[0], x[1], x[3], x[4])
+            work = decode_work(x[0].shape, x[1].shape, x[1].itemsize, x[3],
+                               x[4])
+            xs = on_card(torch, x)
+            q, kc, vc, kp, qp = xs
+            mask = ((kp[:, None, :] >= 0)
+                    & (kp[:, None, :] <= qp[:, :, None]))[:, None]
+
+            def library(q=q, kc=kc, vc=vc, mask=mask):
+                return sdpa_gqa(F, q.transpose(1, 2), kc.transpose(1, 2),
+                                vc.transpose(1, 2), mask)
             fn, ref = decode_gqa_attention, decode_gqa_ref
         elif k == "paged_decode_gqa":
             x = paged_inputs(*shape)
-            work = paged_work(x[0], x[1], x[3], x[4], x[5])
+            work = paged_work(x[0].shape, x[1].shape, x[4].shape[1],
+                              x[1].itemsize, x[3], x[4], x[5])
+            xs = on_card(torch, x)
+            cache = PagedKVCache(k_pool=xs[1], v_pool=xs[2], pos=xs[3],
+                                 block_tables=xs[4])
+
+            def library(q=xs[0], qp=xs[5], cache=cache):
+                kc, vc, kpos = paged_view(cache)
+                mask = ((kpos[:, None, :] >= 0)
+                        & (kpos[:, None, :] <= qp[:, :, None]))[:, None]
+                return sdpa_gqa(F, q.transpose(1, 2), kc.transpose(1, 2),
+                                vc.transpose(1, 2), mask)
             fn, ref = paged_decode_gqa_attention, paged_decode_gqa_ref
+        elif k == "flash_attention":
+            B, S, H, Kv, hd = shape
+            q, kf, vf, _, _ = flash_inputs(B, S, H, hd, Kv=Kv)
+            xs = on_card(torch, (q, kf, vf))
+            work = flash_work(B, S, H, hd, causal=False, with_lse=False,
+                              Kv=Kv)
+
+            def fn(q, kf, vf):
+                return _forward(q, kf, vf, None, False, 0, with_lse=False)
+
+            def ref(q, kf, vf):
+                return flash_attention_ref(q, kf, vf, causal=False)
+
+            def library(xs=xs, gqa=Kv != H):
+                return F.scaled_dot_product_attention(
+                    *(t.transpose(1, 2) for t in xs), enable_gqa=gqa)
         else:
             continue
-        xs = on_card(torch, x)
         ms = timed_ms(torch, lambda: fn(*xs))
         plain = timed_ms(torch, lambda: ref(*xs))
+        lib = timed_ms(torch, library)
         b_ms, by = bound(*work)
         dims = dict(zip(MESH_GROUP_DIMS[k].split(), shape))
         print(f"  {k} {dims}: {n} launches over the ranks, kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms "
-              f"({by})", flush=True)
+              f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({by})", flush=True)
 
 
 def serve_mesh(torch, device: str = "cuda") -> dict:
@@ -2969,7 +2975,6 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
     families = family_runs()
     per_rank = [dict.fromkeys(MESH_KERNELS, 0) for _ in range(4)]
     seen: dict = {}
-    fam_keys: set = set()
     verify: dict = {}
     with World(4, device=device) as world:
         print(f"mesh world: 4 ranks, backend {world.backend} ({MESH_TAG})",
@@ -2988,8 +2993,6 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
             out[label] = mesh_compare(label, ref, got, len(jobs))
             check_mesh_groups(label, ref, got, seen, verify)
             if any(label == f[0] for f in families):
-                fam_keys |= {(g["kernel"], tuple(g["shape"]))
-                             for r in got for g in r["groups"]}
                 check_family_launches(label, model, kw.get("paged", False),
                                       got)
                 print(f"  mesh {label}: {time.perf_counter() - t_run:.1f} s "
@@ -3020,11 +3023,466 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
               f"{err:.3e}, held on a live launch in {live} of the {runs} "
               f"rank runs that launched it", flush=True)
     if on_card:
-        time_mesh_groups(torch, {k: seen[k] for k in fam_keys})
+        time_mesh_groups(torch, seen)
     print(f"mesh phase: every rank launched {list(MESH_KERNELS)}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     out["per_rank"] = per_rank
     out["verify_shapes"] = verify
+    return out
+
+
+LAUNCH = dict(
+    # launch.train.main in process: (args, flash launches a step)
+    train=[["--arch", "smollm-135m", "--steps", "30", "--batch", "16",
+            "--seq", "256"],
+           ["--arch", "hubert-xlarge", "--steps", "3", "--batch", "2",
+            "--seq", "500"],
+           ["--arch", "llama-3.2-vision-11b", "--reduced", "--steps", "5",
+            "--batch", "4", "--seq", "128"]],
+    # build_step kinds on one rank: (arch, shape, kwargs, config fields),
+    # the arch's reduced() config at the shape's full batch and sequence;
+    # the reduced MT's positional table (160 rows) widened to MT_SHAPES'
+    # 256 positions; fields None: the arch's full config (SmolLM-135M's
+    # 9 / 3 heads of hd 64 over the 32,768-slot cache, whose batch the
+    # halving rule cuts to what the card holds)
+    steps=[("smollm-135m", "decode_32k", {}, None),
+           ("smollm-135m", "decode_32k", dict(verify_tokens=11), None),
+           ("smollm-135m", "decode_32k", {}, {}),
+           ("smollm-135m", "decode_32k", dict(verify_tokens=11), {}),
+           ("smollm-135m", "decode_32k", dict(verify_tokens=11,
+                                              multidraft=5), {}),
+           ("smollm-135m", "prefill_32k", {}, {}),
+           ("smollm-135m", "long_500k", {}, {}),
+           ("smollm-135m", "train_4k", {}, {}),
+           ("mt-product", "mt_verify", {}, dict(max_len=256)),
+           ("mt-product", "mt_train", {}, dict(max_len=256))],
+    dryrun=[["--arch", "smollm-135m", "--shape", "all"],
+            ["--arch", "phi3.5-moe-42b-a6.6b", "--shape", "decode_32k",
+             "--verify-tokens", "11"]],
+    examples=["smollm-135m", "rwkv6-1.6b"],
+    dryrun_timeout_s=300)
+
+
+class RowChecks:
+    """While open, the first launch of each (kernel, shape) group of the
+    flash forward and backward kernels, and with ``decode`` of the dense
+    decode read, is held against the plain version on a slice of the same
+    inputs: batch rows 0 and B-1 (a row depends on no other; the last one
+    sits at the far end of the grid), and for the decode read the last
+    ``DECODE_ROWS`` query rows of those rows against the whole cache (the
+    prefill's 32,768 query rows would need hundreds of GB of plain
+    scores). It wraps the launchers the wrappers call (the launch counts
+    stay the wrappers'); a disagreement fails at once.
+
+    The plain version runs in fp32 and, on the same inputs upcast, in fp64
+    (the exact answer). A launch agrees when it is within the fp32
+    tolerance of the fp64 answer (2e-5 forward, 1e-4 backward, absolute
+    and relative, the absolute part scaled by the largest |answer|: a
+    train step's dO is the loss's 1/(B·S) share, so a bare absolute bound
+    would hold nothing), or when its largest error from the fp64 answer is
+    at most ``ROUNDING`` times the fp32 plain version's own: where the
+    answer is a small difference of large terms (a backward's P·(dP - D)
+    over a near one-hot softmax) no fp32 computation meets a bound set by
+    the answer alone, and the kernel's 3xTF32 products keep 21 of fp32's
+    24 mantissa bits (8x its rounding)."""
+
+    DECODE_ROWS = 64
+    ROUNDING = 8.0
+
+    def __init__(self, torch, label: str, *, decode: bool = False):
+        from repro_torch.kernels.decode_gqa import ops as dops
+        from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.flash_attention.ref import (
+            flash_attention_bwd_ref, flash_attention_ref)
+
+        self.torch, self.label = torch, label
+        # key -> [launches, |kernel - fp64|, |fp32 plain - fp64|]
+        self.groups: dict[tuple, list] = {}
+        self._undo = []
+
+        def rows(t, B):
+            return None if t is None else t[[0, B - 1]] if B > 1 else t
+
+        def both(ref, *args, **kw):
+            """The plain version in fp32 and in fp64 on the same inputs."""
+            up = [t.double() if t is not None and t.is_floating_point()
+                  else t for t in args]
+            r32, r64 = ref(*args, **kw), ref(*up, **kw)
+            return ((r32,), (r64,)) if isinstance(r32, torch.Tensor) \
+                else (r32, r64)
+
+        def fwd(launch, q, k, v, key_mask, *, causal, window, with_lse,
+                positions=None):
+            out = launch(q, k, v, key_mask, causal=causal, window=window,
+                         with_lse=with_lse, positions=positions)
+            B = q.shape[0]
+            sl = [rows(t, B) for t in (q, k, v, key_mask, positions)]
+            r32, r64 = both(lambda q_, k_, v_: flash_attention_ref(
+                q_, k_, v_, causal=causal, window=window, key_mask=sl[3],
+                q_pos=sl[4], k_pos=sl[4]), *sl[:3])
+            names = ("out", "lse") if with_lse else ("out",)
+            return out, [(n, rows(g, B), a, b) for n, g, a, b
+                         in zip(names, out, r32, r64)], 2e-5
+
+        def bwd(launch, q, k, v, o, lse, do, key_mask, *, causal, window,
+                positions=None):
+            out = launch(q, k, v, o, lse, do, key_mask, causal=causal,
+                         window=window, positions=positions)
+            B = q.shape[0]
+            sl = [rows(t, B) for t in (q, k, v, o, lse, do, key_mask,
+                                       positions)]
+            r32, r64 = both(lambda *t: flash_attention_bwd_ref(
+                *t, causal=causal, window=window, key_mask=sl[6],
+                q_pos=sl[7], k_pos=sl[7]), *sl[:6])
+            return out, [(n, rows(g, B), a, b) for n, g, a, b
+                         in zip(("dq", "dk", "dv"), out, r32, r64)], 1e-4
+
+        def dec(launch, q, k_cache, v_cache, k_pos, q_pos, *, window=0,
+                **kw):
+            out = launch(q, k_cache, v_cache, k_pos, q_pos, window=window,
+                         **kw)
+            B, n = q.shape[0], self.DECODE_ROWS
+            r32, r64 = both(lambda q_, k_, v_: decode_gqa_ref(
+                q_, k_, v_, rows(k_pos, B), rows(q_pos, B)[:, -n:],
+                window=window), rows(q, B)[:, -n:], rows(k_cache, B),
+                rows(v_cache, B))
+            return out, [("out", rows(out, B)[:, -n:], r32[0], r64[0])], 2e-5
+
+        self._wrap(fops, "flash_attention_fwd_kernel", "flash_attention",
+                   fwd)
+        self._wrap(fops, "flash_attention_bwd_kernel", "flash_attention_bwd",
+                   bwd)
+        if decode:
+            self._wrap(dops, "decode_gqa_kernel", "decode_gqa", dec)
+
+    def _wrap(self, module, attr: str, kernel: str, check) -> None:
+        torch = self.torch
+        launch = getattr(module, attr)
+
+        def call(*args, **kw):
+            key = (kernel, tuple(args[0].shape), tuple(args[1].shape))
+            group = self.groups.get(key)
+            if group is not None:
+                group[0] += 1
+                return launch(*args, **kw)
+            out, pairs, tol = check(launch, *args, **kw)
+            err = err32 = 0.0
+            for name, got, r32, r64 in pairs:
+                e = (got.double() - r64).abs()
+                e32 = float((r32.double() - r64).abs().max())
+                scale = float(r64.abs().max())
+                within = bool(torch.all(e <= tol * scale + tol * r64.abs()))
+                if not (within or float(e.max()) <= self.ROUNDING * e32):
+                    raise AssertionError(
+                        f"{self.label}: {kernel} {key[1]} {name} disagrees "
+                        f"with its plain version on batch rows 0 and B-1: "
+                        f"max |kernel - fp64 plain| {float(e.max())}, "
+                        f"largest |fp64 plain| {scale}, max |fp32 plain - "
+                        f"fp64 plain| {e32}")
+                err, err32 = max(err, float(e.max())), max(err32, e32)
+            self.groups[key] = [1, err, err32]
+            return out
+
+        setattr(module, attr, call)
+        self._undo.append((module, attr, launch))
+
+    def close(self) -> None:
+        for module, attr, launch in reversed(self._undo):
+            setattr(module, attr, launch)
+        self._undo = []
+
+    def report(self) -> str:
+        return ", ".join(f"{k} q {list(q)} |Δ| {err:.2e} (fp32 plain "
+                         f"{e32:.2e}; {n} launches)"
+                         for (k, q, _), (n, err, e32)
+                         in sorted(self.groups.items()))
+
+
+# the device symbols of the hand-written kernels (``csrc/``)
+OWN_KERNELS = ("decode_attention_kernel", "flash_fwd", "flash_bwd_dq",
+               "flash_bwd_dkdv", "verify_greedy", "verify_rows",
+               "verify_split")
+
+
+def attn_layers(cfg) -> int:
+    """Self-attention layers of a config (a flash launch each, a step)."""
+    return cfg.n_repeats * sum(k == "attn" for k in cfg.layer_pattern)
+
+
+def launch_train(torch) -> dict:
+    """``repro_torch.launch.train.main`` in this process on the card: each
+    run's flash forward and backward launches must be the attention layers
+    x steps, its losses finite, and the first launch of each shape agree
+    with the plain version on two batch rows (``RowChecks``); prints
+    steps/s and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import train as ltrain
+
+    out = {}
+    for args in LAUNCH["train"]:
+        arch = args[args.index("--arch") + 1]
+        cfg = get_config(arch, reduced="--reduced" in args)
+        n_steps = int(args[args.index("--steps") + 1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        checks = RowChecks(torch, f"launch.train {arch}")
+        t0 = time.perf_counter()
+        try:
+            r = ltrain.main(args)
+        finally:
+            checks.close()
+        wall = time.perf_counter() - t0
+        launches = dict(launch_counts)
+        losses = [h["loss"] for h in r["history"]]
+        want = attn_layers(cfg) * n_steps
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"launch.train {arch}: losses {losses}")
+        if (launches["flash_attention"] != want
+                or launches["flash_attention_bwd"] != want):
+            raise AssertionError(f"launch.train {arch}: flash launches "
+                                 f"{launches}, want {want} each")
+        print(f"launch.train [{' '.join(args)}]: {n_steps} steps, "
+              f"{r['steps_per_s']:.3f} steps/s, peak memory "
+              f"{r['peak_bytes'] / 1e9:.2f} GB, losses "
+              f"{[round(x, 4) for x in losses]}, flash fwd / bwd launches "
+              f"{launches['flash_attention']} / "
+              f"{launches['flash_attention_bwd']} ({attn_layers(cfg)} a "
+              f"step), {wall:.1f} s with init (the first launch of each "
+              f"shape held to the plain version on two batch rows); "
+              f"held: {checks.report()}", flush=True)
+        out[f"train {arch}"] = dict(launches=launches, shapes={},
+                                    steps_per_s=r["steps_per_s"],
+                                    peak_bytes=r["peak_bytes"])
+        del r
+    return out
+
+
+def _tree_leaves(tree) -> list:
+    from repro_torch.launch.steps import _map_named
+
+    out = []
+    _map_named(tree, lambda t, _: out.append(t) or t)
+    return out
+
+
+def launch_step(torch, arch: str, shape: str, kw: dict,
+                fields: dict | None) -> dict:
+    """One ``build_step`` kind on the card (one rank, fp32, the arch's
+    ``reduced()`` config with ``fields`` at the shape's full batch and
+    sequence, or with ``fields`` None the arch's full config; a kind that
+    does not fit the card halves its batch until it does, and says so):
+    output shapes == the meta run's, finite values, the expected kernels
+    launched, each launch group held against the plain version on the same
+    inputs (``mesh_runs.LaunchGroups``: the decode and verify reads,
+    whole) or on a slice of them (``RowChecks``: the flash forward and
+    backward of the train kinds, and the prefill's decode read, on two
+    batch rows); a second call timed (CUDA events) and traced with
+    ``torch.profiler`` at once, set beside the meta count of the same step
+    (``trace_roofline``)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.launch.hlo_analysis import (count_cost, roofline_terms,
+                                                 trace_roofline)
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.mesh_runs import LaunchGroups
+
+    one = MeshShape(("data", "model"), (1, 1))
+    table = steps.MT_SHAPES if shape in steps.MT_SHAPES else steps.SHAPES
+    full = dict(table[shape])
+    batch = full["batch"]
+    width = "full width" if fields is None else "reduced"
+    label = (f"{arch} {width} {shape}"
+             + "".join(f" {k}={v}" for k, v in kw.items()))
+    while True:
+        table[shape] = dict(full, batch=batch)
+        groups = checks = None
+        try:
+            cfg = (get_config(arch) if fields is None else
+                   dataclasses.replace(get_config(arch, reduced=True),
+                                       **fields))
+            built = steps.build_step(arch, shape, one, dtype=torch.float32,
+                                     cfg_override=cfg, **kw)
+            cost, meta_out = count_cost(built.fn, *built.local_inputs)
+            gc.collect()
+            torch.cuda.empty_cache()
+            inputs = steps.example_inputs(built, device="cuda", seed=SEED)
+            if built.kind in ("decode", "mt_verify"):
+                groups = LaunchGroups()
+            else:
+                checks = RowChecks(torch, f"launch step {label}",
+                                   decode=built.kind == "prefill")
+            reset_counts()
+            try:
+                out = built.fn(*inputs)
+                torch.cuda.synchronize()
+            finally:
+                for g in (groups, checks):
+                    if g is not None:
+                        g.close()
+            break
+        except torch.cuda.OutOfMemoryError:
+            inputs = out = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            if batch == 1:
+                raise
+            print(f"  launch step [{label}]: batch {batch} does not fit "
+                  f"the card, halving", flush=True)
+            batch //= 2
+        finally:
+            table[shape] = full
+    launches = dict(launch_counts)
+    shapes = verify_shapes()
+    got = _tree_leaves(out)
+    want = _tree_leaves(meta_out)
+    if [tuple(t.shape) for t in got] != [tuple(t.shape) for t in want]:
+        raise AssertionError(f"launch step {label}: output shapes "
+                             f"{[tuple(t.shape) for t in got]} != the meta "
+                             f"run's {[tuple(t.shape) for t in want]}")
+    # in chunks: isfinite makes float temporaries of its input's size, and
+    # the full-width cache holds 48 GB
+    if not all(bool(torch.isfinite(c).all()) for t in got
+               if t.is_floating_point() for c in t.reshape(-1).split(1 << 26)):
+        raise AssertionError(f"launch step {label}: outputs not finite")
+    need = {"decode": ["decode_gqa"], "mt_verify": ["decode_gqa"],
+            "prefill": ["decode_gqa"],
+            "train": ["flash_attention", "flash_attention_bwd"],
+            "mt_train": ["flash_attention", "flash_attention_bwd"]}[
+        built.kind]
+    if built.draft_len:
+        need = []     # the multi-draft read is an einsum, as in JAX
+    if any(launches[k] == 0 for k in need):
+        raise AssertionError(f"launch step {label}: launches {launches}, "
+                             f"none of {need}")
+    if groups is not None:
+        report = groups.report()
+        bad = [g for g in report if g["err"] == float("inf")]
+        if bad:
+            raise AssertionError(f"launch step {label}: groups disagree "
+                                 f"with the plain version: {bad}")
+        if sum(g["launches"] for g in report) != sum(
+                launches[k] for k in need):
+            raise AssertionError(f"launch step {label}: groups {report} do "
+                                 f"not cover the launches {launches}")
+        held = "; groups held to plain: " + ", ".join(
+            f"{g['kernel']} {g['shape']} |Δ| {g['err']:.2e}" for g in report)
+    else:
+        held = f"; held to plain on two batch rows: {checks.report()}"
+        if sum(g[0] for g in checks.groups.values()) != sum(
+                launches[k] for k in need):
+            raise AssertionError(f"launch step {label}: row checks "
+                                 f"{checks.report()} do not cover the "
+                                 f"launches {launches}")
+    # the second call, timed by CUDA events and traced at once
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        built.fn(*inputs)
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    terms = roofline_terms(cost, [], dtype=torch.float32)
+    tr_ = trace_roofline(prof, terms)
+    own_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")
+                 and any(n in e.name for n in OWN_KERNELS))
+    achieved = ", ".join(
+        f"{k} {v:.4f}" if v is not None else
+        f"{k} over 1 ({tr_['over'][k]:.4f}: the count is wrong)"
+        for k, v in tr_["achieved"].items() if k != "collective")
+    print(f"launch step [{label}] {built.note} (batch {batch} of "
+          f"{full['batch']}): outputs {[tuple(t.shape) for t in got]} == "
+          f"meta, finite; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; wall "
+          f"{wall_ms:.2f} ms, kernels {tr_['kernel_ms']:.2f} ms over "
+          f"{tr_['n_kernels']} launches ({own_us / 1e3:.2f} ms in the "
+          f"hand-written kernels), busy {tr_['busy']:.3f}; meta count "
+          f"{terms['flops_per_device']:.4e} flop, "
+          f"{terms['bytes_per_device']:.4e} B, bound "
+          f"{max(terms['compute_s'], terms['memory_s']) * 1e3:.3f} ms "
+          f"({terms['bottleneck']}), achieved {achieved}{held}", flush=True)
+    del inputs, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, shapes=shapes, batch=batch,
+                wall_ms=wall_ms, kernel_ms=tr_["kernel_ms"], busy=tr_["busy"],
+                own_ms=own_us / 1e3, over=tr_["over"])
+
+
+def launch_examples(torch) -> dict:
+    """``examples/speculative_lm_torch.py`` in this process on the card,
+    for each arch: it must print ``outputs identical : True`` and launch
+    draft_verify (its shapes join the main path's accounting)."""
+    import contextlib
+    import io
+    import runpy
+
+    from repro_torch.kernels import launch_counts
+
+    path = Path(__file__).resolve().parent / "examples" / \
+        "speculative_lm_torch.py"
+    example = runpy.run_path(str(path))
+    out = {}
+    for arch in LAUNCH["examples"]:
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            example["main"]([arch])
+        torch.cuda.synchronize()
+        launches = dict(launch_counts)
+        text = buf.getvalue()
+        print("".join(f"  example [{arch}] {line}\n"
+                      for line in text.splitlines()), end="", flush=True)
+        if "outputs identical : True" not in text:
+            raise AssertionError(f"example {arch}: {text}")
+        if launches["draft_verify"] == 0:
+            raise AssertionError(f"example {arch}: launches {launches}")
+        out[f"example {arch}"] = dict(launches=launches,
+                                      shapes=verify_shapes())
+    return out
+
+
+def serve_launch(torch) -> dict:
+    """The launch phase: the dry-run CLIs as subprocesses on the card's
+    host (started first, collected last), the train launcher at full
+    width, every ``build_step`` kind on the card, the speculative-LM
+    example."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1")
+    procs = [(args, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=root)) for args in LAUNCH["dryrun"]]
+    try:
+        out = launch_train(torch)
+        for arch, shape, kw, fields in LAUNCH["steps"]:
+            out[f"step {arch} {shape} {kw} {fields}"] = launch_step(
+                torch, arch, shape, kw, fields)
+        out.update(launch_examples(torch))
+        for args, p in procs:
+            text, _ = p.communicate(timeout=LAUNCH["dryrun_timeout_s"])
+            last = text.strip().splitlines()[-3:]
+            print(f"launch dryrun [{' '.join(args)}]: exit {p.returncode}; "
+                  + " | ".join(last), flush=True)
+            if p.returncode != 0 or " ok " not in text:
+                raise AssertionError(f"dryrun {args} failed:\n{text}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"launch phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -4163,6 +4621,14 @@ def main() -> int:
         for k, n in acc.items():
             main_launches[k] += n
     add_shapes({"shapes": mesh["verify_shapes"]})
+    # -- the launch tooling: train launcher, built steps, example, dry run --
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch = serve_launch(torch)
+    for r in launch.values():
+        for k in names:
+            main_launches[k] += r["launches"][k]
+        add_shapes(r)
     if sum(main_shapes.values()) != main_launches["draft_verify"]:
         raise AssertionError(f"draft_verify shapes {main_shapes} do not add "
                              f"up to its {main_launches['draft_verify']} "

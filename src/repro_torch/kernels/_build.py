@@ -135,6 +135,18 @@ def reset_launch_counts() -> None:
             launch_counts[name] = 0
 
 
+# the active counts of meta runs (``launch.hlo_analysis.count_cost``): each
+# takes ``(kernel, flops, bytes)`` from a wrapper's meta branch, where the
+# kernel is planned, not launched (the launch counts stay the launches')
+work_sinks: list = []
+
+
+def record_work(name: str, nbytes: int, flops: int) -> None:
+    """Hand a meta call's work to every active count (none: nothing)."""
+    for sink in tuple(work_sinks):
+        sink(name, int(nbytes), int(flops))
+
+
 def load(name: str):
     """The C launch function ``name`` (a key of ``launch_counts``), its
     source built at first use."""

@@ -1,6 +1,14 @@
 """The port's GQA decode attention over a dense and over a paged cache: the
 plain version for CPU tensors, the CUDA kernel for CUDA tensors (no
-fall-back between them)."""
+fall-back between them).
+
+On meta tensors (a dry run's shape propagation, ``repro_torch.launch.
+hlo_analysis.count_cost``) each wrapper returns an empty output of the
+kernel's shape and records the kernel's work (``decode_work`` /
+``paged_work``) from the shapes alone: every cache slot (every block of
+the table) counts as visible, since a meta tensor has no positions, so
+the flops and bytes are an upper bound of the same functions given the
+positions, which count only the visible slots."""
 
 from __future__ import annotations
 
@@ -31,6 +39,66 @@ def _check(q, k_cache, v_cache, k_pos, q_pos) -> None:
         raise ValueError(f"decode_gqa: tensors on several devices {devs}")
 
 
+def decode_work(q_shape, cache_shape, itemsize: int, k_pos=None,
+                q_pos=None) -> tuple[int, int]:
+    """(bytes, flops) that cached attention needs: each input read once and
+    the output written once, 4·hd flops (QK^T and PV) per visible (query
+    head, key) pair. Given the stored and query positions (numpy int32
+    arrays), only the K/V of slots some query of the row can see count
+    (the output does not depend on the rest); without them every slot
+    counts, an upper bound."""
+    B, T, H, hd = q_shape
+    S, Kv = cache_shape[1:3]
+    if k_pos is None:
+        visible, pairs = B * S, B * T * S
+    else:
+        qmax = q_pos.max(1, keepdims=True)
+        visible = int(((k_pos >= 0) & (k_pos <= qmax)).sum())
+        pairs = int(((k_pos[:, None, :] >= 0)
+                     & (k_pos[:, None, :] <= q_pos[:, :, None])).sum())
+    nbytes = (2 * visible * Kv * hd * itemsize + 2 * B * T * H * hd * itemsize
+              + 4 * B * S + 4 * B * T)
+    return nbytes, 4 * hd * H * pairs
+
+
+def paged_work(q_shape, pool_shape, n_blocks: int, itemsize: int,
+               pos_pool=None, block_tables=None,
+               q_pos=None) -> tuple[int, int]:
+    """(bytes, flops) that one paged read needs. Given the pool's stored
+    positions, the block tables and the query positions (numpy int32
+    arrays), from the visible keys only: a key counts when its block is
+    mapped, its stored position is >= 0 and <= the newest query of a row
+    that maps it, and a page several rows alias (a shared prefix) counts
+    once. Without them every block of every row is mapped to a page of
+    its own and every key is visible, an upper bound. Bytes: those keys'
+    K and V, the stored positions of the mapped pages, the block table, q,
+    the output and q_pos; flops: 4·hd per visible (query head, key) pair
+    of each row."""
+    B, T, H, hd = q_shape
+    ps, Kv = pool_shape[1:3]
+    if pos_pool is None:
+        pages = B * n_blocks
+        visible = pages * ps
+        pairs = T * visible
+    else:
+        import numpy as np
+
+        bt = block_tables
+        mapped = bt >= 0
+        kpos = np.where(mapped[..., None], pos_pool[np.where(mapped, bt, 0)],
+                        -1).reshape(B, -1)
+        qmax = q_pos.max(1, keepdims=True)
+        key_id = (np.where(mapped, bt, 0)[..., None] * ps
+                  + np.arange(ps)).reshape(B, -1)
+        visible = np.unique(key_id[(kpos >= 0) & (kpos <= qmax)]).size
+        pages = np.unique(bt[mapped]).size
+        pairs = int(((kpos[:, None, :] >= 0)
+                     & (kpos[:, None, :] <= q_pos[:, :, None])).sum())
+    nbytes = (2 * visible * Kv * hd * itemsize + 2 * B * T * H * hd * itemsize
+              + pages * ps * 4 + B * n_blocks * 4 + B * T * 4)
+    return int(nbytes), 4 * hd * H * pairs
+
+
 def decode_gqa_attention(q, k_cache, v_cache, k_pos, q_pos, *,
                          window: int = 0) -> torch.Tensor:
     """q: (B, T, H, hd); k/v_cache: (B, S, Kv, hd); k_pos: (B, S) stored
@@ -41,6 +109,10 @@ def decode_gqa_attention(q, k_cache, v_cache, k_pos, q_pos, *,
     _check(q, k_cache, v_cache, k_pos, q_pos)
     if q.device.type == "cpu":
         return decode_gqa_ref(q, k_cache, v_cache, k_pos, q_pos, window=window)
+    if q.device.type == "meta":
+        _build.record_work("decode_gqa", *decode_work(
+            q.shape, k_cache.shape, q.element_size()))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_gqa: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
@@ -102,6 +174,10 @@ def paged_decode_gqa_attention(q, k_pool, v_pool, pos_pool, block_tables,
     if q.device.type == "cpu":
         return paged_decode_gqa_ref(q, k_pool, v_pool, pos_pool, block_tables,
                                     q_pos, window=window)
+    if q.device.type == "meta":
+        _build.record_work("paged_decode_gqa", *paged_work(
+            q.shape, k_pool.shape, block_tables.shape[1], q.element_size()))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_gqa: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \

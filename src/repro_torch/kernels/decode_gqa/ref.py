@@ -15,12 +15,14 @@ import torch
 
 def decode_gqa_ref(q, k_cache, v_cache, k_pos, q_pos, *, window: int = 0):
     """q: (B, T, H, hd); k/v_cache: (B, S, Kv, hd); k_pos: (B, S);
-    q_pos: (B, T). Returns (B, T, H, hd) in q's dtype."""
+    q_pos: (B, T). Returns (B, T, H, hd) in q's dtype, computed in fp32
+    (fp64 for fp64 inputs)."""
     B, T, H, hd = q.shape
     Kv = k_cache.shape[2]
     G = H // Kv
-    qr = q.reshape(B, T, Kv, G, hd).float()
-    s = torch.einsum("btkgh,bskh->bkgts", qr, k_cache.float()) / math.sqrt(hd)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qr = q.reshape(B, T, Kv, G, hd).to(acc)
+    s = torch.einsum("btkgh,bskh->bkgts", qr, k_cache.to(acc)) / math.sqrt(hd)
     kp = k_pos[:, None, None, None, :]
     qp = q_pos[:, None, None, :, None]
     mask = (kp >= 0) & (kp <= qp)
@@ -29,7 +31,7 @@ def decode_gqa_ref(q, k_cache, v_cache, k_pos, q_pos, *, window: int = 0):
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     w = torch.softmax(s, dim=-1)
     w = torch.where(mask.any(-1, keepdim=True), w, torch.zeros_like(w))
-    out = torch.einsum("bkgts,bskh->btkgh", w, v_cache.float())
+    out = torch.einsum("bkgts,bskh->btkgh", w, v_cache.to(acc))
     return out.reshape(B, T, H, hd).to(q.dtype)
 
 

@@ -1,5 +1,7 @@
 """The port's fused verify op: the plain version for CPU tensors, the CUDA
-kernel for CUDA tensors (no fall-back between them)."""
+kernel for CUDA tensors (no fall-back between them). On meta tensors (a
+dry run's shape propagation) it returns empty outputs of the kernel's
+shapes and records its work (``verify_work``)."""
 
 from __future__ import annotations
 
@@ -9,6 +11,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.draft_verify.kernel import (_DTYPES,
                                                      draft_verify_kernel)
 from repro_torch.kernels.draft_verify.ref import draft_verify_ref
+
+
+def verify_work(N: int, T: int, V: int, itemsize: int) -> tuple[int, int]:
+    """(bytes, flops) of one launch: one compare a logit; the logits, the
+    int32 drafts and the bool mask read once, the int32 tokens and
+    accepted lengths written once."""
+    return N * T * V * itemsize + N * (T - 1) * 4 + N + (N * T + N) * 4, \
+        N * T * V
 
 
 def draft_verify(logits, drafts, draft_mask):
@@ -30,6 +40,11 @@ def draft_verify(logits, drafts, draft_mask):
         raise ValueError("draft_verify: tensors on several devices")
     if logits.device.type == "cpu":
         return draft_verify_ref(logits, drafts, draft_mask)
+    if logits.device.type == "meta":
+        _build.record_work("draft_verify", *verify_work(
+            N, T, V, logits.element_size()))
+        return (torch.empty((N, T), dtype=torch.int32, device="meta"),
+                torch.empty((N,), dtype=torch.int32, device="meta"))
     if logits.device.type != "cuda":
         raise ValueError(f"draft_verify: unsupported device {logits.device}")
     if logits.dtype not in _DTYPES:

@@ -21,6 +21,13 @@ Two entries:
 
 ``window`` applies only when ``causal``. A query row with no visible key
 outputs 0 and gets zero gradient (see ``ref.py``).
+
+On meta tensors (a dry run's shape propagation, ``repro_torch.launch.
+hlo_analysis.count_cost``) the forward and the backward return empty
+outputs of the kernels' shapes and record their work from the shapes
+alone (``flash_work``): every key of a row counts as valid, and a causal
+(or windowed) row sees the keys at or before it, the causal mask halving
+the work.
 """
 
 from __future__ import annotations
@@ -52,8 +59,54 @@ def _check(q, k, v, key_mask, window, positions) -> None:
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"flash_attention: tensors on several devices {devs}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def flash_work(B: int, S: int, H: int, hd: int, *, Kv: int | None = None,
+               causal: bool, window: int = 0, lengths=None,
+               masked: bool | None = None, itemsize: int = 4,
+               backward: bool = False,
+               with_lse: bool = True) -> tuple[int, int]:
+    """(bytes, flops) that full-sequence attention needs: each input read
+    once and each output written once, the K/V reads of valid keys only
+    (``lengths``: each row's valid keys, default all S; Kv kv heads,
+    default H); the forward's lse write only ``with_lse`` (training keeps
+    it for the backward, inference needs none); the (B, S) key mask read
+    when one is passed (``masked``, default: some row is shorter than S);
+    flops per visible (query, key) pair of each query head: 4·hd forward
+    (QK^T, PV), 10·hd backward (QK^T and dO·V^T recomputed, then dV, dQ,
+    dK). A causal row sees the keys at or before it, the last ``window``
+    of them with a window."""
+    Kv = H if Kv is None else Kv
+    if lengths is None:
+        if causal and window > 0:
+            m = min(S, window)
+            seen = m * (m + 1) // 2 + max(0, S - window) * window
+        else:
+            seen = S * (S + 1) // 2 if causal else S * S
+        pairs, valid = H * B * seen, B * S
+        masked = bool(masked)
+    else:
+        import numpy as np
+
+        lengths = np.asarray(lengths)
+        qi, ki = np.arange(S)[:, None], np.arange(S)[None, :]
+        vis = (ki <= qi) if causal else np.ones((S, S), bool)
+        if causal and window > 0:
+            vis &= ki > qi - window
+        pairs = H * sum(int((vis & (ki < n)).sum()) for n in lengths)
+        valid = int(lengths.sum())
+        masked = bool(lengths.min() < S) if masked is None else masked
+    rows = B * S * H * hd              # q (and out, dO, dQ) elements
+    keys = valid * Kv * hd             # K or V elements of valid keys
+    mask = B * S if masked else 0
+    if not backward:
+        lse = B * H * S * 4 if with_lse else 0
+        return (2 * rows + 2 * keys) * itemsize + lse + mask, 4 * hd * pairs
+    # q, o, dO, dq + k, v (valid keys) + dk, dv (whole); lse, mask
+    return ((4 * rows + 2 * keys + 2 * B * S * Kv * hd) * itemsize
+            + B * H * S * 4 + mask), 10 * hd * pairs
 
 
 def _check_cuda(q, k, v, key_mask, positions) -> None:
@@ -89,6 +142,16 @@ def _forward(q, k, v, key_mask, causal, window, *, with_lse: bool,
                                        key_mask=key_mask, q_pos=positions,
                                        k_pos=positions)
         return out, (lse if with_lse else None)
+    if q.device.type == "meta":
+        B, S, H, hd = q.shape
+        _build.record_work("flash_attention", *flash_work(
+            B, S, H, hd, Kv=k.shape[2], causal=causal, window=window,
+            masked=key_mask is not None, itemsize=q.element_size(),
+            with_lse=with_lse))
+        lse = (torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                           dtype=torch.float32, device="meta")
+               if with_lse else None)
+        return torch.empty_like(q), lse
     _check_cuda(q, k, v, key_mask, positions)
     if q.numel() == 0:
         return torch.empty_like(q), (torch.empty(
@@ -108,6 +171,13 @@ def _backward(q, k, v, o, lse, do, key_mask, causal, window,
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, key_mask=key_mask,
                                        q_pos=positions, k_pos=positions)
+    if q.device.type == "meta":
+        B, S, H, hd = q.shape
+        _build.record_work("flash_attention_bwd", *flash_work(
+            B, S, H, hd, Kv=k.shape[2], causal=causal, window=window,
+            masked=key_mask is not None, itemsize=q.element_size(),
+            backward=True))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if any(t.dtype != torch.float32 for t in (q, k, v, o, do)):
         raise TypeError("flash_attention backward: the kernel takes float32 "
                         "only (the model trains in fp32)")

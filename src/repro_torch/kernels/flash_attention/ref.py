@@ -71,11 +71,13 @@ def flash_attention_ref(q, k, v, *, causal: bool, window: int = 0,
     None; q_pos, k_pos: (B, S) int positions or None (the indices).
 
     Returns (out (B, S, H, hd) in q's dtype, lse (B, H, S) float32). Scores
-    and sums in fp32."""
+    and sums in fp32 (fp64, lse too, for fp64 inputs: the exact answer a
+    check can hold a kernel and the fp32 version to)."""
     H, hd = q.shape[2], q.shape[-1]
     scale = 1.0 / math.sqrt(hd)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                     _heads(k, H).float()) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc),
+                     _heads(k, H).to(acc)) * scale
     vis = visible_mask(q.shape[1], causal=causal, window=window,
                        key_mask=key_mask, q_pos=q_pos, k_pos=k_pos,
                        device=q.device)
@@ -86,7 +88,7 @@ def flash_attention_ref(q, k, v, *, causal: bool, window: int = 0,
     p = torch.exp(s - m)                     # invisible keys -> exactly 0
     l = p.sum(-1, keepdim=True)
     w = p / torch.where(l > 0, l, torch.ones_like(l))
-    out = torch.einsum("bhqk,bkhd->bqhd", w, _heads(v, H).float())
+    out = torch.einsum("bhqk,bkhd->bqhd", w, _heads(v, H).to(acc))
     lse = (m + torch.log(l)).squeeze(-1)     # -inf on a row with no key
     return out.to(q.dtype), lse
 
@@ -96,12 +98,14 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool,
                             k_pos=None):
     """Gradients of ``flash_attention_ref``'s output: q, o, do (B, S, H,
     hd); k, v (B, S, Kv, hd); lse (B, H, S) as the forward returned it.
-    Returns (dq, dk, dv) in q's dtype, computed in fp32; dk and dv (B, S,
-    Kv, hd) sum over each kv head's query heads."""
+    Returns (dq, dk, dv) in q's dtype, computed in fp32 (fp64 for fp64
+    inputs); dk and dv (B, S, Kv, hd) sum over each kv head's query
+    heads."""
     B, S, H, hd = q.shape
     Kv = k.shape[2]
     scale = 1.0 / math.sqrt(hd)
-    qf, kf, vf, of, dof = (t.float() for t in (q, _heads(k, H), _heads(v, H),
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, of, dof = (t.to(acc) for t in (q, _heads(k, H), _heads(v, H),
                                                o, do))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     vis = visible_mask(S, causal=causal, window=window, key_mask=key_mask,

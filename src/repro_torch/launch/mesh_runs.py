@@ -48,6 +48,8 @@ def _mesh(shape):
 
 
 def _device(on_card: bool):
+    """This rank's device: its card (``on_card``, the default of every job
+    function: a machine with no card raises), or the CPU when asked."""
     import torch.distributed as dist
 
     from repro_torch.launch.world import rank_device
@@ -251,12 +253,13 @@ def _disagreement(out, ref) -> float:
 
 
 def serve(model: dict, engine: dict, jobs: list, *, mesh=(2, 2),
-          on_card: bool = False, realtime: bool = False,
+          on_card: bool = True, realtime: bool = False,
           predict: bool = False, arrivals: bool = True,
           serve_first: list | None = None) -> dict:
     """Serve ``jobs`` (``(query, mode)`` pairs; a query is a SMILES string
-    or a token list) through one engine and report. ``mesh``: the mesh
-    shape, or None for an unsharded engine in this rank. ``predict``:
+    or a token list) through one engine and report, on this rank's card
+    (``on_card=False``: the CPU). ``mesh``: the mesh shape, or None for an
+    unsharded engine in this rank. ``predict``:
     through ``predict()`` (greedy / speculative engines; no arrivals).
     ``arrivals``: job i arrives at step (or second, ``realtime``) i.
     ``serve_first``: jobs served to the end before ``jobs`` (a prefix
@@ -335,13 +338,14 @@ def _drive(eng, jobs: list, device, *, realtime: bool, predict: bool,
 
 
 def probe(model: dict, engine: dict, calls: list, *, mesh=(2, 2),
-          serve_first: list | None = None) -> list:
+          serve_first: list | None = None, on_card: bool = True) -> list:
     """Build an engine, serve ``serve_first`` (token lists) if given, then
     run ``calls``: ``(attributes to set, method name, args)`` each, an
     arg ``("payload", query, mode)`` standing for ``eng._payload(...)``;
     returns each call's result (``("radix_shard", query)`` calls report
-    the shard holding the query's cached prefix instead)."""
-    eng = _engine(model, engine, mesh, _device(False))
+    the shard holding the query's cached prefix instead). On the rank's
+    card unless ``on_card=False``."""
+    eng = _engine(model, engine, mesh, _device(on_card))
     for q in serve_first or ():
         eng.submit(np.asarray(q, np.int32))
         eng.serve()
@@ -366,13 +370,15 @@ def probe(model: dict, engine: dict, calls: list, *, mesh=(2, 2),
 
 
 def layer(model: dict, kind: str, args: dict, *, mesh=(1, 4),
-          block: int = 0, split_rows: bool = False) -> dict:
+          block: int = 0, split_rows: bool = False,
+          on_card: bool = True) -> dict:
     """Run layer ``kind`` of pattern position ``block`` (repeat 0) of the model on
     this rank, with the rank's shard of the weights
     (``lay_out_params``) under its ``TensorParallel``, on ``args`` (numpy
     arrays; ``split_rows``: the rank's data shard takes its equal part of
-    every array's rows). A state argument is cut to the rank's channels
-    or heads. Returns numpy arrays, per-channel ones (states, memory K/V)
+    every array's rows), on the rank's card unless ``on_card=False``. A
+    state argument is cut to the rank's channels or heads. Returns numpy
+    arrays, per-channel ones (states, memory K/V)
     the rank's own:
 
     - ``moe``: ``moe_ffn(x)`` (``out``, ``dropped``, ``top1``) and
@@ -389,11 +395,13 @@ def layer(model: dict, kind: str, args: dict, *, mesh=(1, 4),
     from repro_torch.models import attention, mamba, moe, rwkv
     from repro_torch.sharding import ctx
 
+    device = _device(on_card)
     cfg, params, _ = _model(model)
     dm = _mesh(mesh)
     tp = mesh_tensor_parallel(dm)
-    p = lay_out_params(params, cfg, dm, tp, "cpu")["blocks"][block][0]
-    a = {k: torch.from_numpy(np.asarray(v)) for k, v in args.items()}
+    p = lay_out_params(params, cfg, dm, tp, device)["blocks"][block][0]
+    a = {k: torch.from_numpy(np.asarray(v)).to(device)
+         for k, v in args.items()}
     if split_rows:
         a = {k: v.chunk(tp.data_size)[tp.data_rank] for k, v in a.items()}
 
@@ -437,17 +445,44 @@ def layer(model: dict, kind: str, args: dict, *, mesh=(1, 4),
                            pa, cfg, a["x"], a["memory"], memory_mask=mask))
         else:
             raise ValueError(f"unknown layer {kind!r}")
-    return {k: np.asarray(v) for k, v in out.items()}
+    return {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in out.items()}
+
+
+def step_collectives(model: dict, tokens, positions, *, cache_len: int,
+                     mesh=(1, 2), on_card: bool = True) -> int:
+    """The model-axis collectives of one ``transformer.decode_step`` of
+    ``tokens`` at ``positions`` (numpy (B, T)) on this rank, with its shard
+    of the weights and a fresh cache of ``cache_len`` slots at its widths:
+    ``TensorParallel.n_collectives`` after the step (what a dry run's
+    recorder counts for the same step)."""
+    from repro_torch.launch.mesh import mesh_tensor_parallel
+    from repro_torch.launch.shardings import lay_out_params, local_cache_cfg
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import ctx
+
+    device = _device(on_card)
+    cfg, params, _ = _model(model)
+    tp = mesh_tensor_parallel(_mesh(mesh))
+    p = lay_out_params(params, cfg, _mesh(mesh), tp, device)
+    tok = torch.as_tensor(np.asarray(tokens), device=device)
+    cache = tr.init_cache(local_cache_cfg(cfg, tp), tok.shape[0], cache_len,
+                          device=device, widths=tr.local_widths(p, cfg))
+    with torch.no_grad(), ctx.tensor_parallel(tp):
+        tr.decode_step(p, cfg, cache, tok,
+                       torch.as_tensor(np.asarray(positions), device=device))
+    return tp.n_collectives
 
 
 def refusals(model: dict, engine: dict, *, mesh=(2, 2),
-             front_door: bool = True) -> str:
+             front_door: bool = True, on_card: bool = True) -> str:
     """The error a mesh engine (or, with ``front_door``, a front door over
-    one) raises, by type and message; "" when it builds."""
+    one) raises, by type and message; "" when it builds. On the rank's
+    card unless ``on_card=False``."""
     from repro_torch.serving import FrontDoorServer
 
     try:
-        eng = _engine(model, engine, mesh, _device(False))
+        eng = _engine(model, engine, mesh, _device(on_card))
         if front_door:
             FrontDoorServer(eng)
     except (NotImplementedError, ValueError, TypeError) as e:

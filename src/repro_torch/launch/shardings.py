@@ -16,6 +16,8 @@ divide the 16-way model axis.
 
 from __future__ import annotations
 
+import dataclasses
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import dp_axes
 from repro_torch.models.attention import KVCache, PagedKVCache
@@ -117,7 +119,17 @@ def lay_out_params(params, cfg, mesh, tp, device):
     (``row_split``), ``embed`` / ``w_vocab`` vocabulary split
     (``vocab_split``), the stacked experts expert dim split
     (``expert_split``). A shard that is a view of a weight on ``device``
-    is copied, so the whole weight can be freed."""
+    is copied, so the whole weight can be freed.
+
+    ``mesh`` may be a ``launch.mesh.MeshShape`` and ``tp`` a recorder
+    (``sharding.ctx.recording_tensor_parallel``: a rank's coordinates, no
+    process group), with ``params`` and ``device`` on meta: a dry run's
+    rank 0 (``launch.steps``). The model-axis cut is the serving one for
+    both layouts: the dry run's ``param_shardings(fsdp=...)`` splits the
+    same dims over ``model`` except where a split would cut inside a head
+    (or leave Mamba's fused ``w_in`` with a ``d_inner`` that does not
+    divide), which a rank runs whole, and its data-axis FSDP split is
+    gathered before a layer runs."""
     specs = serving_param_shardings(params, cfg, mesh)
     row, vocab, expert = set(), set(), set()
 
@@ -141,6 +153,22 @@ def lay_out_params(params, cfg, mesh, tp, device):
     tp.row_split, tp.vocab_split = frozenset(row), frozenset(vocab)
     tp.expert_split = frozenset(expert)
     return out
+
+
+def local_cache_cfg(cfg: ModelConfig, tp) -> ModelConfig:
+    """``cfg`` with the attention heads a model rank's cache holds
+    (``tp``: its ``TensorParallel``): the heads split where they divide
+    the model axis, else whole; the kv heads its query heads read."""
+    from repro_torch.sharding.ctx import kv_heads_for
+
+    H, Kv = cfg.n_heads, cfg.n_kv_heads
+    Hl = H // tp.size if H % tp.size == 0 else H
+    if Kv % tp.size == 0:
+        Kvl = Kv // tp.size
+    else:
+        lo, hi = kv_heads_for(tp.rank, Hl, H, Kv)
+        Kvl = hi - lo
+    return dataclasses.replace(cfg, n_heads=Hl, n_kv_heads=Kvl)
 
 
 def opt_shardings(opt_state, params, mesh):

@@ -113,13 +113,17 @@ def _rank_main(rank: int, n: int, store: str, device: str, inbox, outbox):
 
 
 class World:
-    """``n`` ranks in child processes (``device``: "cpu" or "cuda") that
-    run jobs in lockstep until ``close()``."""
+    """``n`` ranks in child processes that run jobs in lockstep until
+    ``close()``. ``device``: "cuda" or "cpu"; None means the card, resolved
+    (``repro_torch.device.resolve_device``) before any rank starts, so a
+    machine with no card raises at once."""
 
-    def __init__(self, n: int, *, device: str = "cpu",
-                 timeout_s: float = 600.0):
+    def __init__(self, n: int, *, device=None, timeout_s: float = 600.0):
         import torch.multiprocessing as mp
 
+        from repro_torch.device import resolve_device
+
+        device = resolve_device(device).type
         self.n, self.device, self.timeout_s = n, device, timeout_s
         self._dir = tempfile.mkdtemp(prefix="repro_torch_world_")
         ctx = mp.get_context("spawn")

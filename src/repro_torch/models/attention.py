@@ -461,7 +461,7 @@ def multidraft_attention(p: dict, cfg: ModelConfig, x, cache: KVCache,
     p_l = (p_l / denom).to(v_new.dtype)
     out = (torch.einsum("bkgts,bskh->btkgh", p_c, cache.v)
            + torch.einsum("bkgts,bskh->btkgh", p_l, v_new)).reshape(B, T, -1)
-    return dense(p["wo"], out), (k_new, v_new)
+    return dense_row(p["wo"], out), (k_new, v_new)
 
 
 def commit_verified_kv(cache: KVCache, k_new, v_new, take_idx, positions,

@@ -24,10 +24,14 @@ from repro_torch.sharding import ctx
 # init helpers (explicit generator: same distributions as the JAX init,
 # different numbers from the same seed). Draws happen on the generator's
 # own device, so a CUDA generator fills the card's weights with no host
-# copy; a CPU generator gives the same numbers whatever ``device`` is.
+# copy; a CPU generator gives the same numbers whatever ``device`` is. On
+# the meta device nothing is drawn (``gen`` may be None): the leaves carry
+# shapes and dtypes only, the counterpart of ``jax.eval_shape(init)``.
 
 
 def _normal(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen.device).mul_(scale).to(device)
 
@@ -35,6 +39,8 @@ def _normal(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float,
              device) -> torch.Tensor:
     """U[lo, hi), drawn as ``_normal`` draws."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.rand(shape, generator=gen, dtype=torch.float32,
                       device=gen.device).mul_(hi - lo).add_(lo).to(device)
 

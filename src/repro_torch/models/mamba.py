@@ -88,6 +88,18 @@ def _ssm_inputs(p, xc):
     return _softplus(dense(p["w_dt"], dt)), Bsel, Csel
 
 
+def _recurrence(a, b, C):
+    """The scan's loop over time: h_t = a_t * h_{t-1} + b_t from h = 0
+    (a, b (B, T, d_inner, d_state)), y_t = h_t C_t (C (B, T, d_state)).
+    Returns (y (B, T, d_inner), h_final)."""
+    h = torch.zeros_like(a[:, 0])
+    ys = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        ys.append(torch.einsum("bds,bs->bd", h, C[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
 def _scan_ssm(p, xc, valid=None):
     """h_t = a_t * h_{t-1} + b_t (per d_inner x d_state) from h = 0, a
     loop over time. ``valid`` (B, T) makes pad steps identity updates
@@ -99,13 +111,8 @@ def _scan_ssm(p, xc, valid=None):
     A = -torch.exp(p["A_log"].float())                   # (d_inner, d_state)
     a = torch.exp(dt.float()[..., None] * A)             # (B, T, d_in, d_st)
     b = (dt * xc).float()[..., None] * Bsel.float()[..., None, :]
-    Cf = Csel.float()
-    h = torch.zeros_like(a[:, 0])
-    ys = []
-    for t in range(xc.shape[1]):
-        h = a[:, t] * h + b[:, t]
-        ys.append(torch.einsum("bds,bs->bd", h, Cf[:, t]))
-    y = torch.stack(ys, dim=1) + xc.float() * p["D"].float()
+    y, h = _recurrence(a, b, Csel.float())
+    y = y + xc.float() * p["D"].float()
     return y.to(xc.dtype), h
 
 

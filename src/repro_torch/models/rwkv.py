@@ -87,6 +87,21 @@ def _projections(p, x, x_prev):
     return r, k, v, g, ctx.model_slice(decay, k.shape[-1])
 
 
+def _wkv_recurrence(r, k, v, decay, u, S, states_out=None):
+    """The WKV loop over time: r, k, v, decay (B, T, H, hd), the bonus u,
+    the state S (B, H, hd, hd). Returns (out (B, T, H, hd) fp32, the final
+    state); ``states_out`` (B, T, H, hd, hd) receives the state after each
+    token."""
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]       # (B, H, hd, hd)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + u * kv))
+        S = decay[:, t, :, :, None] * S + kv
+        if states_out is not None:
+            states_out[:, t] = S
+    return torch.stack(outs, dim=1), S
+
+
 def rwkv_mixer(p: dict, cfg: ModelConfig, x, *, state=None, x_last=None,
                lengths=None, states_out=None):
     """Time-mix over a sequence (prefill) or its continuation (decode).
@@ -115,15 +130,8 @@ def rwkv_mixer(p: dict, cfg: ModelConfig, x, *, state=None, x_last=None,
     r, k, v = (t.reshape(B, T, H, hd).float() for t in (r, k, v))
     decay = decay.reshape(B, T, H, hd)
     u = p["u"].float()[None, :, :, None]
-    S = state
-    outs = []
-    for t in range(T):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]       # (B, H, hd, hd)
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + u * kv))
-        S = decay[:, t, :, :, None] * S + kv
-        if states_out is not None:
-            states_out[:, t] = S
-    o = torch.stack(outs, dim=1).reshape(B, T, H * hd).to(x.dtype)
+    o, S = _wkv_recurrence(r, k, v, decay, u, state, states_out)
+    o = o.reshape(B, T, H * hd).to(x.dtype)
     o = apply_norm(p["ln_x"], ctx.model_gather(o, d), "layernorm")
     out = dense_row(p["wo"], ctx.model_slice(o, g.shape[-1]) * g)
     return out, (S, x[:, -1, :])

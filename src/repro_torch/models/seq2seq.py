@@ -33,7 +33,8 @@ from repro_torch.models.layers import (apply_norm, embed, embed_init, ffn,
 
 def init(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
     """Random params drawn from ``gen`` (a CPU generator, so the same seed
-    gives the same weights on every device), placed on ``device``."""
+    gives the same weights on every device), placed on ``device``;
+    ``device="meta"`` draws nothing (``gen`` may be None): shapes only."""
     assert cfg.family == "seq2seq" and cfg.n_encoder_layers > 0
     dev = resolve_device(device)
     d, kind = cfg.d_model, cfg.norm

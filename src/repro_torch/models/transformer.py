@@ -136,6 +136,9 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
     A CPU generator gives the same weights whatever ``device`` is (the
     card's weights equal the CPU's); a CUDA generator draws on the card
     with no host copy (full-width models), and its numbers are its own.
+    ``device="meta"`` draws nothing (``gen`` may be None): shapes and
+    dtypes only, the counterpart of ``jax.eval_shape(init)``, for a dry
+    run of a model no host could hold.
     The audio encoder takes frame embeddings and has no token embedding."""
     check_pattern(cfg)
     dev = resolve_device(device)

@@ -560,20 +560,12 @@ class StreamingEngine:
         cache holds (attention heads in ``_local_cfg``; Mamba's
         ``d_inner``, RWKV's and the cross-attention positions' heads in
         ``_local_widths``)."""
-        from repro_torch.launch.shardings import lay_out_params
+        from repro_torch.launch.shardings import (lay_out_params,
+                                                  local_cache_cfg)
 
-        tp = self._tp
-        out = lay_out_params(params, cfg, self.mesh, tp, self.device)
-        H, Kv = cfg.n_heads, cfg.n_kv_heads
-        Hl = H // tp.size if H % tp.size == 0 else H
-        if Kv % tp.size == 0:
-            Kvl = Kv // tp.size
-        else:
-            lo, hi = shard_ctx.kv_heads_for(tp.rank, Hl, H, Kv)
-            Kvl = hi - lo
+        out = lay_out_params(params, cfg, self.mesh, self._tp, self.device)
         # the cache holds this rank's heads and channels only
-        self._local_cfg = dataclasses.replace(cfg, n_heads=Hl,
-                                              n_kv_heads=Kvl)
+        self._local_cfg = local_cache_cfg(cfg, self._tp)
         self._local_widths = (tr.local_widths(out, cfg)
                               if "blocks" in out else None)
         return out

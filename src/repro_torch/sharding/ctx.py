@@ -39,6 +39,17 @@ a sum that reorders the fp32 additions of the unsharded op (a row-split
 projection's partial products), except where it says exact.
 ``n_collectives`` counts the model-axis collectives issued,
 ``n_data_collectives`` the data-axis ones.
+
+A recording ``TensorParallel`` (``recording_tensor_parallel``) has no
+process group: it stands for one rank of a planned mesh (a
+``repro_torch.launch.mesh.MeshShape``) in a dry run. Each collective
+appends ``(kind, bytes)`` to its ``records`` and returns its input's
+shape and values unreduced (on meta: the shape), so the layers run at the
+rank's local widths in one process. ``data_prefix_counts`` returns the
+global token count as the local count times the data shards (a dry run's
+batches divide evenly), with no host read. Under autograd each recorded
+model-axis all-reduce also records its conjugate in the backward: the same
+bytes again, through an identity ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -92,6 +103,41 @@ class TensorParallel:
     data_size: int = 1       # the data axis's size
     n_collectives: int = 0
     n_data_collectives: int = 0
+    records: list | None = None  # a recorder's (kind, bytes); None: live
+
+
+def recording_tensor_parallel(mesh, *, model_rank: int = 0,
+                              data_rank: int = 0) -> TensorParallel:
+    """A recorder for the rank at (``data_rank``, ``model_rank``) of
+    ``mesh`` (anything ``rules.axis_sizes`` reads: a ``MeshShape``); the
+    data shard is the flattened index over every axis but ``model``."""
+    from repro_torch.sharding.rules import MODEL, axis_sizes
+
+    sizes = axis_sizes(mesh)
+    data = 1
+    for name, n in sizes.items():
+        if name != MODEL:
+            data *= n
+    return TensorParallel(group=None, rank=model_rank,
+                          size=sizes.get(MODEL, 1), row_split=frozenset(),
+                          vocab_split=frozenset(), data_rank=data_rank,
+                          data_size=data, records=[])
+
+
+class _Conjugate(torch.autograd.Function):
+    """The identity, recording the conjugate all-reduce of a recorded one
+    in the backward (the same bytes)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.tp.records.append(("all-reduce", g.nbytes))
+        ctx.tp.n_collectives += 1
+        return g, None
 
 
 def current() -> TensorParallel | None:
@@ -110,6 +156,12 @@ def tensor_parallel(tp: TensorParallel | None):
 
 
 def _all_reduce(tp: TensorParallel, x: torch.Tensor) -> torch.Tensor:
+    if tp.records is not None:
+        tp.records.append(("all-reduce", x.nbytes))
+        tp.n_collectives += 1
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Conjugate.apply(x, tp)
+        return x
     import torch.distributed as dist
 
     x = x.contiguous()
@@ -189,6 +241,12 @@ def data_prefix_counts(counts: torch.Tensor, n: int
     tp = current()
     if tp is None or tp.data_size == 1:
         return torch.zeros_like(counts), counts, n
+    if tp.records is not None:
+        tp.records.append(("all-reduce", tp.data_size * (counts.shape[0] + 1)
+                           * counts.element_size()))
+        tp.n_data_collectives += 1
+        return (torch.zeros_like(counts), counts * tp.data_size,
+                n * tp.data_size)
     import torch.distributed as dist
 
     buf = counts.new_zeros((tp.data_size, counts.shape[0] + 1))

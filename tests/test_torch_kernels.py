@@ -85,6 +85,20 @@ def _f32(x):
     return np.asarray(x.astype("float32"))
 
 
+class _Elsewhere:
+    """A tensor as it would be on a device the wrappers serve neither as
+    the CPU's plain version, nor as the card's kernel, nor as the meta
+    device's shape propagation (``xpu``)."""
+
+    device = torch.device("xpu")
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
 def _decode_inputs(cfg):
     return decode_inputs(*(cfg[k] for k in ("B", "T", "H", "Kv", "S", "hd")))
 
@@ -219,7 +233,10 @@ def test_paged_decode_gqa_inactive_row_is_zero():
 def test_paged_wrapper_refuses_other_devices_and_bad_shapes():
     x = [torch.from_numpy(a) for a in _paged_inputs(PAGED_SWEEP[0])]
     with pytest.raises(ValueError):
-        paged_decode_gqa_attention(*(t.to("meta") for t in x))
+        paged_decode_gqa_attention(*(_Elsewhere(t) for t in x))
+    # meta: shape propagation (a dry run), an empty output of q's shape
+    out = paged_decode_gqa_attention(*(t.to("meta") for t in x))
+    assert out.is_meta and out.shape == x[0].shape
     with pytest.raises(ValueError):
         paged_decode_gqa_attention(*x[:4], x[4][:1], x[5])
     with pytest.raises(ValueError):
@@ -314,15 +331,23 @@ def test_wrappers_refuse_other_devices_and_bad_shapes():
     plain version; mismatched shapes raise before any launch."""
     q, kc, vc, k_pos, q_pos = (torch.from_numpy(a) for a in
                                _decode_inputs(DECODE_SWEEP[0]))
-    meta = [t.to("meta") for t in (q, kc, vc, k_pos, q_pos)]
     with pytest.raises(ValueError):
-        decode_gqa_attention(*meta)
+        decode_gqa_attention(*(_Elsewhere(t)
+                               for t in (q, kc, vc, k_pos, q_pos)))
+    # meta: shape propagation (a dry run), never the plain version
+    out = decode_gqa_attention(*(t.to("meta")
+                                 for t in (q, kc, vc, k_pos, q_pos)))
+    assert out.is_meta and out.shape == q.shape
     with pytest.raises(ValueError):
         decode_gqa_attention(q, kc, vc, k_pos[:, :-1], q_pos)
     logits, drafts, mask = (torch.from_numpy(a) for a in
                             verify_inputs(3, 4, 20))
     with pytest.raises(ValueError):
-        draft_verify(logits.to("meta"), drafts.to("meta"), mask.to("meta"))
+        draft_verify(*(_Elsewhere(t) for t in (logits, drafts, mask)))
+    toks, acc = draft_verify(logits.to("meta"), drafts.to("meta"),
+                             mask.to("meta"))
+    assert toks.is_meta and toks.shape == logits.shape[:2]
+    assert acc.shape == mask.shape and acc.dtype == torch.int32
     with pytest.raises(ValueError):
         draft_verify(logits, drafts[:, :-1], mask)
 
@@ -874,7 +899,11 @@ def test_flash_wrappers_refuse_other_devices_bad_shapes_and_gqa():
     q, k, v, _, km = (None if a is None else torch.from_numpy(a)
                       for a in _flash(FLASH_SWEEP[0], ragged=True))
     with pytest.raises(ValueError):
-        flash_attention_bshd(*(t.to("meta") for t in (q, k, v)), causal=True)
+        flash_attention_bshd(*(_Elsewhere(t) for t in (q, k, v)),
+                             causal=True)
+    out = flash_attention_bshd(*(t.to("meta") for t in (q, k, v)),
+                               causal=True)     # meta: shapes only
+    assert out.is_meta and out.shape == q.shape
     with pytest.raises(ValueError):
         flash_attention_bshd(q, k[:, :-1], v, causal=True)
     with pytest.raises(ValueError):

@@ -246,15 +246,19 @@ _IMPORT_RE = re.compile(
     r"|from\s+repro(?!_torch)\b)", re.M)
 
 
+EXAMPLE = ROOT / "examples" / "speculative_lm_torch.py"
+
+
 def test_port_imports_no_jax_and_no_repro():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__")
         for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
     code = (
-        "import importlib, sys\n"
+        "import importlib, runpy, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
+        f"runpy.run_path({str(EXAMPLE)!r})\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'repro' or m.startswith('repro.')"
         " or m == 'msgpack' or m.startswith('msgpack.')]\n"
@@ -265,7 +269,8 @@ def test_port_imports_no_jax_and_no_repro():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     files = [*(ROOT / "src" / "repro_torch").rglob("*.py"),
-             ROOT / "chip_smoke.py"]
+             ROOT / "chip_smoke.py",
+             EXAMPLE]
     offenders = [str(f) for f in files
                  if _IMPORT_RE.search(f.read_text(encoding="utf-8"))]
     assert not offenders, offenders

@@ -153,9 +153,11 @@ def test_sharded_token_identity(world, toys, backend):
     want_jax = _jax_unsharded(toys, backend)
     for paged in (False, True):
         kw = _kw(backend, paged)
-        ref = mesh_runs.serve(toys[backend], kw, jobs, mesh=None)
+        ref = mesh_runs.serve(toys[backend], kw, jobs, on_card=False,
+                              mesh=None)
         _same(ref["results"], want_jax)
-        got = world.run(SERVE, model=toys[backend], engine=kw, jobs=jobs)
+        got = world.run(SERVE, on_card=False,
+                        model=toys[backend], engine=kw, jobs=jobs)
         for r in got:
             _same(r["results"], ref["results"])
             _same(r["results"], want_jax)
@@ -176,9 +178,11 @@ def test_sharded_token_identity(world, toys, backend):
         assert ref["shard_stats"]["admitted_by_shard"] == [0]
     if backend == "lm":
         # a realtime drive: every rank reads rank 0's clock
-        got = world.run(SERVE, model=toys[backend], engine=kw, jobs=jobs,
+        got = world.run(SERVE, on_card=False,
+                        model=toys[backend], engine=kw, jobs=jobs,
                         realtime=True, arrivals=False)
-        ref = mesh_runs.serve(toys[backend], kw, jobs, mesh=None,
+        ref = mesh_runs.serve(toys[backend], kw, jobs, on_card=False,
+                              mesh=None,
                               realtime=True, arrivals=False)
         for r in got:
             _same(r["results"], ref["results"])
@@ -199,8 +203,9 @@ def test_sharded_heads_and_mesh_shapes(world, toys, arch, shape):
               mode_groups={"greedy": 4, "speculative": 4})
     jobs = [(p, ("greedy", "speculative")[i % 2])
             for i, p in enumerate(toys["prompts"])]
-    ref = mesh_runs.serve(model, kw, jobs, mesh=None)
-    got = world.run(SERVE, model=model, engine=kw, jobs=jobs, mesh=shape)
+    ref = mesh_runs.serve(model, kw, jobs, on_card=False, mesh=None)
+    got = world.run(SERVE, on_card=False,
+                    model=model, engine=kw, jobs=jobs, mesh=shape)
     for r in got:
         _same(r["results"], ref["results"])
         assert r["shard_stats"]["n_shards"] == shape[0]
@@ -212,7 +217,7 @@ def test_lone_resident_one_step_an_iteration(world, toys):
     kw = dict(mode="speculative", draft_len=3, n_drafts=4, max_new=MAX_NEW,
               max_src=28, n_slots=4, prefill_chunk=8, eos_id=2, paged=True,
               page_size=8)
-    got = world.run(SERVE, model=toys["lm"], engine=kw,
+    got = world.run(SERVE, on_card=False, model=toys["lm"], engine=kw,
                     jobs=[(toys["prompts"][0], "speculative")])
     stats = got[0]["loop_stats"]
     assert stats["n_iterations"] >= 3
@@ -252,9 +257,10 @@ def test_sharded_exhaustion_matches_jax(world, toys):
     want = [p.smiles[0] for p in jeng.predict(queries)]
     ref = mesh_runs.serve(toys["mt"], kw, [(q, "speculative")
                                            for q in queries],
-                          mesh=None, predict=True)
+                          on_card=False, mesh=None, predict=True)
     assert [r["smiles"][0] for r in ref["results"]] == want
-    got = world.run(SERVE, model=toys["mt"], engine=dict(kw, **pkw),
+    got = world.run(SERVE, on_card=False,
+                    model=toys["mt"], engine=dict(kw, **pkw),
                     jobs=[(q, "speculative") for q in queries], predict=True)
     assert jeng.scheduler.n_preemptions > 0
     for r in got:
@@ -277,7 +283,8 @@ def test_placement_prefers_least_loaded_shard(world, toys):
     q = toys["prompts"][0]
     payload = ("payload", q, "speculative")
     free = [0, 1, 2, 3]          # slots 0-1: shard 0, slots 2-3: shard 1
-    got = world.run("repro_torch.launch.mesh_runs:probe", model=lm,
+    got = world.run("repro_torch.launch.mesh_runs:probe", on_card=False,
+                    model=lm,
                     engine=kw, calls=[
                         (dict(_booked=[], _mirror_free_sh=[2, 500]),
                          "_place_slot", ["speculative", free, payload]),
@@ -287,7 +294,8 @@ def test_placement_prefers_least_loaded_shard(world, toys):
     # dense engines rank by resident count instead of pool headroom
     dense = dict(mode="greedy", max_new=MAX_NEW, max_src=28, n_slots=4,
                  prefill_chunk=8, eos_id=2)
-    got = world.run("repro_torch.launch.mesh_runs:probe", model=lm,
+    got = world.run("repro_torch.launch.mesh_runs:probe", on_card=False,
+                    model=lm,
                     engine=dense, calls=[
                         ({}, "_place_slot", ["greedy", free,
                                              ("payload", q, "greedy")]),
@@ -309,7 +317,8 @@ def test_placement_prefix_affinity_routes_to_parent_shard(world, toys):
                       "_shard_order", ["speculative",
                                        ("payload", parent, "speculative"),
                                        {0, 1}]))
-    got = world.run("repro_torch.launch.mesh_runs:probe", model=toys["lm"],
+    got = world.run("repro_torch.launch.mesh_runs:probe", on_card=False,
+                    model=toys["lm"],
                     engine=kw, calls=calls, serve_first=[parent])
     for r in got:
         shard = r[0]
@@ -335,9 +344,11 @@ def test_prefix_match_cut_at_foreign_shard_matches_unsharded(world, toys):
     jobs = [(parent + rng.integers(4, 500, size=n).astype(np.int32)
              .tolist(), "speculative") for n in (5, 3, 6)]
     first = [(parent, "speculative")]   # a prompt body of 4 pages
-    ref = mesh_runs.serve(toys["lm"], kw, jobs, mesh=None, arrivals=False,
+    ref = mesh_runs.serve(toys["lm"], kw, jobs, on_card=False,
+                          mesh=None, arrivals=False,
                           serve_first=first)
-    got = world.run(SERVE, model=toys["lm"], engine=kw, jobs=jobs,
+    got = world.run(SERVE, on_card=False,
+                    model=toys["lm"], engine=kw, jobs=jobs,
                     arrivals=False, serve_first=first)
     match = 4 * kw["page_size"]         # each child matches the 4 pages
     assert ref["prefix_stats"]["hit_tokens"] == 3 * match, ref
@@ -377,7 +388,7 @@ def test_mesh_rejects_indivisible_slots_and_pages_and_refuses(world, toys):
          "NotImplementedError", "FrontDoorServer"),
     ]
     for model, kw, kind, text in cases:
-        got = world.run("repro_torch.launch.mesh_runs:refusals",
+        got = world.run("repro_torch.launch.mesh_runs:refusals", on_card=False,
                         model=model, engine=kw,
                         front_door=kind == "NotImplementedError")
         for msg in got:

@@ -169,7 +169,8 @@ def test_moe_ffn_by_expert_matches_unsharded_and_jax(world, models, arch,
                                 torch.from_numpy(x))
     np.testing.assert_allclose(want.numpy(), np.asarray(want_jax),
                                rtol=1e-5, atol=1e-5)
-    got = world.run(LAYER, model=model, kind="moe", args={"x": x},
+    got = world.run(LAYER, on_card=False,
+                    model=model, kind="moe", args={"x": x},
                     mesh=(1, 4), block=i)
     for r in got:
         np.testing.assert_allclose(r["out"], want.numpy(), rtol=1e-5,
@@ -202,7 +203,8 @@ def test_global_routing_equals_the_concatenated_call(world, models, shape):
                               jcfg, jnp.asarray(x))
     np.testing.assert_allclose(want_out.numpy(), np.asarray(jout),
                                rtol=1e-5, atol=1e-5)
-    got = world.run(LAYER, model=model, kind="moe", args={"x": x}, mesh=shape,
+    got = world.run(LAYER, on_card=False,
+                    model=model, kind="moe", args={"x": x}, mesh=shape,
                     split_rows=True)
     data, n_model = shape
     # rank r sits at (r // model, r % model): model rank 0 of each shard,
@@ -242,9 +244,10 @@ def test_engine_on_the_mesh_matches_jax_unsharded(world, models, arch,
     jobs = _jobs(modes)
     for paged in (False, True):
         kw = _kw(modes, paged)
-        ref = mesh_runs.serve(model, kw, jobs, mesh=None)
+        ref = mesh_runs.serve(model, kw, jobs, on_card=False, mesh=None)
         _same(ref["results"], want_jax)
-        got = world.run(SERVE, model=model, engine=kw, jobs=jobs)
+        got = world.run(SERVE, on_card=False,
+                        model=model, engine=kw, jobs=jobs)
         for r in got:
             _same(r["results"], ref["results"])
             _same(r["results"], want_jax)
@@ -267,7 +270,7 @@ def test_drops_match_jax_sharded_engine(world, models):
     alone = _jax_engine(jcfg, jp, modes, paged=True)
     assert any(not np.array_equal(_tokens(a), _tokens(b))
                for a, b in zip(want, alone))
-    got = world.run(SERVE, model=model, engine=_kw(modes, True),
+    got = world.run(SERVE, on_card=False, model=model, engine=_kw(modes, True),
                     jobs=_jobs(modes))
     for r in got:
         _same(r["results"], want)
@@ -281,8 +284,9 @@ def test_phi_mesh_shapes_match_unsharded(world, models, shape):
     modes = MODES[:2]
     kw = _kw(modes, True, slots=4)      # 4 slots a mode split over 4 shards
     jobs = _jobs(modes)
-    ref = mesh_runs.serve(model, kw, jobs, mesh=None)
-    got = world.run(SERVE, model=model, engine=kw, jobs=jobs, mesh=shape)
+    ref = mesh_runs.serve(model, kw, jobs, on_card=False, mesh=None)
+    got = world.run(SERVE, on_card=False,
+                    model=model, engine=kw, jobs=jobs, mesh=shape)
     for r in got:
         _same(r["results"], ref["results"])
         w = r["widths"]

@@ -136,7 +136,8 @@ def test_mamba_by_channel_matches_unsharded_and_jax(world, models, shape):
                                      lengths=torch.from_numpy(lengths),
                                      return_state=True)
         tstep, ts = mamba.mamba_step(tm, cfg, tc, torch.from_numpy(x2))
-    got = world.run(LAYER, model=model, kind="mamba", mesh=shape, block=i,
+    got = world.run(LAYER, on_card=False,
+                    model=model, kind="mamba", mesh=shape, block=i,
                     args=dict(x=x, lengths=lengths, x_step=x2,
                               conv=tc["conv"].numpy(),
                               ssm=tc["ssm"].numpy()))
@@ -178,7 +179,7 @@ def test_rwkv_by_head_matches_unsharded_and_jax(world, models, shape):
                                         x_last=torch.from_numpy(x_tm))
         tcmo, _ = rwkv.rwkv_channel_mix(tcm, torch.from_numpy(x),
                                         x_last=torch.from_numpy(x_cm))
-    got = world.run(LAYER, model=model, kind="rwkv", mesh=shape,
+    got = world.run(LAYER, on_card=False, model=model, kind="rwkv", mesh=shape,
                     args=dict(x=x, S=S, x_tm=x_tm, x_cm=x_cm))
     # the heads split where they divide the model axis, else every rank
     # runs them all
@@ -215,7 +216,8 @@ def test_cross_attention_by_head_matches_unsharded_and_jax(world, models,
         tout = attention.cached_cross_attention(
             ta, cfg, torch.from_numpy(x), tkv,
             memory_mask=torch.from_numpy(mask))
-    got = world.run(LAYER, model=model, kind="xattn", mesh=shape, block=i,
+    got = world.run(LAYER, on_card=False,
+                    model=model, kind="xattn", mesh=shape, block=i,
                     args=dict(x=x, memory=memory, memory_mask=mask))
     n = cfg.n_heads // shape[1]
     for rank, r in enumerate(got):
@@ -273,9 +275,10 @@ def test_engine_on_the_mesh_matches_jax_unsharded(world, models, arch,
     want_jax = [res[int(r)] for r in rids]
     for paged in pagings:
         kw = _kw(paged)
-        ref = mesh_runs.serve(model, kw, jobs, mesh=None)
+        ref = mesh_runs.serve(model, kw, jobs, on_card=False, mesh=None)
         _same(ref["results"], want_jax)
-        got = world.run(SERVE, model=model, engine=kw, jobs=jobs)
+        got = world.run(SERVE, on_card=False,
+                        model=model, engine=kw, jobs=jobs)
         for r in got:
             _same(r["results"], ref["results"])
             _same(r["results"], want_jax)
