@@ -212,9 +212,20 @@ In order:
      collectives (the router's global counts) and each rank's local
      widths; a rank of a family run that launched no draft_verify, or on
      an attention family no paged_decode_gqa, fails. Then the CLI on
-     Jamba reduced (``--mesh 2 2 --paged``); last, each decode read's
-     and flash's launch group of the mesh runs timed alone against its
-     plain version, ``scaled_dot_product_attention`` and its bound on
+     Jamba reduced (``--mesh 2 2 --paged``). Before it, on the same
+     world, the front door over the mesh (``serve_mesh_door``):
+     mt-product's 16 queries in the four modes and SmolLM-135M whole,
+     paged, 8 greedy and 8 speculative requests, each through
+     ``FrontDoorServer`` on every rank (``mesh_runs.front_door``: the
+     socket on rank 0) and through the unsharded engine's door in this
+     process, realtime, every request at once from client threads (SSE
+     and NDJSON): tokens equal request by request, every launch group of
+     the ranks and of the unsharded door held to plain, wire wall a
+     request and time to the first delta printed sharded and unsharded;
+     then a ``FleetRouter`` over the mesh door and the unsharded door
+     serves 8 of the mt-product queries, tokens equal. Last, each decode
+     read's and flash's launch group of the mesh runs timed alone against
+     its plain version, ``scaled_dot_product_attention`` and its bound on
      seeded inputs at its shape;
   20. the launch phase (``serve_launch``): the dry-run CLIs
      (``repro_torch.launch.dryrun`` on SmolLM-135M's four shapes and on
@@ -233,7 +244,10 @@ In order:
      against the plain version (not at the prefill's 32,768 rows), a
      second call timed and traced and set beside the meta count
      (``hlo_analysis.trace_roofline``); a kind that does not fit the card
-     halves its batch, and says so; ``examples/speculative_lm_torch.py``
+     halves its batch, and says so; at SmolLM-135M's full width,
+     decode_32k's and verify 11's dense read timed alone on its first
+     launch's arguments against its plain version and SDPA on a bool
+     mask, beside its bound; ``examples/speculative_lm_torch.py``
      on SmolLM and RWKV6 reduced must print ``outputs identical : True``
      and launch draft_verify;
   21. print the ``kernels`` JSON line, the card line, and
@@ -249,6 +263,7 @@ fp32 throughout with TF32 off. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -1386,12 +1401,16 @@ def check_checkpoint(torch, trainer, build_dir: Path) -> dict:
     return got["params"]
 
 
-def wire_request(port: int, query: str, sse: bool) -> dict:
-    """One request over the front door's socket (SSE or NDJSON): its
-    events, the seconds to the first delta and to the end."""
+def wire_request(port: int, query, sse: bool, mode: str | None = None
+                 ) -> dict:
+    """One request over the front door's socket (SSE or NDJSON; ``query``
+    a SMILES string or a token list, ``mode`` the engine's default when
+    None): its events, the seconds to the first delta and to the end."""
     import socket
 
     req = {"query": query}
+    if mode is not None:
+        req["mode"] = mode
     t0 = time.perf_counter()
     first = None
     events = []
@@ -2931,6 +2950,214 @@ def time_mesh_groups(torch, seen: dict) -> None:
               f"bound {b_ms:.5f} ms ({by})", flush=True)
 
 
+# the mesh door: mt-product's 16 queries in the four modes and
+# SmolLM-135M whole, paged, 8 greedy and 8 speculative requests (8 slots a
+# mode), each through FrontDoorServer on the (2, 2) world and on the
+# unsharded engine in this process, realtime drives, every request at once
+# from client threads; then the fleet: the first 8 mt-product queries (two
+# a mode) through a FleetRouter over the mesh door and the unsharded door
+MESH_DOOR = dict(lm_modes=("greedy", "speculative"), lm_slots=8,
+                 fleet_requests=8, port_wait_s=300)
+
+
+def door_requests(port: int, jobs: list, stagger_s: float = 0.0) -> dict:
+    """``jobs`` ((query, mode) pairs) over the wire from client threads,
+    all at once or ``stagger_s`` apart, alternately SSE and NDJSON: each
+    request's events, wall and time to its first delta, and the whole
+    wall."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = []
+        for i, (q, m) in enumerate(jobs):
+            futs.append(pool.submit(wire_request, port, q, i % 2 == 0, m))
+            time.sleep(stagger_s)
+        res = [f.result() for f in futs]
+    return dict(res=res, wall_s=time.perf_counter() - t0)
+
+
+def door_tokens(label: str, run: dict, jobs: list) -> list:
+    """Every request: one accepted, then deltas, then one finished done;
+    a greedy-family request's deltas concatenated equal its tokens.
+    Returns each request's done tokens (every beam)."""
+    out = []
+    for i, (r, (_, mode)) in enumerate(zip(run["res"], jobs)):
+        ev = r["events"]
+        kinds = [e["event"] for e in ev]
+        if kinds.count("accepted") != 1 or kinds.count("done") != 1 \
+                or kinds[-1] != "done" or ev[-1]["status"] != "finished":
+            raise AssertionError(f"{label} request {i}: events {kinds}, "
+                                 f"last {ev[-1] if ev else None}")
+        deltas = [t for e in ev if e["event"] == "delta"
+                  for t in e["tokens"]]
+        if mode in ("greedy", "speculative") and \
+                deltas != ev[-1]["tokens"][0]:
+            raise AssertionError(f"{label} request {i}: deltas {deltas} != "
+                                 f"done {ev[-1]['tokens'][0]}")
+        out.append(ev[-1]["tokens"])
+    return out
+
+
+def door_line(label: str, n: int, sharded: dict, plain: dict) -> str:
+    first = lambda run: percentile([r["first_s"] for r in run["res"]], 50)
+    return (f"{label}: wire wall {sharded['wall_s'] / n * 1e3:.2f} ms a "
+            f"request sharded, {plain['wall_s'] / n * 1e3:.2f} unsharded; "
+            f"time to first delta p50 {first(sharded) * 1e3:.2f} ms "
+            f"sharded, {first(plain) * 1e3:.2f} unsharded")
+
+
+@contextlib.contextmanager
+def mesh_door(world, model: dict, kw: dict, warm, on_card: bool):
+    """``mesh_runs.front_door`` on every rank of ``world``: yields rank 0's
+    port and a list that holds every rank's report once the door has
+    stopped."""
+    import shutil
+    import tempfile
+
+    d = Path(tempfile.mkdtemp(prefix="mesh_door_"))
+    port_file, stop_file = d / "port", d / "stop"
+    world.start("repro_torch.launch.mesh_runs:front_door", model=model,
+                engine=kw, mesh=MESH["shape"], server=dict(realtime=True),
+                warm=warm, port_file=str(port_file),
+                stop_file=str(stop_file), on_card=on_card)
+    reports: list = []
+    try:
+        deadline = time.monotonic() + MESH_DOOR["port_wait_s"]
+        while not port_file.exists():
+            if time.monotonic() > deadline:
+                raise AssertionError("the mesh door bound no port in "
+                                     f"{MESH_DOOR['port_wait_s']} s")
+            time.sleep(0.05)
+        yield int(port_file.read_text()), reports
+    finally:
+        stop_file.write_text("stop")
+        reports.extend(world.collect())
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def serve_mesh_door(torch, world, device: str, mt: dict, mt_jobs: list,
+                    lm: dict, lm_prompts_: list, seen: dict, verify: dict,
+                    per_rank: list) -> dict:
+    """The front door over the mesh (ROADMAP item 9c): each run through
+    ``FrontDoorServer`` on the 4-rank world (``mesh_runs.front_door``) and
+    through the same engine unsharded in this process, both over the wire
+    with realtime drives: tokens equal request by request; every launch
+    group of the ranks and of the unsharded door held to plain
+    (``check_mesh_groups``). The mt-product run also puts a
+    ``FleetRouter`` over the two doors. Prints wire wall a request and
+    time to the first delta, sharded and unsharded."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import mesh_runs
+    from repro_torch.serving import (FleetConfig, FleetRouter,
+                                     FrontDoorServer, ServerConfig)
+
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    modes = MESH_DOOR["lm_modes"]
+    slots = MESH_DOOR["lm_slots"]
+    lm_jobs = [(p.tolist(), m) for m in modes for p in lm_prompts_]
+    runs = [("mt-product", mt, dict(MESH["mt_kw"], paged=True, mode_groups={
+        m: 2 for m in ("greedy", "speculative", "beam",
+                       "speculative_beam")}), mt_jobs, True),
+            ("SmolLM-135M whole", lm, dict(MESH["lm_kw"], paged=True,
+                                           mode_groups={m: slots
+                                                        for m in modes}),
+             lm_jobs, False)]
+    out = {}
+    for label, model, kw, jobs, fleet in runs:
+        tag = f"mesh door [{label}, {len(jobs)} requests]"
+        eng = mesh_runs._engine(model, kw, None, torch.device(device))
+        q, m = jobs[0]
+        eng.submit(np.asarray(q, np.int32) if isinstance(q, list) else q,
+                   mode=m)
+        eng.serve()
+        eng.reset()
+        reset_counts()
+        groups = mesh_runs.LaunchGroups()
+        plain = FrontDoorServer(eng, ServerConfig(realtime=True)).start()
+        router = None
+        try:
+            plain_run = door_requests(plain.port, jobs)
+            want = door_tokens(f"{tag} unsharded", plain_run, jobs)
+            with mesh_door(world, model, kw, jobs[0], on_card) as (
+                    port, reports):
+                run = door_requests(port, jobs)
+                got = door_tokens(f"{tag} sharded", run, jobs)
+                for i, (a, b) in enumerate(zip(got, want)):
+                    if a != b:
+                        raise AssertionError(f"{tag} request {i}: sharded "
+                                             f"{a} != unsharded {b}")
+                line = door_line(tag, len(jobs), run, plain_run)
+                if fleet:
+                    router = FleetRouter(
+                        [("127.0.0.1", port), ("127.0.0.1", plain.port)],
+                        FleetConfig(probe_interval_s=0.05)).start()
+                    time.sleep(0.2)   # one probe round
+                    # arrivals this far apart see each other's bookings
+                    fleet_jobs = jobs[:MESH_DOOR["fleet_requests"]]
+                    via = door_requests(router.port, fleet_jobs,
+                                        FLEET_STAGGER_S)
+                    fleet_got = door_tokens(f"{tag} fleet", via, fleet_jobs)
+                    if fleet_got != want[:len(fleet_jobs)]:
+                        raise AssertionError(f"{tag} fleet: tokens differ "
+                                             f"from the unsharded door's")
+                    st = router.stats(fresh=True)
+                    placed = {k: v["submitted"]
+                              for k, v in st["replicas"].items()}
+                    probed = router.clients[0].last_stats["shard_stats"]
+                    router.shutdown()
+                    router = None
+            launches = dict(launch_counts)
+        finally:
+            groups.close()
+            if router is not None:
+                router.shutdown()
+            plain.shutdown(drain=False)
+        if any(r["error"] for r in reports):
+            raise AssertionError(f"{tag}: {[r['error'] for r in reports]}")
+        if any(r["steps"] != reports[0]["steps"] for r in reports):
+            raise AssertionError(f"{tag}: ranks took different steps "
+                                 f"{[r['steps'] for r in reports]}")
+        ref = dict(groups=groups.report(), launches=launches)
+        check_mesh_groups(tag, ref, reports, seen, verify)
+        for acc, r in zip(per_rank, reports):
+            for k in MESH_KERNELS:
+                acc[k] += r["launches"][k]
+        read = "paged_decode_gqa"
+        for r in reports:
+            if r["launches"][read] == 0 or r["launches"]["draft_verify"] == 0:
+                raise AssertionError(f"{tag}: rank {r['rank']} launches "
+                                     f"{r['launches']}")
+            if model is mt:
+                check_encoder_launches(r["launches"], f"{tag} rank "
+                                                      f"{r['rank']}")
+        r0 = reports[0]["stats"]
+        print(f"{line} ({MESH_TAG}; {card_line()}); tokens == the "
+              f"unsharded door's on every request; rank 0 accepted "
+              f"{r0['accepted']}, steps {r0['n_steps']} (every rank's), "
+              f"shard_stats {r0['shard_stats']}; rank launches "
+              f"{[{k: r['launches'][k] for k in MESH_KERNELS} for r in reports]}",
+              flush=True)
+        out[label] = dict(wall_s=run["wall_s"], plain_wall_s=plain_run[
+            "wall_s"], n=len(jobs))
+        if fleet:
+            n = len(fleet_jobs)
+            print(f"  {tag} fleet: a FleetRouter over the mesh door and the "
+                  f"unsharded door, {n} requests arriving "
+                  f"{FLEET_STAGGER_S * 1e3:.0f} ms apart: wall "
+                  f"{via['wall_s'] / n * 1e3:.2f} ms a request; "
+                  f"placements by replica {placed}; the router's probe of "
+                  f"the mesh replica: shard_stats {probed}; tokens == the "
+                  f"unsharded door's", flush=True)
+        del eng, plain
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    print(f"mesh door phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def serve_mesh(torch, device: str = "cuda") -> dict:
     """The mesh phase: the CLI under torchrun, then a world of 4 ranks on
     the card serving SmolLM-135M (mixed modes, paged and dense),
@@ -3009,6 +3236,8 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
             for acc, r in zip(per_rank, got):
                 for k in MESH_KERNELS:
                     acc[k] += r["launches"][k]
+        out["door"] = serve_mesh_door(torch, world, device, mt, mt_jobs, lm,
+                                      prompts, seen, verify, per_rank)
     out["cli families"] = mesh_cli(torch, device, MESH["cli_families"])
     for rank, acc in enumerate(per_rank):
         if any(n == 0 for n in acc.values()):
@@ -3268,6 +3497,61 @@ def _tree_leaves(tree) -> list:
     return out
 
 
+class FirstCall:
+    """While open, keeps the arguments of the first call of
+    ``module.attr`` (the call itself is unchanged)."""
+
+    def __init__(self, module, attr: str):
+        self.call = None
+        op = getattr(module, attr)
+
+        def first(*args, **kw):
+            if self.call is None:
+                self.call = (args, kw)
+            return op(*args, **kw)
+
+        setattr(module, attr, first)
+        self._undo = (module, attr, op)
+
+    def close(self) -> None:
+        module, attr, op = self._undo
+        setattr(module, attr, op)
+
+
+def time_read(torch, label: str, call, launches: int) -> dict:
+    """One dense decode read of a built step, on the arguments its first
+    launch took: kernel, plain version and ``scaled_dot_product_attention``
+    on a bool mask of the visible keys (``sdpa_gqa``), timed alone
+    (``timed_ms``), beside its bound (``decode_work`` on this run's
+    positions) and the step's launches of the read."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_gqa_attention
+    from repro_torch.kernels.decode_gqa.ops import decode_work
+    from repro_torch.kernels.decode_gqa.ref import decode_gqa_ref
+
+    (q, kc, vc, kp, qp), kw = call
+    if kw.get("window"):
+        raise AssertionError(f"launch read [{label}]: a window {kw}")
+    mask = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None]))[:,
+                                                                       None]
+    ms = timed_ms(torch, lambda: decode_gqa_attention(q, kc, vc, kp, qp))
+    plain = timed_ms(torch, lambda: decode_gqa_ref(q, kc, vc, kp, qp))
+    lib = timed_ms(torch, lambda: sdpa_gqa(
+        F, q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), mask))
+    b_ms, by = bound(*decode_work(q.shape, kc.shape, q.element_size(),
+                                  kp.cpu().numpy(), qp.cpu().numpy()))
+    B, T, H, hd = q.shape
+    S, Kv = kc.shape[1:3]
+    print(f"launch read [{label}] decode_gqa B {B} x T {T}, H {H} / Kv "
+          f"{Kv}, hd {hd}, S {S}: kernel {ms:.4f} ms, plain {plain:.4f} "
+          f"ms, library {lib:.4f} ms (SDPA, bool mask), bound {b_ms:.4f} "
+          f"ms ({by}); {launches} launches a call ({card_line()})",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=by, launches=launches)
+
+
 def launch_step(torch, arch: str, shape: str, kw: dict,
                 fields: dict | None) -> dict:
     """One ``build_step`` kind on the card (one rank, fp32, the arch's
@@ -3281,11 +3565,13 @@ def launch_step(torch, arch: str, shape: str, kw: dict,
     backward of the train kinds, and the prefill's decode read, on two
     batch rows); a second call timed (CUDA events) and traced with
     ``torch.profiler`` at once, set beside the meta count of the same step
-    (``trace_roofline``)."""
+    (``trace_roofline``). At full width a decode kind's dense read is
+    also timed alone on its first launch's arguments (``time_read``)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
 
+    import repro_torch.models.attention as attention
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts
     from repro_torch.launch import steps
@@ -3303,7 +3589,7 @@ def launch_step(torch, arch: str, shape: str, kw: dict,
              + "".join(f" {k}={v}" for k, v in kw.items()))
     while True:
         table[shape] = dict(full, batch=batch)
-        groups = checks = None
+        groups = checks = read = None
         try:
             cfg = (get_config(arch) if fields is None else
                    dataclasses.replace(get_config(arch, reduced=True),
@@ -3316,6 +3602,8 @@ def launch_step(torch, arch: str, shape: str, kw: dict,
             inputs = steps.example_inputs(built, device="cuda", seed=SEED)
             if built.kind in ("decode", "mt_verify"):
                 groups = LaunchGroups()
+                if fields is None and not built.draft_len:
+                    read = FirstCall(attention, "decode_gqa_attention")
             else:
                 checks = RowChecks(torch, f"launch step {label}",
                                    decode=built.kind == "prefill")
@@ -3324,12 +3612,12 @@ def launch_step(torch, arch: str, shape: str, kw: dict,
                 out = built.fn(*inputs)
                 torch.cuda.synchronize()
             finally:
-                for g in (groups, checks):
+                for g in (read, groups, checks):
                     if g is not None:
                         g.close()
             break
         except torch.cuda.OutOfMemoryError:
-            inputs = out = None
+            inputs = out = read = None
             gc.collect()
             torch.cuda.empty_cache()
             if batch == 1:
@@ -3410,12 +3698,15 @@ def launch_step(torch, arch: str, shape: str, kw: dict,
           f"{terms['bytes_per_device']:.4e} B, bound "
           f"{max(terms['compute_s'], terms['memory_s']) * 1e3:.3f} ms "
           f"({terms['bottleneck']}), achieved {achieved}{held}", flush=True)
-    del inputs, out
+    timed = None
+    if read is not None and read.call is not None:
+        timed = time_read(torch, label, read.call, launches["decode_gqa"])
+    del inputs, out, read
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches, shapes=shapes, batch=batch,
                 wall_ms=wall_ms, kernel_ms=tr_["kernel_ms"], busy=tr_["busy"],
-                own_ms=own_us / 1e3, over=tr_["over"])
+                own_ms=own_us / 1e3, over=tr_["over"], read=timed)
 
 
 def launch_examples(torch) -> dict:

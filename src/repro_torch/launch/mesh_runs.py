@@ -7,6 +7,12 @@ many engines through it).
 rank's tensor-parallel context, on given inputs: the per-layer checks of
 the sharded MoE, Mamba, RWKV and cross-attention layers.
 
+``front_door`` serves over the wire: the engine on every rank, a
+``FrontDoorServer`` over it on every rank (rank 0's holds the socket; its
+port is written to a file the caller names), until the caller writes the
+stop file; each rank returns its counters. ``late_stream`` subscribes to
+a request's stream on rank 0 alone, mid-flight.
+
 ``serve`` builds the model (seeded weights, or a saved state; any
 decoder-only family, with an MoE capacity factor of its own), the engine
 (sharded over a ``(data, model)`` mesh, or unsharded in the rank), submits
@@ -475,19 +481,112 @@ def step_collectives(model: dict, tokens, positions, *, cache_len: int,
 
 
 def refusals(model: dict, engine: dict, *, mesh=(2, 2),
-             front_door: bool = True, on_card: bool = True) -> str:
-    """The error a mesh engine (or, with ``front_door``, a front door over
-    one) raises, by type and message; "" when it builds. On the rank's
-    card unless ``on_card=False``."""
-    from repro_torch.serving import FrontDoorServer
-
+             on_card: bool = True) -> str:
+    """The error a mesh engine raises, by type and message; "" when it
+    builds. On the rank's card unless ``on_card=False``."""
     try:
-        eng = _engine(model, engine, mesh, _device(on_card))
-        if front_door:
-            FrontDoorServer(eng)
+        _engine(model, engine, mesh, _device(on_card))
     except (NotImplementedError, ValueError, TypeError) as e:
         return f"{type(e).__name__}: {e}"
     return ""
+
+
+def front_door(model: dict, engine: dict, *, port_file: str,
+               stop_file: str, mesh=(2, 2), server: dict | None = None,
+               warm=None, leader: bool = True,
+               on_card: bool = True) -> dict:
+    """Serve through ``FrontDoorServer`` over a mesh engine until the
+    caller stops it: every rank builds the engine, warms it on ``warm``
+    (a ``(query, mode)``: submit, serve, reset) and builds the door
+    (``ServerConfig(**server)``). Rank 0 starts the front door, writes its
+    port to ``port_file`` and serves until ``stop_file`` exists, then
+    shuts the door down, draining when the file says ``drain``; the other
+    ranks follow rank 0 until it stops them. ``leader=False``: rank 0
+    builds its door but never starts it (a rank 0 that is gone); the other
+    ranks report how long they waited before their follower raised.
+    Returns this rank's ``stats()``, steps, the scheduler's counters,
+    ``shard_stats()``, ``loop_stats()``, launches and launch groups, and
+    the follower's error (or None). On the rank's card unless
+    ``on_card=False``."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.serving import FrontDoorServer, ServerConfig
+
+    device = _device(on_card)
+    _free(device)
+    eng = _engine(model, engine, mesh, device)
+    if warm is not None:
+        q, m = warm
+        eng.submit(np.asarray(q, np.int32) if isinstance(q, list) else q,
+                   mode=m)
+        eng.serve()
+        eng.reset()
+    rank = dist.get_rank()
+    _build.reset_launch_counts()
+    groups = LaunchGroups()
+    srv = FrontDoorServer(eng, ServerConfig(**(server or {})))
+    error, t0 = None, time.perf_counter()
+    try:
+        if rank == 0 and not leader:
+            return dict(rank=rank, error=None, waited_s=0.0)
+        srv.start()
+        if rank == 0:
+            tmp = f"{port_file}.tmp"
+            with open(tmp, "w") as f:
+                f.write(str(srv.port))
+            os.replace(tmp, port_file)
+            while not os.path.exists(stop_file) and srv.error is None:
+                time.sleep(0.01)
+            drain = False
+            if os.path.exists(stop_file):
+                with open(stop_file) as f:
+                    drain = f.read().strip() == "drain"
+            srv.shutdown(drain=drain, timeout=None)
+        else:
+            try:
+                srv.shutdown(timeout=None)
+            except RuntimeError as e:
+                error = str(e)
+    finally:
+        groups.close()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    sch = eng.scheduler
+    return dict(
+        rank=rank, error=error, waited_s=time.perf_counter() - t0,
+        stats=srv.stats(), steps=sch.n_steps, n_cancelled=sch.n_cancelled,
+        n_shed=sch.n_shed, shard_stats=eng.shard_stats(),
+        loop_stats=eng.loop_stats(), launches=dict(_build.launch_counts),
+        groups=groups.report())
+
+
+def late_stream(model: dict, engine: dict, query, *, mode: str | None = None,
+                after: int = 2, mesh=(2, 2), on_card: bool = True) -> dict:
+    """Submit ``query``, serve ``after`` iterations, then subscribe to its
+    stream on rank 0 alone (``mesh`` None: an unsharded engine here) and
+    serve to the end: the chunks rank 0's sink caught up and collected
+    (the other ranks': []), the tokens committed before it subscribed and
+    the request's tokens."""
+    import torch.distributed as dist
+
+    eng = _engine(model, engine, mesh, _device(on_card))
+    h = eng.submit(np.asarray(query, np.int32) if isinstance(query, list)
+                   else query, mode=mode)
+    for _ in range(after):
+        eng._pump_once()
+    before = max((log[2] for log in eng._row0_log.values()
+                  if log[0] == int(h)), default=0)
+    sink = None
+    if mesh is None or dist.get_rank() == 0:
+        sink = eng.subscribe(int(h))
+    eng.serve()
+    r = eng._done[int(h)]
+    return dict(chunks=[] if sink is None else
+                [[int(x) for x in c] for c in sink["buf"]], before=before,
+                tokens=np.asarray(r.tokens[0][:int(r.lengths[0])]).tolist())
 
 
 def _leaves(tree):

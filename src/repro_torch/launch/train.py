@@ -23,11 +23,14 @@ from repro_torch.training.optimizer import adam_init, tree_leaves
 from repro_torch.training.trainer import make_lm_train_step
 
 
-def synthetic_batch(cfg, rng, batch: int, seq: int, *, device="cpu") -> dict:
+def synthetic_batch(cfg, rng, batch: int, seq: int, *,
+                    device=None) -> dict:
     """The JAX launcher's batch, drawn from the numpy ``rng`` in its order
     (the same numbers for the same ``rng``): frames and codebook labels for
     the audio encoder; tokens in [4, vocab) and a loss mask of ones
-    otherwise, plus the VLM's memory."""
+    otherwise, plus the VLM's memory. On the card unless ``device`` says
+    otherwise."""
+    device = resolve_device(device)
     if cfg.family == "audio":
         emb = rng.normal(size=(batch, seq, cfg.d_model)).astype(np.float32)
         labels = rng.integers(0, cfg.vocab_size, (batch, seq))

@@ -125,6 +125,7 @@ class World:
 
         device = resolve_device(device).type
         self.n, self.device, self.timeout_s = n, device, timeout_s
+        self._running: str | None = None
         self._dir = tempfile.mkdtemp(prefix="repro_torch_world_")
         ctx = mp.get_context("spawn")
         self._inboxes = [ctx.Queue() for _ in range(n)]
@@ -164,10 +165,22 @@ class World:
     def run(self, fn: str, **kwargs) -> list:
         """Run ``fn`` ("module:function") on every rank with ``kwargs``;
         returns each rank's result, rank order."""
+        self.start(fn, **kwargs)
+        return self.collect()
+
+    def start(self, fn: str, **kwargs) -> None:
+        """``run`` without waiting: the ranks start ``fn``, and
+        ``collect()`` returns their results (a job that serves until the
+        caller stops it, as ``mesh_runs.front_door`` does)."""
         if not self._procs:
             raise RuntimeError("the world is closed")
         for box in self._inboxes:
             box.put((fn, kwargs))
+        self._running = fn
+
+    def collect(self) -> list:
+        """Each rank's result of the job ``start`` gave them, rank order."""
+        fn, self._running = self._running, None
         return self._collect(fn)
 
     def close(self, force: bool = False) -> None:

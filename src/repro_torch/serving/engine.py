@@ -59,9 +59,14 @@ router keeps the global call's places and capacity,
 ``repro_torch.models.moe``). Every decoder-only family serves on a mesh:
 MoE by expert shard, Mamba by ``d_inner`` channel, RWKV and
 cross-attention by head (``launch.shardings.serving_param_shardings``);
-the cache holds a rank's own heads and channels. Refused on a mesh, by
-name (ROADMAP.md Queue 1 item 9c): ``FrontDoorServer`` / the fleet over a
-mesh engine. Unlike the JAX package's, a radix prefix
+the cache holds a rank's own heads and channels. Every rank must make the
+same engine calls in the same order: ``FrontDoorServer`` over a mesh
+engine runs its socket on rank 0 and hands each iteration's calls to the
+other ranks (``repro_torch.serving.server``). Streams are a rank's own:
+a stream sink reads only the bundle every rank gathers, and a late
+subscriber catches up from the committed row-0 tokens the host keeps
+from those bundles, so subscribing on one rank calls no collective.
+Unlike the JAX package's, a radix prefix
 match is cut at its first page from another shard (a rank reads only
 its own segment): the cut suffix is prefilled, and the tokens are the
 cold run's; and the seq2seq encoder-output LRU is a rank's own (a rank
@@ -1233,6 +1238,7 @@ class StreamingEngine:
             # occupant's counts: not this rid's tokens, never streamed
             rids={s: r for s, r in self._dispatch_rids.items()
                   if s not in self._dispatch_prefilling})
+        self._log_row0(self._stream_bundle)
         mask = np.asarray(out["finished"], bool).copy()
         for slot in range(self.n_slots):
             sreq = self.scheduler._resident.get(slot)
@@ -1288,6 +1294,9 @@ class StreamingEngine:
             cache = self._init_mesh_cache(paged)
         self._bundle = None
         self._stream_bundle = None
+        # slot -> [rid, committed row-0 token arrays, count]: a late stream
+        # subscriber's catch-up, kept from the gathered bundles
+        self._row0_log: dict[int, list] = {}
         # chunked prefill: global slot -> {mode, req, chunks, next chunk};
         # the chunks and mid-prefill slots of the in-flight dispatch
         self._prefilling: dict[int, dict] = {}
@@ -1952,24 +1961,31 @@ class StreamingEngine:
                 st["buf"].append(np.asarray(sb["delta"][slot, lo:n_new]))
                 st["n"] = n_after
             elif not st.get("caught_up"):
-                toks = self._row0_tokens(slot)
-                if len(toks) > st["n"]:
-                    st["buf"].append(toks[st["n"]:])
-                    st["n"] = len(toks)
+                log = self._row0_log.get(slot)
+                if log is not None and log[0] == rid and log[2] > st["n"]:
+                    st["buf"].append(np.concatenate(log[1])[st["n"]:])
+                    st["n"] = log[2]
                 st["caught_up"] = True
 
-    def _row0_tokens(self, slot: int) -> np.ndarray:
-        """A resident slot's committed row-0 tokens (a late stream
-        subscriber's catch-up), read where the slot lives."""
-        mode, local = self._slot_of(slot)
-        here = self._here(mode, local)
-        toks = None
-        if here is not None:
-            gs = self.scheduler.state.groups[self.mode_names.index(mode)]
-            n = int(gs.n_out[here[0], 0])
-            toks = gs.tokens[here[0], 0, :n].cpu().numpy()
-        return toks if self.mesh is None else self._owner_broadcast(slot,
-                                                                    toks)
+    def _log_row0(self, sb: dict) -> None:
+        """Append each greedy-family slot's committed row-0 delta to its
+        host log (a late subscriber's catch-up): the tokens up to the
+        bundle's count, with no device read and, on a mesh, no
+        collective. A new occupant, or a replay from its first token,
+        starts the slot's log afresh."""
+        for slot, rid in sb["rids"].items():
+            if self._groups[self._slot_of(slot)[0]].kind != "greedy":
+                continue
+            n_after, n_new = int(sb["n_out"][slot]), int(sb["n_new"][slot])
+            log = self._row0_log.get(slot)
+            if log is None or log[0] != rid or log[2] != n_after - n_new:
+                if n_after != n_new:   # a gap: no log to catch up from
+                    self._row0_log.pop(slot, None)
+                    continue
+                log = self._row0_log[slot] = [rid, [], 0]
+            if n_new:
+                log[1].append(np.array(sb["delta"][slot, :n_new]))
+                log[2] = n_after
 
     # -- request-level control (the RequestHandle surface) -------------------
     def request_status(self, rid: int) -> RequestStatus:

@@ -68,6 +68,21 @@ Delta streams are byte-identical to ``RequestHandle.stream()``: both
 read the same engine stream sink, so the concatenated ``delta`` token
 lists equal the handle's concatenated arrays exactly
 (the port's server tests assert it end to end).
+
+Over a mesh engine (``EngineConfig(mesh=...)``: one process a rank) the
+door is built on every rank, in the same order as the rest of the
+ranks' collectives. Rank 0 binds the socket and runs the event loop and
+the drive thread as above; every other rank runs a follower drive thread
+with no socket. Each drive iteration rank 0 applies the engine calls its
+commands make (submissions with their deadlines stamped, cancels, drain)
+and sends them, with whether it pumps, to the followers over a gloo group
+of the door's own; every rank applies them in order and pumps with the
+others, so the engine's collectives meet. Quota and rate-limit
+rejections are rank 0's alone and never reach an engine. An idle rank 0
+sends an empty message at least ten times in
+``ServerConfig.follower_timeout_s``; a follower that hears nothing for
+that long (the group's timeout) leaves its loop with the error, which
+its ``shutdown()`` raises.
 """
 
 from __future__ import annotations
@@ -113,7 +128,10 @@ class ServerConfig:
     seconds, stamped absolute at submission exactly like a client
     timeout); None keeps untimed requests unbounded. ``writer_delay_s``:
     test-only artificial consumer slowness injected before each event
-    write."""
+    write. ``follower_timeout_s`` (a mesh engine only): how long a rank
+    waits for word from rank 0 before it raises (rank 0 is gone) — also
+    how long rank 0 waits for a rank to take its word; an idle rank 0
+    speaks every tenth of it."""
 
     host: str = "127.0.0.1"
     port: int = 0
@@ -126,6 +144,7 @@ class ServerConfig:
     drain_retry_after: float = 5.0
     default_timeout_s: float | None = None
     writer_delay_s: float = 0.0
+    follower_timeout_s: float = 60.0
 
 
 _PARAM_KEYS = ("max_new", "draft_len", "n_drafts", "n_beams")
@@ -259,19 +278,32 @@ class FrontDoorServer:
     path: refuse new work, shed the queue with retry hints, finish
     residents, then stop both threads. The server owns the engine's pump
     for its lifetime — don't drive the same engine elsewhere while the
-    server runs. A mesh engine is refused: its ranks must see the same
-    submissions in the same order, which one socket front door on one
-    rank does not give them (nor the fleet, whose replicas are front
-    doors)."""
+    server runs.
+
+    Over a mesh engine, build the door on every rank (the ranks make its
+    group together). Rank 0's is the front door above; ``start()`` on
+    another rank starts its follower, which has no ``port``, and its
+    ``shutdown()`` waits for rank 0 to stop the door (``drain`` is rank
+    0's to choose), raising the follower's error if rank 0 fell silent.
+    A fleet replica can be such a rank 0: the router reaches it by its
+    address like any other."""
 
     def __init__(self, engine, config: ServerConfig | None = None):
-        if getattr(engine, "mesh", None) is not None:
-            raise NotImplementedError(
-                "FrontDoorServer (and the fleet) over a mesh engine is not "
-                "ported yet (ROADMAP.md Queue 1 item 9c)")
         self.engine = engine
         self.cfg = config or ServerConfig()
         self.port: int | None = None
+        # a mesh engine: this rank, and the door's gloo group over the
+        # world (rank 0 -> the others, once a drive iteration)
+        self._rank, self._group = 0, None
+        if getattr(engine, "mesh", None) is not None:
+            import datetime
+
+            import torch.distributed as dist
+
+            self._rank = dist.get_rank()
+            self._group = dist.new_group(backend="gloo", timeout=(
+                datetime.timedelta(seconds=self.cfg.follower_timeout_s)))
+        self.error: BaseException | None = None   # a drive thread's end
         # counters (drive/loop threads bump disjoint ones; reads are
         # informational)
         self.n_accepted = 0
@@ -296,6 +328,12 @@ class FrontDoorServer:
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "FrontDoorServer":
+        if self._rank != 0:
+            self._drive_thread = threading.Thread(target=self._follow,
+                                                  name="frontdoor-follow",
+                                                  daemon=True)
+            self._drive_thread.start()
+            return self
         self._loop_thread = threading.Thread(target=self._run_loop,
                                              name="frontdoor-loop",
                                              daemon=True)
@@ -333,8 +371,21 @@ class FrontDoorServer:
         events with ``retry_after`` to their waiters), finish residents
         token-identically, then stop. ``drain=False``: immediate stop.
         Idempotent: a second call (e.g. an unconditional cleanup after a
-        graceful drain) is a no-op."""
+        graceful drain) is a no-op. On a mesh rank other than 0: wait
+        (up to ``timeout``; None: as long as it takes) for rank 0 to stop
+        the door, then raise the follower's error, if it had one."""
         if self._closed:
+            return
+        if self._rank != 0:
+            if self._drive_thread is not None:
+                self._drive_thread.join(timeout=timeout)
+                if self._drive_thread.is_alive():
+                    raise TimeoutError(
+                        f"front door rank {self._rank}: rank 0 did not stop "
+                        f"the door in {timeout} s")
+            self._closed = True
+            if self.error is not None:
+                raise self.error
             return
         self._closed = True
         self._accepting = False
@@ -370,6 +421,8 @@ class FrontDoorServer:
                 pass   # loop already torn down
         if self._loop_thread is not None:
             self._loop_thread.join(timeout=10.0)
+        if self.error is not None:
+            raise self.error
 
     def _cmd(self, cmd: tuple) -> None:
         self._cmds.put(cmd)
@@ -473,29 +526,121 @@ class FrontDoorServer:
     @torch.no_grad()   # grad mode is per thread: the engine's pump sets it
     def _drive(self) -> None:   # for its own steps, this for the rest
         eng = self.engine
-        while not self._stop.is_set():
-            block = not eng.scheduler.pending
-            try:
-                cmd = self._cmds.get(block=block, timeout=0.05)
-            except queue.Empty:
-                cmd = None
-            while cmd is not None:
-                self._handle_cmd(cmd)
+        _on_engine_card(eng)
+        told, beat = time.monotonic(), self.cfg.follower_timeout_s / 10
+        try:
+            while not self._stop.is_set():
+                block = not eng.scheduler.pending
                 try:
-                    cmd = self._cmds.get_nowait()
+                    cmd = self._cmds.get(block=block, timeout=0.05)
                 except queue.Empty:
                     cmd = None
-            if eng.scheduler.pending:
-                eng.serve_steps(realtime=self.cfg.realtime)
-                eng._pump_once()
-            self._emit()
-            if (self._draining and not eng.scheduler.pending
-                    and not self._subs):
-                self._drained.set()
+                calls = []
+                while cmd is not None:
+                    call = self._handle_cmd(cmd)
+                    if call is not None:
+                        calls.append(call)
+                    try:
+                        cmd = self._cmds.get_nowait()
+                    except queue.Empty:
+                        cmd = None
+                pump = bool(eng.scheduler.pending)
+                if self._group is not None and (
+                        calls or pump
+                        or time.monotonic() - told >= beat):
+                    self._tell(calls, pump=pump, stop=False)
+                    told = time.monotonic()
+                if pump:
+                    self._pump()
+                self._emit()
+                if (self._draining and not eng.scheduler.pending
+                        and not self._subs):
+                    self._drained.set()
+            if self._group is not None:
+                self._tell([], pump=False, stop=True)
+        except Exception as e:
+            if self._group is None:
+                raise
+            self._fail(e)
+        finally:
+            self._leave_group()
 
-    def _handle_cmd(self, cmd: tuple) -> None:
+    @torch.no_grad()
+    def _follow(self) -> None:
+        """A follower's drive (a mesh rank other than 0): apply rank 0's
+        engine calls in its order and pump when it pumps, until it says
+        stop."""
+        import torch.distributed as dist
+
+        eng = self.engine
+        _on_engine_card(eng)
+        try:
+            while True:
+                got = [None]
+                try:
+                    dist.broadcast_object_list(got, src=0,
+                                               group=self._group)
+                except RuntimeError as e:
+                    raise RuntimeError(
+                        f"front door rank {self._rank}: no word from rank 0 "
+                        f"in {self.cfg.follower_timeout_s} s "
+                        f"(ServerConfig.follower_timeout_s): it is gone"
+                    ) from e
+                msg = got[0]
+                for call in msg["calls"]:
+                    self._apply(call)
+                if msg["stop"]:
+                    break
+                if bool(eng.scheduler.pending) != msg["pump"]:
+                    raise RuntimeError(
+                        f"front door rank {self._rank}: {eng.scheduler.pending}"
+                        f" requests pending where rank 0 "
+                        f"{'pumps' if msg['pump'] else 'idles'}")
+                if msg["pump"]:
+                    self._pump()
+        except Exception as e:
+            self.error = e
+        finally:
+            self._leave_group()
+
+    def _tell(self, calls: list, *, pump: bool, stop: bool) -> None:
+        """Rank 0: this iteration's engine calls (without their
+        connections), whether it pumps, whether the door stops."""
+        import torch.distributed as dist
+
+        msg = {"calls": [c[:2] for c in calls], "pump": pump, "stop": stop}
+        dist.broadcast_object_list([msg], src=0, group=self._group)
+
+    def _pump(self) -> None:
+        self.engine.serve_steps(realtime=self.cfg.realtime)
+        self.engine._pump_once()
+
+    def _fail(self, e: Exception) -> None:
+        """Rank 0's drive ended on an error (a rank stopped taking its
+        word): refuse new work and close every open stream."""
+        self.error = e
+        self._accepting = False
+        for sub in self._subs.values():
+            self._post(sub["conn"], None)
+        self._subs.clear()
+        self._drained.set()
+
+    def _leave_group(self) -> None:
+        import torch.distributed as dist
+
+        if self._group is not None:
+            group, self._group = self._group, None
+            try:
+                dist.destroy_process_group(group)
+            except (RuntimeError, ValueError):
+                pass   # the world went first
+
+    def _handle_cmd(self, cmd: tuple) -> tuple | None:
+        """Rank 0's door work for one command, then its engine call applied
+        here; returns the call (None: the door answered it itself)."""
         kind, arg = cmd
         eng = self.engine
+        call = None
         if kind == "submit":
             spec, timeout, conn = arg
             tenant = spec.tenant
@@ -505,20 +650,36 @@ class FrontDoorServer:
                                   "tenant": tenant,
                                   "retry_after": self.cfg.quota_retry_after})
                 self._post(conn, None)
-                return
+                return None
             wait = self._rate_take(tenant)
             if wait > 0.0:
                 self.n_rate_limited += 1
                 self._post(conn, {"event": "rejected", "error": "rate",
                                   "tenant": tenant, "retry_after": wait})
                 self._post(conn, None)
-                return
+                return None
             if timeout is None:
                 timeout = self.cfg.default_timeout_s
             if timeout is not None:
                 spec = dataclasses.replace(
                     spec, deadline=eng.scheduler._now + float(timeout))
-            h = eng.submit_spec(spec)
+            call = ("submit", spec, conn)
+        elif kind in ("cancel", "drain"):
+            call = (kind, arg)
+        if call is not None:
+            self._apply(call)
+        return call
+
+    def _apply(self, call: tuple) -> None:
+        """One engine call; a submission with its connection (rank 0's)
+        also subscribes and is answered."""
+        kind, arg = call[:2]
+        eng = self.engine
+        if kind == "submit":
+            h = eng.submit_spec(arg)
+            if len(call) == 2:
+                return
+            conn, tenant = call[2], arg.tenant
             rid = int(h)
             conn.rid = rid
             if tenant is not None:
@@ -650,6 +811,14 @@ class FrontDoorServer:
                 "deadline_preemption": sch.policy.deadline_preemption,
             },
         }
+
+
+def _on_engine_card(eng) -> None:
+    """The current card is a thread's own: a drive thread works on the
+    engine's (a rank's card, on a host with one card a rank)."""
+    dev = getattr(eng, "device", None)
+    if dev is not None and dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
 
 
 async def _flush(writer) -> None:

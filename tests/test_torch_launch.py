@@ -28,9 +28,10 @@
 - the example's greedy tokens and calls against JAX's ``greedy_decode``
   on the same bridged params and prompt, speculative == greedy, on
   SmolLM and RWKV6 reduced;
-- the repairs: ``World()`` without a device raises the missing card's
-  error before a rank starts, the job functions default to the card, and
-  a built step on a world of ranks is refused by name.
+- the repairs: ``World()`` and ``synthetic_batch`` without a device
+  raise the missing card's error (the world before a rank starts), the
+  job functions default to the card, and a built step on a world of
+  ranks is refused by name.
 """
 
 import dataclasses
@@ -455,7 +456,7 @@ def test_synthetic_batch_bit_for_bit(arch):
     cfg = get_config(arch, reduced=True)
     a, b = np.random.default_rng(3), np.random.default_rng(3)
     for _ in range(2):   # the generator's state advances alike
-        got = ttrain.synthetic_batch(cfg, a, 3, 7)
+        got = ttrain.synthetic_batch(cfg, a, 3, 7, device="cpu")
         want = jtrain.synthetic_batch(jax_get_config(arch, reduced=True), b,
                                       3, 7)
         assert sorted(got) == sorted(want)
@@ -544,7 +545,15 @@ def test_world_defaults_to_the_card():
     assert multiprocessing.active_children() == before
 
 
-@pytest.mark.parametrize("job", ["serve", "probe", "layer", "refusals"])
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
+def test_synthetic_batch_defaults_to_the_card():
+    cfg = get_config("smollm-135m", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.synthetic_batch(cfg, np.random.default_rng(0), 2, 4)
+
+
+@pytest.mark.parametrize("job", ["serve", "probe", "layer", "refusals",
+                                 "front_door", "late_stream"])
 def test_job_functions_default_to_the_card(job):
     sig = inspect.signature(getattr(mesh_runs, job))
     assert sig.parameters["on_card"].default is True

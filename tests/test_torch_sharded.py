@@ -22,14 +22,16 @@ on the same toys (the MT ``tiny_config`` at depth 2 / d_model 64; SmolLM
    engine's tokens;
 5. the indivisible-slots and indivisible-pages errors; the MoE,
    recurrent and VLM families build on a mesh, the audio encoder gets the
-   unsharded backend's refusal, and a front door over a mesh engine names
-   ROADMAP item 9c;
+   unsharded backend's refusal, and a front door over a mesh engine
+   builds, starts and stops on every rank (ROADMAP item 9c is ported;
+   ``tests/test_torch_sharded_server.py`` serves through it);
 6. the CLI under torchrun, and its one-rank run.
 """
 
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -365,11 +367,13 @@ def test_prefix_match_cut_at_foreign_shard_matches_unsharded(world, toys):
 # 5. construction errors and refusals
 
 
-def test_mesh_rejects_indivisible_slots_and_pages_and_refuses(world, toys):
+def test_mesh_rejects_indivisible_slots_and_pages_and_refuses(world, toys,
+                                                             tmp_path):
     """The indivisible-slots and indivisible-pages errors; every
     decoder-only family builds on a mesh (ROADMAP item 9b is ported); the
     audio encoder gets the unsharded backend's refusal; a front door over
-    a mesh engine is refused, naming item 9c."""
+    a mesh engine builds on every rank, rank 0 binds a port, and the door
+    stops on every rank when rank 0 stops it (item 9c is ported)."""
     lm, mt = toys["lm"], toys["mt"]
     base = dict(mode="greedy", max_new=8, max_src=28, prefill_chunk=8,
                 eos_id=2)
@@ -384,20 +388,33 @@ def test_mesh_rejects_indivisible_slots_and_pages_and_refuses(world, toys):
         (dict(family="lm", cfg=get_config("hubert-xlarge", reduced=True),
               seed=0), dict(base, n_slots=2), "ValueError",
          "encoder-only architecture: no decode step"),
-        (mt, dict(mode="greedy", max_new=8, max_src=96, n_slots=2),
-         "NotImplementedError", "FrontDoorServer"),
     ]
     for model, kw, kind, text in cases:
         got = world.run("repro_torch.launch.mesh_runs:refusals", on_card=False,
-                        model=model, engine=kw,
-                        front_door=kind == "NotImplementedError")
+                        model=model, engine=kw)
         for msg in got:
             if not kind:                  # the engine builds
                 assert msg == "", msg
                 continue
             assert msg.startswith(kind) and text in msg, msg
-            if kind == "NotImplementedError":
-                assert "item 9c" in msg, msg
+    port_file, stop_file = tmp_path / "port", tmp_path / "stop"
+    world.start("repro_torch.launch.mesh_runs:front_door", on_card=False,
+                model=mt, engine=dict(mode="greedy", max_new=8, max_src=96,
+                                      n_slots=2),
+                port_file=str(port_file), stop_file=str(stop_file),
+                server=dict(realtime=False))
+    try:
+        deadline = time.monotonic() + 60
+        while not port_file.exists() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert int(port_file.read_text()) > 0
+    finally:
+        stop_file.write_text("stop")
+        got = world.collect()
+    for r in got:
+        assert r["error"] is None, r
+        assert r["stats"]["accepted"] == 0 and r["steps"] == 0
+        assert r["stats"]["shard_stats"]["n_shards"] == 2
 
 
 # ---------------------------------------------------------------------------
