@@ -180,8 +180,8 @@ In order:
   19. the mesh phase (``serve_mesh``): a ``(data 2, model 2)`` world of 4
      ranks sharing the one card over gloo (the backend rule: NCCL refuses
      two ranks on one card). First ``repro_torch.launch.serve --mesh 2 2
-     --paged`` under torchrun: SmolLM-135M whole, 8 requests of 128
-     tokens, max_new 48, every check of that script. Then one world
+     --paged`` under torchrun: SmolLM-135M whole, 4 requests of 128
+     tokens, max_new 24, every check of that script. Then one world
      serves SmolLM-135M (8 prompts of 24-64 tokens, max_new 12, 2 slots a
      mode, the four modes, paged and dense) and mt-product (16 queries in
      the four modes, max_new 32, paged; and tests/test_sharded.py's pool
@@ -211,8 +211,7 @@ In order:
      engine as above, printing the MoE dropped fraction, the data-axis
      collectives (the router's global counts) and each rank's local
      widths; a rank of a family run that launched no draft_verify, or on
-     an attention family no paged_decode_gqa, fails. Then the CLI on
-     Jamba reduced (``--mesh 2 2 --paged``). Before it, on the same
+     an attention family no paged_decode_gqa, fails. Then, on the same
      world, the front door over the mesh (``serve_mesh_door``):
      mt-product's 16 queries in the four modes and SmolLM-135M whole,
      paged, 8 greedy and 8 speculative requests, each through
@@ -223,10 +222,22 @@ In order:
      the ranks and of the unsharded door held to plain, wire wall a
      request and time to the first delta printed sharded and unsharded;
      then a ``FleetRouter`` over the mesh door and the unsharded door
-     serves 8 of the mt-product queries, tokens equal. Last, each decode
-     read's and flash's launch group of the mesh runs timed alone against
-     its plain version, ``scaled_dot_product_attention`` and its bound on
-     seeded inputs at its shape;
+     serves 8 of the mt-product queries, tokens equal. Then, on the same
+     world, every serving kind of ``launch.steps.build_step`` built on
+     the mesh (``world_steps``, ``mesh_runs.built_step``): SmolLM-135M's
+     decode_32k, verify 11, multi-draft 5, prefill_32k and long_500k and
+     mt-product's mt_verify on the launch phase's ``reduced()`` configs at
+     each shape's full batch and sequence (halved, and said so, where the
+     4 ranks' inputs would not fit the card), fp32, with FSDP params and
+     without: each rank's outputs (its rows, the logits' vocabulary cut,
+     its cache's heads) within 1e-4 of the one-rank step on the same
+     seed, the live collectives == the built step's plan (its
+     ``fsdp_records`` and the recorder's), every launch group of the
+     ranks held to plain; a second call's wall printed by rank. Last,
+     each decode read's and flash's launch group of the mesh's engine
+     runs timed alone against its plain version,
+     ``scaled_dot_product_attention`` and its bound on seeded inputs at
+     its shape;
   20. the launch phase (``serve_launch``): the dry-run CLIs
      (``repro_torch.launch.dryrun`` on SmolLM-135M's four shapes and on
      Phi-3.5-MoE's decode_32k verify pass) as subprocesses on the card's
@@ -250,7 +261,19 @@ In order:
      mask, beside its bound; ``examples/speculative_lm_torch.py``
      on SmolLM and RWKV6 reduced must print ``outputs identical : True``
      and launch draft_verify;
-  21. print the ``kernels`` JSON line, the card line, and
+  21. the paper's two example scripts (``serve_paper_examples``) in this
+     process, each through its ``main``: ``examples/quickstart_torch.py``
+     trains the tiny MT (384 reactions, 18 epochs of B 24) and compares
+     greedy with speculative ``ReactionEngine.predict`` on 8 queries: it
+     must print ``outputs identical: True`` and launch flash_attention
+     forward and backward, decode_gqa and draft_verify;
+     ``examples/serve_retrosynthesis_torch.py`` trains the retro model of
+     ``benchmarks/common_torch.py`` (512 reactions, 20 epochs; its cache
+     under ``build/``, removed first) and serves 6 queries per request and
+     streamed on 2 slots, beam and speculative beam: each streamed top-5
+     must equal its per-request top-5, and flash_attention forward and
+     backward and decode_gqa must launch;
+  22. print the ``kernels`` JSON line, the card line, and
      ``{"ok": true, "device": {...}}`` last.
 
 Every Molecular Transformer serving phase must launch flash_attention (the
@@ -2667,11 +2690,11 @@ def serve_rwkv(torch) -> dict:
 # the mesh phase: (data 2, model 2) on 4 ranks of the one card, gloo
 MESH = dict(
     shape=(2, 2), lm_arch="smollm-135m", reduced=False,
-    # the CLI: 8 requests of 128 tokens, max_new 48, all 8 resident (4
+    # the CLI: 4 requests of 128 tokens, max_new 24, all 4 resident (2
     # slots a shard: a model-axis collective costs ~4-8 ms with 4 ranks on
     # one card, so fewer iterations of more rows cost least)
-    cli=["--requests", "8", "--prompt-len", "128", "--max-new", "48",
-         "--slots", "8", "--prefill-chunk", "32"],
+    cli=["--requests", "4", "--prompt-len", "128", "--max-new", "24",
+         "--slots", "4", "--prefill-chunk", "32"],
     lm_prompts=8, lm_len=(24, 64), lm_kw=dict(
         max_new=12, max_src=64, draft_len=4, n_drafts=4, n_beams=2,
         prefill_chunk=32, page_size=16, eos_id=2),
@@ -2695,13 +2718,7 @@ MESH = dict(
         ("Jamba reduced paged", "jamba-v0.1-52b", None, 2, True),
         ("RWKV6 reduced dense", "rwkv6-1.6b", None, 2, False),
         ("VLM reduced paged", "llama-3.2-vision-11b", None, 2, True)),
-    fam_prompts=8, fam_len=(24, 64),
-    # the CLI once more: Jamba alone has Mamba, attention and MoE; 4
-    # requests resident at once
-    cli_families=["--arch", "jamba-v0.1-52b", "--reduced", "--requests",
-                  "4", "--prompt-len", "32", "--max-new", "16", "--slots",
-                  "4", "--draft-len", "4", "--n-drafts", "4",
-                  "--page-size", "8"])
+    fam_prompts=8, fam_len=(24, 64))
 MESH_TAG = "4 ranks share one card"
 MESH_KERNELS = ("decode_gqa", "paged_decode_gqa", "draft_verify",
                 "flash_attention")
@@ -3163,7 +3180,8 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
     the card serving SmolLM-135M (mixed modes, paged and dense),
     mt-product (four modes, paged; the shard-local exhaustion pool) and
     every decoder-only family (``family_runs``), each against the same
-    engine unsharded in this process; then the CLI on Jamba."""
+    engine unsharded in this process; the front door over the mesh; every
+    serving kind of a built step on the mesh."""
     from repro_torch.configs import get_config
     from repro_torch.configs.mt import product_config, with_vocab
     from repro_torch.data import SyntheticReactionDataset
@@ -3238,7 +3256,7 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
                     acc[k] += r["launches"][k]
         out["door"] = serve_mesh_door(torch, world, device, mt, mt_jobs, lm,
                                       prompts, seen, verify, per_rank)
-    out["cli families"] = mesh_cli(torch, device, MESH["cli_families"])
+        out["world steps"] = world_steps(torch, world, device, per_rank)
     for rank, acc in enumerate(per_rank):
         if any(n == 0 for n in acc.values()):
             raise AssertionError(f"mesh phase: rank {rank} launched no "
@@ -3257,6 +3275,161 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     out["per_rank"] = per_rank
     out["verify_shapes"] = verify
+    return out
+
+
+# launch.steps' serving kinds built on the mesh world: the launch phase's
+# reduced configs at each shape's full batch and sequence, fp32, with FSDP
+# params and without; prefill_32k's sequence cut to 2,048 (the launch
+# groups hold its one-shot read to the plain version on the same inputs,
+# whose scores are B x H x S^2 floats: 192 GiB a rank at 32,768); a kind
+# whose inputs the 4 ranks could not hold on the card (each rank draws the
+# global inputs twice: its own cut and the one-rank reference) halves its
+# batch first, and says so. (arch, shape, kwargs, config fields, shape
+# fields)
+WORLD_STEPS = dict(
+    kinds=[("smollm-135m", "decode_32k", {}, {}, {}),
+           ("smollm-135m", "decode_32k", dict(verify_tokens=11), {}, {}),
+           ("smollm-135m", "decode_32k", dict(verify_tokens=11,
+                                              multidraft=5), {}, {}),
+           ("smollm-135m", "prefill_32k", {}, {}, dict(seq=2048)),
+           ("smollm-135m", "long_500k", {}, {}, {}),
+           ("mt-product", "mt_verify", {}, dict(max_len=256), {})],
+    fsdp=(True, False), seed=SEED, headroom=0.6)
+WORLD_KERNELS = ("decode_gqa", "paged_decode_gqa", "draft_verify",
+                 "flash_attention")
+
+
+def world_batch(torch, arch: str, shape: str, kw: dict, fields: dict,
+                n_ranks: int, seq: dict) -> tuple[int, int]:
+    """(the shape's batch, the batch the world runs): halved until every
+    rank's two global draws and its cut fit ``WORLD_STEPS["headroom"]`` of
+    the card's free memory (an estimate from the one-rank step's meta
+    inputs, params and cache included)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import MeshShape
+
+    table = steps.MT_SHAPES if shape in steps.MT_SHAPES else steps.SHAPES
+    full = dict(table[shape])
+    batch = full["batch"]
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **fields)
+    seq = dict(full, **seq)
+    free = torch.cuda.mem_get_info()[0] if torch.cuda.is_available() else 0
+    try:
+        while True:
+            table[shape] = dict(seq, batch=batch)
+            built = steps.build_step(arch, shape,
+                                     MeshShape(("data", "model"), (1, 1)),
+                                     dtype=torch.float32, cfg_override=cfg,
+                                     **kw)
+            need = sum(t.numel() * t.element_size()
+                       for t in _tree_leaves(built.local_inputs))
+            if batch == 1 or not free or \
+                    3 * n_ranks * need <= WORLD_STEPS["headroom"] * free:
+                return full["batch"], batch
+            batch //= 2
+    finally:
+        table[shape] = full
+
+
+def world_steps(torch, world, device: str, per_rank: list) -> dict:
+    """Every serving kind of ``launch.steps.build_step`` on the mesh
+    world's 4 ranks (``mesh_runs.built_step``): each rank's outputs against
+    the one-rank step on the same seed within 1e-4, the live collectives
+    == the built step's plan, kind by kind and byte for byte, every launch
+    group held to plain (``mesh_runs.LaunchGroups``) and covering the
+    launches; walls of a second call printed, tagged."""
+    import math
+    from collections import Counter
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh_runs import STEP_TOL
+
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    out = {}
+    for arch, shape, kw, fields, seq in WORLD_STEPS["kinds"]:
+        full, batch = world_batch(torch, arch, shape, kw, fields,
+                                  world.n, seq)
+        table = steps.MT_SHAPES if shape in steps.MT_SHAPES else steps.SHAPES
+        label = (f"{arch} reduced {shape}"
+                 + "".join(f" {k}={v}" for k, v in kw.items())
+                 + "".join(f" {k} {v} of {table[shape][k]}"
+                           for k, v in seq.items()))
+        if batch != full:
+            print(f"  world step [{label}]: batch {full} does not fit 4 "
+                  f"ranks' inputs on the card, {batch}", flush=True)
+        for fsdp in WORLD_STEPS["fsdp"]:
+            got = world.run("repro_torch.launch.mesh_runs:built_step",
+                            arch=arch, shape=shape,
+                            kw=dict(kw, fsdp_inference=fsdp),
+                            mesh=MESH["shape"], seed=WORLD_STEPS["seed"],
+                            shape_override=dict(table[shape], **seq,
+                                                batch=batch),
+                            fields=fields, timed=True, on_card=on_card)
+            tag = f"world step [{label}, fsdp {fsdp}]"
+            for r in got:
+                live = Counter(map(tuple, r["collectives"]))
+                if not r["close"]:
+                    raise AssertionError(f"{tag} rank {r['rank']}: outputs "
+                                         f"{r['errors']} off the one-rank "
+                                         f"step's")
+                if live != Counter(map(tuple, r["plan"])):
+                    raise AssertionError(f"{tag} rank {r['rank']}: live "
+                                         f"collectives {sorted(live)} != "
+                                         f"the plan {sorted(r['plan'])}")
+                covered = dict.fromkeys(WORLD_KERNELS, 0)
+                for g in r["groups"]:
+                    if not math.isfinite(g["err"]):
+                        raise AssertionError(f"{tag} rank {r['rank']}: "
+                                             f"{g['kernel']} at "
+                                             f"{g['shape']} disagrees with "
+                                             f"its plain version")
+                    covered[g["kernel"]] += g["launches"]
+                if any(covered[k] != r["launches"][k] for k in
+                       WORLD_KERNELS):
+                    raise AssertionError(f"{tag} rank {r['rank']}: groups "
+                                         f"cover {covered} of "
+                                         f"{r['launches']}")
+                need = [] if kw.get("multidraft") else ["decode_gqa"]
+                if any(r["launches"][k] == 0 for k in need):
+                    raise AssertionError(f"{tag} rank {r['rank']}: "
+                                         f"launches {r['launches']}")
+            for acc, r in zip(per_rank, got):
+                for k in WORLD_KERNELS:
+                    acc[k] += r["launches"][k]
+            r0 = got[0]
+            kinds = Counter()
+            mb = Counter()
+            for k, n in r0["collectives"]:
+                kinds[k] += 1
+                mb[k] += n / 1e6
+            worst = {p: max(r["errors"][p] for r in got)
+                     for p in r0["errors"]}
+            print(f"{tag} {r0['note']} (batch {batch} of {full}): every "
+                  f"rank within {STEP_TOL} of the one-rank step "
+                  f"(largest |Δ| "
+                  + ", ".join(f"{p} {e:.3e}" for p, e in worst.items())
+                  + f"), {r0['rows']} rows a rank; live collectives == "
+                  f"plan: "
+                  + ", ".join(f"{k} {kinds[k]} ({mb[k]:.3f} MB)"
+                              for k in sorted(kinds))
+                  + f"; wall of a second call "
+                  + " / ".join(f"{r['wall_s'] * 1e3:.2f}" for r in got)
+                  + f" ms by rank ({MESH_TAG}); launches a rank "
+                  f"{ {k: r0['launches'][k] for k in WORLD_KERNELS} }; "
+                  f"groups held to plain: "
+                  + ", ".join(f"{g['kernel']} {g['shape']} |Δ| "
+                              f"{g['err']:.2e}" for g in r0["groups"]),
+                  flush=True)
+            out[f"{label} fsdp {fsdp}"] = dict(
+                batch=batch, walls=[r["wall_s"] for r in got],
+                collectives=dict(kinds), mb=dict(mb), errors=worst,
+                launches=[r["launches"] for r in got])
+    print(f"world steps phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -3739,6 +3912,125 @@ def launch_examples(torch) -> dict:
             raise AssertionError(f"example {arch}: launches {launches}")
         out[f"example {arch}"] = dict(launches=launches,
                                       shapes=verify_shapes())
+    return out
+
+
+PAPER_EXAMPLES = dict(retro_queries=6)
+
+
+def serve_paper_examples(torch, build_dir: Path) -> dict:
+    """The paper's two example scripts in this process on the card, each
+    through its ``main``: ``examples/quickstart_torch.py`` (trains the
+    tiny MT, 18 epochs of B 24 on 384 reactions, then greedy vs
+    speculative ``ReactionEngine.predict`` on 8 queries) must print
+    ``outputs identical: True`` and launch flash_attention (forward and
+    backward), decode_gqa and draft_verify; ``examples/
+    serve_retrosynthesis_torch.py`` (the retro model of ``benchmarks/
+    common_torch.py``, trained here: its cache under ``build/``, removed
+    first) must return each streamed top-5 equal to its per-request top-5
+    in beam and speculative-beam mode (log-probs within 1e-4) and launch
+    flash_attention (forward and backward) and decode_gqa (the beam step's
+    argmax is over log-probs with the pad column masked, not draft_verify's
+    function). Both train fp32 with TF32 off. Every launch of the decode
+    reads, the flash forward and draft_verify is recorded by kernel and
+    shape (``mesh_runs.LaunchGroups``), each group's first live launch
+    held to the plain version on the same inputs; draft_verify's shapes
+    join the main path's accounting."""
+    import contextlib
+    import io
+    import math
+    import runpy
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh_runs import LaunchGroups
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    import benchmarks.common_torch as common
+
+    build_dir.mkdir(parents=True, exist_ok=True)
+    common.CACHE = str(build_dir / "chip_smoke_bench_mt_torch_{}.msgpack")
+    Path(common.CACHE.format("retro")).unlink(missing_ok=True)
+    runs = (("quickstart", [], ("flash_attention", "flash_attention_bwd",
+                                "decode_gqa", "draft_verify")),
+            ("serve_retrosynthesis", [str(PAPER_EXAMPLES["retro_queries"])],
+             ("flash_attention", "flash_attention_bwd", "decode_gqa")))
+    out = {}
+    for name, argv, needed in runs:
+        example = runpy.run_path(str(root / "examples" / f"{name}_torch.py"))
+        reset_counts()
+        buf = io.StringIO()
+        groups = LaunchGroups()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = example["main"](argv)
+            torch.cuda.synchronize()
+        finally:
+            groups.close()
+        wall = time.perf_counter() - t0
+        launches = dict(launch_counts)
+        covered = dict.fromkeys(WORLD_KERNELS, 0)
+        worst = dict.fromkeys(WORLD_KERNELS, 0.0)
+        for g in groups.report():
+            if not math.isfinite(g["err"]):
+                raise AssertionError(f"example {name}: {g['kernel']} at "
+                                     f"{g['shape']} disagrees with its "
+                                     f"plain version")
+            covered[g["kernel"]] += g["launches"]
+            worst[g["kernel"]] = max(worst[g["kernel"]], g["err"])
+        if any(covered[k] != launches[k] for k in WORLD_KERNELS):
+            raise AssertionError(f"example {name}: launch groups cover "
+                                 f"{covered} of {launches}")
+        text = buf.getvalue()
+        print("".join(f"  example [{name}] {line}\n"
+                      for line in text.splitlines()), end="", flush=True)
+        if any(launches[k] == 0 for k in needed):
+            raise AssertionError(f"example {name}: launches {launches}, "
+                                 f"none of some of {needed}")
+        if name == "quickstart":
+            if "outputs identical: True" not in text:
+                raise AssertionError(f"example {name}: {text}")
+            calls = res["calls"]
+            summary = (f"greedy {res['walls']['greedy']:.3f} s / "
+                       f"speculative {res['walls']['speculative']:.3f} s "
+                       f"for {len(res['queries'])} queries, decoder calls "
+                       f"{calls['greedy']} / {calls['speculative']} "
+                       f"({calls['greedy'] / calls['speculative']:.2f}x "
+                       f"fewer), acceptance {res['acceptance']:.4f}, last "
+                       f"loss {res['history'][-1]['loss']:.4f}")
+        else:
+            for mode in ("beam", "speculative_beam"):
+                r = res[mode]
+                for i, (a, b) in enumerate(zip(r["per_request"],
+                                               r["streamed"])):
+                    if a.smiles != b["smiles"] or not np.allclose(
+                            a.logprobs, b["logprobs"], atol=1e-4,
+                            rtol=1e-4):
+                        raise AssertionError(
+                            f"example {name} {mode} query {i}: streamed "
+                            f"{b} != per request {a.smiles} {a.logprobs}")
+            summary = "; ".join(
+                f"{m}: per-request {res[m]['wall_ref_s']:.3f} s "
+                f"({res[m]['calls']} calls), continuous "
+                f"{res[m]['wall_stream_s']:.3f} s "
+                f"({res[m]['resident_calls']} resident calls, "
+                f"{res[m]['shared_steps']} shared steps)"
+                for m in ("beam", "speculative_beam")) + \
+                "; streamed top-5 == per-request top-5 in both modes"
+        print(f"example [{name}]: {wall:.1f} s; {summary}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; "
+              f"{len(groups.groups)} launch groups held to plain, largest "
+              f"|kernel - plain| "
+              f"{ {k: f'{e:.2e}' for k, e in worst.items() if covered[k]} }",
+              flush=True)
+        out[f"paper example {name}"] = dict(launches=launches,
+                                            shapes=verify_shapes(),
+                                            wall_s=wall)
+    print(f"paper examples phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return out
 
 
@@ -4917,6 +5209,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     launch = serve_launch(torch)
     for r in launch.values():
+        for k in names:
+            main_launches[k] += r["launches"][k]
+        add_shapes(r)
+    # -- the paper's two example scripts ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = serve_paper_examples(
+        torch, Path(__file__).resolve().parent / "build")
+    for r in examples.values():
         for k in names:
             main_launches[k] += r["launches"][k]
         add_shapes(r)

@@ -7,6 +7,12 @@ many engines through it).
 rank's tensor-parallel context, on given inputs: the per-layer checks of
 the sharded MoE, Mamba, RWKV and cross-attention layers.
 
+``built_step`` runs one ``launch.steps.build_step`` serving step on every
+rank of a world (FSDP params gathered over the data axis, the model-axis
+cut under the live tensor-parallel context) against the one-rank step on
+the same seed, and reports the rank's outputs, the live collectives and
+the built step's plan of them.
+
 ``front_door`` serves over the wire: the engine on every rank, a
 ``FrontDoorServer`` over it on every rank (rank 0's holds the socket; its
 port is written to a file the caller names), until the caller writes the
@@ -561,6 +567,131 @@ def front_door(model: dict, engine: dict, *, port_file: str,
         n_shed=sch.n_shed, shard_stats=eng.shard_stats(),
         loop_stats=eng.loop_stats(), launches=dict(_build.launch_counts),
         groups=groups.report())
+
+
+# a world step against the one-rank step: |world - one rank| <= STEP_TOL +
+# STEP_TOL * |one rank| on every output
+STEP_TOL = 1e-4
+
+
+def built_step(arch: str, shape: str, kw: dict | None = None, *,
+               mesh=(2, 2), seed: int = 0, shape_override: dict | None = None,
+               fields: dict | None = None, timed: bool = False,
+               arrays: bool = False, on_card: bool = True) -> dict:
+    """Build ``launch.steps.build_step(arch, shape, mesh, **kw)`` on this
+    rank of the world (``arch``'s ``reduced()`` config with ``fields``
+    replaced, fp32), run it once on ``example_inputs`` (seed ``seed``),
+    then the one-rank step on the same seed, cut as the rank holds its
+    outputs (``steps.rank_outputs``). ``shape_override``: this process's
+    ``SHAPES`` / ``MT_SHAPES`` entry for ``shape`` while the job runs (a
+    test's small shapes: a spawned rank sees none of the caller's
+    patches). On the rank's card unless ``on_card=False``; every launch is
+    recorded by kernel and shape and each group held to plain
+    (``LaunchGroups``). ``timed``: a second call of the world step, timed.
+    Returns the rank's coordinates, each output part's largest |world -
+    one rank| and whether every element is within ``STEP_TOL``, the live
+    collectives ``(kind, bytes)`` of the call, the plan (the same step
+    built on a ``MeshShape`` of the mesh's shape, run on meta: its
+    ``fsdp_records`` and recorded collectives), launches and launch groups,
+    and with ``arrays`` the outputs as numpy arrays (world, one rank)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import MeshShape
+
+    device = _device(on_card)
+    _free(device)
+    kw = dict(kw or {})
+    table = steps.MT_SHAPES if shape in steps.MT_SHAPES else steps.SHAPES
+    saved = table[shape]
+    if shape_override is not None:
+        table[shape] = dict(shape_override)
+    try:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  **(fields or {}))
+
+        def build(on):
+            return steps.build_step(arch, shape, on, dtype=torch.float32,
+                                    cfg_override=cfg, **kw)
+
+        world = build(_mesh(mesh))
+        plan = build(MeshShape(("data", "model"), tuple(mesh)))
+        plan.fn(*plan.local_inputs)
+        planned = list(plan.fsdp_records) + list(
+            plan.tp.records if plan.tp is not None else [])
+        inputs = steps.example_inputs(world, device=device, seed=seed)
+        world.tp.log = []
+        _build.reset_launch_counts()
+        groups = LaunchGroups()
+        try:
+            got = world.fn(*inputs)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        finally:
+            groups.close()
+        live, world.tp.log = world.tp.log, None
+        launches = dict(_build.launch_counts)
+        ref = build(MeshShape(("data", "model"), (1, 1)))
+        want = steps.rank_outputs(world, ref.fn(*steps.example_inputs(
+            ref, device=device, seed=seed)))
+    finally:
+        table[shape] = saved
+    errs, close = {}, True
+    pairs = [("logits", got, want)] if not isinstance(got, tuple) else [
+        ("logits", got[0], want[0]), ("cache", got[1], want[1])]
+    for part, a, b in pairs:
+        fa, fb = _flat(a), _flat(b)
+        if [tuple(t.shape) for t in fa] != [tuple(t.shape) for t in fb]:
+            raise AssertionError(
+                f"built_step {arch} {shape}: {part} shapes "
+                f"{[tuple(t.shape) for t in fa]} != the one-rank step's "
+                f"{[tuple(t.shape) for t in fb]}")
+        worst = 0.0
+        for x, y in zip(fa, fb):   # in chunks: a full-size cache is GBs
+            for cx, cy in zip(x.reshape(-1).split(1 << 24),
+                              y.reshape(-1).split(1 << 24)):
+                e = (cx.float() - cy.float()).abs()
+                close &= bool(torch.all(e <= STEP_TOL + STEP_TOL *
+                                        cy.float().abs()))
+                worst = max(worst, float(e.max()))
+        errs[part] = worst
+    tp = world.tp
+    out = dict(rank=dist.get_rank(), data_rank=tp.data_rank,
+               model_rank=tp.rank, note=world.note, errors=errs, close=close,
+               collectives=live, plan=planned, launches=launches,
+               groups=groups.report(), wall_s=None,
+               rows=int(_flat(got)[0].shape[0]))
+    if arrays:
+        out["arrays"] = [[t.cpu().numpy() for t in _flat(x)]
+                         for x in (got, want)]
+    del got, want, pairs
+    if timed:   # after the check: a decode step writes its cache in place
+        t0 = time.perf_counter()
+        world.fn(*inputs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _flat(tree) -> list:
+    """The tensors of an output tree (tuples, dicts, caches), in order."""
+    import dataclasses
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _flat(v)]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree)
+                for t in _flat(getattr(tree, f.name))]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _flat(v)]
+    return []
 
 
 def late_stream(model: dict, engine: dict, query, *, mode: str | None = None,

@@ -17,11 +17,22 @@ local widths (``launch.shardings.lay_out_params``: the model-axis cut a
 serving rank runs, where a head that does not divide the axis stays
 whole) under a recording ``TensorParallel`` (``sharding.ctx``), which
 records each collective of the layers; ``fsdp_records`` holds the FSDP
-traffic of the specs (each data-sharded leaf gathered at its model-local
-size, in a train step its gradient reduce-scattered, each replicated
-leaf's gradient all-reduced over the data axes). A built step on a world
-of ranks (a ``DeviceMesh`` of more than one rank) is refused by name:
-ROADMAP Queue 1 item 10b.
+traffic of the specs (each data-sharded leaf gathered at the model-local
+size a rank holds, in a train step its gradient reduce-scattered, each
+replicated leaf's gradient all-reduced over the data axes).
+
+On a world of ranks (a ``DeviceMesh`` of more than one rank, every rank
+calling ``build_step`` alike) the serving kinds run live: each rank holds
+``lay_out_params``' model-axis cut under the mesh's live
+``TensorParallel`` and, with FSDP params, only its data-axis shard of each
+leaf the specs split over the data axes; ``fn`` all-gathers those leaves
+over the data group once a step before the model runs, and returns the
+rank's part of each output (its rows; the logits' vocabulary cut where the
+out spec splits it; its cache's heads). ``example_inputs`` draws the
+global inputs from the seed as for one rank and cuts out the rank's part
+(``rank_part``), so the one-rank step on the same seed is the reference
+(``rank_outputs`` cuts its outputs alike). A train step on a world is
+refused by name: ROADMAP Queue 1 item 10b.
 
 Input shapes:
   train_4k     seq 4,096   global_batch 256   -> train_step
@@ -69,10 +80,9 @@ MT_SHAPES = {
 
 SLIDING_WINDOW_LONG = 8192  # the dense archs' variant at 500k
 
-ITEM_10B = ("ROADMAP Queue 1 item 10b: a built step on a world of ranks "
-            "(FSDP gathers for the serving kinds, a tensor-parallel "
-            "backward and gradient reduction for the train kinds, sequence "
-            "sharding)")
+ITEM_10B = ("ROADMAP Queue 1 item 10b: a train step on a world of ranks "
+            "(a tensor-parallel backward and gradient reduction over the "
+            "data axes) and sequence sharding")
 
 
 class BuiltStep(NamedTuple):
@@ -89,6 +99,8 @@ class BuiltStep(NamedTuple):
     cfg: ModelConfig | None = None
     shape: str = ""         # the SHAPES / MT_SHAPES entry
     draft_len: int = 0      # a multi-draft step's DL (its fed layout)
+    rank: Any = None        # a world rank's cut of the inputs (``_Local``)
+    vocab_cut: bool = False  # the logits' vocabulary split over "model"
 
 
 def skip_reason(arch: str, shape_name: str) -> str | None:
@@ -185,14 +197,17 @@ def _mesh_size(mesh) -> int:
     return n
 
 
-def _refuse_world(mesh, what: str) -> None:
-    """A built step runs on one rank; on a world of ranks it is refused."""
-    if isinstance(mesh, (MeshShape, dict)) or _mesh_size(mesh) == 1:
-        return
-    raise NotImplementedError(
-        f"build_step: {what} on a world of {_mesh_size(mesh)} ranks is not "
-        f"ported ({ITEM_10B}); plan such a mesh with a MeshShape "
-        f"(repro_torch.launch.dryrun)")
+def _live(mesh) -> bool:
+    """A world of ranks: a ``DeviceMesh`` of more than one rank."""
+    return not isinstance(mesh, (MeshShape, dict)) and _mesh_size(mesh) > 1
+
+
+def _refuse_train_on_a_world(mesh) -> None:
+    if _live(mesh):
+        raise NotImplementedError(
+            f"build_step: a train step on a world of {_mesh_size(mesh)} "
+            f"ranks is not ported ({ITEM_10B}); plan such a mesh with a "
+            f"MeshShape (repro_torch.launch.dryrun)")
 
 
 def _spec_leaves(tree, spec):
@@ -230,21 +245,25 @@ def shard_bytes(tree, specs, mesh) -> int:
                for t, s in _spec_leaves(tree, specs))
 
 
-def fsdp_records(params, specs, mesh, *, train: bool) -> list:
+def fsdp_records(params, specs, mesh, *, train: bool, held=None) -> list:
     """The FSDP collectives of a step, counted as JAX's parser counts a
     line (the largest shape on it): each leaf sharded over the data axes
     gathered at its model-local size, in a train step its gradient
     reduce-scattered at that size; in a train step each leaf replicated
-    over the data axes has its gradient all-reduced there."""
+    over the data axes has its gradient all-reduced there. ``held``: the
+    spec tree of the model-axis cut a rank holds (``launch.shardings.
+    serving_param_shardings``, which keeps whole a head that does not
+    divide the axis), default ``specs``."""
     sizes = rules.axis_sizes(mesh)
     dp = set(dp_axes(mesh))
     n_data = 1
     for a in dp:
         n_data *= sizes[a]
     out = []
-    for t, s in _spec_leaves(params, specs):
-        local = t.numel() * t.element_size() // _split(s, sizes,
-                                                        {rules.MODEL})
+    model = [_split(h, sizes, {rules.MODEL}) for _, h in
+             _spec_leaves(params, specs if held is None else held)]
+    for (t, s), m in zip(_spec_leaves(params, specs), model):
+        local = t.numel() * t.element_size() // m
         if _split(s, sizes, dp) > 1:
             out.append(("all-gather", local))
             if train:
@@ -255,9 +274,11 @@ def fsdp_records(params, specs, mesh, *, train: bool) -> list:
 
 
 class _Local:
-    """Rank 0 of ``mesh``: its recorder, its params (the model-axis cut),
-    its rows and its cache's heads and channels. One rank: the global
-    ones, no recorder."""
+    """A rank of ``mesh``: its tensor-parallel context (a recorder for rank
+    0 of a planned mesh, the live one on a world), its params (the
+    model-axis cut; on a world with FSDP params, its data-axis shard of
+    each leaf the specs split over the data axes), its rows and its
+    cache's heads and channels. One rank: the global ones, no context."""
 
     def __init__(self, cfg: ModelConfig, mesh, params, specs, *,
                  train: bool):
@@ -265,32 +286,140 @@ class _Local:
         self.data = 1
         self.cache_cfg, self.widths = cfg, None
         self.fsdp = []
-        if isinstance(mesh, (MeshShape, dict)) and _mesh_size(mesh) > 1:
-            self.tp = tp = ctx.recording_tensor_parallel(mesh)
-            self.data = tp.data_size
-            self.fsdp = fsdp_records(params, specs, mesh, train=train)
-            cut = any(rules.split_dims(s, rules.MODEL)
-                      for _, s in _spec_leaves(params, specs))
-            if tp.size > 1 and cut:
-                self.params = sh.lay_out_params(params, cfg, mesh, tp, "meta")
-                self.cache_cfg = sh.local_cache_cfg(cfg, tp)
-                if "blocks" in self.params:
-                    self.widths = tr.local_widths(self.params, cfg)
+        self.mesh, self.world, self.laid = mesh, _live(mesh), False
+        self.split: dict[str, list] = {}   # "row" / "vocab" / "expert"
+        self.gather_dims: dict[tuple, int] = {}   # path -> FSDP data dim
+        self.kv_lo = 0                     # the rank's first cache kv head
+        if _mesh_size(mesh) == 1:
+            return
+        if self.world:
+            from repro_torch.launch.mesh import mesh_tensor_parallel
+
+            tp = mesh_tensor_parallel(mesh)
+        else:
+            tp = ctx.recording_tensor_parallel(mesh)
+        self.tp, self.data = tp, tp.data_size
+        cut = any(rules.split_dims(s, rules.MODEL)
+                  for _, s in _spec_leaves(params, specs))
+        self.laid = laid = tp.size > 1 and cut
+        held = (sh.serving_param_shardings(params, cfg, mesh) if laid else
+                rules.tree_map_with_path(lambda _, t: (), params))
+        self.fsdp = fsdp_records(params, specs, mesh, train=train, held=held)
+        if laid:
+            self.params = sh.lay_out_params(params, cfg, mesh, tp, "meta")
+            self.cache_cfg = c = sh.local_cache_cfg(cfg, tp)
+            if "blocks" in self.params:
+                self.widths = tr.local_widths(self.params, cfg)
+            if c.n_kv_heads != cfg.n_kv_heads:
+                self.kv_lo = (tp.rank * c.n_kv_heads
+                              if cfg.n_kv_heads % tp.size == 0 else
+                              ctx.kv_heads_for(tp.rank, c.n_heads,
+                                               cfg.n_heads,
+                                               cfg.n_kv_heads)[0])
+        if not self.world:
+            return
+        leaves = _paths(self.params)
+        self.split = {k: [p for p, t in leaves
+                          if id(t) in getattr(tp, f"{k}_split")]
+                      for k in ("row", "vocab", "expert")}
+        if self.data > 1:
+            dp = set(dp_axes(mesh))
+            for path, _ in leaves:
+                spec = _lookup(specs, path)
+                dims = [i for i, ax in enumerate(spec or ())
+                        if ax is not None and set(
+                            ax if isinstance(ax, tuple) else (ax,)) & dp]
+                if dims:
+                    self.gather_dims[path] = dims[0]
+        self.params = self.shard(self.params)
 
     def rows(self, B: int) -> int:
-        """The rows of a batch of ``B`` this rank holds."""
+        """The rows of a batch of ``B`` this rank holds: its equal part, or
+        every row when ``B`` does not divide the data axes."""
         return B // self.data if B % self.data == 0 else B
 
-    def wrap(self, body, *, grad: bool = False):
-        """``body`` under this rank's recorder (and, unless ``grad``,
-        without autograd: a serving step)."""
-        tp = self.tp
+    def shard(self, params):
+        """This rank's data-axis shard of each leaf FSDP splits (a copy; on
+        meta, the shapes)."""
+        def one(path, t):
+            d = self.gather_dims.get(path)
+            if d is None:
+                return t
+            n = t.shape[d] // self.data
+            return t.narrow(d, self.tp.data_rank * n, n).clone()
 
-        def fn(*args):
+        return rules.tree_map_with_path(one, params)
+
+    def whole(self, params):
+        """The model-axis cut the layers run: each FSDP leaf all-gathered
+        over the data group (``ctx.data_gather``), and the gathered
+        tensors recorded as split in the live context (the layers know a
+        split weight by identity)."""
+        tp = self.tp
+        params = rules.tree_map_with_path(
+            lambda path, t: t if path not in self.gather_dims else
+            ctx.data_gather(t, self.gather_dims[path]), params)
+        for k, paths in self.split.items():
+            setattr(tp, f"{k}_split",
+                    frozenset(id(_lookup(params, p)) for p in paths))
+        return params
+
+    def wrap(self, body, *, grad: bool = False, vocab_cut: bool = False):
+        """``body`` under this rank's context (and, unless ``grad``,
+        without autograd: a serving step); on a world, with the FSDP
+        leaves gathered first and the logits (the first output, when
+        ``vocab_cut``) cut to the rank's vocabulary."""
+        tp, world = self.tp, self.world
+
+        def fn(params, *args):
             with ctx.tensor_parallel(tp), torch.set_grad_enabled(grad):
-                return body(*args)
+                if world:
+                    params = self.whole(params)
+                out = body(params, *args)
+            if world and vocab_cut:
+                out = (self.vocab(out[0]), *out[1:])
+            return out
 
         return fn
+
+    # -- a world rank's part of the global tensors (copies)
+
+    def take_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's rows (dim 0) of a batch input or output."""
+        n = self.rows(t.shape[0])
+        whole = n == t.shape[0]   # every row on every data shard
+        return t.narrow(0, 0 if whole else self.tp.data_rank * n, n).clone()
+
+    def vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """The rank's equal part of the last (vocabulary) dim."""
+        n = logits.shape[-1] // self.tp.size
+        return logits.narrow(-1, self.tp.rank * n, n).clone()
+
+    def take_cache(self, cache, like):
+        """The part of each leaf of a cache tree shaped like the leaf of
+        ``like`` (the rank's cache spec): its rows on dim 1, then its heads
+        or channels on every other dim that differs (the kv heads of a
+        ``KVCache``'s k / v from ``kv_lo``, anything else the rank's equal
+        contiguous part)."""
+        def take(t, spec, name):
+            for d in range(t.dim()):
+                n = spec.shape[d]
+                if t.shape[d] == n:
+                    continue
+                off = (self.tp.data_rank * n if d == 1 else
+                       self.kv_lo if name in ("k", "v") and d == 3 else
+                       self.tp.rank * n)
+                t = t.narrow(d, off, n)
+            return t.clone()
+
+        return _map_named2(cache, like, take)
+
+
+def _paths(tree) -> list:
+    """(path, leaf) of every leaf of a params tree."""
+    out = []
+    rules.tree_map_with_path(lambda path, t: out.append((path, t)), tree)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +435,8 @@ def build_step(arch: str, shape_name: str, mesh, *, dtype=torch.bfloat16,
     tokens) instead of the 1-token serve step. ``multidraft=N_d`` (with
     verify_tokens): the single-pass N_d-draft verify (one row a sequence,
     segmented attention) instead of the B·N_d expanded batch. ``mesh``: a
-    ``MeshShape`` (a plan), or a mesh of one rank."""
+    ``MeshShape`` (a plan), a mesh of one rank, or a ``DeviceMesh`` over a
+    world of ranks (every rank builds the step alike; the serving kinds)."""
     if shape_name in MT_SHAPES:
         return _build_mt_step(arch, shape_name, mesh, dtype=dtype,
                               cfg_override=cfg_override,
@@ -316,9 +446,8 @@ def build_step(arch: str, shape_name: str, mesh, *, dtype=torch.bfloat16,
     meta = SHAPES[shape_name]
     S, B, kind = meta["seq"], meta["batch"], meta["kind"]
     fsdp = fsdp_inference or kind == "train"
-    _refuse_world(mesh, "a train step" if kind == "train" else
-                  f"a {kind} step with FSDP params" if fsdp else
-                  f"a {kind} step")
+    if kind == "train":
+        _refuse_train_on_a_world(mesh)
     params = _params_specs(cfg, dtype)
     p_sh = sh.param_shardings(params, mesh, fsdp=fsdp)
     dp = dp_axes(mesh)
@@ -329,7 +458,8 @@ def build_step(arch: str, shape_name: str, mesh, *, dtype=torch.bfloat16,
     lspecs = input_specs_for(cfg, shape_name, dtype=dtype, batch=Bl,
                              widths=loc.widths, cache_cfg=loc.cache_cfg)
     common = dict(tp=loc.tp, fsdp_records=tuple(loc.fsdp), kind=kind,
-                  cfg=cfg, shape=shape_name)
+                  cfg=cfg, shape=shape_name,
+                  rank=loc if loc.world else None)
 
     if kind == "train":
         step = make_lm_train_step(cfg, remat=remat)
@@ -425,11 +555,13 @@ def build_step(arch: str, shape_name: str, mesh, *, dtype=torch.bfloat16,
 
     tokens_spec, pos_spec = _meta((B, T), i32), _meta((B, T), i32)
     common["draft_len"] = DL if multidraft > 0 else 0
+    n_model = rules.axes_size(mesh, rules.MODEL)
+    common["vocab_cut"] = n_model > 1 and cfg.vocab_size % n_model == 0
     logits_sh = (dp if B % n_dp == 0 else None, None,
-                 rules.MODEL if cfg.vocab_size % rules.axes_size(
-                     mesh, rules.MODEL) == 0 else None)
+                 rules.MODEL if cfg.vocab_size % n_model == 0 else None)
     return BuiltStep(
-        fn=loc.wrap(body), inputs=(params, cache, tokens_spec, pos_spec),
+        fn=loc.wrap(body, vocab_cut=common["vocab_cut"]),
+        inputs=(params, cache, tokens_spec, pos_spec),
         in_shardings=(p_sh, c_sh, sh.batch_shardings(tokens_spec, mesh),
                       sh.batch_shardings(pos_spec, mesh)),
         out_shardings=(logits_sh, c_sh),
@@ -456,9 +588,8 @@ def _build_mt_step(arch: str, shape_name: str, mesh, *,
     meta = MT_SHAPES[shape_name]
     S, B, kind = meta["seq"], meta["batch"], meta["kind"]
     train = kind == "mt_train"
-    _refuse_world(mesh, "a train step" if train else
-                  "an mt_verify step" + (" with FSDP params"
-                                         if fsdp_inference else ""))
+    if train:
+        _refuse_train_on_a_world(mesh)
     dp = dp_axes(mesh)
     params = _params_specs(cfg, dtype)
     if not train and not fsdp_inference:
@@ -469,7 +600,8 @@ def _build_mt_step(arch: str, shape_name: str, mesh, *,
     loc = _Local(cfg, mesh, params, p_sh, train=train)
     Bl = loc.rows(B)
     common = dict(tp=loc.tp, fsdp_records=tuple(loc.fsdp), kind=kind,
-                  cfg=cfg, shape=shape_name)
+                  cfg=cfg, shape=shape_name,
+                  rank=loc if loc.world else None)
     i32 = torch.int32
 
     if train:
@@ -545,24 +677,32 @@ def _fed_positions(built: BuiltStep, seq: int, T: int):
 
 def example_inputs(built: BuiltStep, *, device=None, seed: int = 0,
                    params=None) -> tuple:
-    """Real tensors shaped like ``built.local_inputs`` (a one-rank step),
-    drawn on ``device`` (default: the card) by a generator seeded
-    ``seed``: params from ``init`` (or ``params``) in the specs' dtype;
-    tokens in [4, vocab); frames, memory and cache K/V, states normal;
-    every cache slot filled with the latest position below the first fed
-    one that maps to it (a full row: the decode read sees every slot), the
-    fed tokens at the end of the shape's sequence."""
+    """Real tensors shaped like ``built.local_inputs``, drawn on ``device``
+    (default: the card) by a generator seeded ``seed``: params from
+    ``init`` (or ``params``) in the specs' dtype; tokens in [4, vocab);
+    frames, memory and cache K/V, states normal; every cache slot filled
+    with the latest position below the first fed one that maps to it (a
+    full row: the decode read sees every slot), the fed tokens at the end
+    of the shape's sequence. On a world rank: the global inputs drawn as
+    for one rank (``params``: the global ones), then cut to the rank's
+    part (``rank_part``)."""
     from repro_torch.device import resolve_device
-    from repro_torch.models import seq2seq as s2s
 
     dev = resolve_device(device)
+    if built.rank is not None:
+        return rank_part(built, _draw(built, built.inputs, dev, seed, params))
+    return _draw(built, built.local_inputs, dev, seed, params)
+
+
+def _draw(built: BuiltStep, specs: tuple, dev, seed: int, params) -> tuple:
+    from repro_torch.models import seq2seq as s2s
+
     gen = torch.Generator(dev).manual_seed(seed)
     cfg = built.cfg
-    spec_params = built.local_inputs[0]
     if params is None:
         init = s2s.init if cfg.family == "seq2seq" else tr.init
         params = init(gen, cfg, device=dev)
-    leaves = rules.tree_map_with_path(lambda _, t: t, spec_params)
+    leaves = rules.tree_map_with_path(lambda _, t: t, specs[0])
     params = rules.tree_map_with_path(
         lambda path, t: t.to(dev, _lookup(leaves, path).dtype), params)
 
@@ -576,7 +716,7 @@ def example_inputs(built: BuiltStep, *, device=None, seed: int = 0,
 
     if built.kind in ("train", "mt_train"):
         batch = {}
-        for k, t in built.local_inputs[2].items():
+        for k, t in specs[2].items():
             if k == "loss_mask":
                 batch[k] = torch.ones(t.shape, dtype=t.dtype, device=dev)
             elif t.is_floating_point():
@@ -586,9 +726,9 @@ def example_inputs(built: BuiltStep, *, device=None, seed: int = 0,
         return params, adam_init(params), batch
     if built.kind == "prefill":
         return (params, *(ints(t, 4) if not t.is_floating_point()
-                          else normal(t) for t in built.local_inputs[1:]))
+                          else normal(t) for t in specs[1:]))
     # decode / mt_verify: cache, tokens, positions
-    _, cache_spec, tok_spec, _ = built.local_inputs
+    _, cache_spec, tok_spec, _ = specs
     B, T = tok_spec.shape
     seq = (MT_SHAPES if built.kind == "mt_verify" else SHAPES)[
         built.shape]["seq"]
@@ -610,9 +750,69 @@ def example_inputs(built: BuiltStep, *, device=None, seed: int = 0,
     return params, cache, ints(tok_spec, 4), positions
 
 
+def rank_part(built: BuiltStep, inputs: tuple) -> tuple:
+    """The part of a one-rank step's inputs (the global ones) that this
+    rank of a world's built step takes, as copies: its params
+    (``lay_out_params``' model-axis cut, then with FSDP its data-axis
+    shard of each leaf the specs split there), its rows of every batch
+    input, its cache's rows and heads."""
+    loc = built.rank
+    if loc is None:
+        return inputs
+    params = inputs[0]
+    if loc.laid:
+        params = sh.lay_out_params(params, built.cfg, loc.mesh, loc.tp,
+                                   _paths(params)[0][1].device)
+    params = loc.shard(params)
+    if built.kind == "prefill":
+        return (params, *(loc.take_rows(t) for t in inputs[1:]))
+    _, cache, tokens, positions = inputs
+    return (params, loc.take_cache(cache, built.local_inputs[1]),
+            loc.take_rows(tokens), loc.take_rows(positions))
+
+
+def rank_outputs(built: BuiltStep, outputs):
+    """A one-rank step's outputs cut as this rank of a world's built step
+    returns them: its rows, the logits' vocabulary where the out spec
+    splits it, its cache's rows and heads."""
+    loc = built.rank
+    if loc is None:
+        return outputs
+    if built.kind == "prefill" and built.cfg.family == "audio":
+        return loc.take_rows(outputs)
+    logits, cache = outputs
+    logits = loc.take_rows(logits)
+    if built.vocab_cut:
+        logits = loc.vocab(logits)
+    if built.kind == "prefill":
+        B = logits.shape[0]
+        like = tr.init_cache(loc.cache_cfg, B, SHAPES[built.shape]["seq"],
+                             device="meta", widths=loc.widths)
+    else:
+        like = built.local_inputs[1]
+    return logits, loc.take_cache(cache, like)
+
+
 def _lookup(tree, path):
     for k in path:
         tree = tree[k]
+    return tree
+
+
+def _map_named2(tree, like, fn, name: str = ""):
+    """``fn(leaf, like leaf, field name)`` over a cache tree and a tree of
+    the same structure."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, like, name)
+    if isinstance(tree, dict):
+        return {k: _map_named2(v, like[k], fn, k) for k, v in tree.items()}
+    if isinstance(tree, (KVCache, PagedKVCache)):
+        return type(tree)(**{f.name: _map_named2(
+            getattr(tree, f.name), getattr(like, f.name), fn, f.name)
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_named2(v, w, fn, name)
+                          for v, w in zip(tree, like))
     return tree
 
 

@@ -27,7 +27,9 @@ exactly as it does unsharded. Inside it:
 - the MoE router places its choices in the global call's order: the
   per-expert counts of the lower data shards and the global token count
   come from one ``all_reduce`` over the data axis
-  (``data_prefix_counts``).
+  (``data_prefix_counts``);
+- a built step's FSDP params are gathered whole over the data axis before
+  the model runs (``data_gather``, ``launch.steps``).
 
 Which weights are split is recorded by identity when the engine lays the
 params out (``TensorParallel.row_split`` / ``vocab_split`` /
@@ -38,7 +40,9 @@ tensors, where it takes no ``all_gather``. Every other collective here is
 a sum that reorders the fp32 additions of the unsharded op (a row-split
 projection's partial products), except where it says exact.
 ``n_collectives`` counts the model-axis collectives issued,
-``n_data_collectives`` the data-axis ones.
+``n_data_collectives`` the data-axis ones; a live context given a ``log``
+list appends each collective's ``(kind, bytes)`` to it as a recorder
+does, the data-axis gather as an ``all-gather`` of the whole.
 
 A recording ``TensorParallel`` (``recording_tensor_parallel``) has no
 process group: it stands for one rank of a planned mesh (a
@@ -104,6 +108,7 @@ class TensorParallel:
     n_collectives: int = 0
     n_data_collectives: int = 0
     records: list | None = None  # a recorder's (kind, bytes); None: live
+    log: list | None = None  # a live context's (kind, bytes), when asked
 
 
 def recording_tensor_parallel(mesh, *, model_rank: int = 0,
@@ -167,6 +172,8 @@ def _all_reduce(tp: TensorParallel, x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     dist.all_reduce(x, group=tp.group)
     tp.n_collectives += 1
+    if tp.log is not None:
+        tp.log.append(("all-reduce", x.nbytes))
     return x
 
 
@@ -254,8 +261,36 @@ def data_prefix_counts(counts: torch.Tensor, n: int
     buf[tp.data_rank, -1] = n
     dist.all_reduce(buf, group=tp.data_group)
     tp.n_data_collectives += 1
+    if tp.log is not None:
+        tp.log.append(("all-reduce", buf.nbytes))
     return (buf[:tp.data_rank, :-1].sum(0), buf[:, :-1].sum(0),
             int(buf[:, -1].sum()))
+
+
+def data_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` whole on ``dim`` over the data axis, from each data shard's
+    equal contiguous part (an FSDP param's shard): one ``all_reduce`` of a
+    zeroed buffer into which each rank writes its part, exact, over the
+    data group (gloo takes no ``all_gather`` of CUDA tensors). A recorder
+    records it; unsharded, or one data shard: ``x``."""
+    tp = current()
+    if tp is None or tp.data_size == 1:
+        return x
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * tp.data_size
+    full = x.new_zeros(shape)
+    full.narrow(dim, tp.data_rank * n, n).copy_(x)
+    tp.n_data_collectives += 1
+    if tp.records is not None:
+        tp.records.append(("all-gather", full.nbytes))
+        return full
+    import torch.distributed as dist
+
+    dist.all_reduce(full, group=tp.data_group)
+    if tp.log is not None:
+        tp.log.append(("all-gather", full.nbytes))
+    return full
 
 
 def row_input(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -30,8 +30,9 @@
   SmolLM and RWKV6 reduced;
 - the repairs: ``World()`` and ``synthetic_batch`` without a device
   raise the missing card's error (the world before a rank starts), the
-  job functions default to the card, and a built step on a world of
-  ranks is refused by name.
+  job functions default to the card, and a built train step on a world
+  of ranks is refused by name (the serving kinds run on a live world in
+  ``tests/test_torch_world_steps.py``).
 """
 
 import dataclasses
@@ -553,7 +554,7 @@ def test_synthetic_batch_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("job", ["serve", "probe", "layer", "refusals",
-                                 "front_door", "late_stream"])
+                                 "front_door", "late_stream", "built_step"])
 def test_job_functions_default_to_the_card(job):
     sig = inspect.signature(getattr(mesh_runs, job))
     assert sig.parameters["on_card"].default is True
@@ -567,8 +568,6 @@ class _World:
 
 @pytest.mark.parametrize("shape,kw,what", [
     ("train_4k", {}, "a train step"),
-    ("decode_32k", {}, "FSDP params"),
-    ("decode_32k", dict(fsdp_inference=False), "a decode step"),
     ("mt_train", {}, "a train step"),
 ])
 def test_build_step_on_a_world_is_refused(shape, kw, what):

@@ -246,7 +246,12 @@ _IMPORT_RE = re.compile(
     r"|from\s+repro(?!_torch)\b)", re.M)
 
 
-EXAMPLE = ROOT / "examples" / "speculative_lm_torch.py"
+# the port's scripts outside src/: the examples and the benchmark substrate
+# they share
+SCRIPTS = [ROOT / "examples" / "speculative_lm_torch.py",
+           ROOT / "examples" / "quickstart_torch.py",
+           ROOT / "examples" / "serve_retrosynthesis_torch.py",
+           ROOT / "benchmarks" / "common_torch.py"]
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -258,7 +263,8 @@ def test_port_imports_no_jax_and_no_repro():
         "import importlib, runpy, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        f"runpy.run_path({str(EXAMPLE)!r})\n"
+        f"for s in {[str(s) for s in SCRIPTS]!r}:\n"
+        "    runpy.run_path(s)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'repro' or m.startswith('repro.')"
         " or m == 'msgpack' or m.startswith('msgpack.')]\n"
@@ -270,7 +276,7 @@ def test_port_imports_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr
     files = [*(ROOT / "src" / "repro_torch").rglob("*.py"),
              ROOT / "chip_smoke.py",
-             EXAMPLE]
+             *SCRIPTS]
     offenders = [str(f) for f in files
                  if _IMPORT_RE.search(f.read_text(encoding="utf-8"))]
     assert not offenders, offenders
