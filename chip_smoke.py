@@ -183,7 +183,8 @@ In order:
      --paged`` under torchrun: SmolLM-135M whole, 4 requests of 128
      tokens, max_new 24, every check of that script. Then one world
      serves SmolLM-135M (8 prompts of 24-64 tokens, max_new 12, 2 slots a
-     mode, the four modes, paged and dense) and mt-product (16 queries in
+     mode, the four modes, paged; the dense cache's mesh path runs in the
+     world steps' decode kinds) and mt-product (16 queries in
      the four modes, max_new 32, paged; and tests/test_sharded.py's pool
      of 52 pages of 8 at 4
      speculative slots, where a segment runs dry: preemptions > 0, each
@@ -233,7 +234,20 @@ In order:
      its cache's heads) within 1e-4 of the one-rank step on the same
      seed, the live collectives == the built step's plan (its
      ``fsdp_records`` and the recorder's), every launch group of the
-     ranks held to plain; a second call's wall printed by rank. Last,
+     ranks held to plain; a second call's wall printed by rank. Then the
+     train kinds on the whole configs: SmolLM-135M's train_4k at S 4,096
+     and mt-product's mt_train at S 256, FSDP params, fp32, TF32 off, each
+     batch halved until the ranks' inputs and the one-rank step's
+     activations fit (said so): every rank's metrics, every gradient leaf
+     (after the data-axis reduction, before the clip), new params and
+     Adam moments within 1e-4 of the one-rank step's, each gradient leaf
+     within 1e-5 of its norm (params and moments exempt where the two
+     gradients differ in sign, or both lie below 1e-7 and differ by over
+     2x: counted and printed), the bytes each step held above its inputs
+     printed beside world_batch's estimate, the live collectives == the
+     plan, each rank's flash
+     forward and backward launched and every launch group held to plain.
+     Last,
      each decode read's and flash's launch group of the mesh's engine
      runs timed alone against its plain version,
      ``scaled_dot_product_attention`` and its bound on seeded inputs at
@@ -3177,7 +3191,7 @@ def serve_mesh_door(torch, world, device: str, mt: dict, mt_jobs: list,
 
 def serve_mesh(torch, device: str = "cuda") -> dict:
     """The mesh phase: the CLI under torchrun, then a world of 4 ranks on
-    the card serving SmolLM-135M (mixed modes, paged and dense),
+    the card serving SmolLM-135M (mixed modes, paged),
     mt-product (four modes, paged; the shard-local exhaustion pool) and
     every decoder-only family (``family_runs``), each against the same
     engine unsharded in this process; the front door over the mesh; every
@@ -3210,15 +3224,14 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
     runs = [
         ("SmolLM paged", lm, dict(MESH["lm_kw"], paged=True,
                                   mode_groups=groups), lm_jobs, {}, None),
-        ("SmolLM dense", lm, dict(MESH["lm_kw"], mode_groups=groups,
-                                  page_size=16), lm_jobs, {}, None),
         ("mt-product paged", mt, dict(MESH["mt_kw"], paged=True,
                                       mode_groups=groups), mt_jobs, {},
          None),
         ("mt-product exhaustion", mt, MESH["exhaust"], ex_jobs,
          {"predict": True}, MESH["exhaust_pool"])]
     families = family_runs()
-    per_rank = [dict.fromkeys(MESH_KERNELS, 0) for _ in range(4)]
+    per_rank = [dict.fromkeys(MESH_KERNELS + ("flash_attention_bwd",), 0)
+                for _ in range(4)]
     seen: dict = {}
     verify: dict = {}
     with World(4, device=device) as world:
@@ -3271,22 +3284,25 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
               f"rank runs that launched it", flush=True)
     if on_card:
         time_mesh_groups(torch, seen)
-    print(f"mesh phase: every rank launched {list(MESH_KERNELS)}; "
+    print(f"mesh phase: every rank launched {list(per_rank[0])}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     out["per_rank"] = per_rank
     out["verify_shapes"] = verify
     return out
 
 
-# launch.steps' serving kinds built on the mesh world: the launch phase's
-# reduced configs at each shape's full batch and sequence, fp32, with FSDP
-# params and without; prefill_32k's sequence cut to 2,048 (the launch
-# groups hold its one-shot read to the plain version on the same inputs,
-# whose scores are B x H x S^2 floats: 192 GiB a rank at 32,768); a kind
-# whose inputs the 4 ranks could not hold on the card (each rank draws the
-# global inputs twice: its own cut and the one-rank reference) halves its
-# batch first, and says so. (arch, shape, kwargs, config fields, shape
-# fields)
+# launch.steps' kinds built on the mesh world: the serving kinds on the
+# launch phase's reduced configs at each shape's full batch and sequence,
+# fp32, with FSDP params and without; prefill_32k's sequence cut to 2,048
+# (the launch groups hold its one-shot read to the plain version on the
+# same inputs, whose scores are B x H x S^2 floats: 192 GiB a rank at
+# 32,768); then the train kinds on the whole configs (config fields None):
+# SmolLM-135M's train_4k at S 4,096 and mt-product's mt_train at S 256
+# (FSDP params always). A kind whose inputs and activations the 4 ranks
+# could not hold on the card (``world_batch``: each rank draws the global
+# inputs twice, its own cut and the one-rank reference, and runs both)
+# halves its batch first, and says so. (arch, shape, kwargs, config
+# fields, shape fields)
 WORLD_STEPS = dict(
     kinds=[("smollm-135m", "decode_32k", {}, {}, {}),
            ("smollm-135m", "decode_32k", dict(verify_tokens=11), {}, {}),
@@ -3294,18 +3310,34 @@ WORLD_STEPS = dict(
                                               multidraft=5), {}, {}),
            ("smollm-135m", "prefill_32k", {}, {}, dict(seq=2048)),
            ("smollm-135m", "long_500k", {}, {}, {}),
-           ("mt-product", "mt_verify", {}, dict(max_len=256), {})],
+           ("mt-product", "mt_verify", {}, dict(max_len=256), {}),
+           ("smollm-135m", "train_4k", {}, None, {}),
+           ("mt-product", "mt_train", {}, None, {})],
     fsdp=(True, False), seed=SEED, headroom=0.6)
 WORLD_KERNELS = ("decode_gqa", "paged_decode_gqa", "draft_verify",
-                 "flash_attention")
+                 "flash_attention", "flash_attention_bwd")
+# the most bytes a train step held above its inputs, a row of its batch, as
+# measured on an H100 80GB HBM3 at 700 W (mesh_runs.built_step's
+# act_bytes): a world rank's (2, 2) step at its rows, launch groups'
+# plain checks included, and the one-rank reference's at the global batch
+# (SmolLM-135M whole at S 4,096: 4.667 GB at 1 row, 7.068 GB at B 2;
+# mt-product whole at S 256: 3.354 GB at 64 rows, 10.19 GB at B 128)
+TRAIN_ACTS = {("smollm-135m", "train_4k"): dict(world=4.667e9,
+                                               one_rank=3.534e9),
+              ("mt-product", "mt_train"): dict(world=5.241e7,
+                                               one_rank=7.961e7)}
 
 
-def world_batch(torch, arch: str, shape: str, kw: dict, fields: dict,
+def world_batch(torch, arch: str, shape: str, kw: dict, fields,
                 n_ranks: int, seq: dict) -> tuple[int, int]:
     """(the shape's batch, the batch the world runs): halved until every
-    rank's two global draws and its cut fit ``WORLD_STEPS["headroom"]`` of
-    the card's free memory (an estimate from the one-rank step's meta
-    inputs, params and cache included)."""
+    rank's two global draws and its cut, and for a train kind the larger
+    of the 4 ranks' activations at their rows and one one-rank step's at
+    the global batch (the ranks run it one at a time), fit
+    ``WORLD_STEPS["headroom"]`` of the card's free memory; a train batch
+    stays a multiple of the data axis. An estimate: the one-rank step's
+    meta inputs (params, Adam's moments and cache included), and a train
+    step's activations at ``TRAIN_ACTS``' measured bytes a row."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3315,8 +3347,12 @@ def world_batch(torch, arch: str, shape: str, kw: dict, fields: dict,
     table = steps.MT_SHAPES if shape in steps.MT_SHAPES else steps.SHAPES
     full = dict(table[shape])
     batch = full["batch"]
-    cfg = dataclasses.replace(get_config(arch, reduced=True), **fields)
+    cfg = dataclasses.replace(get_config(arch, reduced=fields is not None),
+                              **(fields or {}))
     seq = dict(full, **seq)
+    train = full["kind"] in ("train", "mt_train")
+    acts = TRAIN_ACTS[arch, shape] if train else None
+    data = MESH["shape"][0]
     free = torch.cuda.mem_get_info()[0] if torch.cuda.is_available() else 0
     try:
         while True:
@@ -3325,23 +3361,33 @@ def world_batch(torch, arch: str, shape: str, kw: dict, fields: dict,
                                      MeshShape(("data", "model"), (1, 1)),
                                      dtype=torch.float32, cfg_override=cfg,
                                      **kw)
-            need = sum(t.numel() * t.element_size()
-                       for t in _tree_leaves(built.local_inputs))
-            if batch == 1 or not free or \
-                    3 * n_ranks * need <= WORLD_STEPS["headroom"] * free:
-                return full["batch"], batch
+            need = n_ranks * 3 * sum(t.numel() * t.element_size()
+                                     for t in _tree_leaves(
+                                         built.local_inputs))
+            if train:
+                need += max(n_ranks * batch // data * acts["world"],
+                            batch * acts["one_rank"])
+            last = batch == (data if train else 1)
+            if last or not free or need <= WORLD_STEPS["headroom"] * free:
+                if train:
+                    print(f"  world step [{arch} {shape}]: batch {batch}, "
+                          f"{need / 1e9:.2f} GB estimated of "
+                          f"{free / 1e9:.2f} GB free", flush=True)
+                return full["batch"], batch, acts
             batch //= 2
     finally:
         table[shape] = full
 
 
 def world_steps(torch, world, device: str, per_rank: list) -> dict:
-    """Every serving kind of ``launch.steps.build_step`` on the mesh
-    world's 4 ranks (``mesh_runs.built_step``): each rank's outputs against
-    the one-rank step on the same seed within 1e-4, the live collectives
-    == the built step's plan, kind by kind and byte for byte, every launch
-    group held to plain (``mesh_runs.LaunchGroups``) and covering the
-    launches; walls of a second call printed, tagged."""
+    """Every serving kind of ``launch.steps.build_step`` and both train
+    kinds on the mesh world's 4 ranks (``mesh_runs.built_step``): each
+    rank's outputs (a train step's metrics, gradients, new params and Adam
+    moments) against the one-rank step on the same seed within 1e-4, the
+    live collectives == the built step's plan, kind by kind and byte for
+    byte, every launch group held to plain (``mesh_runs.LaunchGroups``)
+    and covering the launches, a train rank's flash forward and backward
+    launched; walls of a second call printed, tagged."""
     import math
     from collections import Counter
 
@@ -3352,24 +3398,29 @@ def world_steps(torch, world, device: str, per_rank: list) -> dict:
     on_card = device == "cuda"
     out = {}
     for arch, shape, kw, fields, seq in WORLD_STEPS["kinds"]:
-        full, batch = world_batch(torch, arch, shape, kw, fields,
-                                  world.n, seq)
+        full, batch, acts = world_batch(torch, arch, shape, kw, fields,
+                                        world.n, seq)
         table = steps.MT_SHAPES if shape in steps.MT_SHAPES else steps.SHAPES
-        label = (f"{arch} reduced {shape}"
+        train = table[shape]["kind"] in ("train", "mt_train")
+        label = (f"{arch} {'whole' if fields is None else 'reduced'} {shape}"
                  + "".join(f" {k}={v}" for k, v in kw.items())
                  + "".join(f" {k} {v} of {table[shape][k]}"
                            for k, v in seq.items()))
         if batch != full:
             print(f"  world step [{label}]: batch {full} does not fit 4 "
-                  f"ranks' inputs on the card, {batch}", flush=True)
-        for fsdp in WORLD_STEPS["fsdp"]:
+                  f"ranks' inputs{' and activations' if train else ''} on "
+                  f"the card, {batch}", flush=True)
+        t_kind = time.perf_counter()
+        # a train step's params are FSDP whatever fsdp_inference says
+        for fsdp in WORLD_STEPS["fsdp"][:1 if train else None]:
             got = world.run("repro_torch.launch.mesh_runs:built_step",
                             arch=arch, shape=shape,
                             kw=dict(kw, fsdp_inference=fsdp),
                             mesh=MESH["shape"], seed=WORLD_STEPS["seed"],
                             shape_override=dict(table[shape], **seq,
                                                 batch=batch),
-                            fields=fields, timed=True, on_card=on_card)
+                            fields=fields or {}, full=fields is None,
+                            timed=True, on_card=on_card)
             tag = f"world step [{label}, fsdp {fsdp}]"
             for r in got:
                 live = Counter(map(tuple, r["collectives"]))
@@ -3394,7 +3445,8 @@ def world_steps(torch, world, device: str, per_rank: list) -> dict:
                     raise AssertionError(f"{tag} rank {r['rank']}: groups "
                                          f"cover {covered} of "
                                          f"{r['launches']}")
-                need = [] if kw.get("multidraft") else ["decode_gqa"]
+                need = (["flash_attention", "flash_attention_bwd"] if train
+                        else [] if kw.get("multidraft") else ["decode_gqa"])
                 if any(r["launches"][k] == 0 for k in need):
                     raise AssertionError(f"{tag} rank {r['rank']}: "
                                          f"launches {r['launches']}")
@@ -3409,12 +3461,39 @@ def world_steps(torch, world, device: str, per_rank: list) -> dict:
                 mb[k] += n / 1e6
             worst = {p: max(r["errors"][p] for r in got)
                      for p in r0["errors"]}
+            extra = ""
+            if train:
+                metrics = ", ".join(f"{k} {v:.6f}"
+                                    for k, v in r0["metrics"].items())
+                extra = (f"; metrics {metrics}; worst gradient leaf "
+                         f"|Δ|/|g| {max(r['grad_rel'] for r in got):.3e}; "
+                         f"gradient sign flips by rank "
+                         f"{[r['sign_flips'] for r in got]}, both below "
+                         f"1e-7 and over 2x apart "
+                         f"{[r['near_zero'] for r in got]} (their params "
+                         f"and moments exempt; largest exempt |g| "
+                         f"{max(r['exempt_max_grad'] for r in got):.3e})")
+                world_b = [r["act_bytes"]["world"] for r in got]
+                ref_b = [r["act_bytes"]["one_rank"] for r in got]
+                if on_card:
+                    print(f"  world step [{label}]: bytes held above the "
+                          f"inputs, measured: the world step's "
+                          f"{[round(b / 1e9, 3) for b in world_b]} GB by "
+                          f"rank at {r0['rows']} rows "
+                          f"({max(world_b) / r0['rows'] / 1e9:.3f} GB a "
+                          f"row), the one-rank step's "
+                          f"{[round(b / 1e9, 3) for b in ref_b]} GB at "
+                          f"batch {batch} ({max(ref_b) / batch / 1e9:.3f} "
+                          f"GB a row); world_batch's figures "
+                          f"{acts['world'] / 1e9:.3f} / "
+                          f"{acts['one_rank'] / 1e9:.3f} GB a row",
+                          flush=True)
             print(f"{tag} {r0['note']} (batch {batch} of {full}): every "
                   f"rank within {STEP_TOL} of the one-rank step "
                   f"(largest |Δ| "
                   + ", ".join(f"{p} {e:.3e}" for p, e in worst.items())
-                  + f"), {r0['rows']} rows a rank; live collectives == "
-                  f"plan: "
+                  + f"), {r0['rows']} rows a rank{extra}; live collectives "
+                  f"== plan: "
                   + ", ".join(f"{k} {kinds[k]} ({mb[k]:.3f} MB)"
                               for k in sorted(kinds))
                   + f"; wall of a second call "
@@ -3428,7 +3507,13 @@ def world_steps(torch, world, device: str, per_rank: list) -> dict:
             out[f"{label} fsdp {fsdp}"] = dict(
                 batch=batch, walls=[r["wall_s"] for r in got],
                 collectives=dict(kinds), mb=dict(mb), errors=worst,
-                launches=[r["launches"] for r in got])
+                launches=[r["launches"] for r in got],
+                sign_flips=[r["sign_flips"] for r in got],
+                near_zero=[r["near_zero"] for r in got],
+                act_bytes=[r.get("act_bytes") for r in got])
+        if train:
+            print(f"  world step [{label}]: {time.perf_counter() - t_kind:.1f}"
+                  f" s with its plan and one-rank reference", flush=True)
     print(f"world steps phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 

@@ -40,8 +40,7 @@ import traceback
 
 SEQ_SHARD_REFUSAL = (
     "--seq-shard (a sequence-parallel residual stream) is not ported: "
-    "ROADMAP Queue 1 item 10b (a train step on a world of ranks, and "
-    "sequence sharding)")
+    "ROADMAP Queue 1 item 10b (sequence sharding)")
 
 
 @contextlib.contextmanager

@@ -40,6 +40,7 @@ and segment give shapes that no unsharded path launches.
 from __future__ import annotations
 
 import gc
+import importlib
 import time
 
 import numpy as np
@@ -145,6 +146,19 @@ def _free(device) -> None:
         torch.cuda.empty_cache()
 
 
+def _above(device, fn, *args):
+    """``fn(*args)`` and, on the card, the most bytes it held allocated at
+    once above what was allocated when it started (None elsewhere)."""
+    if device.type != "cuda":
+        return fn(*args), None
+    torch.cuda.synchronize(device)
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn(*args)
+    torch.cuda.synchronize(device)
+    return out, torch.cuda.max_memory_allocated(device) - held
+
+
 def engine_widths(eng) -> dict:
     """The widths an engine's weights and cache hold: attention and kv
     heads a rank's cache holds, experts, Mamba's ``d_inner``, RWKV's and
@@ -167,12 +181,15 @@ def engine_widths(eng) -> dict:
 
 
 # the decode tolerance of the kernel checks: |kernel - plain| <= TOL + TOL *
-# |plain| in fp32 (draft_verify: bitwise)
+# |plain| in fp32 (draft_verify: bitwise); the flash backward's:
+# |kernel - plain| <= BWD_TOL * (max |plain| + |plain|)
 TOL = 2e-5
+BWD_TOL = 1e-4
 
 
 class LaunchGroups:
-    """Every launch of the kernels a served engine reaches on the card, by
+    """Every launch of the kernels a served engine or a built step reaches
+    on the card (a train step's flash backward too), by
     kernel and input shape, each group's first launch with a live query
     (a decode read's first with a query position >= 0; an idle slot's
     rows give 0 on both sides) also held against the kernel's plain
@@ -189,8 +206,8 @@ class LaunchGroups:
         from repro_torch.kernels.decode_gqa.ref import (decode_gqa_ref,
                                                         paged_decode_gqa_ref)
         from repro_torch.kernels.draft_verify.ref import draft_verify_ref
-        from repro_torch.kernels.flash_attention.ref import \
-            flash_attention_ref
+        from repro_torch.kernels.flash_attention.ref import (
+            flash_attention_bwd_ref, flash_attention_ref)
 
         def flash_ref(q, k, v, *, causal, window=0, key_mask=None,
                       positions=None):
@@ -216,11 +233,22 @@ class LaunchGroups:
         self._wrap(attention, "flash_attention_bshd", "flash_attention",
                    lambda a: (*a[0].shape[:3], a[1].shape[2], a[0].shape[3]),
                    flash_ref)
+        # the flash backward, where the autograd Function calls it:
+        # (q, k, v, o, lse, do, key_mask, causal, window, positions)
+        self._wrap(importlib.import_module(
+            "repro_torch.kernels.flash_attention.ops"), "_backward",
+            "flash_attention_bwd",
+            lambda a: (*a[0].shape[:3], a[1].shape[2], a[0].shape[3]),
+            lambda q, k, v, o, lse, do, key_mask, causal, window,
+            positions=None: flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal=causal, window=window,
+                key_mask=key_mask, q_pos=positions, k_pos=positions),
+            tol=BWD_TOL)
         self._wrap(session, "draft_verify", "draft_verify",
                    lambda a: tuple(a[0].shape), draft_verify_ref)
 
     def _wrap(self, module, attr: str, kernel: str, shape, ref,
-              live=lambda a: True) -> None:
+              live=lambda a: True, tol: float | None = None) -> None:
         op = getattr(module, attr)
 
         def call(*args, **kw):
@@ -233,7 +261,10 @@ class LaunchGroups:
             if not group[2]:
                 now = live(args)
                 if group[1] is None or now:
-                    e = _disagreement(out, ref(*args, **kw))
+                    # outside autograd: a check inside a remat'd forward
+                    # must save nothing its recomputation would not
+                    with torch.no_grad():
+                        e = _disagreement(out, ref(*args, **kw), tol)
                     group[1] = e if group[1] is None else max(group[1], e)
                     group[2] = now
             return out
@@ -252,9 +283,22 @@ class LaunchGroups:
                 for (k, shape), (n, err, live) in sorted(self.groups.items())]
 
 
-def _disagreement(out, ref) -> float:
+def _disagreement(out, ref, tol: float | None = None) -> float:
     """The largest |kernel - plain|, or inf where it passes ``TOL`` (a
-    tuple: draft_verify's tokens and accepted lengths, held bitwise)."""
+    tuple: draft_verify's tokens and accepted lengths, held bitwise; with
+    ``tol``, the flash backward's dq / dk / dv, each held within ``tol``
+    of the plain one's largest |value| plus ``tol`` of its own: the
+    kernel's 3xTF32 sums over S keys round another way)."""
+    if tol is not None:
+        worst = 0.0
+        for a, b in zip(out, ref):
+            e, b = (a.float() - b.float()).abs(), b.float().abs()
+            if not e.numel():
+                continue
+            if not bool(torch.all(e <= tol * (b.max() + b))):
+                return float("inf")
+            worst = max(worst, float(e.max()))
+        return worst
     if isinstance(out, tuple):
         same = all(torch.equal(a, b) for a, b in zip(out, ref))
         return 0.0 if same else float("inf")
@@ -572,17 +616,31 @@ def front_door(model: dict, engine: dict, *, port_file: str,
 # a world step against the one-rank step: |world - one rank| <= STEP_TOL +
 # STEP_TOL * |one rank| on every output
 STEP_TOL = 1e-4
+# Adam's first step moves a param by lr * g / (|g| + eps), eps 1e-9: lr
+# times g's sign, unless |g| is within a few hundred eps, where eps and
+# fp32 rounding decide it. A train step's param and moments are exempt
+# where the two gradients differ in sign, or both lie below TINY_GRAD and
+# differ by more than a factor of two
+TINY_GRAD = 1e-7
+# a gradient leaf against the one-rank step's, over the rank's part:
+# ||world - one rank|| <= GRAD_REL * ||one rank||, unless the leaf's
+# gradient is rounding (its root mean square below TINY_GRAD)
+GRAD_REL = 1e-5
 
 
 def built_step(arch: str, shape: str, kw: dict | None = None, *,
                mesh=(2, 2), seed: int = 0, shape_override: dict | None = None,
                fields: dict | None = None, timed: bool = False,
-               arrays: bool = False, on_card: bool = True) -> dict:
+               arrays: bool = False, full: bool = False,
+               params: str | None = None, on_card: bool = True) -> dict:
     """Build ``launch.steps.build_step(arch, shape, mesh, **kw)`` on this
-    rank of the world (``arch``'s ``reduced()`` config with ``fields``
-    replaced, fp32), run it once on ``example_inputs`` (seed ``seed``),
-    then the one-rank step on the same seed, cut as the rank holds its
-    outputs (``steps.rank_outputs``). ``shape_override``: this process's
+    rank of the world (``arch``'s ``reduced()`` config, or with ``full``
+    its whole config, with ``fields`` replaced, fp32), run it once on
+    ``example_inputs`` (seed ``seed``; ``params``: a ``torch.save`` file
+    of the global params to start from instead of the seed's), then the
+    one-rank step on the same inputs, cut as the rank holds its outputs
+    (``steps.rank_outputs``; on the card the ranks run a train step's
+    one at a time). ``shape_override``: this process's
     ``SHAPES`` / ``MT_SHAPES`` entry for ``shape`` while the job runs (a
     test's small shapes: a spawned rank sees none of the caller's
     patches). On the rank's card unless ``on_card=False``; every launch is
@@ -593,7 +651,25 @@ def built_step(arch: str, shape: str, kw: dict | None = None, *,
     collectives ``(kind, bytes)`` of the call, the plan (the same step
     built on a ``MeshShape`` of the mesh's shape, run on meta: its
     ``fsdp_records`` and recorded collectives), launches and launch groups,
-    and with ``arrays`` the outputs as numpy arrays (world, one rank)."""
+    and with ``arrays`` the outputs as numpy arrays (world, one rank).
+
+    A train step (``train_4k``, ``mt_train``) is held part by part: its
+    metrics, its gradients after the data-axis reduction and before the
+    clip (``trainer.capture_grads``), all within ``STEP_TOL``, each
+    gradient leaf also within ``GRAD_REL`` of the one-rank leaf's norm
+    (``grad_rel``: the worst leaf's ratio), then its new params and Adam
+    moments. Adam's first step moves a param by lr * g / (|g| + 1e-9):
+    about lr times the sign of its gradient, so where a gradient is near
+    0 (a key bias's, whose true gradient is 0) another order of sums moves
+    the param by up to 2 lr. An element of the last three is exempt where
+    its two gradients differ in sign (``sign_flips`` counts them) or both
+    lie below ``TINY_GRAD`` and differ by more than a factor of two
+    (``near_zero``); ``exempt_max_grad`` is the
+    largest |gradient| among the exempt elements. With ``arrays`` a train
+    step returns the rank's new params and first moments and their
+    ``placement`` in the whole leaves, and on the card ``act_bytes``: the
+    most bytes the world step and the one-rank step held above their
+    inputs."""
     import dataclasses
 
     import torch.distributed as dist
@@ -602,6 +678,8 @@ def built_step(arch: str, shape: str, kw: dict | None = None, *,
     from repro_torch.kernels import _build
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import MeshShape
+    from repro_torch.training.optimizer import tree_leaves, tree_unflatten
+    from repro_torch.training.trainer import capture_grads
 
     device = _device(on_card)
     _free(device)
@@ -610,8 +688,11 @@ def built_step(arch: str, shape: str, kw: dict | None = None, *,
     saved = table[shape]
     if shape_override is not None:
         table[shape] = dict(shape_override)
+    start = None
+    if params is not None:
+        start = torch.load(params, map_location=device, weights_only=False)
     try:
-        cfg = dataclasses.replace(get_config(arch, reduced=True),
+        cfg = dataclasses.replace(get_config(arch, reduced=not full),
                                   **(fields or {}))
 
         def build(on):
@@ -619,57 +700,131 @@ def built_step(arch: str, shape: str, kw: dict | None = None, *,
                                     cfg_override=cfg, **kw)
 
         world = build(_mesh(mesh))
+        train = world.kind in ("train", "mt_train")
         plan = build(MeshShape(("data", "model"), tuple(mesh)))
         plan.fn(*plan.local_inputs)
         planned = list(plan.fsdp_records) + list(
             plan.tp.records if plan.tp is not None else [])
-        inputs = steps.example_inputs(world, device=device, seed=seed)
+        del plan
+        inputs = steps.example_inputs(world, device=device, seed=seed,
+                                      params=start)
         world.tp.log = []
         _build.reset_launch_counts()
         groups = LaunchGroups()
         try:
-            got = world.fn(*inputs)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            with capture_grads() as g_world:
+                got, peak = _above(device, world.fn, *inputs)
         finally:
             groups.close()
+        rows = int(_flat(inputs[2] if train else got)[0].shape[0])
         live, world.tp.log = world.tp.log, None
         launches = dict(_build.launch_counts)
         ref = build(MeshShape(("data", "model"), (1, 1)))
-        want = steps.rank_outputs(world, ref.fn(*steps.example_inputs(
-            ref, device=device, seed=seed)))
+
+        def reference():
+            args = steps.example_inputs(ref, device=device, seed=seed,
+                                        params=start)
+            with capture_grads() as g:
+                out, ref_peak = _above(device, ref.fn, *args)
+            return out, g, ref_peak
+
+        if train and device.type == "cuda":
+            # the ranks share a card: one global train step's activations
+            # at a time
+            from repro_torch.launch.world import host_group
+
+            for r in range(dist.get_world_size()):
+                if r == dist.get_rank():
+                    want, g_ref, ref_peak = reference()
+                    _free(device)
+                dist.barrier(group=host_group(None))
+        else:
+            want, g_ref, ref_peak = reference()
+        del start
+        want = steps.rank_outputs(world, want)
     finally:
         table[shape] = saved
-    errs, close = {}, True
-    pairs = [("logits", got, want)] if not isinstance(got, tuple) else [
-        ("logits", got[0], want[0]), ("cache", got[1], want[1])]
-    for part, a, b in pairs:
-        fa, fb = _flat(a), _flat(b)
+    errs, close, flips, near0 = {}, True, 0, 0
+    exempt_max = rel = 0.0
+    if train:
+        gw = g_world[0]
+        whole = tree_unflatten(want[0], g_ref[0])
+        place = world.rank.placement(whole) if arrays else None
+        gr = tree_leaves(world.rank.cut(whole))
+        del g_ref, whole
+        flipped = [torch.sign(a) != torch.sign(b) for a, b in zip(gw, gr)]
+        flips = sum(int(f.sum()) for f in flipped)
+        signs = [f | ((torch.maximum(a.abs(), b.abs()) < TINY_GRAD)
+                      & ((a - b).abs() > torch.minimum(a.abs(), b.abs())))
+                 for f, a, b in zip(flipped, gw, gr)]
+        near0 = sum(int(f.sum()) for f in signs) - flips
+        for a, b, f in zip(gw, gr, signs):
+            if bool(f.any()):
+                exempt_max = max(exempt_max, float(torch.maximum(
+                    a.abs(), b.abs())[f].max()))
+            norm = float(torch.linalg.vector_norm(b.float()))
+            if norm >= TINY_GRAD * b.numel() ** 0.5:
+                rel = max(rel, float(torch.linalg.vector_norm(
+                    (a - b).float())) / norm)
+        close &= rel <= GRAD_REL
+        pairs = [("metrics", [got[2][k] for k in sorted(want[2])],
+                  [want[2][k] for k in sorted(want[2])], None),
+                 ("grads", gw, gr, None),
+                 ("params", tree_leaves(got[0]), tree_leaves(want[0]), signs),
+                 ("mu", tree_leaves(got[1].mu), tree_leaves(want[1].mu),
+                  signs),
+                 ("nu", tree_leaves(got[1].nu), tree_leaves(want[1].nu),
+                  signs)]
+        if sorted(got[2]) != sorted(want[2]):
+            raise AssertionError(f"built_step {arch} {shape}: metrics "
+                                 f"{sorted(got[2])} != {sorted(want[2])}")
+    else:
+        pairs = [("logits", got, want, None)] if not isinstance(
+            got, tuple) else [("logits", got[0], want[0], None),
+                              ("cache", got[1], want[1], None)]
+    for part, a, b, exempt in pairs:
+        fa, fb = ([t.detach() for t in _flat(x)] for x in (a, b))
         if [tuple(t.shape) for t in fa] != [tuple(t.shape) for t in fb]:
             raise AssertionError(
                 f"built_step {arch} {shape}: {part} shapes "
                 f"{[tuple(t.shape) for t in fa]} != the one-rank step's "
                 f"{[tuple(t.shape) for t in fb]}")
         worst = 0.0
-        for x, y in zip(fa, fb):   # in chunks: a full-size cache is GBs
-            for cx, cy in zip(x.reshape(-1).split(1 << 24),
-                              y.reshape(-1).split(1 << 24)):
+        for i, (x, y) in enumerate(zip(fa, fb)):
+            # in chunks: a full-size cache is GBs
+            cut = (x.reshape(-1).split(1 << 24), y.reshape(-1).split(1 << 24))
+            skip = (exempt[i].reshape(-1).split(1 << 24) if exempt else
+                    [None] * len(cut[0]))
+            for cx, cy, cs in zip(*cut, skip):
                 e = (cx.float() - cy.float()).abs()
+                if cs is not None:
+                    e = torch.where(cs, 0.0, e)
                 close &= bool(torch.all(e <= STEP_TOL + STEP_TOL *
                                         cy.float().abs()))
-                worst = max(worst, float(e.max()))
+                worst = max(worst, float(e.max()) if e.numel() else 0.0)
         errs[part] = worst
     tp = world.tp
     out = dict(rank=dist.get_rank(), data_rank=tp.data_rank,
                model_rank=tp.rank, note=world.note, errors=errs, close=close,
                collectives=live, plan=planned, launches=launches,
-               groups=groups.report(), wall_s=None,
-               rows=int(_flat(got)[0].shape[0]))
-    if arrays:
+               groups=groups.report(), wall_s=None, rows=rows,
+               sign_flips=flips, near_zero=near0, exempt_max_grad=exempt_max,
+               grad_rel=rel)
+    if train:
+        out["metrics"] = {k: float(v) for k, v in got[2].items()}
+        # on the card: the most bytes the step held above its inputs, the
+        # world rank's at its rows and the one-rank step's at the batch
+        out["act_bytes"] = dict(world=peak, one_rank=ref_peak)
+    if arrays and train:
+        out["arrays"] = dict(
+            params=[t.detach().cpu().numpy() for t in tree_leaves(got[0])],
+            mu=[t.cpu().numpy() for t in tree_leaves(got[1].mu)],
+            placement=place)
+    elif arrays:
         out["arrays"] = [[t.cpu().numpy() for t in _flat(x)]
                          for x in (got, want)]
     del got, want, pairs
-    if timed:   # after the check: a decode step writes its cache in place
+    if timed:   # after the check: a step writes its cache or params in place
         t0 = time.perf_counter()
         world.fn(*inputs)
         if device.type == "cuda":

@@ -31,8 +31,18 @@ rank's part of each output (its rows; the logits' vocabulary cut where the
 out spec splits it; its cache's heads). ``example_inputs`` draws the
 global inputs from the seed as for one rank and cuts out the rank's part
 (``rank_part``), so the one-rank step on the same seed is the reference
-(``rank_outputs`` cuts its outputs alike). A train step on a world is
-refused by name: ROADMAP Queue 1 item 10b.
+(``rank_outputs`` cuts its outputs alike). The train kinds run live too:
+the rank's params and Adam moments are its shards; the train step
+gathers the FSDP leaves itself (``ctx.layers_params``, by the layout
+``_Local`` sets on the rank's context), its backward sums over the model
+axis where the layers ask (``ctx.enter``), and it reduces its gradients
+over the data axis in tree order (``ctx.reduce_gradients``: FSDP leaves
+reduce-scattered, the others all-reduced), sums its token count and
+metrics there and takes the global norm of the whole params before Adam
+updates its shards. The plan holds the same collectives: the recorder
+records the layers' (a remat'd forward's again in the backward), the
+conjugates and the scalar sums where the live context issues them, and
+``fsdp_records`` the gathers and the gradient reduction.
 
 Input shapes:
   train_4k     seq 4,096   global_batch 256   -> train_step
@@ -80,9 +90,8 @@ MT_SHAPES = {
 
 SLIDING_WINDOW_LONG = 8192  # the dense archs' variant at 500k
 
-ITEM_10B = ("ROADMAP Queue 1 item 10b: a train step on a world of ranks "
-            "(a tensor-parallel backward and gradient reduction over the "
-            "data axes) and sequence sharding")
+ITEM_10B = ("ROADMAP Queue 1 item 10b: sequence sharding (a residual "
+            "stream split over the model axis)")
 
 
 class BuiltStep(NamedTuple):
@@ -202,14 +211,6 @@ def _live(mesh) -> bool:
     return not isinstance(mesh, (MeshShape, dict)) and _mesh_size(mesh) > 1
 
 
-def _refuse_train_on_a_world(mesh) -> None:
-    if _live(mesh):
-        raise NotImplementedError(
-            f"build_step: a train step on a world of {_mesh_size(mesh)} "
-            f"ranks is not ported ({ITEM_10B}); plan such a mesh with a "
-            f"MeshShape (repro_torch.launch.dryrun)")
-
-
 def _spec_leaves(tree, spec):
     """(leaf, spec) pairs of a tree and its spec tree (a None spec:
     replicated)."""
@@ -305,6 +306,10 @@ class _Local:
         held = (sh.serving_param_shardings(params, cfg, mesh) if laid else
                 rules.tree_map_with_path(lambda _, t: (), params))
         self.fsdp = fsdp_records(params, specs, mesh, train=train, held=held)
+        self.held = held
+        self.model_cut = {path: bool(rules.split_dims(h, rules.MODEL))
+                          for (path, _), (_, h) in zip(
+                              _paths(params), _spec_leaves(params, held))}
         if laid:
             self.params = sh.lay_out_params(params, cfg, mesh, tp, "meta")
             self.cache_cfg = c = sh.local_cache_cfg(cfg, tp)
@@ -331,6 +336,10 @@ class _Local:
                             ax if isinstance(ax, tuple) else (ax,)) & dp]
                 if dims:
                     self.gather_dims[path] = dims[0]
+        # the param layout the step's layers_params, its gradient
+        # reduction and global norm read
+        tp.model_cut, tp.gather_dims = self.model_cut, self.gather_dims
+        tp.split_paths = {k: frozenset(v) for k, v in self.split.items()}
         self.params = self.shard(self.params)
 
     def rows(self, B: int) -> int:
@@ -350,31 +359,19 @@ class _Local:
 
         return rules.tree_map_with_path(one, params)
 
-    def whole(self, params):
-        """The model-axis cut the layers run: each FSDP leaf all-gathered
-        over the data group (``ctx.data_gather``), and the gathered
-        tensors recorded as split in the live context (the layers know a
-        split weight by identity)."""
-        tp = self.tp
-        params = rules.tree_map_with_path(
-            lambda path, t: t if path not in self.gather_dims else
-            ctx.data_gather(t, self.gather_dims[path]), params)
-        for k, paths in self.split.items():
-            setattr(tp, f"{k}_split",
-                    frozenset(id(_lookup(params, p)) for p in paths))
-        return params
-
     def wrap(self, body, *, grad: bool = False, vocab_cut: bool = False):
         """``body`` under this rank's context (and, unless ``grad``,
-        without autograd: a serving step); on a world, with the FSDP
-        leaves gathered first and the logits (the first output, when
-        ``vocab_cut``) cut to the rank's vocabulary."""
+        without autograd: a serving step); on a world, a serving step with
+        the FSDP leaves gathered first (``ctx.layers_params``) and the
+        logits (the first output, when ``vocab_cut``) cut to the rank's
+        vocabulary, a train step (``grad``) on the rank's shards, which it
+        gathers itself."""
         tp, world = self.tp, self.world
 
         def fn(params, *args):
             with ctx.tensor_parallel(tp), torch.set_grad_enabled(grad):
-                if world:
-                    params = self.whole(params)
+                if world and not grad:
+                    params = ctx.layers_params(params)
                 out = body(params, *args)
             if world and vocab_cut:
                 out = (self.vocab(out[0]), *out[1:])
@@ -383,6 +380,40 @@ class _Local:
         return fn
 
     # -- a world rank's part of the global tensors (copies)
+
+    def cut(self, tree):
+        """The rank's part of a whole param-shaped tree (params, Adam's
+        moments, gradients; copies): ``lay_out_params``' model-axis cut,
+        then its data-axis shard of each FSDP leaf."""
+        if self.laid:
+            tree = sh.lay_out_params(tree, self.cfg, self.mesh,
+                                     dataclasses.replace(self.tp),
+                                     _paths(tree)[0][1].device)
+        return self.shard(tree)
+
+    def placement(self, tree) -> list:
+        """Where each leaf of the rank's part of a whole param-shaped tree
+        (``cut``) sits in the whole leaf: per leaf, ``(dim, start, stop)``
+        of every dim it is cut on (a contiguous cut; Mamba's fused
+        ``w_in``, cut half by half, is not one)."""
+        out = []
+        for (path, t), (_, h) in zip(_paths(tree),
+                                     _spec_leaves(tree, self.held)):
+            split = rules.split_dims(h, rules.MODEL) if self.laid else []
+            d_dim = self.gather_dims.get(path)
+            cuts = []
+            for d in range(t.dim()):
+                n, start = t.shape[d], 0
+                if d in split:
+                    n //= self.tp.size
+                    start = self.tp.rank * n
+                if d == d_dim:
+                    n //= self.data
+                    start += self.tp.data_rank * n
+                if n != t.shape[d]:
+                    cuts.append((d, start, start + n))
+            out.append(cuts)
+        return out
 
     def take_rows(self, t: torch.Tensor) -> torch.Tensor:
         """The rank's rows (dim 0) of a batch input or output."""
@@ -446,8 +477,6 @@ def build_step(arch: str, shape_name: str, mesh, *, dtype=torch.bfloat16,
     meta = SHAPES[shape_name]
     S, B, kind = meta["seq"], meta["batch"], meta["kind"]
     fsdp = fsdp_inference or kind == "train"
-    if kind == "train":
-        _refuse_train_on_a_world(mesh)
     params = _params_specs(cfg, dtype)
     p_sh = sh.param_shardings(params, mesh, fsdp=fsdp)
     dp = dp_axes(mesh)
@@ -588,8 +617,6 @@ def _build_mt_step(arch: str, shape_name: str, mesh, *,
     meta = MT_SHAPES[shape_name]
     S, B, kind = meta["seq"], meta["batch"], meta["kind"]
     train = kind == "mt_train"
-    if train:
-        _refuse_train_on_a_world(mesh)
     dp = dp_axes(mesh)
     params = _params_specs(cfg, dtype)
     if not train and not fsdp_inference:
@@ -679,7 +706,9 @@ def example_inputs(built: BuiltStep, *, device=None, seed: int = 0,
                    params=None) -> tuple:
     """Real tensors shaped like ``built.local_inputs``, drawn on ``device``
     (default: the card) by a generator seeded ``seed``: params from
-    ``init`` (or ``params``) in the specs' dtype; tokens in [4, vocab);
+    ``init`` (or ``params``) in the specs' dtype; tokens in [4, vocab); a
+    train batch's ``loss_mask`` zero on each row's first ``1 + b % (S //
+    2)`` positions, an MT ``tgt_out`` padded (0) on as many last ones;
     frames, memory and cache K/V, states normal; every cache slot filled
     with the latest position below the first fed one that maps to it (a
     full row: the decode read sees every slot), the fed tokens at the end
@@ -703,8 +732,9 @@ def _draw(built: BuiltStep, specs: tuple, dev, seed: int, params) -> tuple:
         init = s2s.init if cfg.family == "seq2seq" else tr.init
         params = init(gen, cfg, device=dev)
     leaves = rules.tree_map_with_path(lambda _, t: t, specs[0])
-    params = rules.tree_map_with_path(
-        lambda path, t: t.to(dev, _lookup(leaves, path).dtype), params)
+    params = rules.tree_map_with_path(   # copies: a train step updates them
+        lambda path, t: t.to(dev, _lookup(leaves, path).dtype, copy=True),
+        params)
 
     def normal(t):
         return (torch.randn(t.shape, generator=gen, device=dev) * 0.5).to(
@@ -718,11 +748,15 @@ def _draw(built: BuiltStep, specs: tuple, dev, seed: int, params) -> tuple:
         batch = {}
         for k, t in specs[2].items():
             if k == "loss_mask":
-                batch[k] = torch.ones(t.shape, dtype=t.dtype, device=dev)
+                batch[k] = _ragged(t, dev, head=True).to(t.dtype)
             elif t.is_floating_point():
                 batch[k] = normal(t)
             else:
                 batch[k] = ints(t, 0 if k == "labels" else 4)
+        if "tgt_out" in batch:   # pad (0) tails
+            batch["tgt_out"] = torch.where(
+                _ragged(batch["tgt_out"], dev, head=False),
+                batch["tgt_out"], 0)
         return params, adam_init(params), batch
     if built.kind == "prefill":
         return (params, *(ints(t, 4) if not t.is_floating_point()
@@ -750,20 +784,31 @@ def _draw(built: BuiltStep, specs: tuple, dev, seed: int, params) -> tuple:
     return params, cache, ints(tok_spec, 4), positions
 
 
+def _ragged(t, dev, *, head: bool) -> torch.Tensor:
+    """(B, S) bool, False on row b's first (``head``) or last ``1 + b %
+    max(1, S // 2)`` positions: each row counts another number of tokens,
+    so the data shards of a world count different numbers (a denominator
+    taken per shard would show)."""
+    B, S = t.shape
+    n = 1 + torch.arange(B, device=dev)[:, None] % max(1, S // 2)
+    j = torch.arange(S, device=dev)[None, :]
+    return j >= n if head else j < S - n
+
+
 def rank_part(built: BuiltStep, inputs: tuple) -> tuple:
     """The part of a one-rank step's inputs (the global ones) that this
-    rank of a world's built step takes, as copies: its params
-    (``lay_out_params``' model-axis cut, then with FSDP its data-axis
-    shard of each leaf the specs split there), its rows of every batch
-    input, its cache's rows and heads."""
+    rank of a world's built step takes, as copies: its params and a train
+    step's Adam moments (``lay_out_params``' model-axis cut, then with
+    FSDP its data-axis shard of each leaf the specs split there), its rows
+    of every batch input, its cache's rows and heads."""
     loc = built.rank
     if loc is None:
         return inputs
-    params = inputs[0]
-    if loc.laid:
-        params = sh.lay_out_params(params, built.cfg, loc.mesh, loc.tp,
-                                   _paths(params)[0][1].device)
-    params = loc.shard(params)
+    params = loc.cut(inputs[0])
+    if built.kind in ("train", "mt_train"):
+        opt, batch = inputs[1:]
+        return (params, type(opt)(opt.step, loc.cut(opt.mu), loc.cut(opt.nu)),
+                {k: loc.take_rows(t) for k, t in batch.items()})
     if built.kind == "prefill":
         return (params, *(loc.take_rows(t) for t in inputs[1:]))
     _, cache, tokens, positions = inputs
@@ -774,10 +819,16 @@ def rank_part(built: BuiltStep, inputs: tuple) -> tuple:
 def rank_outputs(built: BuiltStep, outputs):
     """A one-rank step's outputs cut as this rank of a world's built step
     returns them: its rows, the logits' vocabulary where the out spec
-    splits it, its cache's rows and heads."""
+    splits it, its cache's rows and heads; a train step's new params and
+    Adam moments as the rank holds them (``_Local.cut``), its metrics
+    whole."""
     loc = built.rank
     if loc is None:
         return outputs
+    if built.kind in ("train", "mt_train"):
+        params, opt, metrics = outputs
+        return (loc.cut(params),
+                type(opt)(opt.step, loc.cut(opt.mu), loc.cut(opt.nu)), metrics)
     if built.kind == "prefill" and built.cfg.family == "audio":
         return loc.take_rows(outputs)
     logits, cache = outputs

@@ -237,13 +237,26 @@ def _project_qkv(p: dict, cfg: ModelConfig, x, kv_input, *, cross: bool):
     ``wq`` is cut to the kv heads the rank's query heads read)."""
     B, T = x.shape[:2]
     hd = cfg.head_dim
+    wk, wv = p["wk"], p["wv"]
+    qn, kn = p.get("q_norm"), p.get("k_norm")
+    if p["wq"]["w"].shape[1] < cfg.n_heads * hd:
+        # the rank's heads: its inputs, a whole wk / wv cut to its kv heads
+        # and the qk norms get only its part of their gradients
+        same = kv_input is x
+        x = ctx.enter(x)
+        kv_input = x if same else ctx.enter(kv_input)
+        if wk["w"].shape[1] == (cfg.n_heads if cross else
+                                cfg.n_kv_heads) * hd:
+            wk, wv = ctx.enter_tree(wk), ctx.enter_tree(wv)
+        if cfg.qk_norm:
+            qn, kn = ctx.enter_tree(qn), ctx.enter_tree(kn)
     q = dense(p["wq"], x).reshape(B, T, -1, hd)
-    k = dense(p["wk"], kv_input).reshape(B, kv_input.shape[1], -1, hd)
-    v = dense(p["wv"], kv_input).reshape(B, kv_input.shape[1], -1, hd)
+    k = dense(wk, kv_input).reshape(B, kv_input.shape[1], -1, hd)
+    v = dense(wv, kv_input).reshape(B, kv_input.shape[1], -1, hd)
     k, v = _own_kv_heads(cfg, q.shape[2], k, v, cross=cross)
     if cfg.qk_norm:
-        q = apply_norm(p["q_norm"], q, "rmsnorm")
-        k = apply_norm(p["k_norm"], k, "rmsnorm")
+        q = apply_norm(qn, q, "rmsnorm")
+        k = apply_norm(kn, k, "rmsnorm")
     return q, k, v
 
 

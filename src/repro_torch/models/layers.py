@@ -7,8 +7,9 @@ layouts: a dense ``w`` is ``(d_in, d_out)`` and is applied as ``x @ w``, so
 
 Under a serving mesh's tensor-parallel context (``repro_torch.sharding.
 ctx``) the row-parallel projections (``dense_row``), the embedding and the
-output heads reduce or gather over the model axis; outside it they are
-the plain ops.
+output heads reduce or gather over the model axis, and under autograd the
+inputs of the split projections sum their gradients there
+(``ctx.enter``); outside it they are the plain ops.
 """
 
 from __future__ import annotations
@@ -174,6 +175,8 @@ def ffn_init(gen, d_model: int, d_ff: int, *, use_bias: bool, gated: bool,
 
 
 def ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+    if ctx.row_split(p["w_out"]["w"]):   # the hidden dim split: the rank's
+        x = ctx.enter(x)
     h = dense(p["w_in"], x)
     if "w_gate" in p:
         h = F.silu(dense(p["w_gate"], x)) * h
@@ -196,12 +199,14 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied output projection: ``x @ embed.T``."""
-    return ctx.gather_last(p["embed"], x @ p["embed"].T)
+    e = p["embed"]
+    return ctx.gather_last(e, ctx.vocab_input(e, x) @ e.T)
 
 
 def vocab_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
     """The output head ``x @ w_vocab``, whole over the vocabulary."""
-    return ctx.gather_last(p["w_vocab"], x @ p["w_vocab"])
+    w = p["w_vocab"]
+    return ctx.gather_last(w, ctx.vocab_input(w, x) @ w)
 
 
 def logits_init(gen, d_model: int, vocab: int, device) -> dict:

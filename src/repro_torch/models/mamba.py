@@ -21,7 +21,9 @@ its x- and z-columns of ``w_in`` (``launch.shardings``), the conv, ``A``,
 ``D`` and ``w_dt``'s columns of them; ``w_xdbc`` is row-parallel, so its
 ``dt / B / C`` projection is summed over the model axis before the split
 (``dt_rank`` and ``d_state`` stay whole), and ``w_out`` is reduced. The
-conv and the scan are per channel and need no collective.
+conv and the scan are per channel and need no collective. Under autograd
+the block's input and the summed ``dt / B / C`` enter the rank's channels
+through ``ctx.enter``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _normal, dense, dense_init, dense_row
+from repro_torch.sharding import ctx
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
@@ -83,8 +86,10 @@ def _ssm_inputs(p, xc):
     products summed over the model axis first)."""
     d_state = p["A_log"].shape[1]
     dt_rank = p["w_xdbc"]["w"].shape[1] - 2 * d_state
-    dt, Bsel, Csel = torch.split(dense_row(p["w_xdbc"], xc),
-                                 [dt_rank, d_state, d_state], dim=-1)
+    xdbc = dense_row(p["w_xdbc"], xc)
+    if ctx.row_split(p["w_xdbc"]["w"]):   # whole, into the rank's channels
+        xdbc = ctx.enter(xdbc)
+    dt, Bsel, Csel = torch.split(xdbc, [dt_rank, d_state, d_state], dim=-1)
     return _softplus(dense(p["w_dt"], dt)), Bsel, Csel
 
 
@@ -125,6 +130,8 @@ def mamba_mixer(p: dict, cfg: ModelConfig, x, *, lengths=None,
     d_inner = p["conv_b"].shape[0]
     d_conv = p["conv_w"].shape[0]
     B, T = x.shape[:2]
+    if ctx.row_split(p["w_xdbc"]["w"]):   # the rank's d_inner channels
+        x = ctx.enter(x)
     xi, z = torch.split(dense(p["w_in"], x), [d_inner, d_inner], dim=-1)
     valid = None
     if lengths is not None:

@@ -146,8 +146,8 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
     """x: (B, T, d) -> (out (B, T, d), aux): the load-balance loss, the
     router z-loss, the dropped fraction of choices and the top-1 fraction,
     as the JAX package returns them. On a data-split mesh the two
-    fractions are the global call's; the two losses (training's, which
-    does not run on a mesh) are this shard's rows'."""
+    fractions are the global call's and the two losses this shard's part
+    of the global call's (they sum to it over the data shards)."""
     m = cfg.moe
     B, T, d = x.shape
     E = m.n_experts
@@ -159,6 +159,12 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
     # experts are split over the model axis
     w_in = p["experts"]["w_in"]["w"]
     e0, E_local = ctx.expert_offset(w_in), w_in.shape[0]
+    split = ctx.expert_split(w_in)
+    shared_split = "shared" in p and ctx.row_split(p["shared"]["w_out"]["w"])
+    # the tokens and gates the rank's own experts (or its part of the
+    # shared expert) take: their gradients summed over the model axis
+    mine = ctx.enter(tokens) if split or shared_split else tokens
+    gates = ctx.enter(r["gate_vals"]) if split else r["gate_vals"]
     local = gate_idx - e0
     here = keep & (local >= 0) & (local < E_local)
     kept = here.to(tokens.dtype)[..., None]                      # (N, k, 1)
@@ -167,16 +173,16 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
     # dispatch: kept places are unique, so the accumulate is a plain write
     # (dropped choices pile up in place C, which is sliced off)
     buf = tokens.new_zeros((E_local, C + 1, d))
-    buf.index_put_((local, slot), tokens[:, None, :] * kept,
+    buf.index_put_((local, slot),
+                   (mine if split else tokens)[:, None, :] * kept,
                    accumulate=True)
     out_e = _expert_ffn(p["experts"], buf[:, :C])          # (E_local, C, d)
     gathered = out_e[local, slot.clamp(max=C - 1)]               # (N, k, d)
     out = (gathered * kept
-           * r["gate_vals"][..., None].to(tokens.dtype)).sum(1)  # (N, d)
-    split = ctx.expert_split(w_in)
+           * gates[..., None].to(tokens.dtype)).sum(1)           # (N, d)
     if "shared" in p:
         w = p["shared"]["w_out"]["w"]
-        sh = _shared_partial(p["shared"], tokens)
+        sh = _shared_partial(p["shared"], mine if shared_split else tokens)
         if split and ctx.row_split(w):
             out = ctx.model_sum(out + sh)        # one sum for both
         else:
@@ -187,9 +193,14 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
 
     n_glob = max(r["n_global"], 1)
     frac_tokens = r["top1"].float().mean() / n_glob
-    aux_loss = E * (F.one_hot(gate_idx[:, 0], E).float().mean(0)
-                    * r["probs"].mean(0)).sum() * m.aux_loss_weight
-    z_loss = (torch.logsumexp(r["logits"], dim=-1) ** 2).mean() \
+    # the load-balance loss E * sum_e f_e P_e: f_e (the top-1 fraction) is
+    # the global call's; P_e (the mean probability) is a mean over the
+    # global call's tokens, so this shard's rows give their part of it
+    # (the parts sum to the global loss over the data shards, as do the
+    # z-loss's)
+    aux_loss = E * (r["top1"].float() / n_glob * r["probs"].sum(0)
+                    / n_glob).sum() * m.aux_loss_weight
+    z_loss = (torch.logsumexp(r["logits"], dim=-1) ** 2).sum() / n_glob \
         * m.router_z_loss
     kept_all = r["counts"].clamp(max=C).sum()
     count = getattr(_state, "count", None)

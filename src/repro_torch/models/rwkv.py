@@ -22,7 +22,10 @@ then runs every head. The decay is computed whole from the replicated
 LayerNorm over the whole width, not a norm per head, so the rank's ``o``
 is gathered whole, normalised exactly as unsharded, and cut back to the
 rank's channels for ``o * g``; ``wo`` and the channel mix's ``w_out``
-are reduced.
+are reduced. Under autograd each split projection's input, the decay and
+the normalised ``o`` enter the rank's heads through ``ctx.enter`` (the
+decay and ``o`` inside ``ctx.model_slice``), so the replicated mixes,
+LoRA and ``ln_x`` get their whole gradients.
 """
 
 from __future__ import annotations
@@ -72,15 +75,22 @@ def _shift(x, x_last):
     return torch.cat([x_last[:, None, :], x[:, :-1, :]], dim=1)
 
 
+def _into(w: dict, x):
+    """``x``, the input of the square projection ``w``: through
+    ``ctx.enter`` where ``w``'s columns are the rank's own (a split)."""
+    return ctx.enter(x) if w["w"].shape[1] < w["w"].shape[0] else x
+
+
 def _projections(p, x, x_prev):
     """Token-shifted projections. x, x_prev: (B, T, d)."""
     mix = p["mix"]
     xr, xk, xv, xw, xg = (x * mix[i] + x_prev * (1 - mix[i]) for i in range(5))
-    k = dense(p["wk"], xk)
-    v = dense(p["wv"], xv)
+    k = dense(p["wk"], _into(p["wk"], xk))
+    v = dense(p["wv"], _into(p["wv"], xv))
     # r and g at k's heads: gathered whole where wk stays whole
-    r = ctx.model_gather(dense(p["wr"], xr), k.shape[-1])
-    g = F.silu(ctx.model_gather(dense(p["wg"], xg), k.shape[-1]))
+    r = ctx.model_gather(dense(p["wr"], _into(p["wr"], xr)), k.shape[-1])
+    g = F.silu(ctx.model_gather(dense(p["wg"], _into(p["wg"], xg)),
+                                k.shape[-1]))
     w = p["w_base"] + dense(p["w_lora_b"], torch.tanh(dense(p["w_lora_a"],
                                                             xw)))
     decay = torch.exp(-torch.exp(w.float()))               # (B, T, d) in (0, 1)
@@ -154,5 +164,7 @@ def rwkv_channel_mix(p: dict, x, *, x_last=None):
         x_last = torch.zeros((B, d), dtype=x.dtype, device=x.device)
     mix = p["mix_c"][0]
     xk = x * mix + _shift(x, x_last) * (1 - mix)
+    if ctx.row_split(p["w_out"]["w"]):   # the hidden dim split
+        xk = ctx.enter(xk)
     h = torch.square(torch.relu(dense(p["w_in"], xk)))
     return dense_row(p["w_out"], h), x[:, -1, :]

@@ -115,7 +115,7 @@ def decode(params, cfg: ModelConfig, tgt_in, memory, src_mask, *,
                                 memory_mask=src_mask)
         x = x + ffn(p["ffn"], apply_norm(p["norm2"], x, cfg.norm))
     x = apply_norm(params["dec_norm"], x, cfg.norm)
-    return x @ params["lm_head"]["w_vocab"]
+    return vocab_logits(params["lm_head"], x)
 
 
 def apply(params, cfg: ModelConfig, src, tgt_in, *, src_mask=None,

@@ -48,7 +48,7 @@ activations in the backward (``torch.utils.checkpoint``).
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -61,6 +61,7 @@ from repro_torch.models.attention import (KVCache, PagedKVCache, attention,
 from repro_torch.models.layers import (apply_norm, embed, embed_init, ffn,
                                        ffn_init, logits_init, norm_init,
                                        rope_tables, unembed, vocab_logits)
+from repro_torch.sharding import ctx
 
 RECURRENT = ("mamba", "rwkv")
 _NEEDS = {"moe": "moe", "mamba": "mamba", "rwkv": "rwkv"}
@@ -496,9 +497,22 @@ def apply(params, cfg: ModelConfig, tokens=None, *, embeddings=None,
         return (h, *sums)
 
     totals = [x.new_zeros((), dtype=torch.float32) for _ in keys]
+    tp = ctx.current()
+
+    def recomputed(r: int, h):
+        """``repeat`` as the backward recomputes it: whole (no early stop,
+        so a mesh rank reissues every collective of its forward) and under
+        this rank's tensor-parallel context (on the card the backward runs
+        on autograd's own thread)."""
+        with ctx.tensor_parallel(tp):
+            return repeat(r, h)
+
     for r in range(cfg.n_repeats):
-        out = (checkpoint(repeat, r, x, use_reentrant=False) if remat
-               else repeat(r, x))
+        if remat:
+            with set_checkpoint_early_stop(False):
+                out = checkpoint(recomputed, r, x, use_reentrant=False)
+        else:
+            out = repeat(r, x)
         x = out[0]
         totals = [t + a for t, a in zip(totals, out[1:])]
     return _logits_out(params, cfg, x), dict(zip(keys, totals))

@@ -29,7 +29,26 @@ exactly as it does unsharded. Inside it:
   come from one ``all_reduce`` over the data axis
   (``data_prefix_counts``);
 - a built step's FSDP params are gathered whole over the data axis before
-  the model runs (``data_gather``, ``launch.steps``).
+  the model runs (``layers_params``, by the layout ``launch.steps`` sets).
+
+Under autograd (a train step on a world of ranks) every forward sum is a
+new tensor whose backward is the identity (``_Sum``): each rank's partial
+term gets the whole sum's gradient. Its conjugate is ``enter``: the
+identity whose backward sums the gradient over the model axis. It stands
+wherever a tensor held whole on every model rank (an activation, or a
+whole weight) enters a computation that is the rank's own: a split
+projection's input, a whole tensor cut to the rank's channels
+(``model_slice``, ``row_input``), a vocab-split head's input
+(``vocab_input``), the tokens and gates of split experts, a whole
+``wk`` / ``wv`` cut to the rank's kv heads, a norm over the rank's
+heads. So every tensor held whole gets the whole gradient on every rank,
+and every weight held whole its whole gradient, summed once. The data
+axis: a train step takes its gradients of the gathered leaves
+(``layers_params`` gathers outside autograd), reduces them over the data
+axis in tree order (``reduce_gradients``: each FSDP leaf's
+reduce-scattered to the rank's shard, each other leaf's all-reduced), and
+sums its token count, metrics and squared norms there (``data_total``,
+``model_total``).
 
 Which weights are split is recorded by identity when the engine lays the
 params out (``TensorParallel.row_split`` / ``vocab_split`` /
@@ -51,9 +70,10 @@ appends ``(kind, bytes)`` to its ``records`` and returns its input's
 shape and values unreduced (on meta: the shape), so the layers run at the
 rank's local widths in one process. ``data_prefix_counts`` returns the
 global token count as the local count times the data shards (a dry run's
-batches divide evenly), with no host read. Under autograd each recorded
-model-axis all-reduce also records its conjugate in the backward: the same
-bytes again, through an identity ``torch.autograd.Function``.
+batches divide evenly), with no host read. Under autograd a recorder
+records each ``enter`` in the backward, where the live context issues it,
+and a remat'd forward's collectives again where its backward recomputes
+them.
 """
 
 from __future__ import annotations
@@ -109,6 +129,15 @@ class TensorParallel:
     n_data_collectives: int = 0
     records: list | None = None  # a recorder's (kind, bytes); None: live
     log: list | None = None  # a live context's (kind, bytes), when asked
+    # a world rank's param layout, by leaf path (``launch.steps`` sets it;
+    # None: no layout, one rank or a plan's recorder): whether the leaf is
+    # cut over the model axis, the dim an FSDP leaf is split on over the
+    # data axis, and the leaves recorded as split (``"row"`` / ``"vocab"``
+    # / ``"expert"``: their ``*_split`` ids are set anew on the gathered
+    # params)
+    model_cut: dict | None = None
+    gather_dims: dict = dataclasses.field(default_factory=dict)
+    split_paths: dict = dataclasses.field(default_factory=dict)
 
 
 def recording_tensor_parallel(mesh, *, model_rank: int = 0,
@@ -129,22 +158,6 @@ def recording_tensor_parallel(mesh, *, model_rank: int = 0,
                           data_size=data, records=[])
 
 
-class _Conjugate(torch.autograd.Function):
-    """The identity, recording the conjugate all-reduce of a recorded one
-    in the backward (the same bytes)."""
-
-    @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        ctx.tp.records.append(("all-reduce", g.nbytes))
-        ctx.tp.n_collectives += 1
-        return g, None
-
-
 def current() -> TensorParallel | None:
     return getattr(_state, "tp", None)
 
@@ -160,21 +173,91 @@ def tensor_parallel(tp: TensorParallel | None):
         _state.tp = prev
 
 
-def _all_reduce(tp: TensorParallel, x: torch.Tensor) -> torch.Tensor:
-    if tp.records is not None:
-        tp.records.append(("all-reduce", x.nbytes))
+def _fresh(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` (a collective sums in place)."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _reduce(tp: TensorParallel, x: torch.Tensor, *, data: bool = False,
+            kind: str = "all-reduce") -> torch.Tensor:
+    """``x`` summed over the model axis (``data``: the data axis), in
+    place when ``x`` is contiguous; counted, and logged or recorded as
+    ``(kind, bytes)``. A recorder returns ``x`` as it is."""
+    if data:
+        tp.n_data_collectives += 1
+    else:
         tp.n_collectives += 1
-        if torch.is_grad_enabled() and x.requires_grad:
-            return _Conjugate.apply(x, tp)
+    if tp.records is not None:
+        tp.records.append((kind, x.nbytes))
         return x
     import torch.distributed as dist
 
     x = x.contiguous()
-    dist.all_reduce(x, group=tp.group)
-    tp.n_collectives += 1
+    dist.all_reduce(x, group=tp.data_group if data else tp.group)
     if tp.log is not None:
-        tp.log.append(("all-reduce", x.nbytes))
+        tp.log.append((kind, x.nbytes))
     return x
+
+
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Sum(torch.autograd.Function):
+    """A sum over the model axis whose backward is the identity: each
+    rank's term gets the whole sum's gradient, which every rank holds."""
+
+    @staticmethod
+    def forward(ctx_, x, tp):
+        return _reduce(tp, x.view_as(x) if tp.records is not None
+                       else _fresh(x))
+
+    @staticmethod
+    def backward(ctx_, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity whose backward sums the gradient over the model axis:
+    a tensor held whole on every model rank entering a computation that
+    is the rank's own (its heads, channels, experts or vocabulary), whose
+    backward gives only the rank's part of the gradient."""
+
+    @staticmethod
+    def forward(ctx_, x, tp):
+        ctx_.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx_, g):
+        tp = ctx_.tp
+        return _reduce(tp, g if tp.records is not None else _fresh(g)), None
+
+
+def _all_reduce(tp: TensorParallel, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the model axis; under autograd a new tensor whose
+    backward is the identity (``_Sum``), else in place."""
+    if _grad(x):
+        return _Sum.apply(x, tp)
+    return _reduce(tp, x)
+
+
+def enter(x: torch.Tensor) -> torch.Tensor:
+    """``x``, held whole on every model rank, as the input of a computation
+    that is this rank's own: the identity, whose backward sums the
+    gradient over the model axis (``_Enter``). ``x`` as it is unsharded,
+    on a model axis of one, or where no gradient is asked for."""
+    tp = current()
+    if tp is None or tp.size == 1 or not _grad(x):
+        return x
+    return _Enter.apply(x, tp)
+
+
+def enter_tree(p: dict) -> dict:
+    """``enter`` on each tensor of a weight's dict (``{"w": ..., "b":
+    ...}``): a whole weight used by this rank's own computation, whose
+    gradient each rank holds only its part of."""
+    return {k: enter(v) for k, v in p.items()}
 
 
 def row_reduce(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -198,7 +281,7 @@ def model_slice(x: torch.Tensor, n: int) -> torch.Tensor:
     tp = current()
     if tp is None or x.shape[-1] == n:
         return x
-    return x[..., tp.rank * n:(tp.rank + 1) * n]
+    return enter(x)[..., tp.rank * n:(tp.rank + 1) * n]
 
 
 def model_gather(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -267,30 +350,121 @@ def data_prefix_counts(counts: torch.Tensor, n: int
             int(buf[:, -1].sum()))
 
 
-def data_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """``x`` whole on ``dim`` over the data axis, from each data shard's
-    equal contiguous part (an FSDP param's shard): one ``all_reduce`` of a
-    zeroed buffer into which each rank writes its part, exact, over the
-    data group (gloo takes no ``all_gather`` of CUDA tensors). A recorder
-    records it; unsharded, or one data shard: ``x``."""
-    tp = current()
-    if tp is None or tp.data_size == 1:
-        return x
+def _gather(tp: TensorParallel, x: torch.Tensor, dim: int) -> torch.Tensor:
     n = x.shape[dim]
     shape = list(x.shape)
     shape[dim] = n * tp.data_size
     full = x.new_zeros(shape)
     full.narrow(dim, tp.data_rank * n, n).copy_(x)
-    tp.n_data_collectives += 1
-    if tp.records is not None:
-        tp.records.append(("all-gather", full.nbytes))
-        return full
-    import torch.distributed as dist
+    return _reduce(tp, full, data=True, kind="all-gather")
 
-    dist.all_reduce(full, group=tp.data_group)
-    if tp.log is not None:
-        tp.log.append(("all-gather", full.nbytes))
-    return full
+
+def _reduce_scatter(tp: TensorParallel, g: torch.Tensor,
+                    dim: int) -> torch.Tensor:
+    """This data shard's equal part on ``dim`` of ``g`` summed over the
+    data axis: an ``all_reduce`` of which the rank keeps its part (gloo
+    takes no ``reduce_scatter`` of CUDA tensors), logged as a
+    ``reduce-scatter`` of the whole."""
+    full = _reduce(tp, _fresh(g), data=True, kind="reduce-scatter")
+    n = full.shape[dim] // tp.data_size
+    return full.narrow(dim, tp.data_rank * n, n).clone()
+
+
+def data_total(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (a count, a squared norm, a few metrics) summed over the data
+    axis, outside autograd: a new tensor, or ``x`` unsharded or on one
+    data shard (a recorder records the sum and returns ``x``)."""
+    tp = current()
+    if tp is None or tp.data_size == 1:
+        return x
+    x = x.detach()
+    return _reduce(tp, x if tp.records is not None else _fresh(x),
+                   data=True)
+
+
+def model_total(x: torch.Tensor) -> torch.Tensor:
+    """``data_total`` over the model axis."""
+    tp = current()
+    if tp is None or tp.size == 1:
+        return x
+    x = x.detach()
+    return _reduce(tp, x if tp.records is not None else _fresh(x))
+
+
+def layers_params(params):
+    """The params the layers run: ``params`` as they are, or on a world
+    rank with a param layout (``TensorParallel.model_cut`` set) each FSDP
+    leaf gathered whole over the data axis from each data shard's equal
+    contiguous part: one ``all_reduce`` of a zeroed buffer into which each
+    rank writes its part, exact, over the data group (gloo takes no
+    ``all_gather`` of CUDA tensors). The gathered leaves are new tensors
+    outside autograd, set to require grad when it is on: a train step
+    takes its gradients there and reduces them itself
+    (``reduce_gradients``). The split weights are recorded anew by the
+    gathered tensors' identity."""
+    from repro_torch.sharding.rules import tree_map_with_path
+
+    tp = current()
+    if tp is None or tp.model_cut is None:
+        return params
+    grad = torch.is_grad_enabled()
+    ids = {k: set() for k in tp.split_paths}
+
+    def one(path, t):
+        d = tp.gather_dims.get(path)
+        if d is not None:
+            with torch.no_grad():
+                t = _gather(tp, t.detach(), d)
+            t.requires_grad_(grad)
+        for k, paths in tp.split_paths.items():
+            if path in paths:
+                ids[k].add(id(t))
+        return t
+
+    out = tree_map_with_path(one, params)
+    for k, v in ids.items():
+        setattr(tp, f"{k}_split", frozenset(v))
+    return out
+
+
+def reduce_gradients(grads):
+    """A world rank's gradients of the params its layers ran
+    (``layers_params``; a tree shaped like the params), reduced over the
+    data axis leaf by leaf in tree order: each FSDP leaf's
+    reduce-scattered to the rank's shard, each other leaf's all-reduced
+    (the data shards' rows are parts of one global batch). As they are
+    without a param layout: one rank, or a plan's recorder, whose plan
+    counts this traffic itself (``launch.steps.fsdp_records``)."""
+    from repro_torch.sharding.rules import tree_map_with_path
+
+    tp = current()
+    if tp is None or tp.model_cut is None:
+        return grads
+    dims = tp.gather_dims
+
+    def one(path, g):
+        if path in dims:
+            return _reduce_scatter(tp, g, dims[path])
+        if tp.data_size > 1:
+            return _reduce(tp, _fresh(g), data=True)
+        return g
+
+    return tree_map_with_path(one, grads)
+
+
+def leaf_axes(tree) -> list:
+    """Per leaf of a param-shaped tree, in tree order: (split over the data
+    axis, cut over the model axis) on a world rank with a param layout;
+    (False, False) without one."""
+    from repro_torch.sharding.rules import tree_map_with_path
+
+    tp = current()
+    lay = tp is not None and tp.model_cut is not None
+    out = []
+    tree_map_with_path(lambda path, _: out.append(
+        (path in tp.gather_dims, tp.model_cut[path]) if lay else
+        (False, False)), tree)
+    return out
 
 
 def row_input(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -301,7 +475,7 @@ def row_input(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if tp is None or id(w) not in tp.row_split or x.shape[-1] == w.shape[0]:
         return x
     n = w.shape[0]
-    return x[..., tp.rank * n:(tp.rank + 1) * n]
+    return enter(x)[..., tp.rank * n:(tp.rank + 1) * n]
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -316,6 +490,14 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     rows = table[local.clamp(0, n - 1)]
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
     return _all_reduce(tp, rows)
+
+
+def vocab_input(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The input ``x`` of a vocab-split head ``w`` (``enter``), or ``x``."""
+    tp = current()
+    if tp is None or id(w) not in tp.vocab_split:
+        return x
+    return enter(x)
 
 
 def gather_last(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

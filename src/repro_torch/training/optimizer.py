@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.sharding import ctx
+
 
 def tree_leaves(tree) -> list:
     """The tensors of a tree of dicts and lists, depth first, in insertion
@@ -103,9 +105,24 @@ def noam_schedule(d_model: int, warmup: int = 8000, factor: float = 2.0):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf (fp32), a device scalar."""
-    norms = torch._foreach_norm([x.float() for x in tree_leaves(tree)])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """sqrt of the sum of squares of every leaf (fp32), a device scalar.
+
+    On a world rank (``sharding.ctx``: its leaves are its shards) the sum
+    runs over the whole params: each leaf's squared norm is summed over
+    the axes the leaf is split over, and counted once over an axis it is
+    whole on (the rank at index 0 of that axis counts it), by one
+    model-axis and one data-axis sum of a scalar. A plan's recorder,
+    which has no param layout, records the same two sums."""
+    leaves = tree_leaves(tree)
+    norms = torch._foreach_norm([x.float() for x in leaves])
+    tp = ctx.current()
+    if tp is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    mine = [n for n, (data, model) in zip(norms, ctx.leaf_axes(tree))
+            if (data or tp.data_rank == 0) and (model or tp.rank == 0)]
+    sq = (torch.stack(mine).square().sum() if mine
+          else norms[0].new_zeros(()))
+    return ctx.data_total(ctx.model_total(sq)).sqrt()
 
 
 def clip_by_global_norm(grads, max_norm: float):

@@ -10,10 +10,20 @@ forward and backward on the card), clipping and Adam with
 ``torch._foreach_*`` ops. Where JAX donates the buffers, the port updates
 params and moments in place; the metrics stay on the device until the
 ``Trainer`` reads them on a logging step.
+
+On a world rank (a built step on a ``DeviceMesh``, ``launch.steps``) the
+params are the rank's shards: the step runs the layers on them with the
+FSDP leaves gathered over the data axis (``ctx.layers_params``), takes
+its gradients there (the layers' tensor-parallel backward sums over the
+model axis), reduces them over the data axis in tree order, sums its
+metrics there, clips by the global norm of the whole params and runs
+Adam on its shards: its part of what the one-rank step computes.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Callable, Iterable
 
@@ -23,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import seq2seq as s2s
 from repro_torch.models import transformer as tr
+from repro_torch.sharding import ctx
 from repro_torch.training.loss import cross_entropy_loss
 from repro_torch.training.optimizer import (AdamState, adam_init,
                                             adam_update, clip_by_global_norm,
@@ -35,16 +46,52 @@ def seq2seq_loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
     """The seq2seq loss on ``batch`` (``src``, ``tgt_in``, ``tgt_out``;
     pad 0 is not counted) and its gradient. Returns (loss, metrics, grads
     shaped like ``params``); the param leaves are set to require grad."""
-    leaves = tree_leaves(params)
     with torch.enable_grad():
-        for p in leaves:
+        for p in tree_leaves(params):
             p.requires_grad_(True)
-        logits, _ = s2s.apply(params, cfg, batch["src"], batch["tgt_in"])
+        run = ctx.layers_params(params)
+        logits, _ = s2s.apply(run, cfg, batch["src"], batch["tgt_in"])
         mask = (batch["tgt_out"] != 0).float()
         loss, metrics = cross_entropy_loss(logits, batch["tgt_out"], mask=mask,
                                            label_smoothing=label_smoothing)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, tree_leaves(run))
     return loss.detach(), metrics, tree_unflatten(params, list(grads))
+
+
+def _grads_seen():
+    return getattr(_capture, "grads", None)
+
+
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def capture_grads():
+    """While open, each train step on this thread appends its gradients
+    after the data-axis reduction and before the clip (detached copies, in
+    tree order) to the yielded list: a world rank's against the one-rank
+    step's."""
+    prev = _grads_seen()
+    _capture.grads = out = []
+    try:
+        yield out
+    finally:
+        _capture.grads = prev
+
+
+def _reduced(grads, metrics):
+    """A world rank's gradients (of the params its layers ran) reduced over
+    the data axis in tree order (``ctx.reduce_gradients``), and its
+    metrics summed there (one collective: this shard's parts of the global
+    means; ``tokens`` is global already). As they are on one rank."""
+    grads = ctx.reduce_gradients(grads)
+    keys = [k for k in metrics if k != "tokens"]
+    total = ctx.data_total(torch.stack([metrics[k].float() for k in keys]))
+    metrics = dict(metrics, **{k: total[i] for i, k in enumerate(keys)})
+    seen = _grads_seen()
+    if seen is not None:
+        seen.append([g.detach().clone() for g in tree_leaves(grads)])
+    return grads, metrics
 
 
 def make_seq2seq_train_step(cfg: ModelConfig, *,
@@ -56,6 +103,7 @@ def make_seq2seq_train_step(cfg: ModelConfig, *,
     def train_step(params, opt_state: AdamState, batch):
         _, metrics, grads = seq2seq_loss_and_grads(
             params, cfg, batch, label_smoothing=label_smoothing)
+        grads, metrics = _reduced(grads, metrics)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         params, opt_state = adam_update(grads, opt_state, params, lr=lr)
         metrics["grad_norm"] = gnorm
@@ -73,18 +121,18 @@ def lm_loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
     model's auxiliary losses (MoE) are added to the loss and reported in
     the metrics. Returns (loss, metrics, grads shaped like ``params``); the
     param leaves are set to require grad."""
-    leaves = tree_leaves(params)
     with torch.enable_grad():
-        for p in leaves:
+        for p in tree_leaves(params):
             p.requires_grad_(True)
+        run = ctx.layers_params(params)
         if cfg.family == "audio":
-            logits, aux = tr.apply(params, cfg,
+            logits, aux = tr.apply(run, cfg,
                                    embeddings=batch["embeddings"],
                                    remat=remat)
             labels, mask = batch["labels"], None
         else:
             tokens = batch["tokens"]
-            logits, aux = tr.apply(params, cfg, tokens[:, :-1],
+            logits, aux = tr.apply(run, cfg, tokens[:, :-1],
                                    memory=batch.get("memory"), remat=remat)
             labels = tokens[:, 1:]
             mask = batch["loss_mask"][:, 1:]
@@ -93,7 +141,7 @@ def lm_loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
         for k, v in aux.items():
             loss = loss + v
             metrics[k] = v.detach()
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, tree_leaves(run))
     return loss.detach(), metrics, tree_unflatten(params, list(grads))
 
 
@@ -107,6 +155,7 @@ def make_lm_train_step(cfg: ModelConfig, *, label_smoothing: float = 0.0,
     def train_step(params, opt_state: AdamState, batch):
         _, metrics, grads = lm_loss_and_grads(
             params, cfg, batch, label_smoothing=label_smoothing, remat=remat)
+        grads, metrics = _reduced(grads, metrics)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         params, opt_state = adam_update(grads, opt_state, params, lr=lr)
         metrics["grad_norm"] = gnorm

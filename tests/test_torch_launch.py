@@ -29,10 +29,10 @@
   on the same bridged params and prompt, speculative == greedy, on
   SmolLM and RWKV6 reduced;
 - the repairs: ``World()`` and ``synthetic_batch`` without a device
-  raise the missing card's error (the world before a rank starts), the
-  job functions default to the card, and a built train step on a world
-  of ranks is refused by name (the serving kinds run on a live world in
-  ``tests/test_torch_world_steps.py``).
+  raise the missing card's error (the world before a rank starts), and
+  the job functions default to the card (the built steps run on a live
+  world in ``tests/test_torch_world_steps.py`` and
+  ``tests/test_torch_world_train.py``).
 """
 
 import dataclasses
@@ -558,24 +558,6 @@ def test_synthetic_batch_defaults_to_the_card():
 def test_job_functions_default_to_the_card(job):
     sig = inspect.signature(getattr(mesh_runs, job))
     assert sig.parameters["on_card"].default is True
-
-
-class _World:
-    """A stand-in for a DeviceMesh over a live world of 4 ranks."""
-    mesh_dim_names = ("data", "model")
-    shape = (2, 2)
-
-
-@pytest.mark.parametrize("shape,kw,what", [
-    ("train_4k", {}, "a train step"),
-    ("mt_train", {}, "a train step"),
-])
-def test_build_step_on_a_world_is_refused(shape, kw, what):
-    arch = "mt-product" if shape.startswith("mt_") else "smollm-135m"
-    with pytest.raises(NotImplementedError, match="item 10b") as e:
-        steps.build_step(arch, shape, _World(),
-                         cfg_override=get_config(arch, reduced=True), **kw)
-    assert what in str(e.value)
 
 
 def test_port_launch_modules_import_no_jax():

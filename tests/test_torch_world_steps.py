@@ -180,7 +180,9 @@ def test_ranks_logits_put_together_equal_one_rank(world, small, name, mesh):
 
 
 def test_item_10b_names_only_the_train_kinds_and_sequence_sharding():
+    """Item 10b names sequence sharding alone: the train kinds run on a
+    world (``tests/test_torch_world_train.py``)."""
     for text in (steps.ITEM_10B, dryrun.SEQ_SHARD_REFUSAL):
-        assert "item 10b" in text
-        assert "train step" in text and "sequence" in text
+        assert "item 10b" in text and "sequence" in text
+        assert "train" not in text and "world" not in text
         assert "FSDP" not in text and "serving" not in text
