@@ -247,14 +247,20 @@ In order:
      printed beside world_batch's estimate, the live collectives == the
      plan, each rank's flash
      forward and backward launched and every launch group held to plain.
-     Last,
+     Then the sequence-sharded kinds (``built_step(seq_shard=True)``: the
+     residual stream split along T over the model axis): SmolLM-135M
+     whole train_4k at S 4,096 and the reduced prefill_32k at S 2,048,
+     FSDP params, held as above (the prefill's decode_gqa launched), with
+     the model-axis all-gather and reduce-scatter of the whole (B_local,
+     T, d) stream among the live collectives. Last,
      each decode read's and flash's launch group of the mesh's engine
      runs timed alone against its plain version,
      ``scaled_dot_product_attention`` and its bound on seeded inputs at
      its shape;
   20. the launch phase (``serve_launch``): the dry-run CLIs
-     (``repro_torch.launch.dryrun`` on SmolLM-135M's four shapes and on
-     Phi-3.5-MoE's decode_32k verify pass) as subprocesses on the card's
+     (``repro_torch.launch.dryrun`` on SmolLM-135M's four shapes, on
+     Phi-3.5-MoE's decode_32k verify pass and on SmolLM-135M's train_4k
+     with ``--seq-shard``) as subprocesses on the card's
      host, started first and collected last; ``launch.train.main`` in
      this process on SmolLM-135M whole (30 steps, B 16 x 256),
      HuBERT-xlarge whole (3 steps, B 2 x 500) and the VLM reduced (5
@@ -3301,8 +3307,12 @@ def serve_mesh(torch, device: str = "cuda") -> dict:
 # (FSDP params always). A kind whose inputs and activations the 4 ranks
 # could not hold on the card (``world_batch``: each rank draws the global
 # inputs twice, its own cut and the one-rank reference, and runs both)
-# halves its batch first, and says so. (arch, shape, kwargs, config
-# fields, shape fields)
+# halves its batch first, and says so. Last, the sequence-sharded kinds
+# (kwargs ``seq_shard``: ``built_step`` runs the world step and its plan
+# under ``activation_rules(seq=("model",))``, the residual stream split
+# along T over the model axis): SmolLM-135M whole train_4k at S 4,096 and
+# the reduced prefill_32k at S 2,048, FSDP params only. (arch, shape,
+# kwargs, config fields, shape fields)
 WORLD_STEPS = dict(
     kinds=[("smollm-135m", "decode_32k", {}, {}, {}),
            ("smollm-135m", "decode_32k", dict(verify_tokens=11), {}, {}),
@@ -3312,7 +3322,10 @@ WORLD_STEPS = dict(
            ("smollm-135m", "long_500k", {}, {}, {}),
            ("mt-product", "mt_verify", {}, dict(max_len=256), {}),
            ("smollm-135m", "train_4k", {}, None, {}),
-           ("mt-product", "mt_train", {}, None, {})],
+           ("mt-product", "mt_train", {}, None, {}),
+           ("smollm-135m", "train_4k", dict(seq_shard=True), None, {}),
+           ("smollm-135m", "prefill_32k", dict(seq_shard=True), {},
+            dict(seq=2048))],
     fsdp=(True, False), seed=SEED, headroom=0.6)
 WORLD_KERNELS = ("decode_gqa", "paged_decode_gqa", "draft_verify",
                  "flash_attention", "flash_attention_bwd")
@@ -3391,6 +3404,7 @@ def world_steps(torch, world, device: str, per_rank: list) -> dict:
     import math
     from collections import Counter
 
+    from repro_torch.configs import get_config
     from repro_torch.launch import steps
     from repro_torch.launch.mesh_runs import STEP_TOL
 
@@ -3398,11 +3412,15 @@ def world_steps(torch, world, device: str, per_rank: list) -> dict:
     on_card = device == "cuda"
     out = {}
     for arch, shape, kw, fields, seq in WORLD_STEPS["kinds"]:
+        split = kw.get("seq_shard", False)
+        kw = {k: v for k, v in kw.items() if k != "seq_shard"}
+        d_model = get_config(arch, reduced=fields is not None).d_model
         full, batch, acts = world_batch(torch, arch, shape, kw, fields,
                                         world.n, seq)
         table = steps.MT_SHAPES if shape in steps.MT_SHAPES else steps.SHAPES
         train = table[shape]["kind"] in ("train", "mt_train")
         label = (f"{arch} {'whole' if fields is None else 'reduced'} {shape}"
+                 + (" seq_shard" if split else "")
                  + "".join(f" {k}={v}" for k, v in kw.items())
                  + "".join(f" {k} {v} of {table[shape][k]}"
                            for k, v in seq.items()))
@@ -3412,7 +3430,7 @@ def world_steps(torch, world, device: str, per_rank: list) -> dict:
                   f"the card, {batch}", flush=True)
         t_kind = time.perf_counter()
         # a train step's params are FSDP whatever fsdp_inference says
-        for fsdp in WORLD_STEPS["fsdp"][:1 if train else None]:
+        for fsdp in WORLD_STEPS["fsdp"][:1 if train or split else None]:
             got = world.run("repro_torch.launch.mesh_runs:built_step",
                             arch=arch, shape=shape,
                             kw=dict(kw, fsdp_inference=fsdp),
@@ -3420,7 +3438,7 @@ def world_steps(torch, world, device: str, per_rank: list) -> dict:
                             shape_override=dict(table[shape], **seq,
                                                 batch=batch),
                             fields=fields or {}, full=fields is None,
-                            timed=True, on_card=on_card)
+                            seq_shard=split, timed=True, on_card=on_card)
             tag = f"world step [{label}, fsdp {fsdp}]"
             for r in got:
                 live = Counter(map(tuple, r["collectives"]))
@@ -3450,6 +3468,16 @@ def world_steps(torch, world, device: str, per_rank: list) -> dict:
                 if any(r["launches"][k] == 0 for k in need):
                     raise AssertionError(f"{tag} rank {r['rank']}: "
                                          f"launches {r['launches']}")
+                # the split stream: gathered and reduce-scattered along T
+                # over the model axis, (B_local, T, d) a collective
+                stream = (r["rows"] * (seq.get("seq") or table[shape]["seq"])
+                          * d_model * 4)
+                if split and not (live[("all-gather", stream)]
+                                  and live[("reduce-scatter", stream)]
+                                  and "seq_shard=T/" in r["note"]):
+                    raise AssertionError(f"{tag} rank {r['rank']}: the "
+                                         f"stream is not split: "
+                                         f"{r['note']}, {sorted(live)}")
             for acc, r in zip(per_rank, got):
                 for k in WORLD_KERNELS:
                     acc[k] += r["launches"][k]
@@ -3545,7 +3573,8 @@ LAUNCH = dict(
            ("mt-product", "mt_train", {}, dict(max_len=256))],
     dryrun=[["--arch", "smollm-135m", "--shape", "all"],
             ["--arch", "phi3.5-moe-42b-a6.6b", "--shape", "decode_32k",
-             "--verify-tokens", "11"]],
+             "--verify-tokens", "11"],
+            ["--arch", "smollm-135m", "--shape", "train_4k", "--seq-shard"]],
     examples=["smollm-135m", "rwkv6-1.6b"],
     dryrun_timeout_s=300)
 

@@ -13,7 +13,15 @@ compiles. Runs on the CPU; needs no card.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all --multi-pod
-  ... [--no-fsdp] [--verify-tokens 11 [--multidraft 5]] [--out results.jsonl]
+  ... [--seq-shard] [--no-fsdp] [--verify-tokens 11 [--multidraft 5]]
+      [--out results.jsonl]
+
+``--seq-shard`` plans every run under ``sharding.ctx.activation_rules(
+mesh, batch=("data",), seq=("model",))``, as JAX's ``_lower_compile``
+wraps its lowering: the decoder-only residual stream is split along T over
+the model axis where the axis divides T (train_4k, prefill_32k), the
+remat-saved carries a rank keeps are its T / 16 positions, and the
+recorder counts the gathers and reduce-scatters along T.
 
 A record holds JAX's keys. Exact for the step the port runs: the
 parameter counts, ``model_flops_total`` and the memory of the arguments
@@ -37,11 +45,6 @@ import dataclasses
 import json
 import time
 import traceback
-
-SEQ_SHARD_REFUSAL = (
-    "--seq-shard (a sequence-parallel residual stream) is not ported: "
-    "ROADMAP Queue 1 item 10b (sequence sharding)")
-
 
 @contextlib.contextmanager
 def short_recurrences(steps: int = 2):
@@ -102,10 +105,8 @@ def run_one(arch: str, shape: str, *, multi_pod: bool,
         HBM_BW, NVLINK_BW, collective_bytes, count_cost, model_flops,
         peak_flops)
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.sharding import rules
+    from repro_torch.sharding import ctx, rules
 
-    if seq_shard:
-        raise NotImplementedError(SEQ_SHARD_REFUSAL)
     rec: dict = {"arch": arch, "shape": shape,
                  "mesh": "2x16x16" if multi_pod else "16x16",
                  "seq_shard": seq_shard, "fsdp_inference": fsdp_inference,
@@ -123,6 +124,11 @@ def run_one(arch: str, shape: str, *, multi_pod: bool,
     kw = dict(fsdp_inference=fsdp_inference, verify_tokens=verify_tokens,
               multidraft=multidraft)
 
+    def ruled():
+        """JAX's activation rules, the sequence split with ``seq_shard``."""
+        return ctx.activation_rules(mesh, batch=("data",),
+                                    seq=("model",) if seq_shard else None)
+
     def measure(repeats: int) -> dict:
         """Counted run at ``repeats`` pattern repeats."""
         if cfg.family == "seq2seq":
@@ -131,9 +137,10 @@ def run_one(arch: str, shape: str, *, multi_pod: bool,
         else:
             cfg_r = dataclasses.replace(
                 cfg, n_layers=repeats * len(cfg.layer_pattern))
-        b = steps_mod.build_step(arch, shape, mesh, dtype=dtype,
-                                 cfg_override=cfg_r, **kw)
-        cost, _ = count_cost(b.fn, *b.local_inputs)
+        with ruled():
+            b = steps_mod.build_step(arch, shape, mesh, dtype=dtype,
+                                     cfg_override=cfg_r, **kw)
+            cost, _ = count_cost(b.fn, *b.local_inputs)
         records = list(b.fsdp_records) + (b.tp.records if b.tp else [])
         return {"flops": cost["flops"], "bytes": cost["bytes accessed"],
                 "coll": collective_bytes(records)["total"],
@@ -143,10 +150,11 @@ def run_one(arch: str, shape: str, *, multi_pod: bool,
     try:
         with short_recurrences():
             # -- 1. the full model on meta: the proof -----------------------
-            built = steps_mod.build_step(arch, shape, mesh, dtype=dtype,
-                                         **kw)
-            rec["note"] = built.note
-            built.fn(*built.local_inputs)
+            with ruled():
+                built = steps_mod.build_step(arch, shape, mesh, dtype=dtype,
+                                             **kw)
+                rec["note"] = built.note
+                built.fn(*built.local_inputs)
             t_full = time.time() - t0
             # -- 2. counted runs at 1 and 2 repeats, extrapolated -----------
             m1 = measure(1)
@@ -210,7 +218,8 @@ def run_one(arch: str, shape: str, *, multi_pod: bool,
         else 0.0,
     })
     if verbose:
-        print(f"[{arch} × {shape} × {rec['mesh']}] ok "
+        print(f"[{arch} × {shape} × {rec['mesh']}"
+              f"{' × seq_shard' if seq_shard else ''}] ok "
               f"compile={t_full:.1f}s "
               f"compute={terms['compute_s']:.3e}s "
               f"memory={terms['memory_s']:.3e}s "
@@ -230,8 +239,8 @@ def main(argv=None) -> None:
     ap.add_argument("--multi-pod", action="store_true",
                     help="2×16×16 (512 cards) instead of 16×16 (256)")
     ap.add_argument("--seq-shard", action="store_true",
-                    help="sequence-parallel residual stream (refused: "
-                         "ROADMAP Queue 1 item 10b)")
+                    help="sequence-parallel residual stream: split along T "
+                         "over the model axis where it divides T")
     ap.add_argument("--no-fsdp", action="store_true",
                     help="tensor-parallel-only params for prefill/decode "
                          "(no per-step FSDP gather)")
@@ -245,8 +254,6 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default="",
                     help="append JSONL records to this file")
     args = ap.parse_args(argv)
-    if args.seq_shard:
-        ap.error(SEQ_SHARD_REFUSAL)
 
     from repro_torch.configs import list_archs
     from repro_torch.launch.steps import SHAPES
@@ -260,6 +267,7 @@ def main(argv=None) -> None:
     for arch in archs:
         for shape in shapes:
             rec = run_one(arch, shape, multi_pod=args.multi_pod,
+                          seq_shard=args.seq_shard,
                           fsdp_inference=not args.no_fsdp,
                           verify_tokens=args.verify_tokens,
                           multidraft=args.multidraft)

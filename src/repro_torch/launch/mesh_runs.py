@@ -632,7 +632,8 @@ def built_step(arch: str, shape: str, kw: dict | None = None, *,
                mesh=(2, 2), seed: int = 0, shape_override: dict | None = None,
                fields: dict | None = None, timed: bool = False,
                arrays: bool = False, full: bool = False,
-               params: str | None = None, on_card: bool = True) -> dict:
+               params: str | None = None, seq_shard: bool = False,
+               on_card: bool = True) -> dict:
     """Build ``launch.steps.build_step(arch, shape, mesh, **kw)`` on this
     rank of the world (``arch``'s ``reduced()`` config, or with ``full``
     its whole config, with ``fields`` replaced, fp32), run it once on
@@ -669,7 +670,13 @@ def built_step(arch: str, shape: str, kw: dict | None = None, *,
     step returns the rank's new params and first moments and their
     ``placement`` in the whole leaves, and on the card ``act_bytes``: the
     most bytes the world step and the one-rank step held above their
-    inputs."""
+    inputs.
+
+    ``seq_shard``: the world step and its plan built and run under
+    ``ctx.activation_rules(mesh, batch=("data",), seq=("model",))``, the
+    residual stream split along T over the model axis where it divides T
+    (the one-rank reference, whose model axis is 1, runs whole)."""
+    import contextlib
     import dataclasses
 
     import torch.distributed as dist
@@ -678,8 +685,14 @@ def built_step(arch: str, shape: str, kw: dict | None = None, *,
     from repro_torch.kernels import _build
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import MeshShape
+    from repro_torch.sharding import ctx
     from repro_torch.training.optimizer import tree_leaves, tree_unflatten
     from repro_torch.training.trainer import capture_grads
+
+    def ruled(on):
+        """The rules the world step and its plan run under."""
+        return (ctx.activation_rules(on, batch=("data",), seq=("model",))
+                if seq_shard else contextlib.nullcontext())
 
     device = _device(on_card)
     _free(device)
@@ -699,10 +712,13 @@ def built_step(arch: str, shape: str, kw: dict | None = None, *,
             return steps.build_step(arch, shape, on, dtype=torch.float32,
                                     cfg_override=cfg, **kw)
 
-        world = build(_mesh(mesh))
+        with ruled(_mesh(mesh)):
+            world = build(_mesh(mesh))
         train = world.kind in ("train", "mt_train")
-        plan = build(MeshShape(("data", "model"), tuple(mesh)))
-        plan.fn(*plan.local_inputs)
+        shape_mesh = MeshShape(("data", "model"), tuple(mesh))
+        with ruled(shape_mesh):
+            plan = build(shape_mesh)
+            plan.fn(*plan.local_inputs)
         planned = list(plan.fsdp_records) + list(
             plan.tp.records if plan.tp is not None else [])
         del plan
@@ -712,7 +728,7 @@ def built_step(arch: str, shape: str, kw: dict | None = None, *,
         _build.reset_launch_counts()
         groups = LaunchGroups()
         try:
-            with capture_grads() as g_world:
+            with capture_grads() as g_world, ruled(_mesh(mesh)):
                 got, peak = _above(device, world.fn, *inputs)
         finally:
             groups.close()
@@ -826,7 +842,8 @@ def built_step(arch: str, shape: str, kw: dict | None = None, *,
     del got, want, pairs
     if timed:   # after the check: a step writes its cache or params in place
         t0 = time.perf_counter()
-        world.fn(*inputs)
+        with ruled(_mesh(mesh)):
+            world.fn(*inputs)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         out["wall_s"] = time.perf_counter() - t0

@@ -53,6 +53,15 @@ Input shapes:
                attention required: SSM/hybrid run natively, dense/MoE/VLM
                run the sliding-window variant (window 8192), encoder-only
                audio is skipped (no decode step exists)
+
+Sequence sharding: a step built and run under ``sharding.ctx.
+activation_rules(mesh, batch=("data",), seq=("model",))`` splits the
+decoder-only residual stream along T over the model axis wherever the axis
+divides the step's T (``models.transformer``; train_4k and prefill_32k on
+the production mesh, not the 1-token decode, verify 11, multi-draft 51 or
+the MT), as JAX's rules do; its note says so (``seq_shard=T/m``). A
+planned rank records the gathers and reduce-scatters along T a live rank
+issues.
 """
 
 from __future__ import annotations
@@ -89,9 +98,6 @@ MT_SHAPES = {
 }
 
 SLIDING_WINDOW_LONG = 8192  # the dense archs' variant at 500k
-
-ITEM_10B = ("ROADMAP Queue 1 item 10b: sequence sharding (a residual "
-            "stream split over the model axis)")
 
 
 class BuiltStep(NamedTuple):
@@ -446,6 +452,17 @@ class _Local:
         return _map_named2(cache, like, take)
 
 
+def _seq_note(mesh, T: int) -> str:
+    """The note's mark of a stream split along T by the rules in force
+    (``ctx.activation_rules(seq=("model",))``): where the mesh's model
+    axis divides ``T``."""
+    r = ctx._rules()
+    m = rules.axes_size(mesh, rules.MODEL)
+    if r is None or r["seq"] is None or m == 1 or T % m:
+        return ""
+    return f" seq_shard=T/{m}"
+
+
 def _paths(tree) -> list:
     """(path, leaf) of every leaf of a params tree."""
     out = []
@@ -500,7 +517,8 @@ def build_step(arch: str, shape_name: str, mesh, *, dtype=torch.bfloat16,
             in_shardings=(p_sh, sh.opt_shardings(opt, params, mesh),
                           sh.batch_shardings(batch, mesh)),
             out_shardings=(p_sh, sh.opt_shardings(opt, params, mesh), None),
-            note=f"train {arch} B={B} S={S} remat={remat}",
+            note=f"train {arch} B={B} S={S} remat={remat}"
+                 + _seq_note(mesh, S),
             outputs=(params, opt, {}),
             local_inputs=(loc.params, adam_init(loc.params), lbatch),
             **common)
@@ -520,7 +538,7 @@ def build_step(arch: str, shape_name: str, mesh, *, dtype=torch.bfloat16,
                 fn=loc.wrap(body), inputs=(params, emb),
                 in_shardings=(p_sh, sh.batch_shardings(emb, mesh)),
                 out_shardings=(dp, None, None),
-                note=f"encode {arch} B={B} S={S}",
+                note=f"encode {arch} B={B} S={S}" + _seq_note(mesh, S),
                 outputs=_meta((B, S, V), dtype),
                 local_inputs=(loc.params, lspecs["embeddings"]), **common)
 
@@ -546,7 +564,8 @@ def build_step(arch: str, shape_name: str, mesh, *, dtype=torch.bfloat16,
             in_sh = (p_sh, sh.batch_shardings(specs["tokens"], mesh))
         return BuiltStep(fn=loc.wrap(body), inputs=args, in_shardings=in_sh,
                          out_shardings=(logits_sh, c_sh),
-                         note=f"prefill {arch} B={B} S={S}",
+                         note=f"prefill {arch} B={B} S={S}"
+                              + _seq_note(mesh, S),
                          outputs=(_meta((B, V), dtype), cache_like),
                          local_inputs=largs, **common)
 
@@ -595,7 +614,8 @@ def build_step(arch: str, shape_name: str, mesh, *, dtype=torch.bfloat16,
                       sh.batch_shardings(pos_spec, mesh)),
         out_shardings=(logits_sh, c_sh),
         note=f"serve {arch} B={B} T={T} cache={S}"
-             + (f" window={cfg.sliding_window}" if cfg.sliding_window else ""),
+             + (f" window={cfg.sliding_window}" if cfg.sliding_window else "")
+             + ("" if multidraft > 0 else _seq_note(mesh, T)),
         outputs=(_meta((B, T, cfg.vocab_size), dtype), cache),
         local_inputs=(loc.params, lcache, _meta((Bl, T), i32),
                       _meta((Bl, T), i32)), **common)

@@ -24,6 +24,12 @@ kernels, forward and backward. Cross-attention and the single-pass
 multi-draft verification read (``multidraft_attention``) stay einsums, as
 in the JAX package, which has no kernel for them.
 
+On a residual stream split along T (sequence sharding) every mode runs
+on the gathered sequence, so the keys, the cache writes and the kernels'
+shapes are those of the whole stream; ``wo``'s sum is a reduce-scatter
+along T, a whole ``wo``'s output cut to the rank's positions
+(``layers.dense_row``).
+
 Masks use -1e30, not -inf, as in the JAX package.
 """
 

@@ -63,13 +63,15 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def dense_row(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """``dense`` for a projection whose input dim may be split over the
-    model axis (``wo``, ``w_out``): the partial products are summed over
-    the axis before the (whole) bias."""
+    """``dense`` for a layer's output projection, whose input dim may be
+    split over the model axis (``wo``, ``w_out``): the partial products
+    are summed over the axis before the (whole) bias; in a block of a
+    stream split along T, the rank's positions of the output
+    (``ctx.out_reduce``), the bias applied there."""
     w = p["w"]
-    y = ctx.row_reduce(w, ctx.row_input(w, x) @ w)
+    y = ctx.out_reduce(w, ctx.row_input(w, x) @ w)
     if "b" in p:
-        y = y + p["b"]
+        y = y + ctx.on_positions(p["b"])
     return y
 
 

@@ -23,7 +23,10 @@ its x- and z-columns of ``w_in`` (``launch.shardings``), the conv, ``A``,
 (``dt_rank`` and ``d_state`` stay whole), and ``w_out`` is reduced. The
 conv and the scan are per channel and need no collective. Under autograd
 the block's input and the summed ``dt / B / C`` enter the rank's channels
-through ``ctx.enter``.
+through ``ctx.enter``. On a residual stream split along T the mixer runs on
+the gathered sequence (the conv and the scan need every position);
+``w_out``'s sum is then a reduce-scatter along T (``layers.dense_row``),
+``w_xdbc``'s stays a sum.
 """
 
 from __future__ import annotations
@@ -85,9 +88,10 @@ def _ssm_inputs(p, xc):
     the selective B, C (B, T, d_state) (a row-split ``w_xdbc``'s partial
     products summed over the model axis first)."""
     d_state = p["A_log"].shape[1]
-    dt_rank = p["w_xdbc"]["w"].shape[1] - 2 * d_state
-    xdbc = dense_row(p["w_xdbc"], xc)
-    if ctx.row_split(p["w_xdbc"]["w"]):   # whole, into the rank's channels
+    w = p["w_xdbc"]["w"]
+    dt_rank = w.shape[1] - 2 * d_state
+    xdbc = ctx.row_reduce(w, ctx.row_input(w, xc) @ w)   # no bias
+    if ctx.row_split(w):   # whole, into the rank's channels
         xdbc = ctx.enter(xdbc)
     dt, Bsel, Csel = torch.split(xdbc, [dt_rank, d_state, d_state], dim=-1)
     return _softplus(dense(p["w_dt"], dt)), Bsel, Csel

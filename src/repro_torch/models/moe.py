@@ -27,7 +27,11 @@ shards' counts for its expert, and the capacity is computed from the
 global token count: both from one ``all_reduce`` over the data axis
 (``ctx.data_prefix_counts``). A rank fills its own tokens into buffers of
 the global capacity for its own experts only, and the outputs (with the
-shared expert's partial products) are summed over the model axis.
+shared expert's partial products) are summed over the model axis. In a
+block of a residual stream split along T (``ctx.split_stream``) the router
+runs on the gathered sequence, so routing and the aux losses keep the
+global call's counts, and the rank keeps its positions of the output: the
+sum is a reduce-scatter along T, a whole output is cut.
 """
 
 from __future__ import annotations
@@ -179,17 +183,20 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
     out_e = _expert_ffn(p["experts"], buf[:, :C])          # (E_local, C, d)
     gathered = out_e[local, slot.clamp(max=C - 1)]               # (N, k, d)
     out = (gathered * kept
-           * gates[..., None].to(tokens.dtype)).sum(1)           # (N, d)
+           * gates[..., None].to(tokens.dtype)).sum(1).reshape(B, T, d)
+    # the output: summed over the model axis where split, and in a block of
+    # a stream split along T, the rank's positions of it
     if "shared" in p:
         w = p["shared"]["w_out"]["w"]
-        sh = _shared_partial(p["shared"], mine if shared_split else tokens)
+        sh = _shared_partial(p["shared"], mine if shared_split else tokens
+                             ).reshape(B, T, d)
         if split and ctx.row_split(w):
-            out = ctx.model_sum(out + sh)        # one sum for both
+            out = ctx.out_sum(out + sh)          # one sum for both
         else:
-            out = (ctx.model_sum(out) if split else out) + ctx.row_reduce(
-                w, sh)
-    elif split:
-        out = ctx.model_sum(out)
+            out = (ctx.out_sum(out) if split else ctx.out_part(out)
+                   ) + ctx.out_reduce(w, sh)
+    else:
+        out = ctx.out_sum(out) if split else ctx.out_part(out)
 
     n_glob = max(r["n_global"], 1)
     frac_tokens = r["top1"].float().mean() / n_glob
@@ -209,4 +216,4 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
     aux = {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss,
            "moe_dropped_frac": 1.0 - kept_all.float() / (n_glob * m.top_k),
            "moe_top1_frac": frac_tokens}
-    return out.reshape(B, T, d), aux
+    return out, aux

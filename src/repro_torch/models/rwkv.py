@@ -25,7 +25,10 @@ rank's channels for ``o * g``; ``wo`` and the channel mix's ``w_out``
 are reduced. Under autograd each split projection's input, the decay and
 the normalised ``o`` enter the rank's heads through ``ctx.enter`` (the
 decay and ``o`` inside ``ctx.model_slice``), so the replicated mixes,
-LoRA and ``ln_x`` get their whole gradients.
+LoRA and ``ln_x`` get their whole gradients. On a residual stream split
+along T both mixes run on the gathered sequence (the token shift and the
+WKV need every position); ``wo``'s and ``w_out``'s sums are then
+reduce-scatters along T (``layers.dense_row``).
 """
 
 from __future__ import annotations

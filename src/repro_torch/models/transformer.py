@@ -43,6 +43,21 @@ through the ``flash_attention`` kernels (GQA, positions, padding,
 causal or not), the recurrent mixers over the whole sequence, MoE FFNs
 with their auxiliary losses; ``remat`` recomputes each repeat's
 activations in the backward (``torch.utils.checkpoint``).
+
+Sequence sharding: under ``ctx.activation_rules(mesh, seq=("model",))`` on
+a tensor-parallel mesh rank, where the model axis divides T
+(``ctx.seq_shards``), the residual stream ``(B, T, d)`` of ``apply``,
+``prefill``, ``decode_step`` and ``write_prompt`` is split along T: each
+rank of the model axis holds its ``T / m`` positions between blocks (the
+embedding's sum a reduce-scatter, a whole embedding cut), norms and
+residual adds run there, each mixer and FFN takes its normed input
+gathered whole (``ctx.seq_gather``) and gives back the rank's positions
+of its output (``ctx.split_stream``: its sum a reduce-scatter, a whole
+output cut), and the final norm and head get the whole stream back by one
+gather. The layers, the caches and the logits are those of the whole
+stream; the norms' and the gates' weights, applied to the rank's
+positions, are entered (``ctx.enter``: their gradients summed over the
+model axis). The multi-draft verify step never splits, as in JAX.
 """
 
 from __future__ import annotations
@@ -274,7 +289,17 @@ def _layer(c, r: int):
 # recurrent blocks
 
 
-def _rwkv_decode_ckpt(p, cfg: ModelConfig, state: dict, x, ckpt: dict):
+def _normed(p_norm: dict, cfg: ModelConfig, x, seq: int):
+    """A mixer's or FFN's input: ``x`` normed, whole along T (on a stream
+    split ``seq`` ways, this rank's positions normed, the norm's weights
+    entered, then gathered)."""
+    if seq == 1:
+        return apply_norm(p_norm, x, cfg.norm)
+    return ctx.seq_gather(apply_norm(ctx.enter_tree(p_norm), x, cfg.norm))
+
+
+def _rwkv_decode_ckpt(p, cfg: ModelConfig, state: dict, x, ckpt: dict,
+                      seq: int = 1):
     """A whole RWKV block over T fed tokens, writing the state after each
     into ``ckpt`` (leaves (B, T+1, ...), index 0 the state before the
     step). Within a block token t reads only the inputs and the WKV state,
@@ -282,28 +307,30 @@ def _rwkv_decode_ckpt(p, cfg: ModelConfig, state: dict, x, ckpt: dict):
     update loops (``rwkv_mixer``)."""
     for k, v in state.items():
         ckpt[k][:, 0] = v
-    n1 = apply_norm(p["norm1"], x, cfg.norm)
+    n1 = _normed(p["norm1"], cfg, x, seq)
     mix, _ = rwkv_mod.rwkv_mixer(p["rwkv"], cfg, n1, state=state["S"],
                                  x_last=state["x_tm"],
                                  states_out=ckpt["S"][:, 1:])
     x = x + mix
-    n2 = apply_norm(p["norm2"], x, cfg.norm)
+    n2 = _normed(p["norm2"], cfg, x, seq)
     cm, _ = rwkv_mod.rwkv_channel_mix(p["cmix"], n2, x_last=state["x_cm"])
     ckpt["x_tm"][:, 1:] = n1
     ckpt["x_cm"][:, 1:] = n2
     return x + cm
 
 
-def _rwkv_prefill(p, cfg: ModelConfig, state: dict, x, lengths):
+def _rwkv_prefill(p, cfg: ModelConfig, state: dict, x, lengths,
+                  seq: int = 1):
     """A whole RWKV block over the prompt; the state at each row's last
     valid token is written into ``state`` (views of the cache) in place."""
-    B, T = x.shape[:2]
+    n1 = _normed(p["norm1"], cfg, x, seq)
+    B, T = n1.shape[:2]
     valid = torch.arange(T, device=x.device)[None, :] < lengths[:, None]
-    n1 = apply_norm(p["norm1"], x, cfg.norm) * valid[..., None].to(x.dtype)
+    n1 = n1 * valid[..., None].to(x.dtype)
     mix, (S, _) = rwkv_mod.rwkv_mixer(p["rwkv"], cfg, n1, state=state["S"],
                                       x_last=state["x_tm"], lengths=lengths)
     x = x + mix
-    n2 = apply_norm(p["norm2"], x, cfg.norm)
+    n2 = _normed(p["norm2"], cfg, x, seq)
     cm, _ = rwkv_mod.rwkv_channel_mix(p["cmix"], n2)
     rows = torch.arange(B, device=x.device)
     last = (lengths.long() - 1).clamp(0, T - 1)
@@ -345,11 +372,11 @@ def _xattn(p, cfg: ModelConfig, h, layer_cache, memory, memory_mask):
                             memory_mask=memory_mask)
         for k, v in attn_mod.memory_kv(p["attn"], cfg, memory).items():
             layer_cache[k].copy_(v)
-    return torch.tanh(p["xattn_gate"]) * q
+    return torch.tanh(ctx.on_positions(p["xattn_gate"])) * q
 
 
 def _run_stack(params, cfg: ModelConfig, x, cache, positions, *,
-               lengths=None, memory=None, memory_mask=None):
+               lengths=None, memory=None, memory_mask=None, seq: int = 1):
     """Every layer in order (repeat-major, as the JAX scan runs them).
     Attention writes its K/V into the cache in place; the rotary tables of
     the positions are made once for all layers.
@@ -359,49 +386,57 @@ def _run_stack(params, cfg: ModelConfig, x, cache, positions, *,
     in place; without (decode), each runs over the fed tokens in order and
     the state after every one goes into fresh checkpoints (R, B, T+1, ...).
     Cross-attention positions attend to ``memory`` (prefill) or to its K/V
-    in the cache (decode), under ``memory_mask``.
+    in the cache (decode), under ``memory_mask``. ``seq``: the parts the
+    stream ``x`` is split into along T (``x`` this rank's positions).
     Returns (x, cache with those checkpoints)."""
     positions = positions.to(torch.int32).contiguous()
     rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.pos == "rope" and "attn" in cfg.layer_pattern else None)
-    B, T = x.shape[:2]
+    B, T = positions.shape
     out = list(cache)
     if lengths is None:
         for i, kind in enumerate(cfg.layer_pattern):
             if kind in RECURRENT:
                 out[i] = {k: v.new_empty((v.shape[0], B, T + 1, *v.shape[2:]))
                           for k, v in cache[i].items()}
-    for r in range(cfg.n_repeats):
-        for i, kind in enumerate(cfg.layer_pattern):
-            p = params["blocks"][i][r]
-            if kind == "rwkv":
-                x = (_rwkv_prefill(p, cfg, _layer(cache[i], r), x, lengths)
-                     if lengths is not None else
-                     _rwkv_decode_ckpt(p, cfg, _layer(cache[i], r), x,
-                                       _layer(out[i], r)))
-                continue
-            h = apply_norm(p["norm1"], x, cfg.norm)
-            if kind == "attn":
-                a, _ = cached_attention(p["attn"], cfg, h,
-                                        _layer(cache[i], r), positions,
-                                        rope=rope)
-            elif kind == "xattn":
-                a = _xattn(p, cfg, h, _layer(cache[i], r), memory,
-                           memory_mask)
-            elif lengths is not None:
-                a, st = mamba_mod.mamba_mixer(p["mamba"], cfg, h,
-                                              lengths=lengths,
-                                              return_state=True)
-                for k, v in _layer(cache[i], r).items():
-                    v.copy_(st[k])
-            else:
-                a = _mamba_decode_ckpt(p["mamba"], cfg, _layer(cache[i], r),
-                                       h, _layer(out[i], r))
-            x = x + a
-            x = x + _ffn(p["ffn"], cfg, cfg.ffn_pattern[i],
-                         apply_norm(p["norm2"], x, cfg.norm))
+    with ctx.split_stream(seq > 1):
+        for r in range(cfg.n_repeats):
+            for i, kind in enumerate(cfg.layer_pattern):
+                ckpt = (_layer(out[i], r) if lengths is None
+                        and kind in RECURRENT else None)
+                x = _stack_block(params["blocks"][i][r], cfg, kind,
+                                 cfg.ffn_pattern[i], x, _layer(cache[i], r),
+                                 ckpt, positions, rope=rope, lengths=lengths,
+                                 memory=memory, memory_mask=memory_mask,
+                                 seq=seq)
     return x, (cache if lengths is not None or not recurrent(cfg)
                else tuple(out))
+
+
+def _stack_block(p, cfg: ModelConfig, kind: str, ffn_kind: str, x, layer,
+                 ckpt, positions, *, rope, lengths, memory, memory_mask,
+                 seq: int):
+    """One layer of ``_run_stack``: its cache ``layer`` (views) written in
+    place, a recurrent decode's states into ``ckpt``."""
+    if kind == "rwkv":
+        return (_rwkv_prefill(p, cfg, layer, x, lengths, seq)
+                if lengths is not None else
+                _rwkv_decode_ckpt(p, cfg, layer, x, ckpt, seq))
+    h = _normed(p["norm1"], cfg, x, seq)
+    if kind == "attn":
+        a, _ = cached_attention(p["attn"], cfg, h, layer, positions,
+                                rope=rope)
+    elif kind == "xattn":
+        a = _xattn(p, cfg, h, layer, memory, memory_mask)
+    elif lengths is not None:
+        a, st = mamba_mod.mamba_mixer(p["mamba"], cfg, h, lengths=lengths,
+                                      return_state=True)
+        for k, v in layer.items():
+            v.copy_(st[k])
+    else:
+        a = _mamba_decode_ckpt(p["mamba"], cfg, layer, h, ckpt)
+    x = x + a
+    return x + _ffn(p["ffn"], cfg, ffn_kind, _normed(p["norm2"], cfg, x, seq))
 
 
 def _logits_out(params, cfg: ModelConfig, x):
@@ -415,35 +450,52 @@ def _logits_out(params, cfg: ModelConfig, x):
 # public API
 
 
-def _embed_in(params, tokens, embeddings):
-    return embeddings if embeddings is not None else embed(params["tok"],
-                                                           tokens)
+def _stream_in(params, tokens, embeddings):
+    """(the residual stream's input, the parts it is split into along T):
+    the embedded tokens or the frame ``embeddings``, on a stream split
+    ``seq`` ways (``ctx.seq_shards``) this rank's positions of them (a
+    vocab-split embedding's sum a reduce-scatter, a whole one cut)."""
+    seq = ctx.seq_shards((tokens if embeddings is None
+                          else embeddings).shape[1])
+    with ctx.split_stream(seq > 1):
+        x = (ctx.out_part(embeddings) if embeddings is not None
+             else embed(params["tok"], tokens))
+    return x, seq
+
+
+def _stream_out(x, seq: int):
+    """The stream whole along T again, for the final norm and the head."""
+    return x if seq == 1 else ctx.seq_gather(x)
 
 
 def _full_block(kind: str, ffn_kind: str, p, cfg: ModelConfig, x, *,
                 causal: bool, positions, pad, lengths, rope, memory,
-                memory_mask):
-    """One layer of the full-sequence forward. Returns (x, aux)."""
+                memory_mask, seq: int = 1):
+    """One layer of the full-sequence forward (``x``: this rank's
+    positions on a stream split ``seq`` ways, inside ``ctx.split_stream``).
+    Returns (x, aux)."""
     if kind == "rwkv":
-        # zero the pad positions so the state skips them
-        n1 = apply_norm(p["norm1"], x, cfg.norm)
+        # zero the pad positions (of the whole sequence) so the state
+        # skips them
+        n1 = _normed(p["norm1"], cfg, x, seq)
         if pad is not None:
             n1 = n1 * pad[..., None].to(n1.dtype)
         mix, _ = rwkv_mod.rwkv_mixer(p["rwkv"], cfg, n1, lengths=lengths)
         x = x + mix
         cm, _ = rwkv_mod.rwkv_channel_mix(p["cmix"],
-                                          apply_norm(p["norm2"], x, cfg.norm))
+                                          _normed(p["norm2"], cfg, x, seq))
         return x + cm, {}
-    h = apply_norm(p["norm1"], x, cfg.norm)
+    h = _normed(p["norm1"], cfg, x, seq)
     if kind == "attn":
         x = x + attention(p["attn"], cfg, h, positions=positions,
                           causal=causal, padding_mask=pad, rope=rope)
     elif kind == "xattn":
-        x = x + torch.tanh(p["xattn_gate"]) * cross_attention(
-            p["attn"], cfg, h, memory, memory_mask=memory_mask)
+        x = x + torch.tanh(ctx.on_positions(p["xattn_gate"])) * \
+            cross_attention(p["attn"], cfg, h, memory,
+                            memory_mask=memory_mask)
     else:
         x = x + mamba_mod.mamba_mixer(p["mamba"], cfg, h, lengths=lengths)
-    h2 = apply_norm(p["norm2"], x, cfg.norm)
+    h2 = _normed(p["norm2"], cfg, x, seq)
     if ffn_kind == "moe":
         out, aux = moe_mod.moe_ffn(p["ffn"], cfg, h2)
         return x + out, aux
@@ -466,8 +518,8 @@ def apply(params, cfg: ModelConfig, tokens=None, *, embeddings=None,
     ``remat`` recomputes each repeat's activations in the backward
     (``torch.utils.checkpoint``): equal results, less memory."""
     check_pattern(cfg)
-    x = _embed_in(params, tokens, embeddings)
-    B, T = x.shape[:2]
+    x, seq = _stream_in(params, tokens, embeddings)
+    T = x.shape[1] * seq
     causal = cfg.causal if causal is None else causal
     pad = None
     if lengths is not None:
@@ -483,17 +535,18 @@ def apply(params, cfg: ModelConfig, tokens=None, *, embeddings=None,
               torch.arange(T, dtype=torch.int32, device=x.device)[None])
         rope = rope_tables(rp, cfg.head_dim, cfg.rope_theta)
     kw = dict(causal=causal, positions=positions, pad=pad, lengths=lengths,
-              rope=rope, memory=memory, memory_mask=memory_mask)
+              rope=rope, memory=memory, memory_mask=memory_mask, seq=seq)
     keys = _AUX if "moe" in cfg.ffn_pattern else ()
 
     def repeat(r: int, h):
         """Repeat ``r`` of the pattern: (h, its summed aux losses)."""
         sums = [h.new_zeros((), dtype=torch.float32) for _ in keys]
-        for i, kind in enumerate(cfg.layer_pattern):
-            h, aux = _full_block(kind, cfg.ffn_pattern[i],
-                                 params["blocks"][i][r], cfg, h, **kw)
-            sums = [a + aux[k] if k in aux else a
-                    for a, k in zip(sums, keys)]
+        with ctx.split_stream(seq > 1):
+            for i, kind in enumerate(cfg.layer_pattern):
+                h, aux = _full_block(kind, cfg.ffn_pattern[i],
+                                     params["blocks"][i][r], cfg, h, **kw)
+                sums = [a + aux[k] if k in aux else a
+                        for a, k in zip(sums, keys)]
         return (h, *sums)
 
     totals = [x.new_zeros((), dtype=torch.float32) for _ in keys]
@@ -503,7 +556,9 @@ def apply(params, cfg: ModelConfig, tokens=None, *, embeddings=None,
         """``repeat`` as the backward recomputes it: whole (no early stop,
         so a mesh rank reissues every collective of its forward) and under
         this rank's tensor-parallel context (on the card the backward runs
-        on autograd's own thread)."""
+        on autograd's own thread, where no context is set; the stream's
+        split, ``seq``, was decided once, here, and ``repeat`` sets the
+        split-stream block itself)."""
         with ctx.tensor_parallel(tp):
             return repeat(r, h)
 
@@ -515,7 +570,8 @@ def apply(params, cfg: ModelConfig, tokens=None, *, embeddings=None,
             out = repeat(r, x)
         x = out[0]
         totals = [t + a for t, a in zip(totals, out[1:])]
-    return _logits_out(params, cfg, x), dict(zip(keys, totals))
+    return (_logits_out(params, cfg, _stream_out(x, seq)),
+            dict(zip(keys, totals)))
 
 
 def _fit_memory(cfg: ModelConfig, cache, memory):
@@ -546,8 +602,8 @@ def prefill(params, cfg: ModelConfig, cache, tokens=None, *,
     last valid position instead of (B, T, V)."""
     if logits_mode not in ("all", "last"):
         raise ValueError(f"logits_mode {logits_mode!r}")
-    x = _embed_in(params, tokens, embeddings)
-    B, T = x.shape[:2]
+    x, seq = _stream_in(params, tokens, embeddings)
+    B, T = x.shape[0], x.shape[1] * seq
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
@@ -556,7 +612,8 @@ def prefill(params, cfg: ModelConfig, cache, tokens=None, *,
     if memory is not None:
         cache = _fit_memory(cfg, cache, memory)
     x, cache = _run_stack(params, cfg, x, cache, positions, lengths=lengths,
-                          memory=memory, memory_mask=memory_mask)
+                          memory=memory, memory_mask=memory_mask, seq=seq)
+    x = _stream_out(x, seq)
     if logits_mode == "last":
         last = (lengths - 1).clamp(0, T - 1).long()
         x = x[torch.arange(B, device=x.device), last]
@@ -571,9 +628,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions, *,
     positions as per-step checkpoints for ``commit_cache``; cross-attention
     positions read the memory K/V ``prefill`` kept, under ``memory_mask``
     (B, M)."""
-    x, cache = _run_stack(params, cfg, embed(params["tok"], tokens), cache,
-                          positions, memory_mask=memory_mask)
-    return _logits_out(params, cfg, x), cache
+    x, seq = _stream_in(params, tokens, None)
+    x, cache = _run_stack(params, cfg, x, cache, positions,
+                          memory_mask=memory_mask, seq=seq)
+    return _logits_out(params, cfg, _stream_out(x, seq)), cache
 
 
 def write_prompt(params, cfg: ModelConfig, cache, tokens, positions,
@@ -583,8 +641,8 @@ def write_prompt(params, cfg: ModelConfig, cache, tokens, positions,
     recurrent state after its first ``n_valid`` (B,) tokens (a chunked
     prefill, whose logits nobody reads; ``n_valid`` 0 leaves the row's
     state bitwise as it was). Returns the cache, written in place."""
-    _, ckpt = _run_stack(params, cfg, embed(params["tok"], tokens), cache,
-                         positions)
+    x, seq = _stream_in(params, tokens, None)
+    _, ckpt = _run_stack(params, cfg, x, cache, positions, seq=seq)
     if recurrent(cfg):
         for kind, c, kept in zip(cfg.layer_pattern, cache,
                                  commit_cache(cfg, ckpt, n_valid)):

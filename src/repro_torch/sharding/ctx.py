@@ -29,7 +29,13 @@ exactly as it does unsharded. Inside it:
   come from one ``all_reduce`` over the data axis
   (``data_prefix_counts``);
 - a built step's FSDP params are gathered whole over the data axis before
-  the model runs (``layers_params``, by the layout ``launch.steps`` sets).
+  the model runs (``layers_params``, by the layout ``launch.steps`` sets);
+- under ``activation_rules(seq=("model",))`` the decoder-only residual
+  stream is split along T over the model axis where the axis divides T
+  (``seq_shards``): a block gathers its normed input whole along T
+  (``seq_gather``) and, inside ``split_stream``, its output sum is a
+  reduce-scatter along T (``out_reduce``, ``out_sum``) and a whole output
+  is cut to the rank's positions (``out_part``).
 
 Under autograd (a train step on a world of ranks) every forward sum is a
 new tensor whose backward is the identity (``_Sum``): each rank's partial
@@ -48,7 +54,12 @@ axis: a train step takes its gradients of the gathered leaves
 axis in tree order (``reduce_gradients``: each FSDP leaf's
 reduce-scattered to the rank's shard, each other leaf's all-reduced), and
 sums its token count, metrics and squared norms there (``data_total``,
-``model_total``).
+``model_total``). A split stream keeps the rule: the gathered input is
+held whole, so its gather's backward keeps the rank's part of the whole
+gradient (``_SeqGather``); a reduce-scatter's and a cut's backward gather
+the ranks' gradients (``_SeqScatter``, ``_SeqCut``); a whole weight
+applied to the rank's positions (a norm, a bias after the sum, a gate) is
+entered (``on_positions``).
 
 Which weights are split is recorded by identity when the engine lays the
 params out (``TensorParallel.row_split`` / ``vocab_split`` /
@@ -97,6 +108,10 @@ def _rules():
 
 @contextlib.contextmanager
 def activation_rules(mesh, *, batch=("data",), seq=None):
+    """Install the rules on this thread while open: ``batch`` (a rank holds
+    its rows already: nothing to do) and ``seq``, ``("model",)`` to split
+    the decoder-only residual stream along T over the model axis
+    (``seq_shards``; None: whole)."""
     prev = _rules()
     _state.rules = {"mesh": mesh, "batch": batch, "seq": seq}
     try:
@@ -106,7 +121,8 @@ def activation_rules(mesh, *, batch=("data",), seq=None):
 
 
 def constrain_activation(x):
-    """The identity: a rank's activations are its own rows already."""
+    """The identity: a rank's activations are its own rows already, and a
+    split stream is cut where the model splits it (``seq_shards``)."""
     return x
 
 
@@ -267,6 +283,166 @@ def row_reduce(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if tp is None or id(w) not in tp.row_split:
         return y
     return _all_reduce(tp, y)
+
+
+# ---------------------------------------------------------------------------
+# sequence sharding: the residual stream split along T over the model axis
+
+
+def seq_shards(T: int) -> int:
+    """The parts a ``(B, T, d)`` residual stream is split into along T:
+    the model axis's size where the rules split ``seq`` over ``model``
+    (``activation_rules``), a tensor-parallel context is on and T divides
+    the axis (JAX's rule); else 1, the stream whole."""
+    from repro_torch.sharding.rules import MODEL
+
+    rules, tp = _rules(), current()
+    if rules is None or rules["seq"] is None or tp is None or tp.size == 1:
+        return 1
+    seq = rules["seq"] if isinstance(rules["seq"], tuple) else (rules["seq"],)
+    if seq != (MODEL,):
+        raise NotImplementedError(f"sequence sharding over {seq}: only the "
+                                  f"model axis ({MODEL!r}) splits T")
+    return tp.size if T % tp.size == 0 else 1
+
+
+@contextlib.contextmanager
+def split_stream(on: bool):
+    """While open (and ``on``), the layers run are a block of a stream
+    split along T: their output sums are reduce-scatters along T
+    (``out_reduce``, ``out_sum``), a whole output is cut to this rank's
+    positions (``out_part``) and a whole weight applied there is entered
+    (``on_positions``). The block sets it on the thread the layers run on
+    (the remat recompute's too)."""
+    prev = getattr(_state, "split", False)
+    _state.split = on
+    try:
+        yield
+    finally:
+        _state.split = prev
+
+
+def _split() -> TensorParallel | None:
+    """The context of a split-stream block, or None."""
+    return current() if getattr(_state, "split", False) else None
+
+
+def _seq_part(tp: TensorParallel, x: torch.Tensor) -> torch.Tensor:
+    """This rank's equal part of ``x``'s dim 1 (a view)."""
+    n = x.shape[1] // tp.size
+    return x.narrow(1, tp.rank * n, n)
+
+
+def _seq_gather(tp: TensorParallel, x: torch.Tensor) -> torch.Tensor:
+    """``x``'s dim 1 whole from each rank's part: an ``all_reduce`` of a
+    zeroed buffer, exact, logged as an ``all-gather`` of the whole."""
+    n = x.shape[1]
+    full = x.new_zeros((x.shape[0], n * tp.size, *x.shape[2:]))
+    full.narrow(1, tp.rank * n, n).copy_(x)
+    return _reduce(tp, full, kind="all-gather")
+
+
+class _SeqGather(torch.autograd.Function):
+    """The whole sequence from each rank's positions. The gathered tensor
+    is held whole and gets the whole gradient on every rank (the layers'
+    own ``enter`` sums what their split parts give), so the backward keeps
+    the rank's positions of it."""
+
+    @staticmethod
+    def forward(ctx_, x, tp):
+        ctx_.tp = tp
+        return _seq_gather(tp, x)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return _seq_part(ctx_.tp, g), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """A sum over the model axis of which the rank keeps its positions (a
+    reduce-scatter along T: an ``all_reduce``, gloo taking no
+    ``reduce_scatter`` of CUDA tensors). Each rank's term gets the whole
+    sum's gradient: the backward gathers the ranks' positions of it."""
+
+    @staticmethod
+    def forward(ctx_, y, tp):
+        ctx_.tp = tp
+        full = _reduce(tp, y.view_as(y) if tp.records is not None
+                       else _fresh(y), kind="reduce-scatter")
+        return _seq_part(tp, full).clone()
+
+    @staticmethod
+    def backward(ctx_, g):
+        return _seq_gather(ctx_.tp, g.contiguous()), None
+
+
+class _SeqCut(torch.autograd.Function):
+    """This rank's positions of a tensor held whole on every model rank;
+    the backward gathers the ranks' positions of the gradient, so the
+    whole tensor gets the whole gradient on every rank."""
+
+    @staticmethod
+    def forward(ctx_, x, tp):
+        ctx_.tp = tp
+        return _seq_part(tp, x).clone()
+
+    @staticmethod
+    def backward(ctx_, g):
+        return _seq_gather(ctx_.tp, g.contiguous()), None
+
+
+def seq_gather(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, T / m, ...), this rank's positions of a split stream,
+    gathered whole along T (``_SeqGather`` under autograd)."""
+    tp = current()
+    if _grad(x):
+        return _SeqGather.apply(x, tp)
+    return _seq_gather(tp, x)
+
+
+def seq_cut(x: torch.Tensor) -> torch.Tensor:
+    """This rank's positions of ``x`` (B, T, ...), held whole on every
+    model rank (``_SeqCut`` under autograd)."""
+    tp = current()
+    if _grad(x):
+        return _SeqCut.apply(x, tp)
+    return _seq_part(tp, x).clone()
+
+
+def _seq_scatter(tp: TensorParallel, y: torch.Tensor) -> torch.Tensor:
+    if _grad(y):
+        return _SeqScatter.apply(y, tp)
+    return _seq_part(tp, _reduce(tp, y, kind="reduce-scatter")).clone()
+
+
+def out_reduce(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """A layer's output projection ``w``'s partial products summed
+    (``row_reduce``); in a split-stream block this rank's positions of the
+    sum (a reduce-scatter), or of ``y`` where ``w`` is whole."""
+    tp = _split()
+    if tp is None:
+        return row_reduce(w, y)
+    return _seq_scatter(tp, y) if id(w) in tp.row_split else seq_cut(y)
+
+
+def out_sum(y: torch.Tensor) -> torch.Tensor:
+    """``model_sum`` of a layer's output, or this rank's positions of it
+    in a split-stream block (a reduce-scatter)."""
+    tp = _split()
+    return model_sum(y) if tp is None else _seq_scatter(tp, y)
+
+
+def out_part(y: torch.Tensor) -> torch.Tensor:
+    """A layer's whole output ``y``: this rank's positions of it in a
+    split-stream block, else ``y``."""
+    return y if _split() is None else seq_cut(y)
+
+
+def on_positions(t: torch.Tensor) -> torch.Tensor:
+    """A whole weight applied to a layer's output: ``enter`` in a
+    split-stream block, where it sees only this rank's positions (its
+    gradient a part), else ``t``."""
+    return t if _split() is None else enter(t)
 
 
 def model_sum(y: torch.Tensor) -> torch.Tensor:
@@ -480,16 +656,17 @@ def row_input(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``; on a vocab-split table, this rank's rows (zero
-    elsewhere) summed over the model axis."""
+    elsewhere) summed over the model axis. In a split-stream block this
+    rank's positions of it (``out_sum``, ``out_part``)."""
     tp = current()
     if tp is None or id(table) not in tp.vocab_split:
-        return table[tokens.long()]
+        return out_part(table[tokens.long()])
     n = table.shape[0]
     local = tokens.long() - tp.rank * n
     mine = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)]
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-    return _all_reduce(tp, rows)
+    return out_sum(rows)
 
 
 def vocab_input(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

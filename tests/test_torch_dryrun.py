@@ -19,8 +19,8 @@ dryrun}``, the kernels' meta branches and the recording
   HuBERT's decode_32k; its ``params_total`` / ``params_expert`` equal the
   counts of JAX's ``eval_shape`` params and its ``argument_bytes`` the
   per-device shard sizes of JAX's specs (``NamedSharding.shard_shape`` on
-  a 256-device mesh of repeated host devices); the CLI refuses
-  ``--seq-shard`` by name.
+  a 256-device mesh of repeated host devices). ``--seq-shard`` is
+  held in ``tests/test_torch_seq_shard.py``.
 """
 
 import dataclasses
@@ -428,16 +428,6 @@ def test_run_one_skips_with_jax_reason():
     rec = dryrun.run_one("hubert-xlarge", "decode_32k", multi_pod=False)
     assert rec["status"] == "skipped"
     assert rec["reason"] == jsteps.skip_reason("hubert-xlarge", "decode_32k")
-
-
-def test_seq_shard_refused_by_name(capsys):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        dryrun.run_one("smollm-135m", "decode_32k", multi_pod=False,
-                       seq_shard=True)
-    with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k",
-                     "--seq-shard"])
-    assert "item 10b" in capsys.readouterr().err
 
 
 def test_moe_dryrun_counts_router_collectives():

@@ -32,7 +32,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.launch import dryrun, steps  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.launch.world import World  # noqa: E402
 
@@ -177,12 +177,3 @@ def test_ranks_logits_put_together_equal_one_rank(world, small, name, mesh):
             put[:, d * rows:(d + 1) * rows, :,
                 m * heads:(m + 1) * heads] = part
         np.testing.assert_allclose(put, k, **TOL)
-
-
-def test_item_10b_names_only_the_train_kinds_and_sequence_sharding():
-    """Item 10b names sequence sharding alone: the train kinds run on a
-    world (``tests/test_torch_world_train.py``)."""
-    for text in (steps.ITEM_10B, dryrun.SEQ_SHARD_REFUSAL):
-        assert "item 10b" in text and "sequence" in text
-        assert "train" not in text and "world" not in text
-        assert "FSDP" not in text and "serving" not in text
