@@ -230,10 +230,6 @@ class Seq2SeqBackend:
             sc.pos[:, rows.to(sc.pos.device).long()] = -1
         return cache
 
-    def admit_cache(self, params, cache, rows, src, drafts, dmask):
-        mkv, mask = self.encode_kv(params, src)
-        return self.admit_cache_precomputed(params, cache, rows, mkv, mask)
-
     def reset_args(self, src, drafts, dmask):
         """(last_token, start_pos, drafts, dmask) for ``reset_slot``:
         decoding starts from BOS at position 0."""

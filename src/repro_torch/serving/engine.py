@@ -105,6 +105,12 @@ prefix would leave the recurrent state without it.
 On the card the decoder's cached self-attention runs the ``decode_gqa``
 kernel (dense cache) or the ``paged_decode_gqa`` kernel (paged cache), and
 the greedy-family accept op the ``draft_verify`` kernel.
+
+``StreamingEngine.tracer`` (``repro_torch.serving.trace``), off until
+enabled, records the host loop's spans: each scheduler iteration's expiry,
+admissions, bundle wait, read-outs, releases, dispatch (page plan and
+launch) and stream delivery, and each request's queue wait.
+``loop_stats()`` holds the counters, which are always on.
 """
 
 from __future__ import annotations
@@ -150,6 +156,7 @@ from repro_torch.serving.api import (MAX_STOP_IDS, GenerationParams,
 from repro_torch.serving.backend import make_backend
 from repro_torch.serving.scheduler import (ContinuousScheduler,
                                            OverloadPolicy, SlotResult)
+from repro_torch.serving.trace import Tracer
 from repro_torch.sharding import ctx as shard_ctx
 
 MODES = ("greedy", "speculative", "beam", "speculative_beam")
@@ -512,13 +519,14 @@ class StreamingEngine:
             self._row_shard = rs
         if self.mesh is not None:
             self._local_geometry()
-        # loop instrumentation: steps issued, per-iteration counts, and host
-        # step gaps (seconds between consecutive bundle reads), bounded
+        # loop instrumentation: steps issued, per-iteration counts, blocking
+        # device reads, and the host loop's spans (off until enabled)
         self.n_dispatches = 0
-        self.n_host_reads = 0   # blocking device reads of the step path
+        self.n_host_reads = 0      # plan flags, bundles, mirror recounts
+        self.n_readout_reads = 0   # finished slots' outputs
         self._disp_mark = 0
         self._dispatch_samples: list[int] = []
-        self._step_gaps: list[float] = []
+        self.tracer = Tracer()
         self.allocator: PageAllocator | None = None
         # request-level front door state: terminal records by rid, the
         # current serve() epoch's records, live stream cursors, and the
@@ -717,7 +725,8 @@ class StreamingEngine:
                 cache=self._gtables)
             shards = ((self.n_shards, self._row_shard)
                       if self.n_shards > 1 else None)
-            dplan, flags = self._plan_pages(view, prefill, shards)
+            with self.tracer.span("plan"):
+                dplan, flags = self._plan_pages(view, prefill, shards)
             G, n_sh = len(self._groups), self.n_shards
             plan = dict(n_free=int(flags[2]), need=flags[3:3 + G])
             if shards is not None:
@@ -731,14 +740,17 @@ class StreamingEngine:
                     need=plan["need"],
                     **({"exhausted_sh": plan["exhausted_sh"]}
                        if shards is not None else {}))
-            apply_page_plan_segment(self._gtables, gstate.cache, dplan,
-                                    self._shard, self._pps, int(flags[1]))
-            self._refresh_view(gstate.cache)
-        self._write_chunks(gstate, prefill)
-        handle = self.backend.step_handle(self.params)
-        gstate = grouped_step(tuple(self._local_specs.values()), handle,
-                              gstate)
-        return gstate, self._gather_bundle(gstate, n_out0, plan)
+        with self.tracer.span("launch"):
+            if plan is not None:
+                apply_page_plan_segment(self._gtables, gstate.cache, dplan,
+                                        self._shard, self._pps,
+                                        int(flags[1]))
+                self._refresh_view(gstate.cache)
+            self._write_chunks(gstate, prefill)
+            handle = self.backend.step_handle(self.params)
+            gstate = grouped_step(tuple(self._local_specs.values()), handle,
+                                  gstate)
+            return gstate, self._gather_bundle(gstate, n_out0, plan)
 
     def _gather_bundle(self, gstate, n_out0, plan) -> dict:
         """The step's bundle on the host, every slot's: this rank's slots'
@@ -766,10 +778,11 @@ class StreamingEngine:
             keys += ["pos", "tables"]
             units.update(pos=[s.n_beams for s in lspecs],
                          tables=[s.rows_per_slot * nb for s in lspecs])
-        local = self._read_bundle(b)
-        flat = np.concatenate([np.asarray(local[k], np.int32).reshape(-1)
-                               for k in keys])
-        parts = self._host_all_gather(flat)
+        with self.tracer.span("bundle_wait"):
+            local = self._read_bundle(b)
+            flat = np.concatenate([np.asarray(local[k], np.int32).reshape(-1)
+                                   for k in keys])
+            parts = self._host_all_gather(flat)
         self.n_bundle_gathers += 1
         out = {}
         at = 0
@@ -830,16 +843,20 @@ class StreamingEngine:
         n_out0 = self._slot_counts(gstate)
         plan = None
         if self.ecfg.paged:
-            plan, flags = self._plan_pages(gstate, prefill)
+            with self.tracer.span("plan"):
+                plan, flags = self._plan_pages(gstate, prefill)
             if flags[0]:
                 return gstate, dict(exhausted=plan.exhausted,
                                     n_free_alloc=plan.n_free,
                                     need=plan.need_by_group)
-            apply_page_plan(gstate.cache, plan, int(flags[1]))
-        self._write_chunks(gstate, prefill)
-        handle = self.backend.step_handle(self.params)
-        gstate = grouped_step(tuple(self._groups.values()), handle, gstate)
-        return gstate, self._make_bundle(gstate, n_out0, plan)
+        with self.tracer.span("launch"):
+            if plan is not None:
+                apply_page_plan(gstate.cache, plan, int(flags[1]))
+            self._write_chunks(gstate, prefill)
+            handle = self.backend.step_handle(self.params)
+            gstate = grouped_step(tuple(self._groups.values()), handle,
+                                  gstate)
+            return gstate, self._make_bundle(gstate, n_out0, plan)
 
     def _plan_pages(self, view, prefill, shards=None):
         """This iteration's device page plan over ``view`` (the session's
@@ -993,10 +1010,10 @@ class StreamingEngine:
         args = tuple(a.to(self.device) for a in req.args)
         if self._encode_reuse:   # seq2seq: the whole source is the prefix
             mkv, mask = self._encode_cached(req.prompt, args[0])
-            be.admit_cache_precomputed(self.params, gstate.cache, rows, mkv,
-                                       mask)
         else:
-            be.admit_cache(self.params, gstate.cache, rows, *args)
+            with self.tracer.span("encode"):
+                mkv, mask = be.encode_kv(self.params, args[0])
+        be.admit_cache_precomputed(self.params, gstate.cache, rows, mkv, mask)
         last, pos0, drafts, dmask = be.reset_args(*args)
         max_out, stop_ids, eff_dl, eff_beams = req.gen
         reset_slot(self._state_spec(mode), gstate.groups[gi], i, last, pos0,
@@ -1013,7 +1030,8 @@ class StreamingEngine:
         c["lookup_tokens"] += int(np.size(prompt))
         ent = self._encode_lru.pop(key, None)
         if ent is None:
-            ent = self.backend.encode_kv(self.params, src)
+            with self.tracer.span("encode"):
+                ent = self.backend.encode_kv(self.params, src)
             self.n_dispatches += 1
         else:
             c["hit_tokens"] += int(np.size(prompt))
@@ -1143,17 +1161,18 @@ class StreamingEngine:
         ran for (resident rids). The step's kernels stay queued on the
         card's stream while the host goes on to the next iteration's expiry
         and admissions."""
-        prefill, staged = (self._stage_chunks() if self.backend.chunked
-                           else (None, []))
-        self._staged_slots = staged
-        self._dispatch_rids = {s: r.rid
-                               for s, r in self.scheduler._resident.items()}
-        self._dispatch_prefilling = set(self._prefilling)
-        if self.mesh is None:
-            state, bundle = self._megastep(state, prefill)
-        else:
-            with shard_ctx.tensor_parallel(self._tp):
-                state, bundle = self._megastep_mesh(state, prefill)
+        with self.tracer.span("dispatch"):
+            prefill, staged = (self._stage_chunks() if self.backend.chunked
+                               else (None, []))
+            self._staged_slots = staged
+            self._dispatch_rids = {
+                s: r.rid for s, r in self.scheduler._resident.items()}
+            self._dispatch_prefilling = set(self._prefilling)
+            if self.mesh is None:
+                state, bundle = self._megastep(state, prefill)
+            else:
+                with shard_ctx.tensor_parallel(self._tp):
+                    state, bundle = self._megastep_mesh(state, prefill)
         self._n_dispatched += 1
         self.n_dispatches += 1
         self._bundle = bundle
@@ -1167,14 +1186,11 @@ class StreamingEngine:
         eviction mask (guarded by the dispatch-time rid snapshot, so a slot
         recycled since the dispatch is never evicted by a stale mask). On a
         mesh the bundle was read and gathered in the dispatch already."""
-        out = (self._bundle if self.mesh is not None
-               else self._read_bundle(self._bundle))
-        t = time.perf_counter()
-        if self._last_sync_t is not None:
-            self._step_gaps.append(t - self._last_sync_t)
-            if len(self._step_gaps) > 4096:
-                del self._step_gaps[:2048]
-        self._last_sync_t = t
+        if self.mesh is not None:
+            out = self._bundle
+        else:
+            with self.tracer.span("bundle_wait"):
+                out = self._read_bundle(self._bundle)
         if bool(out["exhausted"]):
             # the step applied NOTHING: hint the scheduler at the first
             # group whose cumulative need overflows the pool
@@ -1306,7 +1322,6 @@ class StreamingEngine:
         self._dispatch_rids: dict[int, int] = {}
         self._booked: list[tuple] = []   # (dispatch stamp, shard, pages)
         self._n_dispatched = 0
-        self._last_sync_t = None
         self._mirror_free_sh: list[int] = []
         self._admits_by_shard = [0] * self.n_shards
         # prefix reuse: the radix tree and each slot's acquired chain, the
@@ -1431,7 +1446,8 @@ class StreamingEngine:
             tuple((self._groups if self.mesh is None
                    else self._local_specs).values()), cache)
         return ContinuousScheduler(self.spec, state, admit=admit, step=step,
-                                   policy=ecfg.overload, **hooks)
+                                   policy=ecfg.overload, tracer=self.tracer,
+                                   **hooks)
 
     # -- cross-request prefix sharing -----------------------------------------
     def _admit_match_prefix(self, state, slot: int, rec: dict) -> None:
@@ -1527,32 +1543,25 @@ class StreamingEngine:
     def loop_stats(self) -> dict:
         """Host-loop instrumentation: total steps and admission/eviction
         calls issued (``n_dispatches``), calls per scheduler iteration
-        (steady state == 1.0: the megastep alone), the step path's
-        blocking device reads (``host_reads``: a paged iteration's plan
-        flag and bundle, a dense one's bundle, a mirror recount), and the
-        host step gap
-        (seconds between consecutive bundle reads) p50/p95. On a mesh also
+        (steady state == 1.0: the megastep alone), and blocking device
+        reads in two counts: ``host_reads``, those of the step itself (a
+        paged iteration's plan flag and bundle, a dense one's bundle, a
+        mirror recount), and ``readout_reads``, those of finished slots'
+        outputs (five a slot, on the rank that holds it). On a mesh also
         this rank's bundle gathers, host collectives (gathers, owner
         broadcasts, clock broadcasts), model-axis collectives and
-        data-axis ones (the MoE router's global counts)."""
-        gaps = sorted(self._step_gaps)
-
-        def pct(q):
-            if not gaps:
-                return 0.0
-            return gaps[min(len(gaps) - 1, int(q * len(gaps)))]
-
+        data-axis ones (the MoE router's global counts). The host loop's
+        spans are ``tracer``'s."""
         samples = self._dispatch_samples
         return {
             "n_dispatches": self.n_dispatches,
             "host_reads": self.n_host_reads,
+            "readout_reads": self.n_readout_reads,
             "n_iterations": len(samples),
             "dispatches_per_iteration": (sum(samples) / len(samples)
                                          if samples else 0.0),
             "steady_iterations_one_dispatch": sum(1 for s in samples
                                                   if s == 1),
-            "step_gap_p50_s": pct(0.50),
-            "step_gap_p95_s": pct(0.95),
             **({} if self.mesh is None else {
                 "bundle_gathers": self.n_bundle_gathers,
                 "host_collectives": self.n_host_collectives,
@@ -1726,6 +1735,10 @@ class StreamingEngine:
         spec = self._groups[mode]
         gs = state.groups[self.mode_names.index(mode)]
         logp = gs.logp[local].cpu().numpy()
+        tokens = gs.tokens[local].cpu().numpy()
+        lengths = gs.n_out[local].cpu().numpy()
+        n_calls, accepted = int(gs.n_calls[local]), int(gs.accepted[local])
+        self.n_readout_reads += 5   # the five blocking reads above
         order = (np.argsort(-logp, kind="stable") if spec.kind == "beam"
                  else np.arange(spec.n_beams))
         # per-request params trim the read-out to the request's own shape
@@ -1734,13 +1747,10 @@ class StreamingEngine:
         if sreq is not None and sreq.payload[1].params is not None:
             rp = sreq.payload[1].params
             eff_k, eff_new = rp.n_beams, rp.max_new
-        return dict(
-            tokens=gs.tokens[local].cpu().numpy()[order][:eff_k, :eff_new],
-            lengths=gs.n_out[local].cpu().numpy()[order][:eff_k],
-            logprobs=logp[order][:eff_k],
-            n_calls=int(gs.n_calls[local]),
-            accepted=int(gs.accepted[local]),
-        )
+        return dict(tokens=tokens[order][:eff_k, :eff_new],
+                    lengths=lengths[order][:eff_k],
+                    logprobs=logp[order][:eff_k],
+                    n_calls=n_calls, accepted=accepted)
 
     def _prediction(self, r: SlotResult, wall_s: float) -> Prediction:
         smiles = [self.tok.decode(r.tokens[k])
@@ -1760,7 +1770,7 @@ class StreamingEngine:
         self._done, self._epoch, self._streams = {}, {}, {}
         self._pump = None
         self._pump_realtime = False
-        self._dispatch_samples, self._step_gaps = [], []
+        self._dispatch_samples = []
         self._disp_mark = self.n_dispatches
 
     def submit_spec(self, rspec: RequestSpec) -> RequestHandle:
@@ -1884,11 +1894,19 @@ class StreamingEngine:
 
     @torch.no_grad()   # every step of serve/wait/stream/drain/predict
     def _serve_steps_impl(self, realtime: bool):
-        for events in self.scheduler.steps(self._read_slot,
-                                           realtime=realtime):
-            self._collect_streams()
-            for r in events:
-                self._finish_result(r)
+        steps = self.scheduler.steps(self._read_slot, realtime=realtime)
+        span = self.tracer.span
+        while True:
+            # the span closes before the yield: the caller's time between
+            # iterations is not the engine's
+            with span("iteration"):
+                events = next(steps, None)
+                if events is None:
+                    return
+                with span("streams"):
+                    self._collect_streams()
+                    for r in events:
+                        self._finish_result(r)
             yield events
 
     def _ensure_pump(self, realtime: bool = False):

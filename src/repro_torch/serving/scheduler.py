@@ -103,6 +103,7 @@ import numpy as np
 
 from repro_torch.core.session import PoolExhausted, SessionSpec, release_slot
 from repro_torch.serving.api import RequestStatus
+from repro_torch.serving.trace import Tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +148,7 @@ class ScheduledRequest:
     seq: int = 0           # submission order (FIFO tie-break)
     boost: int = 0         # preemption requeue: head of its priority class
     cancelled: bool = False
+    queued_ns: int = 0     # perf_counter_ns at enqueue, while tracing
 
     def eff_priority(self, now: float, rate: float) -> int:
         """Effective priority under aging: the base class plus one point
@@ -249,6 +251,10 @@ class ContinuousScheduler:
     sync_clock(t) -> t               the realtime serving clock as every
                                      rank of a mesh must see it (rank 0's,
                                      broadcast)
+
+    ``tracer``: the ``repro_torch.serving.trace.Tracer`` the scheduler's
+    spans go to (``expire``, ``admit``, ``readout``, ``release``,
+    ``queued``); default one of its own, off.
     """
 
     def __init__(self, spec: SessionSpec, state, *,
@@ -264,10 +270,12 @@ class ContinuousScheduler:
                  place: Callable | None = None,
                  shards: dict[int, int] | None = None,
                  sync_clock: Callable | None = None,
-                 policy: OverloadPolicy | None = None):
+                 policy: OverloadPolicy | None = None,
+                 tracer: Tracer | None = None):
         self.spec = spec
         self.state = state
         self.policy = policy or OverloadPolicy()
+        self.tracer = tracer or Tracer()
         self._admit = admit
         self._step = step
         self._admit_ok = admit_ok
@@ -382,6 +390,8 @@ class ContinuousScheduler:
                            (self._key(req), req.seq, req))
         self._n_queued[req.mode] += 1
         self._queued_by_rid[req.rid] = req
+        if self.tracer.on:
+            req.queued_ns = time.perf_counter_ns()
 
     def _key(self, req: ScheduledRequest, now: float | None = None):
         """Ready-queue key against the current clock (aging-aware)."""
@@ -448,7 +458,8 @@ class ContinuousScheduler:
         behind cancellation, deadline expiry, and preemption."""
         req = self._resident.pop(slot)
         admitted = self._admit_time.pop(slot)
-        self.state = self._release(self.state, slot)
+        with self.tracer.span("release", req.rid):
+            self.state = self._release(self.state, slot)
         self._return_slot(slot)
         return req, admitted
 
@@ -584,7 +595,15 @@ class ContinuousScheduler:
                             continue   # pool pressure: try other groups
                         slot = self._free[mode].pop(0)
                     req = self._pop_head(mode)
-                    self.state = self._admit(self.state, slot, req.payload)
+                    if req.queued_ns:
+                        if self.tracer.on:
+                            self.tracer.record(
+                                "queued", req.queued_ns,
+                                time.perf_counter_ns(), rid=req.rid)
+                        req.queued_ns = 0
+                    with self.tracer.span("admit", req.rid):
+                        self.state = self._admit(self.state, slot,
+                                                 req.payload)
                     self._resident[slot] = req
                     self._admit_time[slot] = now
                     admitted = True   # state changed: recompute candidates
@@ -724,7 +743,8 @@ class ContinuousScheduler:
         for slot in done:
             # read while the slot is still resident: the engine's read_slot
             # looks up the request's per-request params to trim the view
-            fields = read_slot(self.state, slot)
+            with self.tracer.span("readout", self._resident[slot].rid):
+                fields = read_slot(self.state, slot)
             req, admitted = self._evict(slot)
             service = max(0.0, now - admitted)
             prev = self._ewma_service.get(req.mode)
@@ -795,7 +815,8 @@ class ContinuousScheduler:
         while self.queued or self._resident:
             self._now = now = clock()
             events: list[SlotResult] = []
-            self._expire_residents(now, events)
+            with self.tracer.span("expire"):
+                self._expire_residents(now, events)
             nxt = self._next_arrival()
             if (not self._resident and nxt is not None and not realtime
                     and nxt > now):
@@ -851,7 +872,8 @@ class ContinuousScheduler:
         while self.queued or self._resident or inflight:
             self._now = now = clock()
             events: list[SlotResult] = []
-            self._expire_residents(now, events)
+            with self.tracer.span("expire"):
+                self._expire_residents(now, events)
             nxt = self._next_arrival()
             if (not self._resident and not inflight and nxt is not None
                     and not realtime and nxt > now):
