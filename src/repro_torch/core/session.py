@@ -6,13 +6,13 @@ one step function over the same fixed-slot state: ``session_step`` runs ONE
 verify/commit iteration for every slot. ``run_session`` drains the slots
 with a host loop (one device-to-host read per iteration for its exit test)
 where the JAX package runs a ``lax.while_loop``. The streaming engine
-instead admits requests into freed slots between steps (``reset_slot`` /
+instead admits requests into freed slots between steps (``reset_slots`` /
 ``release_slot``), runs per-mode slot groups over one shared cache
 (``GroupedState`` / ``grouped_step``) and, on a paged cache, plans page
 maintenance on the device (``device_page_plan`` / ``apply_page_plan``) with
 a host-side allocator for admission accounting (``PageAllocator``).
 
-Unlike the JAX package, ``reset_slot``, ``release_slot``, the unmap helpers
+Unlike the JAX package, ``reset_slots``, ``release_slot``, the unmap helpers
 and ``apply_page_plan`` update the state's tensors and the cache IN PLACE
 (the engine threads one state linearly, so no copy is needed); the step
 functions still return new state tensors.
@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from repro_torch.core.handles import DecoderHandle
 from repro_torch.core.tree_batch import (gather_rows, merge_rows, slice_rows,
                                          sync_winner)
+from repro_torch.device import to_device
 from repro_torch.kernels.draft_verify.ops import draft_verify
 from repro_torch.models.attention import TRASH_PAGE, KVCache, PagedKVCache
 
@@ -145,36 +146,76 @@ def init_state(spec: SessionSpec, cache: Any, *, device=None) -> SessionState:
     )
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def reset_slots(spec: SessionSpec, state: SessionState, slots,
+                last_token, start_pos, drafts, draft_mask, *,
+                max_out=None, stop_ids=None, eff_dl=None,
+                eff_beams=None) -> SessionState:
+    """Prefill the algorithm state of several slots in place (the caller
+    populates their model-cache rows). The per-slot values are host values:
+    ``slots``, ``last_token``, ``start_pos`` and the optional ``max_out``,
+    ``eff_dl``, ``eff_beams`` (n,), ``drafts`` (n, N_d, DL), ``draft_mask``
+    (n, N_d), ``stop_ids`` (n, n_stop); the generation params default to
+    the spec's ceilings. They are packed into one int32 array and moved to
+    the device in one copy, then each field takes one indexed write, however
+    many slots there are."""
+    n, K = len(slots), spec.n_beams
+    W = spec.n_drafts * spec.draft_len
+
+    def col(x, default):
+        return np.full((n,), default) if x is None else _host(x).reshape(n)
+
+    stop = (np.full((n, spec.n_stop), -1) if stop_ids is None
+            else _host(stop_ids).reshape(n, spec.n_stop))
+    host = np.concatenate([
+        np.stack([np.asarray(slots).reshape(n), col(last_token, 0),
+                  col(start_pos, 0), col(max_out, spec.max_new),
+                  col(eff_dl, spec.draft_len), col(eff_beams, K)], axis=1),
+        _host(drafts).reshape(n, W), _host(draft_mask).reshape(n, -1),
+        stop], axis=1).astype(np.int32)
+    v = to_device(host, state.active.device)
+    idx = v[:, 0].long()
+
+    def per_beam(j):
+        return v[:, j, None].expand(n, K)
+
+    state.tokens.index_fill_(0, idx, spec.pad_id)
+    state.logp.index_fill_(0, idx, _NEG)
+    state.logp[:, 0].index_fill_(0, idx, 0.0)
+    state.last.index_copy_(0, idx, per_beam(1))
+    state.pos.index_copy_(0, idx, per_beam(2))
+    state.n_out.index_fill_(0, idx, 0)
+    state.finished.index_fill_(0, idx, False)
+    state.active.index_fill_(0, idx, True)
+    state.drafts.index_copy_(0, idx, v[:, 6:6 + W].reshape(
+        n, spec.n_drafts, spec.draft_len))
+    state.draft_mask.index_copy_(0, idx, v[:, 6 + W:6 + W + spec.n_drafts]
+                                 != 0)
+    state.n_calls.index_fill_(0, idx, 0)
+    state.accepted.index_fill_(0, idx, 0)
+    state.max_out.index_copy_(0, idx, v[:, 3])
+    state.stop_ids.index_copy_(0, idx, v[:, 6 + W + spec.n_drafts:])
+    state.eff_dl.index_copy_(0, idx, v[:, 4])
+    state.eff_beams.index_copy_(0, idx, v[:, 5])
+    return state
+
+
 def reset_slot(spec: SessionSpec, state: SessionState, slot: int,
                last_token, start_pos, drafts, draft_mask, *,
                max_out=None, stop_ids=None, eff_dl=None,
                eff_beams=None) -> SessionState:
-    """Prefill a slot's algorithm state in place (the caller populates the
-    model-cache rows). ``drafts`` is (N_d, DL), ``draft_mask`` (N_d,); the
-    generation params default to the spec's ceilings."""
-    K = spec.n_beams
-    dev = state.active.device
-    beam0 = torch.full((K,), _NEG, dtype=torch.float32, device=dev)
-    beam0[0] = 0.0
-    state.tokens[slot] = spec.pad_id
-    state.logp[slot] = beam0
-    state.last[slot] = int(last_token)
-    state.pos[slot] = int(start_pos)
-    state.n_out[slot] = 0
-    state.finished[slot] = False
-    state.active[slot] = True
-    state.drafts[slot] = torch.as_tensor(drafts, dtype=_I32).to(dev)
-    state.draft_mask[slot] = torch.as_tensor(draft_mask,
-                                             dtype=torch.bool).to(dev)
-    state.n_calls[slot] = 0
-    state.accepted[slot] = 0
-    state.max_out[slot] = spec.max_new if max_out is None else int(max_out)
-    state.stop_ids[slot] = (-1 if stop_ids is None else
-                            torch.as_tensor(stop_ids, dtype=_I32).to(dev))
-    state.eff_dl[slot] = spec.draft_len if eff_dl is None else int(eff_dl)
-    state.eff_beams[slot] = (spec.n_beams if eff_beams is None
-                             else int(eff_beams))
-    return state
+    """``reset_slots`` for one slot: ``drafts`` is (N_d, DL),
+    ``draft_mask`` (N_d,), ``stop_ids`` (n_stop,)."""
+    def one(x):
+        return None if x is None else _host(x)[None]
+
+    return reset_slots(spec, state, [slot], [last_token], [start_pos],
+                       one(drafts), one(draft_mask), max_out=one(max_out),
+                       stop_ids=one(stop_ids), eff_dl=one(eff_dl),
+                       eff_beams=one(eff_beams))
 
 
 def release_slot(state: SessionState, slot: int) -> SessionState:

@@ -169,13 +169,16 @@ def dynamic_merge_rows(cache, sub, start):
 
 def set_rows(cache, rows: torch.Tensor, values):
     """Scatter ``values`` into batch rows ``rows`` (axis 1), in place: the
-    continuous-batching admission path. ``values`` leaves are (R, 1 or
-    len(rows), ...) and broadcast across the written rows."""
+    continuous-batching admission path. ``rows`` is an index of any shape
+    (admission's is (queries, rows a slot)); ``values`` leaves broadcast
+    against (R, *rows.shape, ...), so (R, 1 or len(rows), ...) for a flat
+    ``rows`` and (R, queries, 1, ...) to give each query's row to all of
+    its slot's rows."""
     idx = rows.long()
 
     def one(a, b):
         a[:, idx.to(a.device)] = b.to(device=a.device, dtype=a.dtype).expand(
-            a.shape[0], idx.shape[0], *a.shape[2:])
+            a.shape[0], *idx.shape, *a.shape[2:])
         return a
 
     return _zip_map(one, cache, values)

@@ -9,8 +9,9 @@ request preparation (``make_request``: tokenization, drafting, prefill
 chunks) and the device-side admission pieces.
 
 ``Seq2SeqBackend`` (``chunked = False``): the Molecular Transformer's
-admission is monolithic: encode the query once and scatter its
-cross-attention K/V and memory mask into the slot's rows; the
+admission is monolithic and batched: the engine gathers the queries one
+scheduler iteration admits, encodes them in one encoder pass and scatters
+each one's cross-attention K/V and memory mask into its slot's rows; the
 self-attention cache starts empty (dense rows marked empty, paged rows
 unmapped).
 
@@ -57,7 +58,7 @@ class Request:
     written (decoder-only: last prompt token, its position, drafts, draft
     mask). ``chunks``: ``[(tokens (C,), pos0, n_valid)]`` fixed-shape
     prefill chunks (empty for the seq2seq backend and one-token prompts).
-    ``gen``: the request's slot params for ``reset_slot``
+    ``gen``: the request's slot params for ``reset_slots``
     (``ResolvedParams.device_args``). ``params``: the host-side
     ``ResolvedParams`` (read-out trimming). ``prompt``: the host token array
     the request was built from.
@@ -205,24 +206,30 @@ class Seq2SeqBackend:
                        params=params, prompt=src)
 
     # ---- device-side admission -------------------------------------------
-    def encode_kv(self, params, src):
-        """The encoder leg of admission for ONE query: the stacked memory
-        K/V ({"mk", "mv"}: (R, 1, M, H, hd)) and the source mask (M,)."""
+    def encode_kv(self, params, srcs):
+        """The encoder leg of admission for a batch of queries, ``srcs`` (B,
+        M) padded to ``max_src``: one encoder pass and one ``memory_kv`` a
+        decoder layer, whatever B. Returns the stacked memory K/V ({"mk",
+        "mv"}: (R, B, M, H, hd)) and the source mask (B, M)."""
         cfg = self.cfg
-        memory, mask = s2s.encode(params, cfg, src[None])
+        memory, mask = s2s.encode(params, cfg, srcs)
         mkv = [attn_mod.memory_kv(p["cross_attn"], cfg, memory)
                for p in params["dec_blocks"]]
         return ({"mk": torch.stack([m["mk"] for m in mkv]),
-                 "mv": torch.stack([m["mv"] for m in mkv])}, mask[0])
+                 "mv": torch.stack([m["mv"] for m in mkv])}, mask)
 
     def admit_cache_precomputed(self, params, cache, rows, mkv, mask):
-        """Scatter an encoded source into the slot's cache rows, in place.
-        Recycled rows: the evicted request's stale K/V must be unreadable
-        (dense: pos = -1 marks every slot empty; paged: the rows' block
-        tables are unmapped and the page planner maps fresh pages)."""
-        set_rows(cache["cross"], rows, mkv)
-        cache["mmask"][:, rows.to(cache["mmask"].device).long()] = mask.to(
-            cache["mmask"].device)
+        """Scatter a batch of encoded sources into their slots' cache rows,
+        in place: ``rows`` (B, rows a slot) holds each query's rows, and
+        query b's K/V (``mkv`` leaves (R, B, ...)) and mask (``mask`` (B,
+        M)) go to all of ``rows[b]``, one indexed write a leaf. Recycled
+        rows: the evicted requests' stale K/V must be unreadable (dense: pos
+        = -1 marks every slot empty; paged: the rows' block tables are
+        unmapped and the page planner maps fresh pages)."""
+        set_rows(cache["cross"], rows, {k: v[:, :, None]
+                                        for k, v in mkv.items()})
+        mm = cache["mmask"]
+        mm[:, rows.to(mm.device).long()] = mask[:, None].to(mm.device)
         sc = cache["self"]
         if isinstance(sc, PagedKVCache):
             unmap_cache_rows(cache, rows)
@@ -231,7 +238,7 @@ class Seq2SeqBackend:
         return cache
 
     def reset_args(self, src, drafts, dmask):
-        """(last_token, start_pos, drafts, dmask) for ``reset_slot``:
+        """(last_token, start_pos, drafts, dmask) for ``reset_slots``:
         decoding starts from BOS at position 0."""
         return self.tok.bos_id, 0, drafts, dmask
 

@@ -20,8 +20,12 @@ completion (every request waits for the slowest member of its batch).
 slot groups (``EngineConfig.mode_groups``) over one model cache, driven by
 ``repro_torch.serving.scheduler.ContinuousScheduler``. Finished sequences
 leave at once and queued requests take their slots; beams are batched
-across slots. With ``EngineConfig(paged=True)`` the self-attention cache is
-a ``PagedKVCache``: admission is gated on free pages, each iteration plans
+across slots. A seq2seq engine writes the admissions of one scheduler pass
+together: the host books each as it is admitted, then one flush encodes
+all their sources in one encoder pass, scatters their cross-attention K/V
+and resets their slots (``loop_stats()``'s ``admit_batches``). With
+``EngineConfig(paged=True)`` the self-attention cache is a
+``PagedKVCache``: admission is gated on free pages, each iteration plans
 its page maintenance on the card (``device_page_plan``), and an iteration
 the pool cannot cover changes nothing, so the host preempts the youngest
 resident and replays it. The request front door is
@@ -117,6 +121,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import math
 import time
 import warnings
@@ -142,10 +147,10 @@ from repro_torch.core.session import (GroupedState, PageAllocator,
                                       paged_cache_entries,
                                       radix_cell_coords, read_row_pages,
                                       release_slot, reset_slot,
-                                      segment_pages, unmap_cache_rows,
-                                      write_index_cells)
+                                      reset_slots, segment_pages,
+                                      unmap_cache_rows, write_index_cells)
 from repro_torch.data.tokenizer import SmilesTokenizer
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.models import seq2seq as s2s
 from repro_torch.models import transformer as tr
 from repro_torch.models.attention import PagedKVCache
@@ -524,6 +529,8 @@ class StreamingEngine:
         self.n_dispatches = 0
         self.n_host_reads = 0      # plan flags, bundles, mirror recounts
         self.n_readout_reads = 0   # finished slots' outputs
+        self.admit_batches = 0        # admission flushes that held a request
+        self.admit_batch_queries = 0  # the requests those flushes admitted
         self._disp_mark = 0
         self._dispatch_samples: list[int] = []
         self.tracer = Tracer()
@@ -604,17 +611,26 @@ class StreamingEngine:
         self._my_rows = torch.as_tensor(mine, dtype=torch.long,
                                         device=self.device)
 
-    def _here(self, mode: str, local: int):
-        """``(state index, cache rows)`` of a group's local slot on this
-        rank, or None when another data shard owns it."""
+    def _local_slot(self, mode: str, local: int):
+        """``(state index, first cache row)`` of a group's local slot on
+        this rank, or None when another data shard owns it."""
+        rps = self._groups[mode].rows_per_slot
         if self.mesh is None:
-            return local, self._slot_rows(mode, local)
+            return local, self._row_lo[mode] + local * rps
         per = self._local_specs[mode].n_slots
         if local // per != self._shard:
             return None
         i = local % per
+        return i, self._local_row_lo[mode] + i * rps
+
+    def _here(self, mode: str, local: int):
+        """``(state index, cache rows)`` of a group's local slot on this
+        rank, or None when another data shard owns it."""
+        at = self._local_slot(mode, local)
+        if at is None:
+            return None
+        i, lo = at
         rps = self._groups[mode].rows_per_slot
-        lo = self._local_row_lo[mode] + i * rps
         return i, torch.arange(lo, lo + rps, device=self.device)
 
     def _state_spec(self, mode: str) -> SessionSpec:
@@ -991,54 +1007,123 @@ class StreamingEngine:
         lo = self._row_lo[mode] + local * spec.rows_per_slot
         return torch.arange(lo, lo + spec.rows_per_slot, device=self.device)
 
-    def _admit(self, gstate, mode: str, local: int, req):
-        """Admit ``req`` into local slot ``local`` of ``mode``'s group, in
-        place: encode the query, scatter its cross-attn K/V + memory mask
-        into the slot's rows (recycling their self-attn rows), and reset the
-        slot's decode state. On a mesh every rank unmaps the slot's rows in
-        the replicated tables and marks the slot live for the page plan;
-        only the owning shard's ranks encode and write."""
-        be = self.backend
+    def _admit(self, slot: int, mode: str, local: int, req) -> None:
+        """Admit ``req`` into local slot ``local`` of ``mode``'s group: the
+        host half now (on a mesh every rank unmaps the slot's rows in the
+        replicated tables and marks the slot live for the page plan), the
+        device half queued for the pass's ``_flush_admissions``."""
         if self.mesh is not None and self.ecfg.paged:
             unmap_cache_rows(self._gtables, self._slot_rows(mode, local))
         self._mirror_slot(mode, local, pos0=0)
-        here = self._here(mode, local)
-        if here is None:
+        self._pending.append((slot, mode, local, req))
+
+    def _flush_admissions(self, gstate):
+        """Scheduler ``admit_flush`` hook: the device half of every
+        admission of an admission pass, as one batch and one dispatch. Only
+        the owning shard's ranks write a slot (every slot off a mesh); the
+        counts are of the scheduler's admissions, alike on every rank."""
+        pending, self._pending = self._pending, []
+        if not pending:
             return gstate
-        i, rows = here
-        gi = self.mode_names.index(mode)
-        args = tuple(a.to(self.device) for a in req.args)
-        if self._encode_reuse:   # seq2seq: the whole source is the prefix
-            mkv, mask = self._encode_cached(req.prompt, args[0])
-        else:
-            with self.tracer.span("encode"):
-                mkv, mask = be.encode_kv(self.params, args[0])
-        be.admit_cache_precomputed(self.params, gstate.cache, rows, mkv, mask)
-        last, pos0, drafts, dmask = be.reset_args(*args)
-        max_out, stop_ids, eff_dl, eff_beams = req.gen
-        reset_slot(self._state_spec(mode), gstate.groups[gi], i, last, pos0,
-                   drafts, dmask, max_out=max_out, stop_ids=stop_ids,
-                   eff_dl=eff_dl, eff_beams=eff_beams)
+        self.n_dispatches += 1
+        self.admit_batches += 1
+        self.admit_batch_queries += len(pending)
+        mine = []
+        for _, mode, local, req in pending:
+            at = self._local_slot(mode, local)
+            if at is not None:
+                mine.append((self.mode_names.index(mode), at, req))
+        if mine:
+            mine.sort(key=lambda e: e[0])   # stable: a group's queries abut
+            with shard_ctx.tensor_parallel(self._tp):
+                self._admit_batch(gstate, mine)
         return gstate
 
-    def _encode_cached(self, prompt: np.ndarray, src: torch.Tensor):
-        """The encoder leg of an admission through the encoder-output LRU,
-        keyed by the source's token bytes: a hit skips the encoder."""
-        key = np.asarray(prompt, np.int32).tobytes()
-        c = self._prefix_counters
-        c["lookups"] += 1
-        c["lookup_tokens"] += int(np.size(prompt))
-        ent = self._encode_lru.pop(key, None)
-        if ent is None:
+    def _admit_batch(self, gstate, mine: list) -> None:
+        """Write admissions ``[(group index, (state index, first cache
+        row), request)]``, grouped by group, in place: their sources and
+        cache rows go to the device in one copy, the sources are encoded in
+        one encoder pass (through the encoder-output LRU: its misses), and
+        each group gets one scatter of the cross-attention K/V and memory
+        masks into its slots' rows and one ``reset_slots``."""
+        be = self.backend
+        prompts = [req.prompt for _, _, req in mine]
+        ents, srcs = (self._lookup_encoded(prompts) if self._encode_reuse
+                      else (None, prompts))
+        rows = [np.arange(lo, lo + self._groups[self.mode_names[gi]]
+                          .rows_per_slot) for gi, (_, lo), _ in mine]
+        B, M = len(srcs), self.ecfg.max_src
+        flat = to_device(np.concatenate(
+            [np.asarray(srcs, np.int32).reshape(B * M)] + rows
+        ).astype(np.int32), self.device)
+        rows_d = flat[B * M:].long()
+        mkv = mask = None
+        if B:
             with self.tracer.span("encode"):
-                ent = self.backend.encode_kv(self.params, src)
-            self.n_dispatches += 1
-        else:
-            c["hit_tokens"] += int(np.size(prompt))
-        self._encode_lru[key] = ent
-        while len(self._encode_lru) > self.ecfg.prefix_cache_entries:
-            self._encode_lru.popitem(last=False)
-        return ent
+                mkv, mask = be.encode_kv(self.params, flat[:B * M].view(B, M))
+        if ents is not None:
+            mkv, mask = self._store_encoded(ents, mkv, mask)
+        q = r = 0
+        for gi, grp in itertools.groupby(mine, key=lambda e: e[0]):
+            grp = list(grp)
+            mode = self.mode_names[gi]
+            n, rps = len(grp), self._groups[mode].rows_per_slot
+            at = slice(q, q + n)
+            be.admit_cache_precomputed(
+                self.params, gstate.cache, rows_d[r:r + n * rps].view(n, rps),
+                {k: v[:, at] for k, v in mkv.items()}, mask[at])
+            args = [be.reset_args(*req.args) for _, _, req in grp]
+            gens = [req.gen for _, _, req in grp]
+            reset_slots(self._state_spec(mode), gstate.groups[gi],
+                        [i for _, (i, _), _ in grp], [a[0] for a in args],
+                        [a[1] for a in args],
+                        torch.stack([a[2] for a in args]),
+                        torch.stack([a[3] for a in args]),
+                        max_out=[g[0] for g in gens],
+                        stop_ids=torch.stack([g[1] for g in gens]),
+                        eff_dl=[g[2] for g in gens],
+                        eff_beams=[g[3] for g in gens])
+            q, r = q + n, r + n * rps
+
+    def _lookup_encoded(self, prompts: list):
+        """The encoder-output LRU's side of a flush, keyed by each source's
+        token bytes: each query is looked up in turn, as admissions one at
+        a time would look it up (counters, recency, evictions), and a miss
+        holds the LRU place of what it will be, an index into the flush's
+        sources to encode. Returns (per query: an entry or such an index;
+        those sources, each distinct one once)."""
+        c = self._prefix_counters
+        fresh: dict[bytes, int] = {}
+        ents = []
+        for prompt in prompts:
+            key = np.asarray(prompt, np.int32).tobytes()
+            c["lookups"] += 1
+            c["lookup_tokens"] += int(np.size(prompt))
+            ent = self._encode_lru.pop(key, None)
+            if ent is None:
+                ent = fresh.setdefault(key, len(fresh))
+            else:
+                c["hit_tokens"] += int(np.size(prompt))
+            self._encode_lru[key] = ent
+            while len(self._encode_lru) > self.ecfg.prefix_cache_entries:
+                self._encode_lru.popitem(last=False)
+            ents.append(ent)
+        srcs = [np.frombuffer(k, np.int32) for k in fresh]
+        return ents, srcs
+
+    def _store_encoded(self, ents: list, mkv, mask):
+        """The encoded sources of a flush as LRU entries (copies, so an
+        entry does not hold its whole batch), put in the places their
+        misses hold; returns each query's K/V and mask in order."""
+        new = [({k: v[:, j:j + 1].clone() for k, v in mkv.items()},
+                mask[j].clone()) for j in range(len(mask))] if mkv else []
+        for key, ent in list(self._encode_lru.items()):
+            if isinstance(ent, int):
+                self._encode_lru[key] = new[ent]
+        got = [new[e] if isinstance(e, int) else e for e in ents]
+        return ({k: torch.cat([g[0][k] for g in got], dim=1)
+                 for k in ("mk", "mv")},
+                torch.stack([g[1] for g in got]))
 
     def _finish(self, gstate, mode: str, local: int, req):
         """A slot's prompt is written: its other rows adopt row 0's context
@@ -1316,6 +1401,9 @@ class StreamingEngine:
         # chunked prefill: global slot -> {mode, req, chunks, next chunk};
         # the chunks and mid-prefill slots of the in-flight dispatch
         self._prefilling: dict[int, dict] = {}
+        # seq2seq admissions of the current pass, not yet written:
+        # (global slot, mode, local slot, request)
+        self._pending: list[tuple] = []
         self._staged_slots: list[int] = []
         self._dispatch_prefilling: set[int] = set()
         self.prefill_chunks_written = 0
@@ -1355,10 +1443,11 @@ class StreamingEngine:
                                      self.allocator.admit_pages_for(mode)))
             if shard is not None:   # sharded slots only, as JAX counts
                 self._admits_by_shard[shard] += 1
-            self.n_dispatches += 1
             if not self.backend.chunked:
-                with shard_ctx.tensor_parallel(self._tp):
-                    return self._admit(state, mode, local, req)
+                # the device half waits for the pass's flush
+                self._admit(slot, mode, local, req)
+                return state
+            self.n_dispatches += 1
             # chunked: recycle the rows now; the prompt streams into the
             # step's chunk lanes and the slot activates at the sync that
             # sees its last chunk written
@@ -1384,6 +1473,8 @@ class StreamingEngine:
         def release(state, slot):
             mode, local = self._slot_of(slot)
             self._prefilling.pop(slot, None)   # preempted mid-prefill
+            # admitted and evicted in one pass: nothing to write
+            self._pending = [p for p in self._pending if p[0] != slot]
             chain = self._slot_chains.pop(slot, None)
             if chain:
                 # drop the slot's hold on its aliased prefix chain; the
@@ -1411,6 +1502,8 @@ class StreamingEngine:
                        "finished": self._finished_mask,
                        "dispatch": self._dispatch_step,
                        "sync": self._sync_step}
+        if not self.backend.chunked:
+            hooks.update(admit_flush=self._flush_admissions)
         if self.n_shards > 1:
             # sharded: the engine picks the SLOT (and thereby the shard)
             # for every admission (prefix affinity first, least-loaded shard
@@ -1542,8 +1635,12 @@ class StreamingEngine:
     # -- instrumentation -------------------------------------------------------
     def loop_stats(self) -> dict:
         """Host-loop instrumentation: total steps and admission/eviction
-        calls issued (``n_dispatches``), calls per scheduler iteration
-        (steady state == 1.0: the megastep alone), and blocking device
+        calls issued (``n_dispatches``; a seq2seq engine's admissions of
+        one pass count once, as the one flush that writes them), calls per
+        scheduler iteration (steady state == 1.0: the megastep alone),
+        ``admit_batches`` (flushes that admitted anything) and
+        ``admit_batch_queries`` (the requests they admitted; their ratio is
+        the mean batch, alike on every rank of a mesh), and blocking device
         reads in two counts: ``host_reads``, those of the step itself (a
         paged iteration's plan flag and bundle, a dense one's bundle, a
         mirror recount), and ``readout_reads``, those of finished slots'
@@ -1562,6 +1659,8 @@ class StreamingEngine:
                                          if samples else 0.0),
             "steady_iterations_one_dispatch": sum(1 for s in samples
                                                   if s == 1),
+            "admit_batches": self.admit_batches,
+            "admit_batch_queries": self.admit_batch_queries,
             **({} if self.mesh is None else {
                 "bundle_gathers": self.n_bundle_gathers,
                 "host_collectives": self.n_host_collectives,

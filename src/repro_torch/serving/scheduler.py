@@ -10,8 +10,11 @@ instead keeps S fixed decode slots stepping forever:
     time for open-loop load generation, a ``priority``, and a
     ``deadline``);
   - each host iteration admits queued requests into free slots (one
-    admit call per slot), runs ONE shared ``session_step`` for all
-    slots, and evicts finished slots, returning their tokens immediately;
+    admit call per slot for its host bookkeeping, then, where the engine
+    supplies one, ONE ``admit_flush`` that does the device work of every
+    admission the iteration made), runs ONE shared ``session_step`` for
+    all slots, and evicts finished slots, returning their tokens
+    immediately;
   - eviction frees the slot for the next queued request while the other
     slots keep decoding — no head-of-line blocking.
 
@@ -218,6 +221,15 @@ class ContinuousScheduler:
     admit(state, slot:int, payload) -> state     (supplied by the engine)
     step(state) -> state                          (supplied by the engine)
 
+    Optional batched admission:
+    admit_flush(state) -> state      called once at the end of an
+                                     admission pass that admitted anything,
+                                     after its admissions and preemptions:
+                                     the device work of the admissions,
+                                     batched. A ``release`` of a slot whose
+                                     admission is not flushed yet must drop
+                                     it.
+
     Optional mode mixing:
     groups: {mode: [global slot ids]}    per-mode slot groups/free lists;
                                          default one anonymous group over
@@ -253,12 +265,14 @@ class ContinuousScheduler:
                                      broadcast)
 
     ``tracer``: the ``repro_torch.serving.trace.Tracer`` the scheduler's
-    spans go to (``expire``, ``admit``, ``readout``, ``release``,
+    spans go to (``expire``, ``admit`` (one a request, and one without a
+    request id around ``admit_flush``), ``readout``, ``release``,
     ``queued``); default one of its own, off.
     """
 
     def __init__(self, spec: SessionSpec, state, *,
                  admit: Callable, step: Callable,
+                 admit_flush: Callable | None = None,
                  admit_ok: Callable | None = None,
                  pre_step: Callable | None = None,
                  release: Callable = release_slot,
@@ -277,6 +291,7 @@ class ContinuousScheduler:
         self.policy = policy or OverloadPolicy()
         self.tracer = tracer or Tracer()
         self._admit = admit
+        self._admit_flush = admit_flush
         self._step = step
         self._admit_ok = admit_ok
         self._pre_step = pre_step
@@ -575,6 +590,7 @@ class ContinuousScheduler:
     def _admit_ready(self, now: float, events: list) -> None:
         self._promote(now)
         self._reage(now)
+        n_admitted = 0
         while True:
             admitted = True
             while admitted:
@@ -606,6 +622,7 @@ class ContinuousScheduler:
                                                  req.payload)
                     self._resident[slot] = req
                     self._admit_time[slot] = now
+                    n_admitted += 1
                     admitted = True   # state changed: recompute candidates
                     break
             # free slots exhausted: an urgent head may still evict the
@@ -613,6 +630,11 @@ class ContinuousScheduler:
             # slot through the normal (admit_ok-gated) path above
             if not self._preempt_for_urgent(now, events):
                 break
+        if n_admitted and self._admit_flush is not None:
+            # the device work of the whole pass at once, before the drive
+            # waits on the in-flight step
+            with self.tracer.span("admit"):
+                self.state = self._admit_flush(self.state)
         self.max_resident = max(self.max_resident, len(self._resident))
 
     def _preempt_for_urgent(self, now: float, events: list) -> bool:

@@ -17,8 +17,11 @@ trace keys on):
 - ``iteration``: one ``next()`` of the engine's step pump (the scheduler's
   drive and the stream delivery after it), parent of:
   - ``expire``: residents past their deadline evicted;
-  - ``admit`` (rid): one admission, with a child ``encode`` where the
-    encoder runs (every seq2seq admission, or an encoder-output LRU miss);
+  - ``admit`` (rid): one admission's host bookkeeping (a decoder-only
+    admission's whole admission);
+  - ``admit`` (no rid): a seq2seq engine's flush of a pass's admissions,
+    with a child ``encode`` where the encoder runs (one pass over the
+    flush's sources, or over its encoder-output LRU misses);
   - ``bundle_wait``: the blocking read of the step's bundle (on a mesh, the
     read and the gather, inside ``launch``);
   - ``readout`` (rid): a finished slot's output read to the host;

@@ -2,8 +2,9 @@
 read counters, on a random tiny MT on the CPU: off, the tracer is one
 shared no-op and records nothing; on, one drive records each scheduler
 iteration's phases under it with the right parents and request ids, on the
-clock of ``torch.profiler``'s events; ``loop_stats()`` counts the
-read-out's five reads a finished request apart from the step's."""
+clock of ``torch.profiler``'s events, a pass's admissions written by one
+flush with one encoder pass; ``loop_stats()`` counts the read-out's five
+reads a finished request apart from the step's."""
 
 import pytest
 
@@ -130,10 +131,21 @@ def test_one_drive_records_the_phases(toy, mode, paged):
                        for i in its) == 1, s
     # one admission, one wait and one read-out a request, each under its id
     for name in ("admit", "queued", "readout", "release"):
-        assert sorted(s.rid for s in spans if s.name == name) == \
+        assert sorted(s.rid for s in spans
+                      if s.name == name and s.rid is not None) == \
             sorted(rids), name
+    # a pass's admissions are written by one flush, an ``admit`` span with
+    # no id, which runs the encoder once
+    flushes = [s for s in spans if s.name == "admit" and s.rid is None]
+    encodes = [s for s in spans if s.name == "encode"]
+    assert len(encodes) == len(flushes) == eng.loop_stats()["admit_batches"]
+    for e in encodes:
+        assert sum(f.start_ns <= e.start_ns and e.end_ns <= f.end_ns
+                   for f in flushes) == 1, e
+    assert eng.loop_stats()["admit_batch_queries"] == len(rids)
     # a request waits, then is admitted; the two slots make later ones wait
-    by_rid = {s.rid: s for s in spans if s.name == "admit"}
+    by_rid = {s.rid: s for s in spans if s.name == "admit"
+              and s.rid is not None}
     waits = []
     for s in spans:
         if s.name == "queued":

@@ -13,7 +13,8 @@ on the same toys (the MT ``tiny_config`` at depth 2 / d_model 64; SmolLM
    ``(4, 1)`` mesh equal the port's unsharded engine;
 2. the dispatch contract: a lone resident's iterations are one step
    each, and a mesh iteration reads the card as often as the unsharded
-   engine's plus one bundle gather;
+   engine's plus one bundle gather; jobs arriving together are admitted
+   in the unsharded engine's batches;
 3. shard-local exhaustion against JAX's sharded engine on the forced host
    ``(2, 2)`` mesh: the same preemptions, the same shards named, the same
    tokens, the same ``shard_stats()``;
@@ -135,6 +136,12 @@ def _jax_unsharded(toys, backend):
     return [res[int(r)] for r in rids]
 
 
+# the loop's counts a mesh rank shares with the unsharded engine
+LOOP_COUNTS = ("n_iterations", "n_dispatches", "host_reads",
+               "steady_iterations_one_dispatch", "admit_batches",
+               "admit_batch_queries")
+
+
 def _same(got: list, want: list) -> None:
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g["tokens"]),
@@ -173,8 +180,7 @@ def test_sharded_token_identity(world, toys, backend):
         # the same iterations, host reads and steps as unsharded, plus one
         # bundle gather an iteration
         ls, lr = got[0]["loop_stats"], ref["loop_stats"]
-        for k in ("n_iterations", "n_dispatches", "host_reads",
-                  "steady_iterations_one_dispatch"):
+        for k in LOOP_COUNTS:
             assert ls[k] == lr[k], (k, ls, lr)
         assert ls["bundle_gathers"] == got[0]["steps"] == ref["steps"]
         assert ref["shard_stats"]["admitted_by_shard"] == [0]
@@ -188,6 +194,27 @@ def test_sharded_token_identity(world, toys, backend):
                               realtime=True, arrivals=False)
         for r in got:
             _same(r["results"], ref["results"])
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_sharded_batched_admission(world, toys, paged):
+    """Every job arriving at once: a pass's admissions are one flush on
+    every rank, each rank writing its own shard's; the tokens equal the
+    unsharded engine's, and so do the loop's counts, the admission
+    batches and the requests in them among them, on every rank."""
+    jobs = _jobs(toys, "mt")
+    kw = _kw("mt", paged)
+    ref = mesh_runs.serve(toys["mt"], kw, jobs, on_card=False, mesh=None,
+                          arrivals=False)
+    got = world.run(SERVE, on_card=False, model=toys["mt"], engine=kw,
+                    jobs=jobs, arrivals=False)
+    lr = ref["loop_stats"]
+    assert lr["admit_batch_queries"] == len(jobs) > lr["admit_batches"]
+    for r in got:
+        _same(r["results"], ref["results"])
+        assert all(n > 0 for n in r["shard_stats"]["admitted_by_shard"])
+        for k in LOOP_COUNTS:
+            assert r["loop_stats"][k] == lr[k], (k, r["loop_stats"], lr)
 
 
 @pytest.mark.parametrize("arch,shape", [

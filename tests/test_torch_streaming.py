@@ -517,6 +517,49 @@ def test_page_allocator_invariants(seed):
     assert alloc.can_admit(state), "an empty pool must admit"
 
 
+def test_reset_slots_equals_reset_slot_per_slot():
+    """``reset_slots`` over several slots (one copy, one write a field)
+    leaves every field of every slot as ``reset_slot`` slot by slot does,
+    from the same garbage, with and without the generation params."""
+    spec = tsession.SessionSpec(n_slots=5, n_beams=2, n_drafts=3,
+                                draft_len=2, max_new=7, eos_id=1, pad_id=0,
+                                kind="beam", n_stop=2)
+    rng = np.random.default_rng(0)
+    base = tsession.init_state(spec, None, device="cpu")
+    base = base._replace(**{
+        f: torch.from_numpy(rng.integers(0, 9, tuple(getattr(base, f).shape))
+                            .astype(getattr(base, f).numpy().dtype))
+        for f in tsession.SessionState._fields if f != "cache"})
+    slots = [3, 0, 4]
+    n = len(slots)
+    last, pos = rng.integers(0, 30, n), rng.integers(0, 5, n)
+    drafts = rng.integers(0, 30, (n, 3, 2))
+    dmask = rng.random((n, 3)) < 0.5
+    gen = dict(max_out=rng.integers(1, 8, n), stop_ids=rng.integers(
+        -1, 30, (n, 2)), eff_dl=rng.integers(0, 3, n),
+        eff_beams=rng.integers(1, 3, n))
+    for kw in (gen, {}):
+        def copy():
+            return base._replace(**{f: getattr(base, f).clone()
+                                    for f in base._fields if f != "cache"})
+
+        a, b = copy(), copy()
+        tsession.reset_slots(spec, a, slots, last, pos, drafts, dmask, **kw)
+        for j, slot in enumerate(slots):
+            tsession.reset_slot(spec, b, slot, int(last[j]), int(pos[j]),
+                                torch.from_numpy(drafts[j]), dmask[j],
+                                **{k: v[j] for k, v in kw.items()})
+        for f in tsession.SessionState._fields:
+            if f != "cache":
+                np.testing.assert_array_equal(getattr(a, f).numpy(),
+                                              getattr(b, f).numpy(),
+                                              err_msg=f)
+        # the other slots are untouched, the reset ones are fresh
+        np.testing.assert_array_equal(a.tokens[[1, 2]].numpy(),
+                                      base.tokens[[1, 2]].numpy())
+        assert bool(a.active[slots].all()) and int(a.n_out[slots].sum()) == 0
+
+
 # ---------------------------------------------------------------------------
 # the slice end to end
 
@@ -569,6 +612,121 @@ def test_more_requests_than_slots(toy):
     for rt, rj in pairs:
         _assert_results_equal(rt, rj)
     assert te.scheduler.max_resident == 2
+
+
+# ---------------------------------------------------------------------------
+# batched admission: a pass's admissions written by one flush
+
+
+def _spy_encoder(te):
+    """Record the batch size of every encoder pass ``te`` makes."""
+    sizes = []
+    encode = te.backend.encode_kv
+
+    def spy(params, srcs):
+        sizes.append(int(srcs.shape[0]))
+        return encode(params, srcs)
+
+    te.backend.encode_kv = spy
+    return sizes
+
+
+@pytest.mark.parametrize("arrivals", ["together", "staggered"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("mode,kw", MODES[1::2],
+                         ids=[m for m, _ in MODES[1::2]])
+def test_batched_admission_matches_jax(toy, mode, kw, paged, arrivals):
+    """Six queries into an 8-slot engine, all at once (one flush: one
+    encoder pass of six sources, one scatter, one ``reset_slots``) or one
+    an iteration (six flushes of one): tokens, lengths, n_calls and
+    accepted counts identical to the JAX engine, which admits one at a
+    time; beam log-probs within 1e-5."""
+    extra = dict(paged=True, page_size=8) if paged else {}
+    je, te = toy["engines"](mode=mode, n_slots=8, **kw, **extra)
+    sizes = _spy_encoder(te)
+    staggered = arrivals == "staggered"
+    jobs = [(q, dict(arrival=float(i) if staggered else 0.0))
+            for i, q in enumerate(_queries(toy, 6))]
+    for rt, rj in _serve_both(je, te, jobs):
+        _assert_results_equal(rt, rj)
+    st = te.loop_stats()
+    if staggered:
+        assert st["admit_batches"] == st["admit_batch_queries"] == 6
+        assert sizes == [1] * 6
+    else:
+        assert (st["admit_batches"], st["admit_batch_queries"]) == (1, 6)
+        assert sizes == [6]
+    if paged:
+        te.allocator.check()
+
+
+@pytest.mark.parametrize("entries", [8, 1])
+def test_batched_admission_encodes_a_repeat_once(toy, entries):
+    """With the encoder-output LRU, five queries of three sources in one
+    flush: each distinct source missing the LRU is encoded once, in one
+    pass, and the LRU's counters equal those of the JAX engine's
+    admissions one at a time, also where a one-entry LRU evicts a source
+    that then misses again; the tokens equal the JAX engine's."""
+    je, te = toy["engines"](**dict(SPEC_PAGED, n_slots=8), prefix_cache=True,
+                            prefix_cache_entries=entries)
+    sizes = _spy_encoder(te)
+    qs = _queries(toy, 3)
+    jobs = [(qs[i], {}) for i in (0, 1, 0, 2, 1)]
+    for rt, rj in _serve_both(je, te, jobs):
+        _assert_results_equal(rt, rj)
+    assert sizes == [3]
+    assert te.prefix_stats() == je.prefix_stats()
+    assert (te.prefix_stats()["hit_tokens"] > 0) == (entries > 1)
+    # a later flush reads the entries this one left
+    [(rt, rj)] = _serve_both(je, te, [(qs[2], {})])
+    _assert_results_equal(rt, rj)
+    assert sizes == [3] + ([] if entries > 1 else [1])
+    assert te.prefix_stats() == je.prefix_stats()
+
+
+@pytest.mark.parametrize("how", ["cancel", "preempt"])
+def test_release_before_the_flush_leaves_the_slot_clean(toy, how):
+    """A request admitted and then cancelled or preempted in the same
+    pass, before the flush: nothing of it is written (its slot stays
+    inactive), and every request served, the next tenant of its slot and
+    (preempted) the request itself on its return, gives the JAX engine's
+    tokens."""
+    qs = _queries(toy, 3)
+    je, te = toy["engines"](**SPEC_PAGED)
+    hj = [je.submit(q) for q in qs]
+    ref = je.serve()
+    hs = [te.submit(q) for q in qs]
+    flush, seen = te.scheduler._admit_flush, {}
+
+    def release_first(state):
+        if not seen:
+            slot = next(s for s, r in te.scheduler._resident.items()
+                        if r.rid == int(hs[1]))
+            seen["slot"] = slot
+            if how == "cancel":
+                assert hs[1].cancel()
+            else:
+                te.scheduler._preempt_youngest()
+            assert slot not in te.scheduler._resident
+            state = flush(state)
+            seen["active"] = bool(state.groups[0].active[slot])
+            seen["batch"] = te.loop_stats()["admit_batch_queries"]
+            return state
+        return flush(state)
+
+    te.scheduler._admit_flush = release_first
+    res = te.serve()
+    assert seen["active"] is False and seen["batch"] == 1
+    served = [0, 1, 2] if how == "preempt" else [0, 2]
+    for i in served:
+        _assert_results_equal(res[int(hs[i])], ref[int(hj[i])])
+    if how == "cancel":
+        assert hs[1].status == "cancelled"
+    else:
+        assert te.scheduler.n_preemptions == 1
+    te.allocator.reclaim(te.scheduler.state)
+    te.allocator.check()
+    assert te.allocator.used_pages == 0
 
 
 def _jax_single_mode_results(toy, jobs):
