@@ -1,6 +1,7 @@
-"""The comparison that decides ``correct``: what the timed path served,
-judged by the plain reference (``reference/model.py``) once the window has
-closed and the program's state is freed.
+"""The seq2seq family's comparison that decides ``correct``
+(``families/seq2seq.py``): what the timed path served, judged by the plain
+reference (``reference/model.py``) once the window has closed and the
+program's state is freed.
 
 ``greedy`` cells (speculative greedy, the greedy family): every query
 completed in the window. The reference runs once over each source with the

@@ -1,9 +1,10 @@
 """Faults planted under the timed path, to show that the comparison which
 decides ``correct`` catches them: a step that returns its state unchanged,
-half of the decoder's batch dropped (its logits zeroed), a token altered
-where it is written, and (beam cells) a beam selection that drops the best
-candidate, whose beams are consistent with their log-probs and in order
-but are not the best ones. ``calibrate.py --fault`` reads their numbers on
+half of the decoder's batch dropped (its logits zeroed: the seq2seq
+decoder's step, or the decoder-only model's), a token altered where it is
+written, and (beam cells) a beam selection that drops the best candidate,
+whose beams are consistent with their log-probs and in order but are not
+the best ones. ``calibrate.py --fault`` reads their numbers on
 the card at a cell's own size; the CPU tests plant them in small cells.
 The benchmark's own runs never plant one.
 """
@@ -11,6 +12,7 @@ The benchmark's own runs never plant one.
 from __future__ import annotations
 
 import contextlib
+import importlib
 
 from perfbench.reference import synthetic
 
@@ -21,18 +23,24 @@ def _unchanged():
     return session, "session_step", lambda spec, handle, state: state
 
 
-def _half_batch():
-    import repro_torch.models.seq2seq as s2s
+def _half_batch_of(module_name: str):
+    def fault():
+        module = importlib.import_module(module_name)
+        step = module.decode_step
 
-    step = s2s.decode_step
+        def half(*a, **kw):
+            logits, cache = step(*a, **kw)
+            logits = logits.clone()
+            logits[logits.shape[0] // 2:] = 0.0
+            return logits, cache
 
-    def half(*a, **kw):
-        logits, cache = step(*a, **kw)
-        logits = logits.clone()
-        logits[logits.shape[0] // 2:] = 0.0
-        return logits, cache
+        return module, "decode_step", half
 
-    return s2s, "decode_step", half
+    return fault
+
+
+_half_batch = _half_batch_of("repro_torch.models.seq2seq")
+_half_batch_decoder = _half_batch_of("repro_torch.models.transformer")
 
 
 def _token_altered():
@@ -63,11 +71,22 @@ def _beam_selection():
     return session, "_stable_topk", second_best_on
 
 
-# name -> (the fault, the check kinds of the cells it applies to)
-FAULTS = {"state-unchanged": (_unchanged, ("greedy", "beam")),
-          "half-batch": (_half_batch, ("greedy", "beam")),
-          "token-altered": (_token_altered, ("greedy", "beam")),
-          "beam-selection": (_beam_selection, ("beam",))}
+BOTH = ("seq2seq", "decoder_only")
+# name -> (the fault, the check kinds and the model families of the cells
+# it applies to)
+FAULTS = {"state-unchanged": (_unchanged, ("greedy", "beam"), BOTH),
+          "half-batch": (_half_batch, ("greedy", "beam"), ("seq2seq",)),
+          "half-batch-decoder": (_half_batch_decoder, ("greedy",),
+                                 ("decoder_only",)),
+          "token-altered": (_token_altered, ("greedy", "beam"), BOTH),
+          "beam-selection": (_beam_selection, ("beam",), ("seq2seq",))}
+
+
+def applicable(kind: str, family: str) -> list[str]:
+    """The faults a cell of check kind ``kind`` and model family
+    ``family`` can have, by name."""
+    return sorted(n for n, (_, kinds, families) in FAULTS.items()
+                  if kind in kinds and family in families)
 
 
 @contextlib.contextmanager

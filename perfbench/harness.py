@@ -1,14 +1,16 @@
 """The benchmark's driver: reads ``BENCHMARK.json``, finds a cell's
 configuration (``configs/<config>.json``), traffic mix
-(``traffic/<traffic>.json``), limits (``limits/<workload>.json``) and
-metric readers (``metrics/<metric>.py``) by name, and runs the cell.
+(``traffic/<traffic>.json``), limits (``limits/<workload>.json``), model
+family (``families/<family>.py``, the configuration's ``family``, default
+``seq2seq``) and metric readers (``metrics/<metric>.py``) by name, and
+runs the cell.
 
-One run: weights (trained on a checkout's first run, then loaded), the
-query pool drawn from the seed, one ``repro_torch`` ``StreamingEngine``
-(seq2seq backend, paged cache, one mode group of the mix's slots) driven
-through ``submit`` and ``serve_steps()`` by a closed loop of as many
-clients as slots, the warm-up iterations, the measured window, a drain,
-and then, with the program's state freed, the reference's comparison.
+One run: the family's weights, the query pool drawn from the seed, one
+``repro_torch`` ``StreamingEngine`` (the family's backend, paged cache,
+one mode group of the mix's slots) driven through ``submit`` and
+``serve_steps()`` by a closed loop of as many clients as slots, the
+warm-up iterations, the measured window, a drain, and then, with the
+program's state freed, the family's comparison with its reference.
 With ``trace`` the clients go on for ``TRACE_S`` seconds after the window
 under ``torch.profiler``, with the kernel metrics' entries recorded.
 """
@@ -29,7 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from perfbench import check, traffic, weights
+from perfbench import traffic
 from perfbench.reference import synthetic
 
 HERE = Path(__file__).resolve().parent
@@ -57,6 +59,15 @@ class Cell:
     end_to_end: list[dict]
     per_layer: list[dict]
 
+    @property
+    def family(self) -> str:
+        return family_of(self.config)
+
+
+def family_of(config: dict) -> str:
+    """A configuration's model family: its ``family``, else ``seq2seq``."""
+    return config.get("family", "seq2seq")
+
 
 def _applies(metric: dict, workload: str) -> bool:
     return "workloads" not in metric or workload in metric["workloads"]
@@ -69,25 +80,47 @@ def load_cell(workload: str) -> Cell:
         raise KeyError(f"no workload {workload!r}; have {sorted(cells)}")
     w = cells[workload]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    return cell_from_files(
+        w, conf, [m for m in bench["end_to_end"] if _applies(m, workload)],
+        [m for m in bench["per_layer"] if _applies(m, workload)])
+
+
+def cell_from_files(w: dict, conf: dict, end_to_end: list[dict],
+                    per_layer: list[dict], base: Path = HERE) -> Cell:
+    """The cell of the workload entry ``w`` and its configuration's entry
+    ``conf``, in ``BENCHMARK.json``'s form: the file ``conf["file"]``, and
+    ``base``'s ``traffic/<traffic>.json`` and ``limits/<workload>.json``,
+    with the metrics given."""
     config_path = ROOT / conf["file"]
     config = json.loads(config_path.read_text())
-    mix = json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text())
-    traffic.validate(mix, w["traffic"])
-    limits = json.loads((HERE / "limits" / f"{workload}.json").read_text())
-    return Cell(
-        name=workload, config=config, config_path=config_path, traffic=mix,
-        limits=limits,
-        end_to_end=[m for m in bench["end_to_end"] if _applies(m, workload)],
-        per_layer=[m for m in bench["per_layer"] if _applies(m, workload)])
+    mix = json.loads((base / "traffic" / f"{w['traffic']}.json").read_text())
+    limits = json.loads((base / "limits" / f"{w['name']}.json").read_text())
+    cell = Cell(name=w["name"], config=config, config_path=config_path,
+                traffic=mix, limits=limits, end_to_end=end_to_end,
+                per_layer=per_layer)
+    traffic.validate(mix, w["traffic"], cell.family)
+    return cell
 
 
-def metric_module(name: str):
-    path = HERE / "metrics" / f"{name}.py"
+def _load(kind: str, name: str):
+    if not re.fullmatch(r"[A-Za-z0-9_][A-Za-z0-9_.-]*", name):
+        raise ValueError(f"bad {kind} name {name!r}")
+    mod_name = f"perfbench.{kind}.{name.replace('.', '_')}"
     spec = importlib.util.spec_from_file_location(
-        f"perfbench.metrics.{name.replace('.', '_')}", path)
+        mod_name, HERE / kind / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_module(name: str):
+    return _load("metrics", name)
+
+
+def family_module(name: str):
+    """``families/<name>.py``: a model family's configuration, weights,
+    queries, engine, prompt ids, comparison, tapped step and flops."""
+    return _load("families", name)
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +163,7 @@ class Run:
     dispatches: int
     completions: list
     model_cfg: dict
+    family: object = None     # the cell's family module (``query_flops``)
     trace: Trace | None = None
     bounds: dict = dataclasses.field(default_factory=dict)   # metric -> s
     patterns: dict = dataclasses.field(default_factory=dict)  # metric -> re
@@ -197,34 +231,52 @@ class EntryRecorder:
 
 
 class LogitTap:
-    """Keeps what the decoder step of a seed-drawn sample of the window's
-    calls produced: the fed tokens, their positions and the logits
-    (references to the step's own tensors; nothing is copied or waited
-    for), so the comparison can judge the logits themselves."""
+    """Keeps what the decoder step (``target``: the family's (module,
+    attribute), looked up by the program at each call) of a seed-drawn
+    sample of the window's calls produced, for up to ``slots`` of each
+    call's active slots drawn from the seed: their ``rows`` fed rows a slot
+    (the tokens, their positions) and the logits of those rows alone, so
+    the comparison can judge the logits themselves. The draw and the copy
+    run on the step's device, queued behind it: nothing is waited for, and
+    the rest of the call's logits are left to the program."""
 
-    def __init__(self, seed: int, period: int, calls: int):
-        import repro_torch.models.seq2seq as s2s
-
+    def __init__(self, seed: int, period: int, calls: int, target: tuple,
+                 *, rows: int, slots: int, device):
         self.active = False
         self.taps: list = []
         self._n = 0
-        phase = int(np.random.default_rng([seed, 3]).integers(period))
-        op = s2s.decode_step
+        rng = np.random.default_rng([seed, 3])
+        phase = int(rng.integers(period))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(rng.integers(2**62)))
+        module = importlib.import_module(target[0])
+        op = getattr(module, target[1])
+
+        def keep(tokens, positions, logits):
+            # random keys, the active slots' above every inactive one's
+            n = tokens.shape[0] // rows
+            key = torch.rand(n, generator=gen, device=logits.device)
+            key = torch.where(positions[::rows, 0] >= 0, key, key - 2.0)
+            pick = key.topk(min(slots, n)).indices
+            at = (pick[:, None] * rows + torch.arange(
+                rows, device=logits.device)).reshape(-1)
+            return tuple(x.index_select(0, at)
+                         for x in (tokens, positions, logits))
 
         def call(params, cfg, cache, tokens, positions, **kw):
             out = op(params, cfg, cache, tokens, positions, **kw)
             if self.active:
                 if self._n % period == phase and len(self.taps) < calls:
-                    self.taps.append((tokens, positions, out[0]))
+                    self.taps.append(keep(tokens, positions, out[0]))
                 self._n += 1
             return out
 
-        s2s.decode_step = call
-        self._undo = (s2s, op)
+        setattr(module, target[1], call)
+        self._undo = (module, target[1], op)
 
     def close(self) -> None:
         if self._undo is not None:
-            self._undo[0].decode_step = self._undo[1]
+            setattr(*self._undo)
             self._undo = None
 
 
@@ -303,10 +355,14 @@ class LoopOut:
 
 def closed_loop(eng, pool, clients: int, warmup: int, seconds: float, *,
                 span=None, on_open=None, on_close=None, extra_s: float = 0.0,
-                on_extra_end=None, drain_s: float = 60.0) -> LoopOut:
+                on_extra_end=None, drain_s: float = 60.0,
+                stagger: int = 0) -> LoopOut:
     """C clients, each submitting its next query when the iteration that
-    returns its result ends. The window opens at the end of iteration
-    ``warmup`` and closes at the first iteration end ``seconds`` later.
+    returns its result ends; client k submits its first query at the end
+    of iteration ``stagger`` x k, so that clients whose requests all take
+    as long do not finish together. The window opens at
+    the end of iteration ``warmup`` and closes at the first iteration end
+    ``seconds`` later.
     The clients go on for ``extra_s`` more seconds, counted from when
     ``on_close()`` returns, and ``on_extra_end()`` follows; then no client
     submits again, and the loop waits for what is in flight, at most
@@ -322,8 +378,9 @@ def closed_loop(eng, pool, clients: int, warmup: int, seconds: float, *,
         t = time.perf_counter()
         inflight[int(eng.submit(pool[i][0]))] = (t, i)
 
+    started = clients if not stagger else 1
     with span("submit"):
-        for _ in range(clients):
+        for _ in range(started):
             submit()
     gen = eng.serve_steps()
     it = iterations = d0 = d1 = 0
@@ -370,6 +427,9 @@ def closed_loop(eng, pool, clients: int, warmup: int, seconds: float, *,
             with span("submit"):
                 for _ in range(back):
                     submit()
+                while started < clients and it >= stagger * started:
+                    submit()
+                    started += 1
         elif not inflight or time.perf_counter() - t3 > drain_s:
             break
     if t3 is None:
@@ -384,49 +444,17 @@ def closed_loop(eng, pool, clients: int, warmup: int, seconds: float, *,
 # one run
 
 
-def _completion(r, latency_s: float, src: str, tok) -> Completion:
+def _completion(r, latency_s: float, src_ids: list[int]) -> Completion:
     return Completion(
-        latency_s=latency_s, src_ids=tok.encode(src, add_eos=True),
+        latency_s=latency_s, src_ids=src_ids,
         tokens=np.asarray(r.tokens), lengths=np.asarray(r.lengths),
         logprobs=np.asarray(r.logprobs), n_calls=int(r.n_calls),
         accepted=int(r.accepted), finished=r.status.name == "FINISHED")
 
 
-def port_config(config: dict):
-    from repro_torch.configs.base import ModelConfig
-    return ModelConfig(
-        name=config["name"], family="seq2seq", n_layers=config["n_layers"],
-        n_encoder_layers=config["n_encoder_layers"],
-        d_model=config["d_model"], n_heads=config["n_heads"],
-        n_kv_heads=config["n_heads"], d_ff=config["d_ff"],
-        vocab_size=config["vocab_size"], use_bias=True, norm="layernorm",
-        gated_ffn=False, pos="sinusoidal", max_len=config["max_len"])
-
-
-def port_tokenizer(tok, vocab_size: int):
-    """The frozen tokenizer as the program's, its inventory first and the
-    rest of the model's vocabulary as reserved entries."""
-    from repro_torch.data.tokenizer import SmilesTokenizer
-
-    itos = list(tok.itos) + [f"<unused{i}>"
-                             for i in range(tok.vocab_size, vocab_size)]
-    return SmilesTokenizer.from_dict({"itos": itos})
-
-
 def build_engine(cell: Cell, w: dict, tok, device):
-    from repro_torch.serving.engine import EngineConfig, StreamingEngine
-
-    mix = cell.traffic
-    ecfg = EngineConfig(
-        mode=mix["mode"], draft_len=mix["draft_len"],
-        n_drafts=mix["n_drafts"], n_beams=mix["n_beams"],
-        max_new=mix["max_new"], max_src=mix["max_src"],
-        n_slots=mix["slots"], mode_groups={mix["mode"]: mix["slots"]},
-        paged=True, page_size=mix["page_size"], backend="seq2seq")
-    params = weights.port_params(w, weights.model_cfg(cell.config))
-    return StreamingEngine(params, port_config(cell.config),
-                           port_tokenizer(tok, cell.config["vocab_size"]),
-                           ecfg, device=device)
+    """The cell's ``StreamingEngine``, built by its family."""
+    return family_module(cell.family).build_engine(cell, w, tok, device)
 
 
 def card_line() -> str:
@@ -504,27 +532,25 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     t_start = time.perf_counter() if t_start is None else t_start
     log = log or (lambda *a: print(*a, file=sys.stderr, flush=True))
     cell = cell or load_cell(workload)
+    fam = family_module(cell.family)
     dev = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32, TF32 off
     torch.backends.cudnn.allow_tf32 = False
     tok = synthetic.tokenizer()
-    if tok.vocab_size > cell.config["vocab_size"]:
+    mcfg = fam.model_cfg(cell.config)
+    if tok.vocab_size > mcfg["vocab_size"]:
         raise ValueError(f"{cell.config['name']}: vocab_size "
-                         f"{cell.config['vocab_size']} < the tokenizer's "
+                         f"{mcfg['vocab_size']} < the tokenizer's "
                          f"{tok.vocab_size}")
     if dev.type == "cuda":
         from repro_torch.kernels import _build
-        _build.build_all(("flash_attention", "paged_decode_gqa",
-                          "draft_verify"))
-    mcfg = weights.model_cfg(cell.config)
-    got = weights.trained(cell.config, cell.config_path, dev, log=log,
-                          cache_dir=weights_dir or weights.CACHE)
-    log(f"weights {cell.config['name']} sha256 {got['hash']}"
+        _build.build_all(fam.KERNELS)
+    got = fam.load_weights(cell, dev, log=log, cache_dir=weights_dir)
+    log(f"weights {cell.config['name']} {got['hash']}"
         + ("" if got["trained_s"] is None
            else f" (trained in {got['trained_s']:.1f} s)"))
     w = got["weights"]
-    pool = traffic.queries(cell.traffic, cell.config["task"], seed,
-                           got["train_sources"])
+    pool = fam.queries(cell, seed, got)
     eng = build_engine(cell, w, tok, dev)
     metrics = {m["name"]: metric_module(m["name"])
                for m in cell.end_to_end + cell.per_layer}
@@ -541,8 +567,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         span = record_function
         window_span = record_function("window")
     lim = cell.limits
-    tap = (LogitTap(seed, lim["tap"]["period"], lim["tap"]["calls"])
-           if "tap" in lim else None)
+    mix = cell.traffic
+    tap = (LogitTap(seed, lim["tap"]["period"], lim["tap"]["calls"],
+                    fam.TAP, rows=mix["n_drafts"], slots=lim["tap"]["slots"],
+                    device=dev) if "tap" in lim else None)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     marks = {}
@@ -571,7 +599,6 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         window_span.__exit__(None, None, None)
         prof.stop()
 
-    mix = cell.traffic
     # set-up's objects out of the collector's way: the window's collections
     # then scan what the serving loop itself keeps
     gc.collect()
@@ -581,7 +608,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
                           mix["warmup_iterations"], seconds, span=span,
                           on_open=on_open, on_close=on_close,
                           extra_s=TRACE_S if trace else 0.0,
-                          on_extra_end=on_trace_end, drain_s=drain_s)
+                          on_extra_end=on_trace_end, drain_s=drain_s,
+                          stagger=mix.get("stagger", 0))
     finally:
         gc.unfreeze()
         if recorder is not None:
@@ -601,11 +629,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    completions = [_completion(r, lat, pool[i][0], tok)
+    completions = [_completion(r, lat, fam.prompt_ids(pool[i][0], tok))
                    for r, lat, i in out.done]
     run = Run(setup_s=marks["setup_s"], window_s=out.window_s,
               iterations=out.iterations, dispatches=out.dispatches,
-              completions=completions, model_cfg=mcfg)
+              completions=completions, model_cfg=mcfg, family=fam)
     if trace:
         run.trace = reduce_trace(profiler_events(prof))
         run.bounds = recorder.bounds()
@@ -619,16 +647,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             values[m["name"]] = {"value": float(v), "unit": m["unit"]}
 
     t_check = time.perf_counter()
-    served = completions + [_completion(r, 0.0, pool[i][0], tok)
+    served = completions + [_completion(r, 0.0,
+                                        fam.prompt_ids(pool[i][0], tok))
                             for r, i in out.late]
     unfinished = sum(not c.finished for c in completions)
 
     def numbers(control: bool) -> dict:
-        got = check.judge(lim["kind"], w, mcfg, tok, completions,
-                          traffic=mix, seed=seed, control=control,
-                          sample_size=lim.get("sample", 0))
+        got = fam.judge(lim["kind"], w, mcfg, tok, completions,
+                        traffic=mix, seed=seed, control=control,
+                        sample_size=lim.get("sample", 0))
         if taps:
-            got.update(check.tap_numbers(
+            got.update(fam.tap_numbers(
                 w, mcfg, tok, taps, served, traffic=mix, seed=seed,
                 slots=lim["tap"]["slots"], control=control))
         got.update(missing=float(out.missing), unfinished=float(unfinished))

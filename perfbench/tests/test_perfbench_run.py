@@ -153,7 +153,7 @@ def test_a_sound_run_is_correct(trained, wl):
 
 @pytest.mark.parametrize("wl,fault", [
     (wl, f) for wl, kind in ((PRODUCT, "greedy"), (RETRO, "beam"))
-    for f, (_, kinds) in sorted(faults.FAULTS.items()) if kind in kinds])
+    for f in faults.applicable(kind, "seq2seq")])
 def test_a_planted_fault_is_not_correct(trained, wl, fault):
     """The faults a one-chip serving cell can have (no exchange between
     chips exists here)."""

@@ -1,7 +1,10 @@
 """The benchmark's files as data: ``BENCHMARK.json`` within its contract,
 every cell's configuration, traffic mix, limits and metric readers found
 by name, and no module of the benchmark importing JAX or the JAX package
-(the reference not even the program)."""
+(the reference not even the program). The checks of a cell's files read
+them through the cell's model family, and run over the tests' tiny
+decoder-only cell too (``tiny.py``), so a configuration of that family
+joins with its files and entries alone."""
 
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import pytest
 
 from perfbench import harness, traffic, weights
 from perfbench.reference import synthetic
+from perfbench.tests import tiny
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -21,6 +25,17 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
 METRICS = BENCH["end_to_end"] + BENCH["per_layer"]
+# the benchmark's entries and the tiny decoder-only cell's, with the
+# directory that holds each cell's traffic and limits
+CONFIGS = BENCH["configs"] + [tiny.DECODER_CONFIG]
+WORKLOADS = BENCH["workloads"] + [tiny.DECODER_WORKLOAD]
+FILES = {**{w["name"]: ROOT / "perfbench" for w in BENCH["workloads"]},
+         tiny.DECODER: tiny.FILES}
+
+
+def _cell(workload: str) -> harness.Cell:
+    return (tiny.decoder_cell() if workload == tiny.DECODER
+            else harness.load_cell(workload))
 
 
 def _line(s: str) -> bool:
@@ -36,8 +51,8 @@ def test_top_level_keys_and_command():
     assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
 
 
-@pytest.mark.parametrize("entry", BENCH["configs"] + BENCH["workloads"]
-                         + METRICS, ids=lambda e: e["name"])
+@pytest.mark.parametrize("entry", CONFIGS + WORKLOADS + METRICS,
+                         ids=lambda e: e["name"])
 def test_names_units_and_lines(entry):
     assert NAME.match(entry["name"])
     for key in ("config", "traffic"):
@@ -75,15 +90,16 @@ def test_metric_entries():
             assert m["unit"] == "%"
 
 
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", [w["name"] for w in WORKLOADS])
 def test_cell_loads(workload):
-    cell = harness.load_cell(workload)
-    assert cell.config["vocab_size"] >= synthetic.tokenizer().vocab_size
+    cell = _cell(workload)
+    cfg = harness.family_module(cell.family).model_cfg(cell.config)
+    assert cfg["vocab_size"] >= synthetic.tokenizer().vocab_size
     assert cell.limits["kind"] in ("greedy", "beam")
     names = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 2
     assert cell.per_layer
-    w = {x["name"]: x for x in BENCH["workloads"]}[workload]
+    w = {x["name"]: x for x in WORKLOADS}[workload]
     assert w["chips"] == 1
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
 
@@ -104,23 +120,46 @@ def test_moves_is_reported_where_the_metric_is(metric):
         assert metric["moves"] in e2e, (metric["name"], cell)
 
 
-@pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
+@pytest.mark.parametrize("conf", CONFIGS, ids=lambda c: c["name"])
 def test_configuration_files(conf):
+    """Each configuration builds the program's ``ModelConfig`` and its
+    reference's view through its family: the seq2seq family's from the
+    file's top level, with a cache key for its trained weights; the
+    decoder-only family's from its ``model`` object, under a reference
+    that covers it."""
     path = ROOT / conf["file"]
     assert path.is_relative_to(ROOT / "perfbench")
     config = json.loads(path.read_text())
     assert config["name"] == conf["name"]
     assert conf["reduced"] == []
-    assert set(weights.model_cfg(config)) <= set(config)
+    family = harness.family_of(config)
+    fam = harness.family_module(family)
+    cfg = fam.model_cfg(config)
+    assert fam.port_config(config).vocab_size == cfg["vocab_size"]
     assert config["precision"] == "float32" and config["tf32"] is False
     assert config["task"] in ("forward", "retro")
-    assert len(weights.cache_key(path)) == 16
+    if family == "seq2seq":
+        assert set(cfg) <= set(config)
+        assert len(weights.cache_key(path)) == 16
+    else:
+        fam.reference(cfg).check(cfg)
 
 
 def test_traffic_files():
-    for path in sorted((ROOT / "perfbench" / "traffic").glob("*.json")):
-        mix = json.loads(path.read_text())
-        traffic.validate(mix, path.stem)
+    """Every mix, by the family of each cell that runs it (a mix that no
+    cell runs, by the default family's keys)."""
+    families: dict = {}
+    for w, conf in ((w, {c["name"]: c for c in CONFIGS}[w["config"]])
+                    for w in WORKLOADS):
+        config = json.loads((ROOT / conf["file"]).read_text())
+        families.setdefault((FILES[w["name"]], w["traffic"]), set()).add(
+            harness.family_of(config))
+    for base in sorted(set(FILES.values())):
+        for path in sorted((base / "traffic").glob("*.json")):
+            mix = json.loads(path.read_text())
+            for family in sorted(families.get((base, path.stem),
+                                              {"seq2seq"})):
+                traffic.validate(mix, path.stem, family)
 
 
 def _modules():
